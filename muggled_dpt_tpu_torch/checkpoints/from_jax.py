@@ -1,0 +1,89 @@
+"""Map the JAX package's converted Depth-Anything parameter tree onto this
+package's state dict, so that both packages can be run on the same weights.
+
+The JAX tree (``muggled_dpt_tpu/checkpoints/depth_anything.py:convert_state_dict``)
+stacks the encoder blocks along a leading (L, ...) axis and stores linears as
+(in, out), convolutions as HWIO and transposed convolutions as
+(kh, kw, in, out). Its qkv columns are already head-major, as this package's
+qkv rows are. Only numpy arrays cross the boundary: this module imports no jax."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+
+
+def _linear(k):
+    return _t(np.asarray(k).T)  # (in, out) -> (out, in)
+
+
+def _conv(k):
+    return _t(np.asarray(k).transpose(3, 2, 0, 1))  # HWIO -> OIHW
+
+
+def _conv_transpose(k):
+    return _t(np.asarray(k).transpose(2, 3, 0, 1))  # (kh, kw, in, out) -> (in, out, kh, kw)
+
+
+def _conv1x1(k):
+    return _linear(k)[:, :, None, None]  # linear (in, out) -> (out, in, 1, 1)
+
+
+def params_from_jax(params_np: dict) -> dict:
+    """JAX Depth-Anything parameter tree (numpy leaves) -> this package's
+    DepthAnything state dict (float32 CPU tensors)."""
+    p = params_np
+    sd = {
+        "patch_embed.weight": _conv(p["patch_embed"]["kernel"]),
+        "patch_embed.bias": _t(p["patch_embed"]["bias"]),
+    }
+
+    enc = p["encoder"]
+    for name in ("cls_token", "cls_embed", "pos_embed"):
+        sd[f"encoder.{name}"] = _t(enc[name])
+    sd["encoder.outnorm.weight"] = _t(enc["outnorm_scale"])
+    sd["encoder.outnorm.bias"] = _t(enc["outnorm_bias"])
+    blocks = enc["blocks"]
+    linears = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    for i in range(np.shape(blocks["ls1"])[0]):
+        pre = f"encoder.blocks.{i}"
+        for jax_name, name in linears.items():
+            sd[f"{pre}.{name}.weight"] = _linear(blocks[f"{jax_name}_kernel"][i])
+            sd[f"{pre}.{name}.bias"] = _t(blocks[f"{jax_name}_bias"][i])
+        for norm in ("norm1", "norm2"):
+            sd[f"{pre}.{norm}.weight"] = _t(blocks[f"{norm}_scale"][i])
+            sd[f"{pre}.{norm}.bias"] = _t(blocks[f"{norm}_bias"][i])
+        sd[f"{pre}.ls1"] = _t(blocks["ls1"][i])
+        sd[f"{pre}.ls2"] = _t(blocks["ls2"][i])
+
+    for i, stage in enumerate(p["reassemble"]):
+        pre = f"reassemble.{i}"
+        sd[f"{pre}.proj.weight"] = _conv1x1(stage["proj_kernel"])
+        sd[f"{pre}.proj.bias"] = _t(stage["proj_bias"])
+        if "resample_kernel" in stage:
+            rk = stage["resample_kernel"]
+            sd[f"{pre}.resample.weight"] = _conv_transpose(rk) if i in (0, 1) else _conv(rk)
+            sd[f"{pre}.resample.bias"] = _t(stage["resample_bias"])
+        sd[f"{pre}.fuse.weight"] = _conv(stage["fuse_kernel"])
+
+    for i, block in enumerate(p["fusion"]):
+        pre = f"fusion.{i}"
+        for unit in ("res1", "res2"):
+            if unit in block:
+                for conv in ("conv1", "conv2"):
+                    sd[f"{pre}.{unit}.{conv}.weight"] = _conv(block[unit][f"{conv}_kernel"])
+                    sd[f"{pre}.{unit}.{conv}.bias"] = _t(block[unit][f"{conv}_bias"])
+        sd[f"{pre}.out.weight"] = _conv1x1(block["out_kernel"])
+        sd[f"{pre}.out.bias"] = _t(block["out_bias"])
+
+    head = p["head"]
+    for name in ("conv_in", "conv_mid"):
+        sd[f"head.{name}.weight"] = _conv(head[f"{name}_kernel"])
+        sd[f"head.{name}.bias"] = _t(head[f"{name}_bias"])
+    sd["head.proj.weight"] = _conv1x1(head["proj_kernel"])
+    sd["head.proj.bias"] = _t(head["proj_bias"])
+    return sd

@@ -1,0 +1,104 @@
+"""DPT neck for Depth-Anything: reassembly -> fusion -> monocular depth head,
+on NCHW feature maps.
+
+The counterpart of ``muggled_dpt_tpu/models/dpt_neck.py`` with readout
+'ignore' (the cls token is dropped). The reassembly keeps the dense
+transposed-conv + 3x3 conv pair; fusion and head upsample with bilinear
+align_corners=True; a metric head ends in a sigmoid instead of a ReLU."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.nn import conv2d, conv_transpose_blocky
+from ..ops.resize import resize_2d, resize_output_size
+
+
+class ReassembleStage(nn.Module):
+    """Tokens -> projection (1x1 conv) -> resample by ``scale`` -> 3x3 fuse conv (no bias)."""
+
+    def __init__(self, features: int, channels: int, fusion_channels: int, scale, device=None):
+        super().__init__()
+        self.scale = scale
+        self.proj = nn.Conv2d(features, channels, 1, device=device)
+        if scale in (2, 4):
+            self.resample = nn.ConvTranspose2d(channels, channels, scale, stride=scale, device=device)
+        elif scale == 0.5:
+            self.resample = nn.Conv2d(channels, channels, 3, stride=2, padding=1, device=device)
+        else:
+            self.resample = None
+        self.fuse = nn.Conv2d(channels, fusion_channels, 3, padding=1, bias=False, device=device)
+
+    def forward(self, tokens, grid_hw):
+        gh, gw = grid_hw
+        b, _, c = tokens.shape
+        x = tokens[:, 1:, :].transpose(1, 2).reshape(b, c, gh, gw)  # readout 'ignore'
+        x = conv2d(x, self.proj.weight, self.proj.bias)
+        if self.scale in (2, 4):
+            x = conv_transpose_blocky(x, self.resample.weight, self.resample.bias)
+        elif self.scale == 0.5:
+            x = conv2d(x, self.resample.weight, self.resample.bias, stride=2, padding=1)
+        return conv2d(x, self.fuse.weight, None, padding=1)
+
+
+class ResidualConvUnit(nn.Module):
+    """ReLU -> 3x3 conv -> ReLU -> 3x3 conv, plus the skip."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.conv1 = nn.Conv2d(channels, channels, 3, padding=1, device=device)
+        self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, device=device)
+
+    def forward(self, x):
+        h = conv2d(torch.relu(x), self.conv1.weight, self.conv1.bias, padding=1)
+        h = conv2d(torch.relu(h), self.conv2.weight, self.conv2.bias, padding=1)
+        return h + x
+
+
+class FusionBlock(nn.Module):
+    """RefineNet-style block: [res1(reassembly map) + previous] -> res2 ->
+    2x bilinear (align_corners=True) -> 1x1 conv. The top-most block has no
+    res1 (it has no previous map to add)."""
+
+    def __init__(self, channels: int, top: bool, device=None):
+        super().__init__()
+        self.res1 = None if top else ResidualConvUnit(channels, device=device)
+        self.res2 = ResidualConvUnit(channels, device=device)
+        self.out = nn.Conv2d(channels, channels, 1, device=device)
+
+    def forward(self, fmap, prev=None):
+        x = fmap if prev is None else self.res1(fmap) + prev
+        x = self.res2(x)
+        x = resize_2d(x, resize_output_size(x.shape[-2:], 2.0), align_corners=True)
+        return conv2d(x, self.out.weight, self.out.bias)
+
+
+def fusion_forward(reassembly_maps, blocks):
+    """Top-down fusion of the 4 reassembly maps; returns a map at 8x the patch grid."""
+    upx4, upx2, noscale, downx2 = reassembly_maps
+    x = blocks[3](downx2)
+    for fmap, block in ((noscale, blocks[2]), (upx2, blocks[1]), (upx4, blocks[0])):
+        x = block(fmap, x)
+    return x
+
+
+class Head(nn.Module):
+    """3x3 conv C -> C/2 -> upsample by P/8 -> 3x3 conv -> 32 -> ReLU ->
+    1x1 conv -> 1 -> ReLU (sigmoid for metric). Returns (B, H, W)."""
+
+    def __init__(self, channels: int, upsample_factor: float, is_metric: bool, device=None):
+        super().__init__()
+        self.upsample_factor = upsample_factor
+        self.is_metric = is_metric
+        self.conv_in = nn.Conv2d(channels, channels // 2, 3, padding=1, device=device)
+        self.conv_mid = nn.Conv2d(channels // 2, 32, 3, padding=1, device=device)
+        self.proj = nn.Conv2d(32, 1, 1, device=device)
+
+    def forward(self, x):
+        x = conv2d(x, self.conv_in.weight, self.conv_in.bias, padding=1)
+        x = resize_2d(x, resize_output_size(x.shape[-2:], self.upsample_factor), align_corners=True)
+        x = torch.relu(conv2d(x, self.conv_mid.weight, self.conv_mid.bias, padding=1))
+        x = conv2d(x, self.proj.weight, self.proj.bias)
+        x = torch.sigmoid(x) if self.is_metric else torch.relu(x)
+        return x[:, 0]

@@ -1,0 +1,83 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface, which is loaded with ctypes. The
+build happens at first use, never at import, into ``muggled_dpt_tpu_torch/build/``
+(listed in .gitignore); the library's file name carries a hash of the sources
+and flags, so an edited source is rebuilt. ``nvcc`` is found through
+``CUDA_HOME``, then ``PATH``, then ``/usr/local/cuda/bin/nvcc``."""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+NEG_INF = -1e30
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def find_nvcc() -> str:
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates.append(shutil.which("nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin)")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def build_library(verbose: bool = False) -> Path:
+    """Compile csrc/ into build/libmdpt_kernels-<hash>.so unless that file
+    exists already; return its path. Raises with nvcc's output on failure."""
+    sources = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    lib_path = BUILD_DIR / f"libmdpt_kernels-{digest.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sources if s.suffix == ".cu")]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees a partial file
+    return lib_path
+
+
+@functools.cache
+def kernel_library() -> ctypes.CDLL:
+    """The built kernel library, loaded once per process, with every entry
+    point's argtypes declared (64-bit pointers stay whole)."""
+    lib = ctypes.CDLL(str(build_library()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.mdpt_flash_attention_fused_qkv
+    # (qkv, out, batch, n, num_heads, head_dim, qk_scale_log2, dtype, device, stream)
+    fn.argtypes = [p, p, i, i, i, i, ctypes.c_float, i, i, p]
+    fn.restype = i
+    return lib

@@ -1,0 +1,29 @@
+"""The PyTorch port must run where jax is not installed: importing every
+module of ``muggled_dpt_tpu_torch`` with jax blocked must succeed, and must
+not import jax or the JAX package."""
+
+import os
+import subprocess
+import sys
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import muggled_dpt_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "muggled_dpt_tpu") and sys.modules[m] is not None)
+assert not leaked, leaked
+assert len(names) >= 15, names
+print("OK", len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True, text=True, cwd=REPO_ROOT, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
