@@ -1,16 +1,20 @@
-"""Map the JAX package's converted Depth-Anything parameter tree onto this
-package's state dict, so that both packages can be run on the same weights.
+"""Map the JAX package's converted parameter trees (Depth-Anything, BEiT)
+onto this package's state dicts, so that both packages can be run on the
+same weights.
 
-The JAX tree (``muggled_dpt_tpu/checkpoints/depth_anything.py:convert_state_dict``)
-stacks the encoder blocks along a leading (L, ...) axis and stores linears as
+The JAX trees (``muggled_dpt_tpu/checkpoints/{depth_anything,beit}.py:convert_state_dict``)
+stack the encoder blocks along a leading (L, ...) axis and store linears as
 (in, out), convolutions as HWIO and transposed convolutions as
-(kh, kw, in, out). Its qkv columns are already head-major, as this package's
-qkv rows are. Only numpy arrays cross the boundary: this module imports no jax."""
+(kh, kw, in, out). Their qkv columns are already head-major, as this
+package's qkv rows are. Only numpy arrays cross the boundary: this module
+imports no jax."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .beit import qkv_bias_head_major
 
 
 def _t(a) -> torch.Tensor:
@@ -48,18 +52,57 @@ def params_from_jax(params_np: dict) -> dict:
     sd["encoder.outnorm.weight"] = _t(enc["outnorm_scale"])
     sd["encoder.outnorm.bias"] = _t(enc["outnorm_bias"])
     blocks = enc["blocks"]
-    linears = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
     for i in range(np.shape(blocks["ls1"])[0]):
-        pre = f"encoder.blocks.{i}"
-        for jax_name, name in linears.items():
-            sd[f"{pre}.{name}.weight"] = _linear(blocks[f"{jax_name}_kernel"][i])
-            sd[f"{pre}.{name}.bias"] = _t(blocks[f"{jax_name}_bias"][i])
-        for norm in ("norm1", "norm2"):
-            sd[f"{pre}.{norm}.weight"] = _t(blocks[f"{norm}_scale"][i])
-            sd[f"{pre}.{norm}.bias"] = _t(blocks[f"{norm}_bias"][i])
-        sd[f"{pre}.ls1"] = _t(blocks["ls1"][i])
-        sd[f"{pre}.ls2"] = _t(blocks["ls2"][i])
+        sd.update(_block(blocks, i))
+        sd[f"encoder.blocks.{i}.attn.qkv.bias"] = _t(blocks["qkv_bias"][i])
+    sd.update(_neck(p))
+    return sd
 
+
+def beit_params_from_jax(params_np: dict) -> dict:
+    """JAX BEiT parameter tree (numpy leaves) -> this package's BEiTDPT state
+    dict (float32 CPU tensors)."""
+    p = params_np
+    sd = {
+        "patch_embed.weight": _conv(p["patch_embed"]["kernel"]),
+        "patch_embed.bias": _t(p["patch_embed"]["bias"]),
+    }
+    enc = p["encoder"]
+    sd["encoder.cls_token"] = _t(enc["cls_token"])
+    blocks = enc["blocks"]
+    sd["encoder.relpos_lut"] = _t(blocks["relpos_lut"])
+    heads = np.shape(blocks["relpos_lut"])[-1]
+    for i in range(np.shape(blocks["ls1"])[0]):
+        sd.update(_block(blocks, i))
+        q_bias, v_bias = _t(blocks["q_bias"][i]), _t(blocks["v_bias"][i])
+        sd[f"encoder.blocks.{i}.attn.qkv.bias"] = qkv_bias_head_major(q_bias, v_bias, heads)
+    sd.update(_neck(p))
+    for i, stage in enumerate(p["reassemble"]):
+        sd[f"reassemble.{i}.readout.weight"] = _linear(stage["readout"]["kernel"])
+        sd[f"reassemble.{i}.readout.bias"] = _t(stage["readout"]["bias"])
+    return sd
+
+
+def _block(blocks: dict, i: int) -> dict:
+    """Block i of a stacked JAX block tree, all but the qkv bias."""
+    pre = f"encoder.blocks.{i}"
+    sd = {}
+    linears = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    for jax_name, name in linears.items():
+        sd[f"{pre}.{name}.weight"] = _linear(blocks[f"{jax_name}_kernel"][i])
+        if name != "attn.qkv":
+            sd[f"{pre}.{name}.bias"] = _t(blocks[f"{jax_name}_bias"][i])
+    for norm in ("norm1", "norm2"):
+        sd[f"{pre}.{norm}.weight"] = _t(blocks[f"{norm}_scale"][i])
+        sd[f"{pre}.{norm}.bias"] = _t(blocks[f"{norm}_bias"][i])
+    sd[f"{pre}.ls1"] = _t(blocks["ls1"][i])
+    sd[f"{pre}.ls2"] = _t(blocks["ls2"][i])
+    return sd
+
+
+def _neck(p: dict) -> dict:
+    """Reassembly (without a readout projection), fusion and head."""
+    sd = {}
     for i, stage in enumerate(p["reassemble"]):
         pre = f"reassemble.{i}"
         sd[f"{pre}.proj.weight"] = _conv1x1(stage["proj_kernel"])

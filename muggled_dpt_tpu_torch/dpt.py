@@ -6,7 +6,14 @@ returns (B, H, W) depth; ``inference`` takes a BGR uint8 (H, W, 3) numpy
 frame and returns (1, H, W); ``inference_rgb_device`` takes an RGB uint8
 (H, W, 3) or (B, H, W, 3) tensor, ideally already on the model's device.
 Preprocessing (antialiased bilinear resize to the model's tiling, then
-ImageNet normalization) runs on the device in float32.
+normalization) runs on the device in float32.
+
+Per-grid aux cache (a port of JAX ``dpt.py:102-166``): a family may define
+``make_aux`` (BEiT: the grid's whole relative-position bias stack). The
+facade builds it once per patch grid, keeps the grids in least-recently-used
+order within a device-memory budget, remembers a grid that never fits, and
+passes the aux to the net's forward; with ``enable_cache=False`` it passes
+None and the net builds what it needs inline.
 
 float32 is the parity mode: while the model runs, TF32 is switched off for
 both cuBLAS matmuls and cuDNN convolutions (cuDNN uses TF32 by default), and
@@ -22,6 +29,9 @@ import torch
 
 from .ops.resize import resize_2d
 
+FALLBACK_BUDGET_BYTES = 8 * 1024**3  # where the device reports no memory stats (the CPU)
+CUDA_BUDGET_FRACTION = 0.5  # share of the card's free bytes an aux may take: headroom for activations
+
 
 @contextlib.contextmanager
 def _no_tf32():
@@ -35,12 +45,47 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32 = cudnn
 
 
+def assemble_model(net_cls, config_dict: dict, state_dict: dict, family_spec: dict, dtype=torch.float32, device=None):
+    """A DPTModel from an already-converted state dict: the modules are made
+    on the meta device and take the given tensors, cast to ``dtype`` on
+    ``device``, without a throwaway random init."""
+    device = torch.device("cpu" if device is None else device)
+    with torch.device("meta"):
+        net = net_cls(config_dict)
+    sd = {k: v.to(device=device, dtype=dtype) for k, v in state_dict.items()}
+    net.load_state_dict(sd, strict=True, assign=True)
+    return DPTModel(net, config_dict, family_spec, dtype=dtype)
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def fits_device_budget(needed_bytes: int, device, resident_bytes: int = 0, reclaimable_bytes: int = 0) -> bool:
+    """True if ``needed_bytes`` fits in ``CUDA_BUDGET_FRACTION`` of the device's free memory.
+
+    On CUDA the free bytes are ``mem_get_info``'s plus what the caching
+    allocator holds reserved but unallocated (``mem_get_info`` counts that as
+    used), plus ``reclaimable_bytes``: the cached grids the caller is willing
+    to evict, which are allocated and so not yet free. Where the device
+    reports no memory stats (the CPU) the budget is a flat 8 GB for
+    ``resident_bytes`` (weights plus cached grids) minus ``reclaimable_bytes``
+    plus the request."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return resident_bytes - reclaimable_bytes + needed_bytes < FALLBACK_BUDGET_BYTES
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return needed_bytes < (free + reclaimable_bytes) * CUDA_BUDGET_FRACTION
+
+
 class DPTModel:
     """Holds the family's ``nn.Module`` (``net``) with its dtype and device,
     plus the sizing and normalization the family needs.
 
     family_spec: dict with keys mean_rgb, std_rgb (floats 0..1),
-    patch_size_px, tiling_size, default_size_px."""
+    patch_size_px, tiling_size, default_size_px; optionally make_aux(net,
+    grid_hw, dtype) and aux_bytes_estimate(config, grid_hw, dtype)."""
 
     def __init__(self, net: torch.nn.Module, config_dict: dict, family_spec: dict, dtype=torch.float32):
         self.config = dict(config_dict)
@@ -53,6 +98,7 @@ class DPTModel:
         self.patch_size_px = family_spec["patch_size_px"]
         self.tiling_size = family_spec["tiling_size"]
         self.default_size_px = family_spec["default_size_px"]
+        self._aux_cache: dict = {}  # grid -> aux, least recently used first; None = never fits
 
     def _precision(self):
         return _no_tf32() if self.dtype == torch.float32 else contextlib.nullcontext()
@@ -68,9 +114,69 @@ class DPTModel:
         x = image_rgb_u8 if image_rgb_u8.dim() == 4 else image_rgb_u8[None]
         return x.to(self.device).permute(0, 3, 1, 2).float()
 
+    def _run(self, x):
+        """The net on a preprocessed (B, 3, h, w) tensor, with its grid's aux."""
+        p = self.patch_size_px
+        aux = self._get_aux((x.shape[-2] // p, x.shape[-1] // p))
+        return self.net(x, aux)
+
     def _infer(self, image_rgb_u8, scaled_hw):
         with torch.inference_mode(), self._precision():
-            return self.net(self._prep(self._to_device_nchw(image_rgb_u8), scaled_hw))
+            return self._run(self._prep(self._to_device_nchw(image_rgb_u8), scaled_hw))
+
+    # -- per-grid aux cache ----------------------------------------------------
+
+    def _get_aux(self, grid_hw):
+        """The grid's aux from the cache, built on a miss; None when the
+        family has none, caching is off or the grid never fits the budget."""
+        make_aux = self.spec.get("make_aux")
+        if make_aux is None or not self.config.get("enable_cache", True):
+            return None
+        grid_hw = tuple(int(g) for g in grid_hw)
+        if grid_hw in self._aux_cache:
+            self._aux_cache[grid_hw] = self._aux_cache.pop(grid_hw)  # most recently used last
+            return self._aux_cache[grid_hw]
+        estimate = self.spec.get("aux_bytes_estimate")
+        if estimate is not None:
+            needed = estimate(self.config, grid_hw, self.dtype)
+            params_bytes = _tensor_bytes(self.net.parameters())
+            cache_bytes = _tensor_bytes(self._aux_cache.values())
+            if not fits_device_budget(needed, self.device, resident_bytes=params_bytes + cache_bytes,
+                                      reclaimable_bytes=cache_bytes):
+                # does not fit even with an empty cache: remember that, and
+                # keep the cached grids, which evicting would not help
+                print("*** WARNING ***\nNot enough device memory for relpos caching! Caching disabled for this grid...")
+                self._aux_cache[grid_hw] = None
+                return None
+            while not fits_device_budget(needed, self.device,
+                                         resident_bytes=params_bytes + _tensor_bytes(self._aux_cache.values())):
+                lru = next((k for k, v in self._aux_cache.items() if v is not None), None)
+                if lru is None:  # drained: go on with the empty-cache verdict
+                    break
+                del self._aux_cache[lru]
+        with torch.inference_mode():
+            aux = make_aux(self.net, grid_hw, self.dtype)
+        self._aux_cache[grid_hw] = aux
+        return aux
+
+    def clear_cache(self):
+        """Drop every cached per-grid aux."""
+        self._aux_cache.clear()
+
+    def prewarm(self, max_side_lengths, use_square_sizing=True, image_hw=(720, 1280)):
+        """Run one request per distinct scaled size of ``max_side_lengths``
+        (for a frame of ``image_hw``), so the first real request at each size
+        finds its aux built and the card's kernels loaded. Returns the scaled
+        sizes, each once, in order."""
+        warmed = []
+        dummy = np.zeros((*image_hw, 3), dtype=np.uint8)
+        for side in max_side_lengths:
+            scaled = self.compute_scaled_hw(image_hw, side, use_square_sizing)
+            if scaled in warmed:
+                continue
+            self.inference(dummy, side, use_square_sizing)
+            warmed.append(scaled)
+        return warmed
 
     # -- public API -----------------------------------------------------------
 
@@ -79,7 +185,7 @@ class DPTModel:
         self.verify_input(image_rgb_normalized_bchw)
         x = torch.as_tensor(image_rgb_normalized_bchw).to(self.device, self.dtype)
         with torch.inference_mode(), self._precision():
-            return self.net(x)
+            return self._run(x)
 
     __call__ = forward
 
@@ -95,8 +201,17 @@ class DPTModel:
         ``inference`` minus the BGR flip and the sizing arithmetic."""
         return self._infer(image_rgb_hw3, tuple(scaled_hw))
 
-    def prepare_image_bgr(self, image_bgr: np.ndarray, max_side_length: int | None = None, use_square_sizing: bool = True):
-        """Preprocess a BGR uint8 image -> normalized (1, 3, h, w) tensor in the model's dtype."""
+    def prepare_image_bgr(
+        self,
+        image_bgr: np.ndarray,
+        max_side_length: int | None = None,
+        use_square_sizing: bool = True,
+        interpolation_mode: str = "bilinear",
+    ):
+        """Preprocess a BGR uint8 image -> normalized (1, 3, h, w) tensor in
+        the model's dtype. Only bilinear preprocessing exists."""
+        if interpolation_mode != "bilinear":
+            raise ValueError(f"only bilinear preprocessing is supported, got interpolation_mode={interpolation_mode!r}")
         scaled_hw = self.compute_scaled_hw(image_bgr.shape[:2], max_side_length, use_square_sizing)
         image_rgb = torch.from_numpy(np.ascontiguousarray(image_bgr[..., ::-1]))
         with torch.inference_mode():

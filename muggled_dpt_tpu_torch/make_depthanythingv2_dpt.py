@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from .checkpoints.depth_anything import convert_state_dict, get_config_from_state_dict
-from .dpt import DPTModel
+from .dpt import DPTModel, assemble_model
 from .models.depth_anything import MEAN_RGB, STD_RGB, DepthAnything
 
 
@@ -18,18 +18,6 @@ def family_spec(config_dict: dict) -> dict:
         "tiling_size": 2 * patch_px,
         "default_size_px": config_dict["base_patch_grid_hw"][0] * patch_px,
     }
-
-
-def build_from_converted(config_dict: dict, state_dict: dict, dtype=torch.float32, device=None) -> DPTModel:
-    """Assemble a DPTModel from an already-converted state dict: the modules
-    are made on the meta device and take the given tensors, cast to
-    ``dtype`` on ``device``, without a throwaway random init."""
-    device = torch.device("cpu" if device is None else device)
-    with torch.device("meta"):
-        net = DepthAnything(config_dict)
-    sd = {k: v.to(device=device, dtype=dtype) for k, v in state_dict.items()}
-    net.load_state_dict(sd, strict=True, assign=True)
-    return DPTModel(net, config_dict, family_spec(config_dict), dtype=dtype)
 
 
 def make_depthanythingv2_dpt_from_original_state_dict(
@@ -46,7 +34,7 @@ def make_depthanythingv2_dpt_from_original_state_dict(
     reads every key it needs."""
     config_dict = get_config_from_state_dict(state_dict, enable_cache, enable_optimizations)
     converted = convert_state_dict(state_dict, config_dict)
-    return config_dict, build_from_converted(config_dict, converted, dtype=dtype, device=device)
+    return config_dict, assemble_model(DepthAnything, config_dict, converted, family_spec(config_dict), dtype, device)
 
 
 def make_depthanythingv2_dpt(
@@ -88,4 +76,5 @@ def make_depthanythingv2_dpt(
         "enable_optimizations": enable_optimizations,
     }
     sd = random_original_depth_anything_state_dict(config_dict, seed=seed)
-    return build_from_converted(config_dict, convert_state_dict(sd, config_dict), dtype=dtype, device=device)
+    converted = convert_state_dict(sd, config_dict)
+    return assemble_model(DepthAnything, config_dict, converted, family_spec(config_dict), dtype, device)

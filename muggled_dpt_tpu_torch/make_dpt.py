@@ -2,8 +2,9 @@
 file, sniffing the model family from its state-dict keys. Returns
 (config_dict, DPTModel), as the JAX package's ``make_dpt_from_state_dict``.
 
-Only Depth-Anything V2 is ported so far; the other families raise
-``NotImplementedError`` naming the ROADMAP item that ports them."""
+Depth-Anything V2 and MiDaS v3.1 BEiT are ported so far; the other
+families raise ``NotImplementedError`` naming the ROADMAP item that ports
+them."""
 
 from __future__ import annotations
 
@@ -14,7 +15,6 @@ import torch
 KNOWN_MODEL_TYPES = ("swinv2", "beit", "depthanythingv1", "depthanythingv2")
 _NOT_PORTED = {
     "depthanythingv1": "ROADMAP Queue A item 7 (DA-V1, metric head and ViT-Giant)",
-    "beit": "ROADMAP Queue A item 8 (BEiT)",
     "swinv2": "ROADMAP Queue A item 9 (SwinV2)",
 }
 
@@ -40,6 +40,13 @@ def make_dpt_from_state_dict(
         raise NotImplementedError(f"Bad model type: {model_type}, no support for this yet!")
     if model_type in _NOT_PORTED:
         raise NotImplementedError(f"{model_type} is not ported to muggled_dpt_tpu_torch yet: {_NOT_PORTED[model_type]}")
+
+    if model_type == "beit":
+        from .make_beit_dpt import make_beit_dpt_from_midas_v31_state_dict
+
+        return make_beit_dpt_from_midas_v31_state_dict(
+            state_dict, enable_cache, enable_optimizations, strict_load, dtype=dtype, device=device
+        )
 
     # Metric-model hack: metric DA-V2 weights are indistinguishable from
     # relative ones, so the file name flags them.

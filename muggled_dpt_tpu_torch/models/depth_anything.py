@@ -46,8 +46,10 @@ class DepthAnything(nn.Module):
         self.fusion = nn.ModuleList(FusionBlock(cf, top=(i == 3), device=device) for i in range(4))
         self.head = Head(cf, p / 8, config.get("is_metric", False), device=device)
 
-    def forward(self, image_nchw):
-        """Normalized (B, 3, H, W) image, H and W multiples of the patch size -> (B, H, W) depth."""
+    def forward(self, image_nchw, aux=None):
+        """Normalized (B, 3, H, W) image, H and W multiples of the patch size
+        -> (B, H, W) depth. ``aux`` is the facade's per-grid cache entry,
+        which this family does not use (it has no ``make_aux``)."""
         tokens, grid = patchify_embed(image_nchw, self.patch_embed.weight, self.patch_embed.bias)
         stages = self.encoder(tokens, grid)
         maps = [stage(t, grid) for stage, t in zip(self.reassemble, stages)]

@@ -36,7 +36,8 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block with LayerScale."""
+    """Pre-norm transformer block with LayerScale. BEiT's blocks are the same
+    with an attention bias (``ops.nn.self_attention``'s ``bias``)."""
 
     def __init__(self, features: int, num_heads: int, use_kernel: bool = True, device=None):
         super().__init__()
@@ -49,10 +50,10 @@ class Block(nn.Module):
         self.mlp = Mlp(features, 4 * features, device=device)
         self.ls2 = nn.Parameter(torch.empty(features, device=device))
 
-    def forward(self, tokens):
+    def forward(self, tokens, bias=None):
         a = self.attn
         h = layer_norm(tokens, self.norm1.weight, self.norm1.bias)
-        h = self_attention(h, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, self.num_heads, self.use_kernel)
+        h = self_attention(h, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, self.num_heads, self.use_kernel, bias)
         tokens = tokens + self.ls1 * h
         m = self.mlp
         h = layer_norm(tokens, self.norm2.weight, self.norm2.bias)

@@ -1,26 +1,41 @@
-"""DPT neck for Depth-Anything: reassembly -> fusion -> monocular depth head,
-on NCHW feature maps.
+"""DPT neck: reassembly -> fusion -> monocular depth head, on NCHW feature
+maps.
 
-The counterpart of ``muggled_dpt_tpu/models/dpt_neck.py`` with readout
-'ignore' (the cls token is dropped). The reassembly keeps the dense
-transposed-conv + 3x3 conv pair; fusion and head upsample with bilinear
-align_corners=True; a metric head ends in a sigmoid instead of a ReLU."""
+The counterpart of ``muggled_dpt_tpu/models/dpt_neck.py`` with two readout
+modes: 'ignore' (Depth-Anything: the cls token is dropped) and 'project'
+(BEiT: the cls token is concatenated onto every patch token, then Linear
+2F -> F and exact GELU). The reassembly keeps the dense transposed-conv + 3x3
+conv pair; fusion and head upsample with bilinear align_corners=True; the
+head's upsample factor is P/8 for Depth-Anything and 2 for MiDaS; a metric
+head ends in a sigmoid instead of a ReLU."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..ops.nn import conv2d, conv_transpose_blocky
+from ..ops.nn import conv2d, conv_transpose_blocky, gelu, linear
 from ..ops.resize import resize_2d, resize_output_size
 
 
-class ReassembleStage(nn.Module):
-    """Tokens -> projection (1x1 conv) -> resample by ``scale`` -> 3x3 fuse conv (no bias)."""
+def readout_project(tokens, weight, bias):
+    """Readout 'project': [patch token, cls] -> Linear(2F -> F) -> exact GELU.
+    tokens (B, 1+N, F) -> (B, N, F)."""
+    patch = tokens[:, 1:, :]
+    cls_tok = tokens[:, :1, :].expand_as(patch)
+    return gelu(linear(torch.cat([patch, cls_tok], dim=-1), weight, bias))
 
-    def __init__(self, features: int, channels: int, fusion_channels: int, scale, device=None):
+
+class ReassembleStage(nn.Module):
+    """Tokens -> readout ('ignore' or 'project') -> projection (1x1 conv) ->
+    resample by ``scale`` -> 3x3 fuse conv (no bias)."""
+
+    def __init__(self, features: int, channels: int, fusion_channels: int, scale, readout: str = "ignore", device=None):
         super().__init__()
+        if readout not in ("ignore", "project"):
+            raise ValueError(f"unsupported readout {readout!r}")
         self.scale = scale
+        self.readout = nn.Linear(2 * features, features, device=device) if readout == "project" else None
         self.proj = nn.Conv2d(features, channels, 1, device=device)
         if scale in (2, 4):
             self.resample = nn.ConvTranspose2d(channels, channels, scale, stride=scale, device=device)
@@ -32,8 +47,12 @@ class ReassembleStage(nn.Module):
 
     def forward(self, tokens, grid_hw):
         gh, gw = grid_hw
+        if self.readout is None:
+            tokens = tokens[:, 1:, :]
+        else:
+            tokens = readout_project(tokens, self.readout.weight, self.readout.bias)
         b, _, c = tokens.shape
-        x = tokens[:, 1:, :].transpose(1, 2).reshape(b, c, gh, gw)  # readout 'ignore'
+        x = tokens.transpose(1, 2).reshape(b, c, gh, gw)
         x = conv2d(x, self.proj.weight, self.proj.bias)
         if self.scale in (2, 4):
             x = conv_transpose_blocky(x, self.resample.weight, self.resample.bias)

@@ -75,9 +75,8 @@ def kernel_library() -> ctypes.CDLL:
     """The built kernel library, loaded once per process, with every entry
     point's argtypes declared (64-bit pointers stay whole)."""
     lib = ctypes.CDLL(str(build_library()))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.mdpt_flash_attention_fused_qkv
-    # (qkv, out, batch, n, num_heads, head_dim, qk_scale_log2, dtype, device, stream)
-    fn.argtypes = [p, p, i, i, i, i, ctypes.c_float, i, i, p]
-    fn.restype = i
+    fn = lib.mdpt_flash_attention
+    # the int64 argument array (its slots in csrc/flash_attention.cu), qk_scale_log2, stream
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from .kernels.flash_attention import flash_attention_fused_qkv
+from .kernels.flash_attention import flash_attention_reference as sdpa  # the plain attention path, JAX's name
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-6):
@@ -34,32 +35,33 @@ def mlp_gelu(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias):
     return linear(gelu(linear(x, fc1_weight, fc1_bias)), fc2_weight, fc2_bias)
 
 
-def sdpa(q, k, v, scale=None):
-    """Plain scaled dot-product attention over (B, N, H, D) tensors:
-    float32 logits and softmax, weights cast to the input dtype for the PV
-    product. Returns (B, N, H, D)."""
-    d = q.shape[-1]
-    s = d**-0.5 if scale is None else scale
-    logits = torch.einsum("bnhd,bmhd->bhnm", q.float() * s, k.float())
-    weights = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhnm,bmhd->bnhd", weights.to(q.dtype), v)
-
-
-def self_attention(tokens, qkv_weight, qkv_bias, proj_weight, proj_bias, num_heads: int, use_kernel: bool = True):
+def self_attention(
+    tokens, qkv_weight, qkv_bias, proj_weight, proj_bias, num_heads: int, use_kernel: bool = True, bias=None
+):
     """Fused-qkv multi-head self-attention. ``qkv_weight`` (3C, C) has its
     rows in head-major [head][q|k|v][dim] order, so the projection output is
     the slab the flash kernel reads with no transposes.
 
+    ``bias``: None, a tensor broadcastable to (B, H, N, N), or a
+    ``(stack, layer)`` tuple: a cached (L, H, Np, Np) per-layer stack plus
+    the layer index, which the kernel reads in place (BEiT's cached mode).
+
     use_kernel=True sends the attention through ``flash_attention_fused_qkv``
-    (on CUDA tensors, the hand-written kernel); False is the plain path."""
+    (on CUDA tensors, the hand-written kernel); False is the plain path,
+    which materializes the layer's slice of a stack."""
     b, n, c = tokens.shape
     qkv = linear(tokens, qkv_weight, qkv_bias)  # (B, N, [h][3][d])
+    bias_stack = layer = None
+    if isinstance(bias, tuple):
+        (bias_stack, layer), bias = bias, None
     if use_kernel:
-        out = flash_attention_fused_qkv(qkv, num_heads)
+        out = flash_attention_fused_qkv(qkv, num_heads, bias=bias, bias_stack=bias_stack, layer=layer)
     else:
+        if bias_stack is not None:
+            bias = bias_stack[layer][None]
         d = c // num_heads
         x = qkv.reshape(b, n, num_heads, 3, d)
-        out = sdpa(x[..., 0, :], x[..., 1, :], x[..., 2, :]).reshape(b, n, c)
+        out = sdpa(x[..., 0, :], x[..., 1, :], x[..., 2, :], bias=bias).reshape(b, n, c)
     return linear(out, proj_weight, proj_bias)
 
 

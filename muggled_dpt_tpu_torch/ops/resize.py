@@ -1,14 +1,16 @@
-"""Image resampling with ``F.interpolate``, in the three configurations the
-Depth-Anything path uses:
+"""Image resampling with ``F.interpolate``, in the four configurations the
+ported paths use:
 
 * bilinear, align_corners=False, antialias=True  -- image preprocessing
 * bicubic,  align_corners=False, antialias=False -- position-embedding resize
 * bilinear, align_corners=True                   -- fusion and head upsampling
+* bilinear, align_corners=False, antialias=False -- BEiT relative-position LUT
 
 The JAX package rebuilds these as dense or banded weight matrices for the
 TPU's matrix unit; here torch's own interpolation is the reference they were
-built to match. Bicubic and antialiased resizes are computed in float32, as
-there; the align-corners bilinear upsample runs in the input's dtype."""
+built to match. Bicubic, antialiased and plain bilinear resizes are computed
+in float32, as there; the align-corners bilinear upsample runs in the
+input's dtype."""
 
 from __future__ import annotations
 
@@ -19,12 +21,12 @@ import torch.nn.functional as F
 
 
 def resize_2d(x: torch.Tensor, out_hw, align_corners: bool = False, antialias: bool = False):
-    """Bilinear resize of an NCHW float tensor to ``out_hw`` = (H, W), either
-    antialiased (align_corners=False, computed in float32) or with
-    align_corners=True (in the input's dtype)."""
-    if align_corners == antialias:
+    """Bilinear resize of an NCHW float tensor to ``out_hw`` = (H, W): with
+    align_corners=False, antialiased or not, computed in float32; with
+    align_corners=True (never antialiased), in the input's dtype."""
+    if align_corners and antialias:
         raise ValueError(f"unsupported bilinear resize: align_corners={align_corners} antialias={antialias}")
-    x_in = x.float() if antialias else x
+    x_in = x if align_corners else x.float()
     y = F.interpolate(x_in, size=tuple(int(s) for s in out_hw), mode="bilinear", align_corners=align_corners, antialias=antialias)
     return y.to(x.dtype)
 

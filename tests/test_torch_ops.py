@@ -118,6 +118,8 @@ RESIZES = [
     (False, True, (30, 40), (56, 84)),  # preprocessing, upscale
     (True, False, (9, 7), (18, 14)),  # fusion x2
     (True, False, (16, 16), (28, 28)),  # head x1.75
+    (False, False, (11, 11), (17, 13)),  # BEiT relpos LUT, 6x6 -> 9x7 grid
+    (False, False, (63, 63), (127, 127)),  # BEiT-L-512 LUT, 512 -> 1024 px
 ]
 
 
@@ -144,9 +146,17 @@ def test_bicubic_hwc_matches_jax_and_2d_interpolate(in_hw, out_hw):
 
 
 def test_resize_rejects_other_modes():
-    for align, aa in [(False, False), (True, True)]:
-        with pytest.raises(ValueError):
-            resize_2d(torch.zeros(1, 1, 4, 4), (8, 8), align_corners=align, antialias=aa)
+    with pytest.raises(ValueError):
+        resize_2d(torch.zeros(1, 1, 4, 4), (8, 8), align_corners=True, antialias=True)
+
+
+def test_plain_bilinear_resize_is_float32():
+    """The BEiT LUT mode computes in float32 and returns the input's dtype."""
+    x = _t(_rand(42, 1, 2, 11, 11))
+    got = resize_2d(x.to(torch.bfloat16), (17, 13))
+    assert got.dtype == torch.bfloat16
+    want = torch.nn.functional.interpolate(x.to(torch.bfloat16).float(), size=(17, 13), mode="bilinear", align_corners=False)
+    torch.testing.assert_close(got, want.to(torch.bfloat16), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("hw,s", [((36, 36), 2.0), ((72, 40), 1.75), ((7, 9), 1.75), ((5, 5), 0.5)])
