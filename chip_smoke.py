@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU, through its
-hand-written attention kernel, and check what comes out.
+hand-written attention kernels, and check what comes out.
 
     python3 chip_smoke.py
 
@@ -10,12 +10,20 @@ original-format checkpoint and loaded through ``make_dpt_from_state_dict``:
     a 720x1280 BGR frame at max side 518 snaps to 504x504 (1297 tokens);
   * MiDaS v3.1 BEiT-L-512 (F=1024, 24 blocks, 16 heads x 64, patch 16,
     relative-position bias in every block): max side 512 gives 512x512
-    (1025 tokens), max side 1024 gives 1024x1024 (4097 tokens).
+    (1025 tokens), max side 1024 gives 1024x1024 (4097 tokens);
+  * MiDaS v3.1 SwinV2-L-384 (F=192/384/768/1536, 2/2/18/2 blocks, 6/12/24/48
+    heads x 32, patch 4, window 24): max side 384 gives 384x384, whose 24
+    window attentions run at (nW, A, H) = (16, 576, 6) with the shift mask
+    on odd blocks, (4, 576, 12) likewise, (1, 576, 24) and (1, 144, 48);
+    max side 512 gives 512x512, where the window search picks 32 (A=1024)
+    at stages 1-3 and 16 at stage 4.
 
-One CUDA kernel (csrc/flash_attention.cu) ports four TPU kernels; the
-``kernels`` JSON line has one entry per TPU kernel:
+Two CUDA kernels port five TPU kernels; the ``kernels`` JSON line has one
+entry per TPU kernel:
   #1 fused qkv, unbiased  -- the Depth-Anything path;
   #2 fused qkv, biased    -- the BEiT path (cached bias stack or inline bias);
+  #3 window attention     -- the SwinV2 path (csrc/window_attention.cu; the
+     CPB bias and shift mask read factored, by head and by window);
   #4 / #5 (B, N, H, D) op -- the JAX package reaches it through its
      ``flash_attention`` op (the drop-in for dot_product_attention); no model
      of the port calls it, since the port serves every BEiT grid through #2.
@@ -25,16 +33,23 @@ One CUDA kernel (csrc/flash_attention.cu) ports four TPU kernels; the
 Phases, in order; each prints its lines and the seconds it took, and any
 failure raises:
   1. device: a CUDA card, or fail; the nvidia-smi name and power limit;
-  2. build: nvcc builds the kernel library from csrc/;
-  3. kernel vs its plain version at the paths' shapes and edge cases,
-     float32 and bfloat16, then CUDA-event times of both, in turns;
+  2. build: nvcc builds the kernel library from csrc/, one nvcc per source,
+     all started together;
+  3. each kernel vs its plain version at the paths' shapes and edge cases,
+     float32 and bfloat16, then CUDA-event times of both, in turns (the
+     window kernel at each SwinV2-L-384 stage shape, B=1 and B=8);
   4. DA-V2 bf16 serves 3 requests and a batch of 8 (24 launches per forward);
   5. DA-V2 float32 kernel model vs float32 plain model;
   6. BEiT-L-512 bf16 serves 3 requests and a batch of 8 at 512x512 (24
      biased launches per forward) and one 1024x1024 request through the
      cached bias stack;
   7. BEiT-L-512 float32 kernel model vs plain model, cached and inline bias;
-  8. the (B, N, H, D) op path.
+  8. SwinV2-L-384 bf16 serves 3 requests and a batch of 8 at 384x384 (24
+     window launches per forward) and one 512x512 request, its CPB stack
+     build included;
+  9. SwinV2-L-384 float32 kernel model vs plain model, cached and inline
+     CPB and masks;
+  10. the (B, N, H, D) op path.
 Then one JSON line of per-kernel results, the card line, and last the ok line.
 
 Imports only torch, numpy and the port: never jax or the JAX package."""
@@ -42,6 +57,7 @@ Imports only torch, numpy and the port: never jax or the JAX package."""
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -54,8 +70,11 @@ import torch
 
 from muggled_dpt_tpu_torch.checkpoints.beit import random_original_state_dict as random_beit_state_dict
 from muggled_dpt_tpu_torch.checkpoints.random_init import random_original_depth_anything_state_dict
+from muggled_dpt_tpu_torch.checkpoints.swinv2 import random_original_state_dict as random_swinv2_state_dict
 from muggled_dpt_tpu_torch.make_dpt import make_dpt_from_state_dict
+from muggled_dpt_tpu_torch.models.swinv2 import shift_mask, stage_grids, window_plan
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
+from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 
 VITL = {
     "features_per_token": 1024,
@@ -74,6 +93,21 @@ BEIT_L512 = {  # MiDaS v3.1 dpt_beit_large_512
     "patch_size_px": 16,
     "base_patch_grid_hw": (32, 32),
 }
+SWIN_L384 = {  # MiDaS v3.1 dpt_swin2_large_384
+    "features_per_stage": [192, 384, 768, 1536],
+    "heads_per_stage": [6, 12, 24, 48],
+    "layers_per_stage": [2, 2, 18, 2],
+    "base_patch_grid_hw": (96, 96),
+    "window_size_hw": (24, 24),
+    "pretrained_window_sizes_per_stage": [12, 12, 12, 6],
+    "fusion_channels": 256,
+    "patch_size_px": 4,
+}
+SWIN_SIDE, SWIN_HW, SWIN_BIG_SIDE = 384, (384, 384), 512
+SWIN_BLOCKS = sum(SWIN_L384["layers_per_stage"])  # 24 window attentions per forward
+SWIN_D = 32
+# (windows, window, heads, shift mask) of each stage at 384x384
+SWIN_STAGES = [(16, (24, 24), 6, True), (4, (24, 24), 12, True), (1, (24, 24), 24, False), (1, (12, 12), 48, False)]
 HEADS, HEAD_DIM = 16, 64
 FRAME_HW = (720, 1280)
 MAX_SIDE, OUT_HW = 518, (504, 504)
@@ -92,12 +126,14 @@ ABS_REL_BUDGET = 1e-3  # whole-model f32 budget of the repo
 REPLACES = {
     1: "muggled_dpt_tpu/ops/pallas/flash_attention.py:125",
     2: "muggled_dpt_tpu/ops/pallas/flash_attention.py:434",
+    3: "muggled_dpt_tpu/ops/pallas/window_attention.py:31",
     4: "muggled_dpt_tpu/ops/pallas/flash_attention.py:86",
     5: "muggled_dpt_tpu/ops/pallas/flash_attention.py:497",
 }
 NAMES = {
     1: "flash_attention_fused_qkv",
     2: "flash_attention_fused_qkv (bias, bias_stack + layer)",
+    3: "window_attention (factored CPB bias + shift mask)",
     4: "flash_attention (B, N, H, D)",
     5: "flash_attention (B, N, H, D), past 32768 keys",
 }
@@ -171,7 +207,7 @@ class Checker:
     kernel's worst error."""
 
     def __init__(self):
-        self.worst = {1: 0.0, 2: 0.0, 4: 0.0, 5: 0.0}
+        self.worst = {1: 0.0, 2: 0.0, 3: 0.0, 4: 0.0, 5: 0.0}
 
     def __call__(self, kid, label, got, ref, shape):
         torch.cuda.synchronize()
@@ -187,6 +223,43 @@ class Checker:
         if not ok:
             raise RuntimeError(f"kernel #{kid} disagrees with its plain version at {label}")
         self.worst[kid] = max(self.worst[kid], max_err)
+
+
+def make_windows(rng, b, nw, window_hw, h, dtype, bias_dtype, with_mask, views=False):
+    """Window attention inputs as the SwinV2 block hands them over, drawn
+    with numpy: q l2-normalized times a logit scale of 10, k l2-normalized,
+    v N(0, 1) clipped to +-3.5, each (B, nW, A, H, 32), A = the window's
+    area (``views``: strided views of one (B, nW, A, 3, H, 32) qkv); cpb =
+    16 * sigmoid(N(0, 1)) (H, A, A); the (nW, A, A) shift mask of a square
+    grid of nW windows rolled by half a window, as the model builds it.
+    An output is a convex combination of v's rows, so the clip keeps it
+    below 4, where one bf16 ulp (1.6e-2) fits the bf16 gate; at [4, 8) one
+    ulp is 3.1e-2, which the kernel, rounding p before normalizing, may
+    differ by."""
+    a = window_hw[0] * window_hw[1]
+    qkv = torch.from_numpy(rng.standard_normal((b, nw, a, 3, h, SWIN_D), dtype=np.float32)).to(DEVICE)
+    qkv[:, :, :, 2].clamp_(-3.5, 3.5)
+    norm = torch.rsqrt((qkv[:, :, :, :2] ** 2).sum(-1, keepdim=True) + 1e-12)
+    qkv[:, :, :, :2] *= norm
+    qkv[:, :, :, 0] *= 10.0
+    qkv = qkv.to(dtype)
+    q, k, v = qkv.unbind(3) if views else (t.contiguous() for t in qkv.unbind(3))
+    cpb = (16.0 * torch.sigmoid(torch.from_numpy(rng.standard_normal((h, a, a), dtype=np.float32)))).to(DEVICE, bias_dtype)
+    mask = None
+    if with_mask:
+        side = math.isqrt(nw)
+        grid = (side * window_hw[0], side * window_hw[1])
+        mask = shift_mask(grid, window_hw, (window_hw[0] // 2, window_hw[1] // 2), DEVICE, bias_dtype)
+    return q, k, v, cpb, mask
+
+
+def check_windows(check, rng, dtype, b, nw, window_hw, h, with_mask, bias_dtype=None, views=False):
+    bias_dtype = bias_dtype or dtype
+    args = make_windows(rng, b, nw, window_hw, h, dtype, bias_dtype, with_mask, views)
+    a = window_hw[0] * window_hw[1]
+    label = (f"{str(dtype)[6:]} B={b} nW={nw} A={a} H={h}{' mask' if with_mask else ''} bias {str(bias_dtype)[6:]}"
+             f"{' strided views of one qkv' if views else ''}")
+    check(3, label, wa.window_attention(*args), wa.window_attention_reference(*args), (b, nw, a, h, SWIN_D))
 
 
 def _split(qkv):
@@ -257,6 +330,19 @@ def phase_kernel(smi: str) -> dict:
         check(5, f"{name} B=1 N={N_ONLINE} H=2", fa.flash_attention(q, k, v), fa.flash_attention_reference(q, k, v),
               (1, N_ONLINE, 2, HEAD_DIM))
         del q, k, v
+        # #3: the SwinV2-L-384 stage shapes, the 512x512 ones (A=1024), the
+        # divisor search's largest window (A=2209), ragged and odd areas,
+        # strided views, a bias in the other dtype
+        for b in (1, 8):
+            for nw, window_hw, h, with_mask in SWIN_STAGES:
+                check_windows(check, rng, dtype, b, nw, window_hw, h, with_mask)
+        for nw, h in ((16, 6), (4, 12)):
+            check_windows(check, rng, dtype, 1, nw, (32, 32), h, True)
+        check_windows(check, rng, dtype, 1, 1, (47, 47), 2, False)
+        for window_hw in ((4, 4), (5, 5), (6, 6), (10, 15)):  # A = 16, 25, 36, 150
+            check_windows(check, rng, dtype, 2, 4, window_hw, 3, True)
+        check_windows(check, rng, dtype, 2, 4, (24, 24), 3, True, views=True)
+        check_windows(check, rng, dtype, 2, 4, (10, 15), 3, True, bias_dtype=other)
         torch.cuda.empty_cache()
     if torch.cuda.current_device() != device_before:
         raise RuntimeError("a kernel launch changed the current CUDA device")
@@ -293,11 +379,21 @@ def phase_kernel(smi: str) -> dict:
         print(f"kernel time #5 {name} B=1 N={N_ONLINE} H=2 D={HEAD_DIM}: "
               f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms [{smi}]", flush=True)
         del q, k, v
+        # #3 at each SwinV2-L-384 stage shape, the bias in the model's dtype
+        for b in (1, 8):
+            for s, (nw, window_hw, h, with_mask) in enumerate(SWIN_STAGES, start=1):
+                a = window_hw[0] * window_hw[1]
+                args = make_windows(rng, b, nw, window_hw, h, dtype, dtype, with_mask, views=True)
+                kernel, plain = (lambda: wa.window_attention(*args)), (lambda: wa.window_attention_reference(*args))
+                p1, k1, k2, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)  # in turns
+                times[(3, dtype, b, s)] = (min(k1, k2), min(p1, p2))
+                print(f"kernel time #3 {name} B={b} stage {s} nW={nw} A={a} H={h} D={SWIN_D}{' mask' if with_mask else ''}: "
+                      f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms [{smi}]", flush=True)
         torch.cuda.empty_cache()
-    # the JSON line carries the bf16 serving shape of each kernel
-    at = {1: 8, 2: 8, 4: 8, 5: 1}
-    return {kid: {"max_abs_err": check.worst[kid], "ms": times[(kid, torch.bfloat16, b)][0],
-                  "plain_ms": times[(kid, torch.bfloat16, b)][1]} for kid, b in at.items()}
+    # the JSON line carries the bf16 serving shape of each kernel (#3: stage 1, the most windows)
+    at = {1: (8,), 2: (8,), 3: (8, 1), 4: (8,), 5: (1,)}
+    return {kid: {"max_abs_err": check.worst[kid], "ms": times[(kid, torch.bfloat16, *key)][0],
+                  "plain_ms": times[(kid, torch.bfloat16, *key)][1]} for kid, key in at.items()}
 
 
 def _abs_rel(ours: torch.Tensor, ref: torch.Tensor) -> float:
@@ -426,6 +522,29 @@ def phase_beit_model(smi: str, ckpt: str):
     return launches, depth, frame, check.worst[2]
 
 
+def phase_swin_model(smi: str, ckpt: str):
+    """SwinV2-L-384 bf16: 384x384 serving, then one 512x512 request, its
+    CPB stacks and masks built on the way."""
+    _, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE)
+    fa.reset_launch_counts()  # count the path's run only
+    depth, frame = serve(smi, model, SWIN_SIDE, SWIN_HW, "window", SWIN_BLOCKS, "SwinV2-L-384")
+    big = np.random.default_rng(SEED + 2).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = _counted(lambda: model.inference(big, SWIN_BIG_SIDE), "window", SWIN_BLOCKS, "SwinV2-L-384 512x512")
+    ms = (time.perf_counter() - t0) * 1e3
+    _check_depth(out, (1, SWIN_BIG_SIDE, SWIN_BIG_SIDE), "SwinV2-L-384 512x512")
+    grid = (SWIN_BIG_SIDE // model.patch_size_px,) * 2
+    aux = model._aux_cache.get(grid)
+    if aux is None:
+        raise RuntimeError("SwinV2-L-384 512x512: the CPB stacks were not cached")
+    windows = [window_plan(g, SWIN_L384["window_size_hw"])[0] for g in stage_grids(grid)]
+    gb = sum(t.numel() * t.element_size() for stage in aux for t in stage.values() if t is not None) / 1e9
+    print(f"SwinV2-L-384 bf16 512x512 request: {ms:.1f} ms, first at this size (CPB stacks and masks, {gb:.3f} GB, "
+          f"built once and cached); windows per stage {windows} [{smi}]", flush=True)
+    return wa.window_attention.launches, depth, frame
+
+
 def phase_bnhd_path(smi: str) -> tuple[int, int]:
     """The (B, N, H, D) op: BEiT-L-512's attention shape (B=8, q, k, v as
     strided views of one qkv, a padded (1, H, Np, Np) bias as the JAX BEiT
@@ -473,17 +592,22 @@ def main() -> int:
         numbers[2]["max_abs_err"] = max(numbers[2]["max_abs_err"], err)
         timed("BEiT f32 parity", parity, ckpt, frame, BEIT_SIDE, BEIT_HW, "fused_biased", BEIT_L512["num_blocks"],
               "BEiT-L-512", depth, (True, False))
+        os.remove(ckpt)
+        ckpt = write_checkpoint(random_swinv2_state_dict(SWIN_L384, seed=SEED), os.path.join(tmp, "dpt_swin2_large_384_random.pt"))
+        launches[3], depth, frame = timed("SwinV2 model", phase_swin_model, smi, ckpt)
+        timed("SwinV2 f32 parity", parity, ckpt, frame, SWIN_SIDE, SWIN_HW, "window", SWIN_BLOCKS, "SwinV2-L-384", depth,
+              (True, False))
     launches[4], launches[5] = timed("(B, N, H, D) op path", phase_bnhd_path, smi)
     kernels = [
         {
             "name": NAMES[kid],
             "route": "cuda",
-            "source": "muggled_dpt_tpu_torch/csrc/flash_attention.cu",
+            "source": f"muggled_dpt_tpu_torch/csrc/{'window_attention' if kid == 3 else 'flash_attention'}.cu",
             "replaces": REPLACES[kid],
             "launches": launches[kid],
             **numbers[kid],
         }
-        for kid in (1, 2, 4, 5)
+        for kid in (1, 2, 3, 4, 5)
     ]
     if not all(k["launches"] > 0 for k in kernels):
         raise RuntimeError(f"a kernel of the paths never launched: {kernels}")

@@ -1,16 +1,18 @@
 """muggled_dpt_tpu_torch -- the PyTorch + CUDA port of muggled_dpt_tpu for
 NVIDIA Hopper (H100).
 
-Depth-Anything V2 and MiDaS v3.1 BEiT run end to end: original checkpoints
-load unchanged, plain torch ops carry the GEMMs, norms, convolutions and
-resizes, and attention (BEiT's with its relative-position bias) goes through
-a hand-written CUDA kernel (``csrc/flash_attention.cu``) built by nvcc at
-first use. The package imports neither jax nor ``muggled_dpt_tpu``."""
+Depth-Anything V2, MiDaS v3.1 BEiT and MiDaS v3.1 SwinV2 run end to end:
+original checkpoints load unchanged, plain torch ops carry the GEMMs, norms,
+convolutions and resizes, and attention goes through hand-written CUDA
+kernels built by nvcc at first use: ``csrc/flash_attention.cu`` (DA, and
+BEiT with its relative-position bias) and ``csrc/window_attention.cu``
+(SwinV2's window attention with its CPB bias and shift mask). The package imports neither jax nor ``muggled_dpt_tpu``."""
 
 from .dpt import DPTModel
 from .make_beit_dpt import make_beit_dpt, make_beit_dpt_from_midas_v31_state_dict
 from .make_depthanythingv2_dpt import make_depthanythingv2_dpt, make_depthanythingv2_dpt_from_original_state_dict
 from .make_dpt import make_dpt_from_state_dict
+from .make_swinv2_dpt import make_swinv2_dpt, make_swinv2_dpt_from_midas_v31_state_dict
 
 __all__ = [
     "DPTModel",
@@ -19,6 +21,8 @@ __all__ = [
     "make_depthanythingv2_dpt_from_original_state_dict",
     "make_beit_dpt",
     "make_beit_dpt_from_midas_v31_state_dict",
+    "make_swinv2_dpt",
+    "make_swinv2_dpt_from_midas_v31_state_dict",
 ]
 
 __version__ = "0.1.0"

@@ -16,7 +16,7 @@ import math
 import numpy as np
 import torch
 
-from .convert_common import max_index, qkv_head_major, qkv_vec_head_major, t_tensor
+from .convert_common import max_index, qkv_bias, qkv_head_major, qkv_vec_head_major, t_tensor
 
 REASSEMBLY_SCALES = (4, 2, 1, 0.5)
 
@@ -49,10 +49,8 @@ def get_config_from_state_dict(state_dict: dict, enable_cache=True, enable_optim
 
 
 def qkv_bias_head_major(q_bias: torch.Tensor, v_bias: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """BEiT's attention has q and v biases and no k bias: the fused qkv bias
-    is q_bias | zeros | v_bias, in head-major [head][q|k|v][dim] order."""
-    qkv = torch.cat([q_bias.reshape(-1), torch.zeros_like(q_bias.reshape(-1)), v_bias.reshape(-1)])
-    return qkv_vec_head_major(qkv, num_heads)
+    """The fused qkv bias (``qkv_bias``) in head-major [head][q|k|v][dim] order."""
+    return qkv_vec_head_major(qkv_bias(q_bias, v_bias), num_heads)
 
 
 def _convert_encoder(sd: dict, cfg: dict) -> dict:

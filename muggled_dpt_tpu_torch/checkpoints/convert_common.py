@@ -33,6 +33,14 @@ def qkv_vec_head_major(vec: torch.Tensor, num_heads: int) -> torch.Tensor:
     return vec.reshape(3, num_heads, d).permute(1, 0, 2).reshape(c3).contiguous()
 
 
+def qkv_bias(q_bias: torch.Tensor, v_bias: torch.Tensor) -> torch.Tensor:
+    """BEiT's and SwinV2's attention have q and v biases and no k bias: the
+    fused qkv bias is q_bias | zeros | v_bias, in torch's [q|k|v][head][dim]
+    order."""
+    q_bias, v_bias = q_bias.reshape(-1), v_bias.reshape(-1)
+    return torch.cat([q_bias, torch.zeros_like(q_bias), v_bias])
+
+
 def max_index(state_dict: dict, prefix: str) -> int:
     """Largest integer appearing right after `prefix.` across keys.
 

@@ -1,13 +1,13 @@
-"""Map the JAX package's converted parameter trees (Depth-Anything, BEiT)
-onto this package's state dicts, so that both packages can be run on the
+"""Map the JAX package's converted parameter trees (Depth-Anything, BEiT,
+SwinV2) onto this package's state dicts, so that both packages can be run on the
 same weights.
 
-The JAX trees (``muggled_dpt_tpu/checkpoints/{depth_anything,beit}.py:convert_state_dict``)
-stack the encoder blocks along a leading (L, ...) axis and store linears as
-(in, out), convolutions as HWIO and transposed convolutions as
-(kh, kw, in, out). Their qkv columns are already head-major, as this
-package's qkv rows are. Only numpy arrays cross the boundary: this module
-imports no jax."""
+The JAX trees (``muggled_dpt_tpu/checkpoints/{depth_anything,beit,swinv2}.py:convert_state_dict``)
+stack the encoder blocks along a leading (L, ...) axis (SwinV2: per stage, in
+pairs) and store linears as (in, out), convolutions as HWIO and transposed
+convolutions as (kh, kw, in, out). Their qkv columns are in the order this
+package's qkv rows are: head-major for DA and BEiT, torch's [q|k|v] for
+SwinV2. Only numpy arrays cross the boundary: this module imports no jax."""
 
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .beit import qkv_bias_head_major
+from .convert_common import qkv_bias
 
 
 def _t(a) -> torch.Tensor:
@@ -83,6 +84,44 @@ def beit_params_from_jax(params_np: dict) -> dict:
     return sd
 
 
+def swinv2_params_from_jax(params_np: dict) -> dict:
+    """JAX SwinV2 parameter tree (numpy leaves) -> this package's SwinV2DPT
+    state dict (float32 CPU tensors). The JAX tree stacks each stage's blocks
+    as (no-shift, shift) pairs, {"b0": (P, ...), "b1": (P, ...)}: block 2i is
+    pair i's b0 and block 2i+1 its b1."""
+    p = params_np
+    pe = p["patch_embed"]
+    sd = {
+        "patch_embed.weight": _conv(pe["kernel"]),
+        "patch_embed.bias": _t(pe["bias"]),
+        "patch_norm.weight": _t(pe["norm_scale"]),
+        "patch_norm.bias": _t(pe["norm_bias"]),
+    }
+    for s, stage in enumerate(p["encoder"]["stages"]):
+        for i in range(np.shape(stage["b0"]["logit_scale"])[0]):
+            for side in (0, 1):
+                bp = {k: v[i] for k, v in stage[f"b{side}"].items()}
+                pre = f"encoder.stages.{s}.{2 * i + side}"
+                sd[f"{pre}.qkv.weight"] = _linear(bp["qkv_kernel"])
+                sd[f"{pre}.qkv.bias"] = qkv_bias(_t(bp["q_bias"]), _t(bp["v_bias"]))
+                sd[f"{pre}.logit_scale"] = _t(bp["logit_scale"])
+                sd[f"{pre}.cpb1.weight"] = _linear(bp["cpb1_kernel"])
+                for name in ("proj", "cpb0", "fc1", "fc2"):
+                    sd[f"{pre}.{name}.weight"] = _linear(bp[f"{name}_kernel"])
+                    sd[f"{pre}.{name}.bias"] = _t(bp[f"{name}_bias"])
+                for norm in ("norm1", "norm2"):
+                    sd[f"{pre}.{norm}.weight"] = _t(bp[f"{norm}_scale"])
+                    sd[f"{pre}.{norm}.bias"] = _t(bp[f"{norm}_bias"])
+    for s, merge in enumerate(p["encoder"]["merges"]):
+        sd[f"encoder.merges.{s}.reduction.weight"] = _linear(merge["reduction_kernel"])
+        sd[f"encoder.merges.{s}.norm.weight"] = _t(merge["norm_scale"])
+        sd[f"encoder.merges.{s}.norm.bias"] = _t(merge["norm_bias"])
+    for i, stage in enumerate(p["reassemble"]):
+        sd[f"reassemble.{i}.fuse.weight"] = _conv(stage["fuse_kernel"])
+    sd.update(_fusion_and_head(p))
+    return sd
+
+
 def _block(blocks: dict, i: int) -> dict:
     """Block i of a stacked JAX block tree, all but the qkv bias."""
     pre = f"encoder.blocks.{i}"
@@ -112,7 +151,12 @@ def _neck(p: dict) -> dict:
             sd[f"{pre}.resample.weight"] = _conv_transpose(rk) if i in (0, 1) else _conv(rk)
             sd[f"{pre}.resample.bias"] = _t(stage["resample_bias"])
         sd[f"{pre}.fuse.weight"] = _conv(stage["fuse_kernel"])
+    sd.update(_fusion_and_head(p))
+    return sd
 
+
+def _fusion_and_head(p: dict) -> dict:
+    sd = {}
     for i, block in enumerate(p["fusion"]):
         pre = f"fusion.{i}"
         for unit in ("res1", "res2"):

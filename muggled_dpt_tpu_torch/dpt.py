@@ -9,7 +9,8 @@ Preprocessing (antialiased bilinear resize to the model's tiling, then
 normalization) runs on the device in float32.
 
 Per-grid aux cache (a port of JAX ``dpt.py:102-166``): a family may define
-``make_aux`` (BEiT: the grid's whole relative-position bias stack). The
+``make_aux`` (BEiT: the grid's whole relative-position bias stack; SwinV2:
+every block's CPB bias and every stage's shift mask). The
 facade builds it once per patch grid, keeps the grids in least-recently-used
 order within a device-memory budget, remembers a grid that never fits, and
 passes the aux to the net's forward; with ``enable_cache=False`` it passes
@@ -57,8 +58,15 @@ def assemble_model(net_cls, config_dict: dict, state_dict: dict, family_spec: di
     return DPTModel(net, config_dict, family_spec, dtype=dtype)
 
 
-def _tensor_bytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+def _tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a tensor, or a nested list, tuple, dict or
+    other iterable of them (a SwinV2 aux: per stage a CPB stack and a mask);
+    None counts 0."""
+    if tree is None:
+        return 0
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(_tensor_bytes(t) for t in (tree.values() if isinstance(tree, dict) else tree))
 
 
 def fits_device_budget(needed_bytes: int, device, resident_bytes: int = 0, reclaimable_bytes: int = 0) -> bool:

@@ -2,9 +2,9 @@
 file, sniffing the model family from its state-dict keys. Returns
 (config_dict, DPTModel), as the JAX package's ``make_dpt_from_state_dict``.
 
-Depth-Anything V2 and MiDaS v3.1 BEiT are ported so far; the other
-families raise ``NotImplementedError`` naming the ROADMAP item that ports
-them."""
+Depth-Anything V2, MiDaS v3.1 BEiT and MiDaS v3.1 SwinV2 are ported so
+far; Depth-Anything V1 raises ``NotImplementedError`` naming the ROADMAP item
+that ports it."""
 
 from __future__ import annotations
 
@@ -15,7 +15,6 @@ import torch
 KNOWN_MODEL_TYPES = ("swinv2", "beit", "depthanythingv1", "depthanythingv2")
 _NOT_PORTED = {
     "depthanythingv1": "ROADMAP Queue A item 7 (DA-V1, metric head and ViT-Giant)",
-    "swinv2": "ROADMAP Queue A item 9 (SwinV2)",
 }
 
 
@@ -41,6 +40,12 @@ def make_dpt_from_state_dict(
     if model_type in _NOT_PORTED:
         raise NotImplementedError(f"{model_type} is not ported to muggled_dpt_tpu_torch yet: {_NOT_PORTED[model_type]}")
 
+    if model_type == "swinv2":
+        from .make_swinv2_dpt import make_swinv2_dpt_from_midas_v31_state_dict
+
+        return make_swinv2_dpt_from_midas_v31_state_dict(
+            state_dict, enable_cache, enable_optimizations, strict_load, dtype=dtype, device=device
+        )
     if model_type == "beit":
         from .make_beit_dpt import make_beit_dpt_from_midas_v31_state_dict
 

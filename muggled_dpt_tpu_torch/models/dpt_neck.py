@@ -1,10 +1,11 @@
 """DPT neck: reassembly -> fusion -> monocular depth head, on NCHW feature
 maps.
 
-The counterpart of ``muggled_dpt_tpu/models/dpt_neck.py`` with two readout
-modes: 'ignore' (Depth-Anything: the cls token is dropped) and 'project'
+The counterpart of ``muggled_dpt_tpu/models/dpt_neck.py`` with three readout
+modes: 'ignore' (Depth-Anything: the cls token is dropped), 'project'
 (BEiT: the cls token is concatenated onto every patch token, then Linear
-2F -> F and exact GELU). The reassembly keeps the dense transposed-conv + 3x3
+2F -> F and exact GELU) and 'none' (SwinV2: no cls token and no resampling,
+``FuseOnlyStage``). The ViT reassembly keeps the dense transposed-conv + 3x3
 conv pair; fusion and head upsample with bilinear align_corners=True; the
 head's upsample factor is P/8 for Depth-Anything and 2 for MiDaS; a metric
 head ends in a sigmoid instead of a ReLU."""
@@ -59,6 +60,19 @@ class ReassembleStage(nn.Module):
         elif self.scale == 0.5:
             x = conv2d(x, self.resample.weight, self.resample.bias, stride=2, padding=1)
         return conv2d(x, self.fuse.weight, None, padding=1)
+
+
+class FuseOnlyStage(nn.Module):
+    """The reassembly of a hierarchical encoder (SwinV2: readout 'none'): its
+    stage maps already have the 4 scales, so there is no readout, projection
+    or resample; only the 3x3 fuse conv (no bias) on the NCHW map."""
+
+    def __init__(self, channels: int, fusion_channels: int, device=None):
+        super().__init__()
+        self.fuse = nn.Conv2d(channels, fusion_channels, 3, padding=1, bias=False, device=device)
+
+    def forward(self, x_nchw):
+        return conv2d(x_nchw, self.fuse.weight, None, padding=1)
 
 
 class ResidualConvUnit(nn.Module):

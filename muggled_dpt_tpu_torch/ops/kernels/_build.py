@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per source, all started together, and the objects are linked into
 one shared library with a plain C interface, which is loaded with ctypes. The
 build happens at first use, never at import, into ``muggled_dpt_tpu_torch/build/``
 (listed in .gitignore); the library's file name carries a hash of the sources
@@ -22,7 +23,7 @@ NEG_INF = -1e30
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 
 def round_up(x: int, m: int) -> int:
@@ -56,17 +57,32 @@ def build_library(verbose: bool = False) -> Path:
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = find_nvcc(), f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    jobs = []
+    for src in (s for s in sources if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}-{tag}.o"
+        cmd = [nvcc, *(["-Xptxas=-v"] if verbose else []), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sources if s.suffix == ".cu")]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        for _, cmd, proc in jobs:
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+            if verbose:
+                print(out, flush=True)
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for obj, _, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees a partial file
+    finally:
+        for obj, _, proc in jobs:
+            if proc.returncode is None:  # another source failed first: stop this one
+                proc.kill()
+                proc.communicate()
+            obj.unlink(missing_ok=True)
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees a partial file
     return lib_path
 
 
@@ -78,5 +94,9 @@ def kernel_library() -> ctypes.CDLL:
     fn = lib.mdpt_flash_attention
     # the int64 argument array (its slots in csrc/flash_attention.cu), qk_scale_log2, stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mdpt_window_attention
+    # the int64 argument array (its slots in csrc/window_attention.cu), stream
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -130,20 +130,21 @@ def _bias_operand(bias, bias_stack, layer, b: int, h: int, n: int, device):
     return _DTYPE_CODES[t.dtype], (t.data_ptr(), offset, *(st if size > 1 else 0 for size, st in zip(shape, stride)))
 
 
-def _operand(name: str, t: torch.Tensor, device, dtype) -> tuple[int, int, int, int]:
-    """(address, batch, row and head strides) of a (B, N, H, D)-strided input.
-    Rows are copied as 16-byte chunks: the head dim must be contiguous and
-    every row start 16-byte aligned."""
+def _operand(name: str, t: torch.Tensor, device, dtype) -> tuple[int, ...]:
+    """(address, then the element stride of every dim but the last) of a
+    q, k or v input: (B, N, H, D) here, (B, nW, A, H, D) for the window
+    kernel. Rows are copied as 16-byte chunks: the head dim must be
+    contiguous and every row start 16-byte aligned."""
     if t.device != device or t.dtype != dtype:
-        raise ValueError(f"flash attention kernel: {name} is {t.dtype} on {t.device}, want {dtype} on {device}")
+        raise ValueError(f"attention kernel: {name} is {t.dtype} on {t.device}, want {dtype} on {device}")
     step = 16 // t.element_size()
-    sb, sn, sh, sd = t.stride()
-    if sd != 1 or t.data_ptr() % 16 != 0 or sb % step or sn % step or sh % step:
+    *outer, sd = t.stride()
+    if sd != 1 or t.data_ptr() % 16 != 0 or any(s % step for s in outer):
         raise ValueError(
-            f"flash attention kernel: {name} needs a contiguous head dim and 16-byte aligned rows, "
+            f"attention kernel: {name} needs a contiguous head dim and 16-byte aligned rows, "
             f"got strides {t.stride()} at address {t.data_ptr():#x}"
         )
-    return t.data_ptr(), sb, sn, sh
+    return t.data_ptr(), *outer
 
 
 def _qkv_operands(qkv: torch.Tensor, d: int) -> list[tuple[int, int, int, int]]:
@@ -244,14 +245,23 @@ flash_attention.launches = 0
 
 
 def reset_launch_counts():
+    """Zero the launch count of every kernel route of the package."""
+    from .window_attention import window_attention
+
     flash_attention_fused_qkv.launches = 0
     flash_attention_fused_qkv.biased_launches = 0
     flash_attention.launches = 0
+    window_attention.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
+    """The launch count of every kernel route of the package, the SwinV2
+    window kernel (``ops/kernels/window_attention.py``) included."""
+    from .window_attention import window_attention
+
     return {
         "fused": flash_attention_fused_qkv.launches,
         "fused_biased": flash_attention_fused_qkv.biased_launches,
         "bnhd": flash_attention.launches,
+        "window": window_attention.launches,
     }

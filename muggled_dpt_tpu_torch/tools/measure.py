@@ -2,7 +2,7 @@
 """Host-cost and profile measurements of the port on one CUDA card.
 
     python3 muggled_dpt_tpu_torch/tools/measure.py host [--against DIR]
-    python3 muggled_dpt_tpu_torch/tools/measure.py profile [--out DIR]
+    python3 muggled_dpt_tpu_torch/tools/measure.py profile [--model beit|swinv2] [--out DIR]
 
 ``host``: the attention wrapper's host cost per call, and the DA-V2 ViT-L
 and BEiT-L-512 bf16 request times at B=1.
@@ -15,12 +15,14 @@ into the same process, and alternates the two packages round by round, so
 both see the same host noise; each line then says in how many rounds this
 checkout was faster.
 
-``profile``: a torch.profiler breakdown of the BEiT-L-512 bf16 forward at
-512x512 (10 forwards at B=1, 5 at B=8): device busy share (the union of
-kernel intervals over the host wall time of the profiled loop), kernels per
-forward, device time per forward by kind; and the time to build the bias
-stack once per grid (512x512 and 1024x1024). ``--out`` also writes every
-kernel's time per forward to ``DIR/profile_beit_kernels.txt``.
+``profile``: a torch.profiler breakdown of a bf16 forward (10 forwards at
+B=1, 5 at B=8): device busy share (the union of kernel intervals over the
+host wall time of the profiled loop), kernels per forward, device time per
+forward by kind; and the time to build the grid's aux once (``make_aux``).
+``--model beit`` (the default): BEiT-L-512 at 512x512, the bias stack at
+512x512 and 1024x1024. ``--model swinv2``: SwinV2-L-384 at 384x384, the CPB
+stacks and shift masks at 384x384 and 512x512. ``--out`` also writes every
+kernel's time per forward to ``DIR/profile_<model>_kernels.txt``.
 
 Every printed line carries the card's name and power limit (nvidia-smi).
 Models have random weights from seed 0; nothing is downloaded."""
@@ -55,9 +57,20 @@ BEIT_L512 = {
     "patch_size_px": 16,
     "base_patch_grid_hw": (32, 32),
 }
+SWIN_L384 = {
+    "features_per_stage": [192, 384, 768, 1536],
+    "heads_per_stage": [6, 12, 24, 48],
+    "layers_per_stage": [2, 2, 18, 2],
+    "base_patch_grid_hw": (96, 96),
+    "window_size_hw": (24, 24),
+    "pretrained_window_sizes_per_stage": [12, 12, 12, 6],
+    "fusion_channels": 256,
+    "patch_size_px": 4,
+}
 FRAME_HW = (720, 1280)
 KINDS = [  # (kind, substrings of the kernel name), first match wins
     ("attention kernel", ("fa_bf16", "fa_f32")),
+    ("window attention kernel", ("wa_bf16", "wa_f32")),
     ("conv (cuDNN, with layout transforms)", ("cudnn", "xmma", "fprop", "dgrad", "nchwToNhwc", "nhwcToNchw")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm")),
     ("resize", ("upsample",)),
@@ -240,9 +253,11 @@ def profile_forward(fn, forwards, label, smi, out_lines):
     out_lines += [f"{label}\t{ms:.4f} ms\t{kind_of(name)}\t{name}" for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])]
 
 
-def build_ms(model, grid, smi, repeats=3):
+def build_ms(model, grid, what, smi, repeats=3):
     """Host-clock ms of make_aux for a grid, first build then repeats, each synchronized."""
     import torch
+
+    from muggled_dpt_tpu_torch.dpt import _tensor_bytes
 
     make_aux = model.spec["make_aux"]
     times = []
@@ -250,37 +265,49 @@ def build_ms(model, grid, smi, repeats=3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            stack = make_aux(model.net, grid, model.dtype)
+            aux = make_aux(model.net, grid, model.dtype)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        gb = stack.numel() * stack.element_size() / 1e9
-        del stack
-    print(f"BEiT-L-512 bias stack build, grid {grid} ({gb:.2f} GB bf16): first {times[0]:.2f} ms, "
+        gb = _tensor_bytes(aux) / 1e9
+        del aux
+    print(f"{what} build, grid {grid} ({gb:.3f} GB bf16): first {times[0]:.2f} ms, "
           f"then {', '.join(f'{t:.2f}' for t in times[1:])} ms [{smi}]", flush=True)
     torch.cuda.empty_cache()
 
 
-def profile_beit(args, smi):
+PROFILED = {  # model: (label, config module, config, checkpoint name, side, aux label, aux grids)
+    "beit": ("BEiT-L-512", "beit", BEIT_L512, "dpt_beit_large_512_random.pt", 512, "BEiT-L-512 bias stack",
+             ((32, 32), (64, 64))),
+    "swinv2": ("SwinV2-L-384", "swinv2", SWIN_L384, "dpt_swin2_large_384_random.pt", 384,
+               "SwinV2-L-384 CPB stacks and shift masks", ((96, 96), (128, 128))),
+}
+
+
+def profile(args, smi):
+    import importlib
+
     import numpy as np
     import torch
 
-    from muggled_dpt_tpu_torch.checkpoints.beit import random_original_state_dict
     from muggled_dpt_tpu_torch.make_dpt import make_dpt_from_state_dict
 
+    label, module, config, name, side, aux_label, grids = PROFILED[args.model]
+    random_state_dict = importlib.import_module(f"muggled_dpt_tpu_torch.checkpoints.{module}").random_original_state_dict
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = write_checkpoint(random_original_state_dict(BEIT_L512, seed=0), os.path.join(tmp, "dpt_beit_large_512_random.pt"))
+        ckpt = write_checkpoint(random_state_dict(config, seed=0), os.path.join(tmp, name))
         _, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device="cuda")
-    build_ms(model, (32, 32), smi)
-    build_ms(model, (64, 64), smi)
+    for grid in grids:
+        build_ms(model, grid, aux_label, smi)
     frames = np.random.default_rng(1).integers(0, 256, (8, *FRAME_HW, 3), dtype=np.uint8)
     batch = torch.from_numpy(frames).cuda()
-    hw = model.compute_scaled_hw(FRAME_HW, 512)
+    hw = model.compute_scaled_hw(FRAME_HW, side)
     lines = []
-    profile_forward(lambda: model.inference(frames[0], 512), 10, "BEiT-L-512 bf16 512x512 B=1", smi, lines)
-    profile_forward(lambda: model.inference_rgb_device(batch, hw), 5, "BEiT-L-512 bf16 512x512 B=8", smi, lines)
+    size = f"{hw[0]}x{hw[1]}"
+    profile_forward(lambda: model.inference(frames[0], side), 10, f"{label} bf16 {size} B=1", smi, lines)
+    profile_forward(lambda: model.inference_rgb_device(batch, hw), 5, f"{label} bf16 {size} B=8", smi, lines)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile_beit_kernels.txt"), "w") as f:
+        with open(os.path.join(args.out, f"profile_{args.model}_kernels.txt"), "w") as f:
             f.write(f"# ms per forward per kernel [{smi}]\n" + "\n".join(lines) + "\n")
 
 
@@ -288,6 +315,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("what", choices=["host", "profile"])
     parser.add_argument("--against", default=None, help="another checkout whose package host also measures, interleaved")
+    parser.add_argument("--model", choices=sorted(PROFILED), default="beit", help="the model profile measures")
     parser.add_argument("--out", default=None, help="directory for the per-kernel profile table")
     args = parser.parse_args()
     sys.path.insert(0, REPO_ROOT)
@@ -297,7 +325,7 @@ def main() -> int:
         print("no CUDA device: this script measures the port on a GPU", file=sys.stderr)
         return 1
     smi = card_line()
-    (host if args.what == "host" else profile_beit)(args, smi)
+    (host if args.what == "host" else profile)(args, smi)
     return 0
 
 

@@ -167,7 +167,7 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     _fused(qkv, 2, bias=bias)
     _fused(qkv, 2, bias_stack=stack, layer=1)
     _bnhd(q, k, v, bias)
-    assert fa.launch_counts() == {"fused": 0, "fused_biased": 0, "bnhd": 0}
+    assert fa.launch_counts() == {"fused": 0, "fused_biased": 0, "bnhd": 0, "window": 0}
     torch.testing.assert_close(
         fa.flash_attention_fused_qkv(_t(qkv), 2, bias=_t(bias)),
         fa.flash_attention_fused_qkv_reference(_t(qkv), 2, bias=_t(bias)),

@@ -1,4 +1,5 @@
-"""The facade's per-grid aux cache (BEiT's relative-position bias stack):
+"""The facade's per-grid aux cache (BEiT's relative-position bias stack,
+SwinV2's per-stage CPB stacks and shift masks):
 the JAX package's cache tests (tests/test_helpers_and_cache.py,
 tests/test_ui_toolkit.py) ported to the PyTorch facade, with the budget
 monkeypatched where the test needs a device it does not have."""
@@ -10,9 +11,11 @@ import pytest
 import torch
 
 from muggled_dpt_tpu_torch import dpt as dpt_mod
-from muggled_dpt_tpu_torch import make_beit_dpt, make_depthanythingv2_dpt
+from muggled_dpt_tpu_torch import make_beit_dpt, make_depthanythingv2_dpt, make_swinv2_dpt
+from muggled_dpt_tpu_torch.models import swinv2_family
 from muggled_dpt_tpu_torch.models.beit import bias_build_bytes, calculate_bias_bytes, padded_tokens
 from muggled_dpt_tpu_torch.models.beit_family import aux_bytes_estimate
+from muggled_dpt_tpu_torch.models.swinv2 import aux_bytes
 
 GB = 1024**3
 
@@ -149,3 +152,61 @@ def test_prewarm_returns_unique_sizes(beit):
     assert m.prewarm([56, 56, 84], image_hw=(120, 160)) == [(56, 56), (84, 84)]
     assert beit.prewarm([96, 96, 128], image_hw=(120, 160)) == [(96, 96), (128, 128)]
     assert set(beit._aux_cache) == {(6, 6), (8, 8)}
+
+
+SWIN_L384 = {"features_per_stage": [192, 384, 768, 1536], "heads_per_stage": [6, 12, 24, 48],
+             "layers_per_stage": [2, 2, 18, 2], "window_size_hw": (24, 24)}
+
+
+@pytest.fixture()
+def swin():
+    return make_swinv2_dpt((16, 32, 64, 128), (2, 4, 4, 8), (2, 2, 2, 2), (16, 16), (4, 4), (None,) * 4, 16)
+
+
+def test_nested_aux_bytes():
+    """_tensor_bytes walks nested lists, tuples and dicts; None counts 0."""
+    t = torch.zeros(3, 5)
+    assert dpt_mod._tensor_bytes(None) == 0
+    assert dpt_mod._tensor_bytes(t) == 60
+    assert dpt_mod._tensor_bytes([{"cpb": t, "mask": None}, ({"cpb": t.bfloat16(), "mask": t}, [t])]) == 60 + 30 + 60 + 60
+    assert dpt_mod._tensor_bytes({(6, 6): [{"cpb": t}], (7, 7): None}.values()) == 60
+
+
+def test_swinv2_aux_bytes_math():
+    """SwinV2-L-384 at 384x384 (grid 96): stages see grids 96/48/24/12 with
+    windows 24/24/24/12; stages 1-2 shift (16 and 4 windows), 3-4 do not."""
+    per_stage = [2 * 6 * 576**2, 2 * 12 * 576**2, 18 * 24 * 576**2, 2 * 48 * 144**2]
+    masks = [16 * 576**2, 4 * 576**2]
+    assert aux_bytes(SWIN_L384, (96, 96), 2) == 2 * (sum(per_stage) + sum(masks))
+    # 512x512 (grid 128): the divisor search picks windows of 32 (A=1024) at stages 1-3 and 16 at stage 4
+    per_stage = [2 * 6 * 1024**2, 2 * 12 * 1024**2, 18 * 24 * 1024**2, 2 * 48 * 256**2]
+    assert aux_bytes(SWIN_L384, (128, 128), 4) == 4 * (sum(per_stage) + 16 * 1024**2 + 4 * 1024**2)
+    est = swinv2_family.aux_bytes_estimate(SWIN_L384, (96, 96), torch.bfloat16)
+    assert aux_bytes(SWIN_L384, (96, 96), 2) < est < aux_bytes(SWIN_L384, (96, 96), 2) + 64 * 1024**2
+
+
+def test_swinv2_aux_is_counted_by_its_estimate_and_budget(swin):
+    """The cached aux (per stage a CPB stack and a mask) has exactly the
+    bytes ``aux_bytes`` counts, and the facade's budget sums it."""
+    aux = swin._get_aux((16, 16))
+    assert [tuple(a["cpb"].shape) for a in aux] == [(2, 2, 16, 16), (2, 4, 16, 16), (2, 4, 16, 16), (2, 8, 4, 4)]
+    assert [None if a["mask"] is None else tuple(a["mask"].shape) for a in aux] == [(16, 16, 16), (4, 16, 16), None, None]
+    assert swin._get_aux((16, 16)) is aux  # served from the cache
+    assert dpt_mod._tensor_bytes(swin._aux_cache.values()) == aux_bytes(swin.config, (16, 16), 4)
+    assert swinv2_family.aux_bytes_estimate(swin.config, (16, 16), torch.float32) > aux_bytes(swin.config, (16, 16), 4)
+
+
+def test_swinv2_aux_lru_eviction(swin, monkeypatch):
+    """A grid whose nested aux does not fit evicts the least recently used
+    grid, as for BEiT's stacks: the budget sees every stage's tensors."""
+    one_grid = aux_bytes(swin.config, (16, 16), 4)
+    monkeypatch.setattr(dpt_mod, "fits_device_budget",
+                        lambda needed, device, resident_bytes=0, reclaimable_bytes=0:
+                        resident_bytes - reclaimable_bytes - dpt_mod._tensor_bytes(swin.net.parameters()) < 2 * one_grid)
+    a, b, c = (16, 16), (16, 24), (24, 16)
+    assert swin._get_aux(a) is not None and swin._get_aux(b) is not None
+    assert swin._get_aux(a) is not None  # recency bump: b is now the LRU
+    assert swin._get_aux(c) is not None
+    assert list(swin._aux_cache) == [a, c]
+    swin.clear_cache()
+    assert swin._aux_cache == {}

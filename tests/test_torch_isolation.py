@@ -18,7 +18,8 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "muggled_dpt_tpu") and sys.modules[m] is not None)
 assert not leaked, leaked
 assert len(names) >= 23, names
-ported = ("checkpoints.beit", "models.beit", "models.beit_family", "make_beit_dpt", "ops.kernels.flash_attention")
+ported = ("checkpoints.beit", "models.beit", "models.beit_family", "make_beit_dpt", "ops.kernels.flash_attention",
+          "checkpoints.swinv2", "models.swinv2", "models.swinv2_family", "make_swinv2_dpt", "ops.kernels.window_attention")
 missing = [m for m in ported if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print("OK", len(names))
