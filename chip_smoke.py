@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU, through its
-hand-written attention kernels, and check what comes out.
+hand-written kernels, and check what comes out.
 
     python3 chip_smoke.py
 
@@ -8,6 +8,12 @@ Models, each at full width with random weights from a seed, written as an
 original-format checkpoint and loaded through ``make_dpt_from_state_dict``:
   * Depth-Anything V2 ViT-L (F=1024, 24 blocks, 16 heads x 64, patch 14):
     a 720x1280 BGR frame at max side 518 snaps to 504x504 (1297 tokens);
+    the same weights under a ``..._metric_...`` file name give the metric
+    model (sigmoid head);
+  * Depth-Anything V1 ViT-L (the same widths; ``depth_anything_vitl14.pth``,
+    so the family sniffing picks V1: taps on the last 4 blocks);
+  * Depth-Anything V2 ViT-Giant (F=1536, 40 blocks, 24 heads x 64, SwiGLU
+    hidden 4096, reassembly 1536 x 4, fusion 384) at 504x504;
   * MiDaS v3.1 BEiT-L-512 (F=1024, 24 blocks, 16 heads x 64, patch 16,
     relative-position bias in every block): max side 512 gives 512x512
     (1025 tokens), max side 1024 gives 1024x1024 (4097 tokens);
@@ -18,7 +24,7 @@ original-format checkpoint and loaded through ``make_dpt_from_state_dict``:
     max side 512 gives 512x512, where the window search picks 32 (A=1024)
     at stages 1-3 and 16 at stage 4.
 
-Two CUDA kernels port five TPU kernels; the ``kernels`` JSON line has one
+Four CUDA kernels port seven TPU kernels; the ``kernels`` JSON line has one
 entry per TPU kernel:
   #1 fused qkv, unbiased  -- the Depth-Anything path;
   #2 fused qkv, biased    -- the BEiT path (cached bias stack or inline bias);
@@ -28,7 +34,15 @@ entry per TPU kernel:
      ``flash_attention`` op (the drop-in for dot_product_attention); no model
      of the port calls it, since the port serves every BEiT grid through #2.
      Its path is that op, driven at BEiT-L-512's attention shape (#4) and
-     past 32768 keys (#5, the online kernel's regime).
+     past 32768 keys (#5, the online kernel's regime);
+  #8 fused LayerNorm -> MLP -> LayerScale residual (csrc/fused_mlp.cu) and
+  #9 fused head tail, 3x3 conv -> ReLU -> 1x1 -> ReLU or sigmoid
+     (csrc/head_tail.cu): as in the JAX package, no model serves through
+     them. Their paths hold them against the DA models' own layers:
+     ``Block.mlp_residual`` of DA-V1 ViT-L's blocks 0, 11 and 23 on the
+     residual stream after each block's attention (#8), ``Head.tail`` of
+     the DA-V1 and DA-V2-metric ViT-L heads on the head's own input (#9),
+     at B=1 and B=8, with CUDA-event times against those composites.
 
 Phases, in order; each prints its lines and the seconds it took, and any
 failure raises:
@@ -49,8 +63,19 @@ failure raises:
      build included;
   9. SwinV2-L-384 float32 kernel model vs plain model, cached and inline
      CPB and masks;
-  10. the (B, N, H, D) op path.
-Then one JSON line of per-kernel results, the card line, and last the ok line.
+  10. the (B, N, H, D) op path;
+  11. #8 and #9 vs their plain versions (#8 at F = 384, 768, 1024 and
+      100, 1297, 8 x 1297 and 1025 rows; #9 at ci = 32, 64, 128, 192, at
+      504x504 with B=1 and 8, 37x52 and 392x518, ReLU and sigmoid), float32
+      and bfloat16, then CUDA-event times of both, in turns;
+  12. DA-V1 ViT-L bf16 serving and f32 parity as 4-5, then #8 and #9 on its
+      blocks and head (bf16 serving model and f32 kernel model);
+  13. DA-V2-metric ViT-L bf16 serving (depth in (0, 1)), #9 on its head;
+  14. DA-V2 ViT-Giant bf16 serving (40 launches per forward) and f32 parity.
+Then one JSON line of per-kernel results (each with its bound: the larger of
+the bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
+for bf16, 67 TFLOP/s for f32; and, where one PyTorch call computes the same
+function, that call's time), the card line, and last the ok line.
 
 Imports only torch, numpy and the port: never jax or the JAX package."""
 
@@ -67,6 +92,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from muggled_dpt_tpu_torch.checkpoints.beit import random_original_state_dict as random_beit_state_dict
 from muggled_dpt_tpu_torch.checkpoints.random_init import random_original_depth_anything_state_dict
@@ -74,6 +100,8 @@ from muggled_dpt_tpu_torch.checkpoints.swinv2 import random_original_state_dict 
 from muggled_dpt_tpu_torch.make_dpt import make_dpt_from_state_dict
 from muggled_dpt_tpu_torch.models.swinv2 import shift_mask, stage_grids, window_plan
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
+from muggled_dpt_tpu_torch.ops.kernels import fused_mlp as fm
+from muggled_dpt_tpu_torch.ops.kernels import head_tail as ht
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 
 VITL = {
@@ -92,6 +120,15 @@ BEIT_L512 = {  # MiDaS v3.1 dpt_beit_large_512
     "fusion_channels": 256,
     "patch_size_px": 16,
     "base_patch_grid_hw": (32, 32),
+}
+VITG = {  # Depth-Anything V2 ViT-Giant
+    "features_per_token": 1536,
+    "num_blocks": 40,
+    "reassembly_features_list": [1536, 1536, 1536, 1536],
+    "fusion_channels": 384,
+    "patch_size_px": 14,
+    "base_patch_grid_hw": (37, 37),
+    "is_giant": True,
 }
 SWIN_L384 = {  # MiDaS v3.1 dpt_swin2_large_384
     "features_per_stage": [192, 384, 768, 1536],
@@ -117,11 +154,27 @@ N_BEIT = 1 + (512 // 16) ** 2  # 1025
 N_ONLINE = 32897  # past the JAX package's 32768-key one-pass ceiling
 SEED = 0
 DEVICE = "cuda"
+MLP_WIDTHS = (384, 768, 1024)  # ViT-S, B and L: F, with the hidden width 4F
+MLP_ROWS = (100, N_TOKENS, 8 * N_TOKENS, N_BEIT)
+HEAD_CHANNELS = (32, 64, 128, 192)  # the tail's input: half of fusion 64 (ViT-S), 128 (B), 256 (L), 384 (Giant)
+HEAD_SIZES = ((1, 504, 504), (8, 504, 504), (1, 37, 52), (1, 392, 518))
+TAP_BLOCKS = (0, 11, 23)  # DA-V1 ViT-L blocks whose second half #8 is held against
 
 # tolerances of the kernel against its plain version on the same inputs
 F32_MAX_ERR = 1e-4  # f32 FMAs in another summation order
 BF16_MAX_ERR, BF16_MEAN_ERR = 2e-2, 2e-3  # p rounded to bf16 before PV, bf16 output
 ABS_REL_BUDGET = 1e-3  # whole-model f32 budget of the repo
+# #8 and #9, whose outputs are not bounded as attention's are: relative to the
+# reference's largest magnitude (max) and mean magnitude (mean)
+F32_REL_ERR = 1e-4  # f32 sums in another order
+BF16_REL_MAX, BF16_REL_MEAN = 1.6e-2, 2e-3  # same rounding points: two bf16 ulps at the top, rare flips
+# against the model's own bf16 composite, which also rounds fc1's output,
+# fc2's output, the LayerScale product (#8) and the conv output (#9) to bf16
+COMPOSITE_BF16_REL_MAX, COMPOSITE_BF16_REL_MEAN = 5e-2, 1e-2
+
+# H100 SXM peaks for the bound: dense bf16 tensor cores, f32 FMA, HBM
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 REPLACES = {
     1: "muggled_dpt_tpu/ops/pallas/flash_attention.py:125",
@@ -129,6 +182,8 @@ REPLACES = {
     3: "muggled_dpt_tpu/ops/pallas/window_attention.py:31",
     4: "muggled_dpt_tpu/ops/pallas/flash_attention.py:86",
     5: "muggled_dpt_tpu/ops/pallas/flash_attention.py:497",
+    8: "experiments/pallas_fused_mlp.py:59",
+    9: "experiments/pallas_head_conv.py:52",
 }
 NAMES = {
     1: "flash_attention_fused_qkv",
@@ -136,7 +191,11 @@ NAMES = {
     3: "window_attention (factored CPB bias + shift mask)",
     4: "flash_attention (B, N, H, D)",
     5: "flash_attention (B, N, H, D), past 32768 keys",
+    8: "fused_ln_mlp_residual (LayerNorm -> fc1 -> GELU -> fc2 -> LayerScale residual)",
+    9: "fused_head_tail (3x3 conv -> ReLU -> 1x1 conv -> ReLU or sigmoid)",
 }
+SOURCES = {1: "flash_attention", 2: "flash_attention", 3: "window_attention", 4: "flash_attention", 5: "flash_attention",
+           8: "fused_mlp", 9: "head_tail"}
 
 
 def card_line() -> str:
@@ -187,6 +246,27 @@ def padded_stack(rng, layers, n, dtype):
     return stack
 
 
+def timed_pair(smi, what, kernel, plain, library=None, iters=30, warmup=5):
+    """CUDA-event times of a kernel and its plain version, in turns (plain,
+    kernel, kernel, plain), then of ``library`` (one PyTorch call that
+    computes the same function, or None). Prints them; returns the faster of
+    each pair and the library time: (ms, plain_ms, library_ms)."""
+    p1, k1, k2, p2 = (time_ms(f, iters, warmup) for f in (plain, kernel, kernel, plain))
+    lib = None if library is None else time_ms(library, iters, warmup)
+    extra = "" if lib is None else f", library call {lib:.4f} ms"
+    print(f"kernel time {what}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms{extra} [{smi}]", flush=True)
+    return min(k1, k2), min(p1, p2), lib
+
+
+def window_sdpa_inputs(q, k, v, cpb, mask):
+    """The window attention as one SDPA call takes it: (B nW, H, A, D)
+    copies of q, k and v and the (B nW, H, A, A) sum of cpb and mask."""
+    b, nw, a, h, d = q.shape
+    q4, k4, v4 = (t.permute(0, 1, 3, 2, 4).reshape(b * nw, h, a, d) for t in (q, k, v))
+    bias = cpb[None].expand(nw, h, a, a) if mask is None else cpb[None] + mask[:, None]
+    return q4, k4, v4, bias.to(q.dtype)[None].expand(b, nw, h, a, a).reshape(b * nw, h, a, a)
+
+
 def time_ms(fn, iters=30, warmup=5) -> float:
     """Median of per-launch CUDA-event times, after warm-up."""
     for _ in range(warmup):
@@ -204,25 +284,36 @@ def time_ms(fn, iters=30, warmup=5) -> float:
 
 class Checker:
     """Holds each kernel against its plain version and keeps each TPU
-    kernel's worst error."""
+    kernel's worst error. ``relative``: the #8 / #9 gates, relative to the
+    reference's magnitude; ``composite``: the reference is the model's own
+    bf16 layer, not the plain version (gated, not kept as the worst)."""
 
     def __init__(self):
-        self.worst = {1: 0.0, 2: 0.0, 3: 0.0, 4: 0.0, 5: 0.0}
+        self.worst = {kid: 0.0 for kid in NAMES}
 
-    def __call__(self, kid, label, got, ref, shape):
+    def __call__(self, kid, label, got, ref, shape, relative=False, composite=False):
         torch.cuda.synchronize()
         got, ref = got.float(), ref.float()
         err = (got - ref).abs()
         max_err, mean_err = float(err.max()), float(err.mean())
         ok = bool(torch.isfinite(got).all()) and tuple(got.shape) == tuple(shape)
-        if label.startswith("float32"):
-            ok = ok and max_err <= F32_MAX_ERR
+        f32 = label.startswith("float32")
+        if relative:
+            top, mean_ref = float(ref.abs().max()), float(ref.abs().mean())
+            tol_max, tol_mean = ((F32_REL_ERR, F32_REL_ERR) if f32 else
+                                 (COMPOSITE_BF16_REL_MAX, COMPOSITE_BF16_REL_MEAN) if composite else (BF16_REL_MAX, BF16_REL_MEAN))
+            ok = ok and max_err <= tol_max * top and mean_err <= tol_mean * mean_ref
+            scale = f" (max|ref|={top:.3e}, mean|ref|={mean_ref:.3e})"
         else:
-            ok = ok and max_err <= BF16_MAX_ERR and mean_err <= BF16_MEAN_ERR
-        print(f"kernel check #{kid} {label}: max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e}", flush=True)
+            ok = ok and (max_err <= F32_MAX_ERR if f32 else max_err <= BF16_MAX_ERR and mean_err <= BF16_MEAN_ERR)
+            scale = ""
+        what = "the model's composite" if composite else "its plain version"
+        print(f"kernel check #{kid} {label}{' vs composite' if composite else ''}: max_abs_err={max_err:.3e} "
+              f"mean_abs_err={mean_err:.3e}{scale}", flush=True)
         if not ok:
-            raise RuntimeError(f"kernel #{kid} disagrees with its plain version at {label}")
-        self.worst[kid] = max(self.worst[kid], max_err)
+            raise RuntimeError(f"kernel #{kid} disagrees with {what} at {label}")
+        if not composite:
+            self.worst[kid] = max(self.worst[kid], max_err)
 
 
 def make_windows(rng, b, nw, window_hw, h, dtype, bias_dtype, with_mask, views=False):
@@ -357,27 +448,30 @@ def phase_kernel(smi: str) -> dict:
             q, k, v = _split(qkv)
             bias = stack[layers - 1][None]  # a (1, H, Np, Np) layer of the padded stack, as BEiT hands it over
             last = {"bias_stack": stack, "layer": layers - 1}
+            mask = stack[layers - 1][None, :, :N_BEIT, :N_BEIT]  # the same layer as the SDPA mask
+            sdpa_da = [t.transpose(1, 2) for t in _split(qkv_da)]
+            sdpa_beit = [t.transpose(1, 2) for t in (q, k, v)]
             pairs = {
                 (1, f"fused N={N_TOKENS}"): (lambda: fa.flash_attention_fused_qkv(qkv_da, HEADS),
-                                             lambda: fa.flash_attention_fused_qkv_reference(qkv_da, HEADS)),
+                                             lambda: fa.flash_attention_fused_qkv_reference(qkv_da, HEADS),
+                                             lambda: F.scaled_dot_product_attention(*sdpa_da)),
                 (2, f"fused N={N_BEIT} stack layer {layers - 1}"): (
                     lambda: fa.flash_attention_fused_qkv(qkv, HEADS, **last),
-                    lambda: fa.flash_attention_fused_qkv_reference(qkv, HEADS, **last)),
+                    lambda: fa.flash_attention_fused_qkv_reference(qkv, HEADS, **last),
+                    lambda: F.scaled_dot_product_attention(*sdpa_beit, attn_mask=mask)),
                 (4, f"(B,N,H,D) views N={N_BEIT} bias (1,H,Np,Np) stack layer"): (
-                    lambda: fa.flash_attention(q, k, v, bias=bias), lambda: fa.flash_attention_reference(q, k, v, bias=bias)),
+                    lambda: fa.flash_attention(q, k, v, bias=bias), lambda: fa.flash_attention_reference(q, k, v, bias=bias),
+                    lambda: F.scaled_dot_product_attention(*sdpa_beit, attn_mask=mask)),
             }
-            for (kid, what), (kernel, plain) in pairs.items():
-                p1, k1, k2, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)  # in turns
-                times[(kid, dtype, b)] = (min(k1, k2), min(p1, p2))
-                print(f"kernel time #{kid} {name} B={b} {what} H={HEADS} D={HEAD_DIM}: "
-                      f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms [{smi}]", flush=True)
+            for (kid, what), (kernel, plain, library) in pairs.items():
+                times[(kid, dtype, b)] = timed_pair(smi, f"#{kid} {name} B={b} {what} H={HEADS} D={HEAD_DIM}", kernel, plain,
+                                                    library)
         del stack
         q, k, v = (make_bias(rng, (1, N_ONLINE, 2, HEAD_DIM), dtype) for _ in range(3))
         kernel, plain = (lambda: fa.flash_attention(q, k, v)), (lambda: fa.flash_attention_reference(q, k, v))
-        p1, k1, k2, p2 = (time_ms(f, iters=5, warmup=1) for f in (plain, kernel, kernel, plain))
-        times[(5, dtype, 1)] = (min(k1, k2), min(p1, p2))
-        print(f"kernel time #5 {name} B=1 N={N_ONLINE} H=2 D={HEAD_DIM}: "
-              f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms [{smi}]", flush=True)
+        library = lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))  # noqa: E731
+        times[(5, dtype, 1)] = timed_pair(smi, f"#5 {name} B=1 N={N_ONLINE} H=2 D={HEAD_DIM}", kernel, plain, library,
+                                          iters=5, warmup=1)
         del q, k, v
         # #3 at each SwinV2-L-384 stage shape, the bias in the model's dtype
         for b in (1, 8):
@@ -385,15 +479,16 @@ def phase_kernel(smi: str) -> dict:
                 a = window_hw[0] * window_hw[1]
                 args = make_windows(rng, b, nw, window_hw, h, dtype, dtype, with_mask, views=True)
                 kernel, plain = (lambda: wa.window_attention(*args)), (lambda: wa.window_attention_reference(*args))
-                p1, k1, k2, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)  # in turns
-                times[(3, dtype, b, s)] = (min(k1, k2), min(p1, p2))
-                print(f"kernel time #3 {name} B={b} stage {s} nW={nw} A={a} H={h} D={SWIN_D}{' mask' if with_mask else ''}: "
-                      f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms [{smi}]", flush=True)
+                sdpa_args = window_sdpa_inputs(*args)  # contiguous (B nW, H, A, D) and the summed bias, built untimed
+                library = lambda: F.scaled_dot_product_attention(*sdpa_args[:3], attn_mask=sdpa_args[3], scale=1.0)  # noqa: E731
+                what = f"#3 {name} B={b} stage {s} nW={nw} A={a} H={h} D={SWIN_D}{' mask' if with_mask else ''}"
+                times[(3, dtype, b, s)] = timed_pair(smi, what, kernel, plain, library)
+                del args, sdpa_args
         torch.cuda.empty_cache()
     # the JSON line carries the bf16 serving shape of each kernel (#3: stage 1, the most windows)
     at = {1: (8,), 2: (8,), 3: (8, 1), 4: (8,), 5: (1,)}
-    return {kid: {"max_abs_err": check.worst[kid], "ms": times[(kid, torch.bfloat16, *key)][0],
-                  "plain_ms": times[(kid, torch.bfloat16, *key)][1]} for kid, key in at.items()}
+    return {kid: {"max_abs_err": check.worst[kid], **dict(zip(("ms", "plain_ms", "library_ms"), times[(kid, torch.bfloat16, *key)]))}
+            for kid, key in at.items()}
 
 
 def _abs_rel(ours: torch.Tensor, ref: torch.Tensor) -> float:
@@ -470,7 +565,8 @@ def phase_da_model(smi: str, ckpt: str):
 
 
 def parity(ckpt, frame, side, out_hw, route, blocks, what, bf16_depth, cache_modes=(True,)):
-    """f32 kernel model vs f32 plain model on the same checkpoint and frame."""
+    """f32 kernel model vs f32 plain model on the same checkpoint and frame.
+    Returns the f32 kernel model."""
     _, m_kernel = make_dpt_from_state_dict(ckpt, dtype=torch.float32, device=DEVICE, enable_optimizations=True)
     _, m_plain = make_dpt_from_state_dict(ckpt, dtype=torch.float32, device=DEVICE, enable_optimizations=False)
     _, m_plain_bf16 = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE, enable_optimizations=False)
@@ -488,6 +584,7 @@ def parity(ckpt, frame, side, out_hw, route, blocks, what, bf16_depth, cache_mod
               f"vs f32 plain, not gated: bf16 kernel model {rel_bf16:.3e}, bf16 plain model {rel_plain_bf16:.3e}", flush=True)
         if not rel <= ABS_REL_BUDGET:
             raise RuntimeError(f"{what}: f32 kernel model disagrees with the plain model: abs-rel {rel:.3e}")
+    return m_kernel
 
 
 def phase_beit_model(smi: str, ckpt: str):
@@ -564,6 +661,204 @@ def phase_bnhd_path(smi: str) -> tuple[int, int]:
     return at_beit, online
 
 
+def mlp_inputs(rng, shape, dtype):
+    """Tokens N(0, 1) and a GELU block's norm2, fc1, fc2 and ls2 in torch
+    layout, drawn with numpy; fc1 and fc2 scaled by 1/sqrt(fan-in)."""
+    f = shape[-1]
+    params = [((f,), 0.05, 1.0), ((f,), 0.05, 0.0), ((4 * f, f), f**-0.5, 0.0), ((4 * f,), 0.05, 0.0),
+              ((f, 4 * f), (4 * f) ** -0.5, 0.0), ((f,), 0.05, 0.0), ((f,), 0.05, 1.0)]  # (shape, scale, shift)
+    return make_bias(rng, shape, dtype), [make_bias(rng, s, dtype, scale, shift) for s, scale, shift in params]
+
+
+def head_inputs(rng, b, ci, h, w, dtype):
+    """An NCHW map N(0, 1) and a head tail's weights in torch layout, drawn
+    with numpy: the 3x3 conv scaled by 1/sqrt(9 ci), the projection bias 2
+    (most outputs positive, as the synthetic checkpoints' heads)."""
+    params = [((32, ci, 3, 3), (9 * ci) ** -0.5, 0.0), ((32,), 0.1, 0.0), ((1, 32, 1, 1), 0.3, 0.0), ((1,), 1.0, 2.0)]
+    return make_bias(rng, (b, ci, h, w), dtype), [make_bias(rng, s, dtype, scale, shift) for s, scale, shift in params]
+
+
+def mlp_shape(rows: int, f: int) -> tuple:
+    """(B, N, F) for a row count: 8 x 1297 as the batch of 8 it is."""
+    return (8, N_TOKENS, f) if rows == 8 * N_TOKENS else (1, rows, f)
+
+
+def phase_fused_kernels(smi: str) -> dict:
+    """#8 and #9 vs their plain versions at the paths' widths and edge cases,
+    float32 and bfloat16, then CUDA-event times of both, in turns."""
+    rng = np.random.default_rng(SEED + 4)
+    check = Checker()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for f in MLP_WIDTHS:
+            for rows in MLP_ROWS:
+                x, params = mlp_inputs(rng, mlp_shape(rows, f), dtype)
+                check(8, f"{name} rows={rows} F={f} H={4 * f}", fm.fused_ln_mlp_residual(x, *params),
+                      fm.fused_ln_mlp_residual_reference(x, *params), x.shape, relative=True)
+        for ci in HEAD_CHANNELS:
+            for b, h, w in HEAD_SIZES:
+                x, params = head_inputs(rng, b, ci, h, w, dtype)
+                for metric in (False, True):
+                    check(9, f"{name} B={b} ci={ci} {h}x{w} {'sigmoid' if metric else 'relu'}",
+                          ht.fused_head_tail(x, *params, metric), ht.fused_head_tail_reference(x, *params, metric), (b, h, w),
+                          relative=True)
+        torch.cuda.empty_cache()
+    times = {}
+    f, ci = VITL["features_per_token"], VITL["fusion_channels"] // 2  # ViT-L's block and head tail
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for b in (1, 8):
+            x, params = mlp_inputs(rng, (b, N_TOKENS, f), dtype)
+            times[(8, dtype, b)] = timed_pair(smi, f"#8 {name} B={b} N={N_TOKENS} F={f} H={4 * f}",
+                                              lambda: fm.fused_ln_mlp_residual(x, *params),
+                                              lambda: fm.fused_ln_mlp_residual_reference(x, *params))
+            x, params = head_inputs(rng, b, ci, *OUT_HW, dtype)
+            times[(9, dtype, b)] = timed_pair(smi, f"#9 {name} B={b} ci={ci} {OUT_HW[0]}x{OUT_HW[1]} relu",
+                                              lambda: ht.fused_head_tail(x, *params), lambda: ht.fused_head_tail_reference(x, *params))
+            del x, params
+        torch.cuda.empty_cache()
+    return {kid: {"max_abs_err": check.worst[kid], **dict(zip(("ms", "plain_ms", "library_ms"), times[(kid, torch.bfloat16, 8)]))}
+            for kid in (8, 9)}
+
+
+def capture(model, frames, blocks):
+    """Run the model on a (B, H, W, 3) frame stack at the DA serving size
+    and return the input of each listed block (a forward pre-hook) and of
+    the head's tail (Head.tail wrapped for the run)."""
+    net, got = model.net, {}
+    hooks = [net.encoder.blocks[i].register_forward_pre_hook(lambda m, args, i=i: got.__setitem__(i, args[0])) for i in blocks]
+    tail = net.head.tail
+    net.head.tail = lambda x: tail(got.setdefault("head", x))
+    try:
+        model.inference_rgb_device(frames, OUT_HW)
+        torch.cuda.synchronize()
+    finally:
+        del net.head.tail
+        for hook in hooks:
+            hook.remove()
+    return got
+
+
+def hold_on_model(smi, model, what, stacks, check, blocks=None, times=None) -> dict:
+    """#8 against ``Block.mlp_residual`` of each listed block on the residual
+    stream after that block's attention, and #9 against ``Head.tail`` on the
+    head's own input, for each frame stack (B=1 and B=8). The kernels'
+    launches are counted on their own (with every count zeroed first) and
+    returned; each kernel output is then held against the plain version and
+    the model's composite. ``times``: a dict to fill with CUDA-event times,
+    kernel vs composite (block 11 and the head), in turns."""
+    name, net = str(model.dtype)[6:], model.net
+    blocks = TAP_BLOCKS if blocks is None else blocks
+    launches = {"fused_mlp": 0, "head_tail": 0}
+    with torch.inference_mode(), model._precision():  # f32: no TF32 in the composites' GEMMs and convs
+        for frames in stacks:
+            b = frames.shape[0]
+            got = capture(model, frames, blocks)
+            tokens = {i: net.encoder.blocks[i].attention_residual(got[i]) for i in blocks}
+            head, hx = net.head, got["head"].contiguous()
+            mlp_args = {}
+            for i in blocks:
+                blk = net.encoder.blocks[i]
+                mlp_args[i] = (tokens[i], blk.norm2.weight, blk.norm2.bias, blk.mlp.fc1.weight, blk.mlp.fc1.bias,
+                               blk.mlp.fc2.weight, blk.mlp.fc2.bias, blk.ls2)
+            head_args = (hx, head.conv_mid.weight, head.conv_mid.bias, head.proj.weight, head.proj.bias, head.is_metric)
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()  # count this path's launches only
+            outs = {i: fm.fused_ln_mlp_residual(*mlp_args[i]) for i in blocks}
+            out_head = ht.fused_head_tail(*head_args)
+            torch.cuda.synchronize()
+            counts = fa.launch_counts()
+            if counts != {**{r: 0 for r in counts}, "fused_mlp": len(blocks), "head_tail": 1}:
+                raise RuntimeError(f"{what} B={b}: launches {counts}, want {len(blocks)} fused_mlp and 1 head_tail")
+            for r in launches:
+                launches[r] += counts[r]
+            for i in blocks:
+                label = f"{name} {what} B={b} block {i} rows={tokens[i].shape[0] * tokens[i].shape[1]}"
+                check(8, label, outs[i], fm.fused_ln_mlp_residual_reference(*mlp_args[i]), tokens[i].shape, relative=True)
+                check(8, label, outs[i], net.encoder.blocks[i].mlp_residual(tokens[i]), tokens[i].shape, relative=True,
+                      composite=True)
+            label = f"{name} {what} B={b} head ci={hx.shape[1]} {hx.shape[2]}x{hx.shape[3]} {'sigmoid' if head.is_metric else 'relu'}"
+            shape = (b, *hx.shape[2:])
+            check(9, label, out_head, ht.fused_head_tail_reference(*head_args), shape, relative=True)
+            check(9, label, out_head, head.tail(hx), shape, relative=True, composite=True)
+            if times is not None:
+                i = blocks[len(blocks) // 2]
+                times[(8, model.dtype, b)] = timed_pair(smi, f"#8 {name} {what} B={b} block {i} vs Block.mlp_residual",
+                                                        lambda: fm.fused_ln_mlp_residual(*mlp_args[i]),
+                                                        lambda: net.encoder.blocks[i].mlp_residual(tokens[i]))
+                times[(9, model.dtype, b)] = timed_pair(smi, f"#9 {name} {what} B={b} head vs Head.tail",
+                                                        lambda: ht.fused_head_tail(*head_args), lambda: head.tail(hx))
+            del got, tokens, mlp_args, outs, hx, head_args, out_head
+            torch.cuda.empty_cache()
+    print(f"{what} {name}: #8 held against blocks {blocks}, #9 against the head, at B={[f.shape[0] for f in stacks]}; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def frame_stacks():
+    """One frame (B=1) and a batch of 8, RGB uint8 on the card."""
+    rng = np.random.default_rng(SEED + 5)
+    frames = torch.from_numpy(rng.integers(0, 256, (8, *FRAME_HW, 3), dtype=np.uint8)).to(DEVICE)
+    return frames[:1], frames
+
+
+def phase_da_v1(smi: str, ckpt: str, check: Checker, times: dict):
+    """DA-V1 ViT-L: bf16 serving, f32 parity, then #8 and #9 held against its
+    blocks and head (bf16 serving model, with times; f32 kernel model)."""
+    _, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE)
+    if model.net.encoder.taps != tuple(range(VITL["num_blocks"] - 4, VITL["num_blocks"])):
+        raise RuntimeError(f"DA-V1: {ckpt} did not load as V1 (taps {model.net.encoder.taps})")
+    fa.reset_launch_counts()  # count the path's run only
+    depth, frame = serve(smi, model, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V1 ViT-L")
+    flash = fa.flash_attention_fused_qkv.launches
+    m_f32 = parity(ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V1 ViT-L", depth)
+    stacks = frame_stacks()
+    launches = hold_on_model(smi, model, "DA-V1 ViT-L", stacks, check, times=times)
+    del model
+    torch.cuda.empty_cache()
+    for r, n in hold_on_model(smi, m_f32, "DA-V1 ViT-L", stacks, check).items():
+        launches[r] += n
+    return flash, launches
+
+
+def phase_metric(smi: str, ckpt: str, check: Checker):
+    """DA-V2-metric ViT-L: bf16 serving, depth in [0, 1] (bf16 rounds a
+    sigmoid above 1 - 2**-9 to 1), then one f32 request, depth strictly in
+    (0, 1); #9 held against the (sigmoid) head of both models."""
+    cfg, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE)
+    if not (cfg["is_metric"] and model.net.head.is_metric):
+        raise RuntimeError(f"DA-V2-metric: {ckpt} did not load as a metric model")
+    fa.reset_launch_counts()
+    depth, frame = serve(smi, model, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V2-metric ViT-L")
+    _, m_f32 = make_dpt_from_state_dict(ckpt, dtype=torch.float32, device=DEVICE)
+    d32 = m_f32.inference(frame, MAX_SIDE)
+    ranges = [(float(d.min()), float(d.max()), float((d == 1).float().mean())) for d in (depth, d32)]
+    print(f"DA-V2-metric ViT-L depth: bf16 in [{ranges[0][0]:.6f}, {ranges[0][1]:.6f}] ({ranges[0][2]:.2%} at 1.0), "
+          f"f32 in [{ranges[1][0]:.6f}, {ranges[1][1]:.6f}]", flush=True)
+    if not (0.0 <= ranges[0][0] <= ranges[0][1] <= 1.0 and 0.0 < ranges[1][0] <= ranges[1][1] < 1.0):
+        raise RuntimeError(f"DA-V2-metric: depth outside the sigmoid's range: {ranges}")
+    stacks = frame_stacks()
+    launches = hold_on_model(smi, model, "DA-V2-metric ViT-L", stacks, check, blocks=())
+    del model
+    torch.cuda.empty_cache()
+    launches["head_tail"] += hold_on_model(smi, m_f32, "DA-V2-metric ViT-L", stacks, check, blocks=())["head_tail"]
+    return launches
+
+
+def phase_giant(smi: str, ckpt: str):
+    """DA-V2 ViT-Giant: bf16 serving (40 launches per forward) and f32 parity."""
+    cfg, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE)
+    if not cfg["is_giant"] or cfg["num_heads"] != 24:
+        raise RuntimeError(f"DA-V2 ViT-Giant: {ckpt} loaded as {cfg}")
+    fa.reset_launch_counts()
+    depth, frame = serve(smi, model, MAX_SIDE, OUT_HW, "fused", VITG["num_blocks"], "DA-V2 ViT-Giant")
+    launches = fa.flash_attention_fused_qkv.launches
+    del model
+    torch.cuda.empty_cache()
+    parity(ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITG["num_blocks"], "DA-V2 ViT-Giant", depth)
+    return launches
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -576,17 +871,54 @@ def write_checkpoint(sd: dict, path: str) -> str:
     return path
 
 
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take (bf16): operations over the dense
+    bf16 peak or bytes over HBM's rate, whichever is larger."""
+    t_ops, t_bytes = ops / PEAK_FLOPS[torch.bfloat16] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def bounds() -> dict:
+    """Each kernel's bound at the shape its JSON entry was timed at, all
+    bf16, from shape arithmetic: every input read once, every output written
+    once; attention 4 B H N^2 D operations (QK^T and PV); #8 the two GEMMs,
+    4 rows F H; #9 the 3x3 conv and the projection, 2 B H W 32 (9 ci + 1)."""
+    e = 2  # bytes per bf16 element
+
+    def attention(b, n, h, d, bias_elements=0):  # q, k and v read, out written, the bias's N x N read
+        return bound(4 * b * h * n * n * d, (4 * b * n * h * d + bias_elements) * e)
+
+    nw, (wh, ww), sh, _ = SWIN_STAGES[0]
+    a = wh * ww
+    rows, f = 8 * N_TOKENS, VITL["features_per_token"]
+    b, ci, (hh, hw) = 8, VITL["fusion_channels"] // 2, OUT_HW
+    return {
+        1: attention(8, N_TOKENS, HEADS, HEAD_DIM),
+        2: attention(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2),
+        3: bound(4 * 8 * nw * sh * a * a * SWIN_D, (4 * 8 * nw * a * sh * SWIN_D + sh * a * a + nw * a * a) * e),
+        4: attention(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2),
+        5: attention(1, N_ONLINE, 2, HEAD_DIM),
+        8: bound(4 * rows * f * 4 * f, (2 * rows * f + 2 * f * 4 * f + 4 * f + 4 * f) * e),
+        9: bound(2 * b * hh * hw * 32 * (9 * ci + 1), (b * ci * hh * hw + b * hh * hw + 32 * (9 * ci + 3) + 1) * e),
+    }
+
+
 def main() -> int:
+    t0 = time.perf_counter()
     smi = timed("device", phase_device)
     timed("build", phase_build)
     numbers = timed("kernel checks and times", phase_kernel, smi)
-    launches = {}
+    numbers.update(timed("fused MLP and head tail checks and times", phase_fused_kernels, smi))
+    launches, check, composite = {}, Checker(), {}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = write_checkpoint(random_original_depth_anything_state_dict(VITL, seed=SEED),
                                 os.path.join(tmp, "depth_anything_v2_vitl_random.pth"))
         launches[1], depth, frame = timed("DA-V2 model", phase_da_model, smi, ckpt)
         timed("DA-V2 f32 parity", parity, ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V2 ViT-L", depth)
-        os.remove(ckpt)
+        metric = os.path.join(tmp, "depth_anything_v2_metric_hypersim_vitl_random.pth")
+        os.replace(ckpt, metric)  # the same weights: only the file name makes the metric head
+        head_launches = timed("DA-V2-metric model and #9 on its head", phase_metric, smi, metric, check)
+        os.remove(metric)
         ckpt = write_checkpoint(random_beit_state_dict(BEIT_L512, seed=SEED), os.path.join(tmp, "dpt_beit_large_512_random.pt"))
         launches[2], depth, frame, err = timed("BEiT model", phase_beit_model, smi, ckpt)
         numbers[2]["max_abs_err"] = max(numbers[2]["max_abs_err"], err)
@@ -597,20 +929,37 @@ def main() -> int:
         launches[3], depth, frame = timed("SwinV2 model", phase_swin_model, smi, ckpt)
         timed("SwinV2 f32 parity", parity, ckpt, frame, SWIN_SIDE, SWIN_HW, "window", SWIN_BLOCKS, "SwinV2-L-384", depth,
               (True, False))
-    launches[4], launches[5] = timed("(B, N, H, D) op path", phase_bnhd_path, smi)
+        os.remove(ckpt)
+        launches[4], launches[5] = timed("(B, N, H, D) op path", phase_bnhd_path, smi)
+        ckpt = write_checkpoint(random_original_depth_anything_state_dict(VITL, seed=SEED + 1),
+                                os.path.join(tmp, "depth_anything_vitl14.pth"))
+        flash_v1, fused = timed("DA-V1 model, f32 parity, #8 and #9 on its layers", phase_da_v1, smi, ckpt, check, composite)
+        os.remove(ckpt)
+        ckpt = write_checkpoint(random_original_depth_anything_state_dict(VITG, seed=SEED),
+                                os.path.join(tmp, "depth_anything_v2_vitg_random.pth"))
+        flash_giant = timed("DA-V2 ViT-Giant model and f32 parity", phase_giant, smi, ckpt)
+    launches[8] = fused["fused_mlp"]
+    launches[9] = fused["head_tail"] + head_launches["head_tail"]
+    print(f"flash launches on the DA-V1 and Giant paths: {flash_v1}, {flash_giant}", flush=True)
+    for kid in (8, 9):
+        numbers[kid]["max_abs_err"] = max(numbers[kid]["max_abs_err"], check.worst[kid])
+        numbers[kid]["composite_ms"] = composite[(kid, torch.bfloat16, 8)][1]  # the model's own unfused layers
+    limits = bounds()
     kernels = [
         {
             "name": NAMES[kid],
             "route": "cuda",
-            "source": f"muggled_dpt_tpu_torch/csrc/{'window_attention' if kid == 3 else 'flash_attention'}.cu",
+            "source": f"muggled_dpt_tpu_torch/csrc/{SOURCES[kid]}.cu",
             "replaces": REPLACES[kid],
             "launches": launches[kid],
             **numbers[kid],
+            **limits[kid],
         }
-        for kid in (1, 2, 3, 4, 5)
+        for kid in NAMES
     ]
     if not all(k["launches"] > 0 for k in kernels):
         raise RuntimeError(f"a kernel of the paths never launched: {kernels}")
+    print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

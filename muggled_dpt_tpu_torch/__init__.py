@@ -1,15 +1,22 @@
 """muggled_dpt_tpu_torch -- the PyTorch + CUDA port of muggled_dpt_tpu for
 NVIDIA Hopper (H100).
 
-Depth-Anything V2, MiDaS v3.1 BEiT and MiDaS v3.1 SwinV2 run end to end:
-original checkpoints load unchanged, plain torch ops carry the GEMMs, norms,
-convolutions and resizes, and attention goes through hand-written CUDA
-kernels built by nvcc at first use: ``csrc/flash_attention.cu`` (DA, and
-BEiT with its relative-position bias) and ``csrc/window_attention.cu``
-(SwinV2's window attention with its CPB bias and shift mask). The package imports neither jax nor ``muggled_dpt_tpu``."""
+Depth-Anything V1 and V2 (ViT-S/B/L/Giant, metric head), MiDaS v3.1 BEiT and
+MiDaS v3.1 SwinV2 run end to end: original checkpoints load unchanged, plain
+torch ops carry the GEMMs, norms, convolutions and resizes, and attention goes
+through hand-written CUDA kernels built by nvcc at first use:
+``csrc/flash_attention.cu`` (DA, and BEiT with its relative-position bias) and
+``csrc/window_attention.cu`` (SwinV2's window attention with its CPB bias and
+shift mask). Two more kernels stand beside the models' own layers:
+``csrc/fused_mlp.cu`` (LayerNorm -> MLP -> LayerScale residual, the second half
+of a GELU block) and ``csrc/head_tail.cu`` (the depth head's last 3x3 conv,
+ReLU, 1x1 projection and activation). Entry points build on the CUDA card
+unless given ``device="cpu"``. The package imports neither jax nor
+``muggled_dpt_tpu``."""
 
 from .dpt import DPTModel
 from .make_beit_dpt import make_beit_dpt, make_beit_dpt_from_midas_v31_state_dict
+from .make_depthanythingv1_dpt import make_depthanythingv1_dpt, make_depthanythingv1_dpt_from_original_state_dict
 from .make_depthanythingv2_dpt import make_depthanythingv2_dpt, make_depthanythingv2_dpt_from_original_state_dict
 from .make_dpt import make_dpt_from_state_dict
 from .make_swinv2_dpt import make_swinv2_dpt, make_swinv2_dpt_from_midas_v31_state_dict
@@ -17,6 +24,8 @@ from .make_swinv2_dpt import make_swinv2_dpt, make_swinv2_dpt_from_midas_v31_sta
 __all__ = [
     "DPTModel",
     "make_dpt_from_state_dict",
+    "make_depthanythingv1_dpt",
+    "make_depthanythingv1_dpt_from_original_state_dict",
     "make_depthanythingv2_dpt",
     "make_depthanythingv2_dpt_from_original_state_dict",
     "make_beit_dpt",

@@ -1,5 +1,7 @@
-"""Depth-Anything V2 checkpoint conversion: original ``.pth`` state dicts
-(unchanged, as downloaded) -> (config dict, this package's state dict).
+"""Depth-Anything V1 and V2 checkpoint conversion: original ``.pth`` state
+dicts (unchanged, as downloaded) -> (config dict, this package's state dict).
+V1 and V2 share the format; ViT-Giant's blocks hold a SwiGLU MLP
+(``mlp.w12`` and ``mlp.w3``) where the others hold ``mlp.fc1`` and ``mlp.fc2``.
 
 Config inference and key routing follow the JAX package's
 ``muggled_dpt_tpu/checkpoints/depth_anything.py``. The port keeps torch's own
@@ -48,8 +50,6 @@ def get_config_from_state_dict(state_dict: dict, enable_cache=True, enable_optim
 
 
 def _convert_encoder(sd: dict, cfg: dict) -> dict:
-    if cfg["is_giant"]:
-        raise NotImplementedError("SwiGLU (ViT-Giant) blocks are not ported yet: ROADMAP Queue A item 7")
     heads = cfg["num_heads"]
     pos_embed = t_tensor(sd["pretrained.pos_embed"])  # (1, 1+N, F)
     out = {
@@ -66,7 +66,8 @@ def _convert_encoder(sd: dict, cfg: dict) -> dict:
         out[f"{dst}.attn.qkv.bias"] = qkv_vec_head_major(t_tensor(sd[f"{src}.attn.qkv.bias"]), heads)
         out[f"{dst}.ls1"] = t_tensor(sd[f"{src}.ls1.gamma"])
         out[f"{dst}.ls2"] = t_tensor(sd[f"{src}.ls2.gamma"])
-        for name in ("norm1", "norm2", "attn.proj", "mlp.fc1", "mlp.fc2"):
+        mlp = ("mlp.w12", "mlp.w3") if cfg["is_giant"] else ("mlp.fc1", "mlp.fc2")
+        for name in ("norm1", "norm2", "attn.proj", *mlp):
             for leaf in ("weight", "bias"):
                 out[f"{dst}.{name}.{leaf}"] = t_tensor(sd[f"{src}.{name}.{leaf}"])
     return out

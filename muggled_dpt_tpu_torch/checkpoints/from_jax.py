@@ -39,8 +39,9 @@ def _conv1x1(k):
 
 
 def params_from_jax(params_np: dict) -> dict:
-    """JAX Depth-Anything parameter tree (numpy leaves) -> this package's
-    DepthAnything state dict (float32 CPU tensors)."""
+    """JAX Depth-Anything (V1 or V2, ViT-Giant included) parameter tree
+    (numpy leaves) -> this package's DepthAnything state dict (float32 CPU
+    tensors)."""
     p = params_np
     sd = {
         "patch_embed.weight": _conv(p["patch_embed"]["kernel"]),
@@ -123,10 +124,12 @@ def swinv2_params_from_jax(params_np: dict) -> dict:
 
 
 def _block(blocks: dict, i: int) -> dict:
-    """Block i of a stacked JAX block tree, all but the qkv bias."""
+    """Block i of a stacked JAX block tree, all but the qkv bias. A SwiGLU
+    block (ViT-Giant) holds w12 and w3 where the others hold fc1 and fc2."""
     pre = f"encoder.blocks.{i}"
     sd = {}
-    linears = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    mlp = ("w12", "w3") if "w12_kernel" in blocks else ("fc1", "fc2")
+    linears = {"qkv": "attn.qkv", "proj": "attn.proj", **{name: f"mlp.{name}" for name in mlp}}
     for jax_name, name in linears.items():
         sd[f"{pre}.{name}.weight"] = _linear(blocks[f"{jax_name}_kernel"][i])
         if name != "attn.qkv":

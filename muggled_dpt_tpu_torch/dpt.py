@@ -46,11 +46,23 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32 = cudnn
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds on: ``device`` as given, or the
+    current CUDA card when it is None. Without a card, None raises: a model
+    runs on the CPU only when the caller asks for ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: the port builds on the card by default; pass device="cpu" to run on the CPU')
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def assemble_model(net_cls, config_dict: dict, state_dict: dict, family_spec: dict, dtype=torch.float32, device=None):
     """A DPTModel from an already-converted state dict: the modules are made
     on the meta device and take the given tensors, cast to ``dtype`` on
-    ``device``, without a throwaway random init."""
-    device = torch.device("cpu" if device is None else device)
+    ``device`` (None: the CUDA card, see ``resolve_device``), without a
+    throwaway random init."""
+    device = resolve_device(device)
     with torch.device("meta"):
         net = net_cls(config_dict)
     sd = {k: v.to(device=device, dtype=dtype) for k, v in state_dict.items()}

@@ -1,6 +1,8 @@
-"""Depth-Anything V2 model factories."""
+"""Depth-Anything V2 model factories (ViT-Giant and metric included)."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -28,13 +30,19 @@ def make_depthanythingv2_dpt_from_original_state_dict(
     dtype=torch.float32,
     device=None,
 ) -> tuple[dict, DPTModel]:
-    """Build a DA-V2 DPT model from an original (unconverted) state dict.
-    Returns (config_dict, model). enable_cache and strict_load are accepted
-    for API parity: this family has no per-grid cache, and the conversion
-    reads every key it needs."""
+    """Build a DA-V2 DPT model from an original (unconverted) state dict on
+    ``device`` (None: the CUDA card). Returns (config_dict, model).
+    enable_cache and strict_load are accepted for API parity: this family
+    has no per-grid cache, and the conversion reads every key it needs."""
     config_dict = get_config_from_state_dict(state_dict, enable_cache, enable_optimizations)
+    return config_dict, build(config_dict, state_dict, 2, dtype, device)
+
+
+def build(config_dict: dict, state_dict: dict, version: int, dtype, device) -> DPTModel:
+    """A DA-V1 or DA-V2 model from its config and original state dict."""
     converted = convert_state_dict(state_dict, config_dict)
-    return config_dict, assemble_model(DepthAnything, config_dict, converted, family_spec(config_dict), dtype, device)
+    net_cls = functools.partial(DepthAnything, version=version)
+    return assemble_model(net_cls, config_dict, converted, family_spec(config_dict), dtype, device)
 
 
 def make_depthanythingv2_dpt(
@@ -45,6 +53,7 @@ def make_depthanythingv2_dpt(
     base_patch_grid_hw,
     fusion_channels: int = 256,
     patch_size_px: int = 14,
+    is_giant: bool = False,
     is_metric: bool = False,
     enable_cache: bool = True,
     enable_optimizations: bool = True,
@@ -52,13 +61,15 @@ def make_depthanythingv2_dpt(
     device=None,
     seed: int = 0,
 ) -> DPTModel:
-    """Build a randomly-initialized DA-V2 model from explicit hyperparameters,
-    with the same weights as the JAX package's builder for the same seed.
+    """Build a randomly-initialized DA-V2 model from explicit hyperparameters
+    on ``device`` (None: the CUDA card), with the same weights as the JAX
+    package's builder for the same seed.
 
     Standard configs:
       vit-small: F=384,  H=6,  L=12, reassembly=[48,96,192,384],   fusion=64
       vit-base:  F=768,  H=12, L=12, reassembly=[96,192,384,768],  fusion=128
       vit-large: F=1024, H=16, L=24, reassembly=[256,512,1024,1024], fusion=256
+      vit-giant: F=1536, H=24, L=40, reassembly=[1536]*4, fusion=384 (SwiGLU)
     """
     from .checkpoints.random_init import random_original_depth_anything_state_dict
 
@@ -70,11 +81,9 @@ def make_depthanythingv2_dpt(
         "fusion_channels": fusion_channels,
         "patch_size_px": patch_size_px,
         "base_patch_grid_hw": tuple(base_patch_grid_hw),
-        "is_giant": False,
+        "is_giant": is_giant,
         "is_metric": is_metric,
         "enable_cache": enable_cache,
         "enable_optimizations": enable_optimizations,
     }
-    sd = random_original_depth_anything_state_dict(config_dict, seed=seed)
-    converted = convert_state_dict(sd, config_dict)
-    return assemble_model(DepthAnything, config_dict, converted, family_spec(config_dict), dtype, device)
+    return build(config_dict, random_original_depth_anything_state_dict(config_dict, seed=seed), 2, dtype, device)

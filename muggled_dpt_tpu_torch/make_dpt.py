@@ -2,9 +2,8 @@
 file, sniffing the model family from its state-dict keys. Returns
 (config_dict, DPTModel), as the JAX package's ``make_dpt_from_state_dict``.
 
-Depth-Anything V2, MiDaS v3.1 BEiT and MiDaS v3.1 SwinV2 are ported so
-far; Depth-Anything V1 raises ``NotImplementedError`` naming the ROADMAP item
-that ports it."""
+Every family of the JAX package is ported: Depth-Anything V1 and V2 (ViT-Giant
+and the metric head included), MiDaS v3.1 BEiT and MiDaS v3.1 SwinV2."""
 
 from __future__ import annotations
 
@@ -12,10 +11,9 @@ import os.path as osp
 
 import torch
 
+from .dpt import resolve_device
+
 KNOWN_MODEL_TYPES = ("swinv2", "beit", "depthanythingv1", "depthanythingv2")
-_NOT_PORTED = {
-    "depthanythingv1": "ROADMAP Queue A item 7 (DA-V1, metric head and ViT-Giant)",
-}
 
 
 def make_dpt_from_state_dict(
@@ -28,8 +26,10 @@ def make_dpt_from_state_dict(
     device=None,
 ):
     """Load an original .pt/.pth checkpoint (unchanged, as downloaded) and
-    build the matching DPT model on ``device`` in ``dtype``. Returns
-    (config_dict, model)."""
+    build the matching DPT model on ``device`` in ``dtype``. ``device=None``
+    means the CUDA card and raises without one; pass ``device="cpu"`` for the
+    CPU. Returns (config_dict, model)."""
+    device = resolve_device(device)
     state_dict = torch.load(path_to_state_dict, map_location="cpu", weights_only=True)
 
     if model_type is None:
@@ -37,8 +37,6 @@ def make_dpt_from_state_dict(
     if model_type not in KNOWN_MODEL_TYPES:
         print("Accepted model types:", *KNOWN_MODEL_TYPES, sep="\n")
         raise NotImplementedError(f"Bad model type: {model_type}, no support for this yet!")
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(f"{model_type} is not ported to muggled_dpt_tpu_torch yet: {_NOT_PORTED[model_type]}")
 
     if model_type == "swinv2":
         from .make_swinv2_dpt import make_swinv2_dpt_from_midas_v31_state_dict
@@ -50,6 +48,12 @@ def make_dpt_from_state_dict(
         from .make_beit_dpt import make_beit_dpt_from_midas_v31_state_dict
 
         return make_beit_dpt_from_midas_v31_state_dict(
+            state_dict, enable_cache, enable_optimizations, strict_load, dtype=dtype, device=device
+        )
+    if model_type == "depthanythingv1":
+        from .make_depthanythingv1_dpt import make_depthanythingv1_dpt_from_original_state_dict
+
+        return make_depthanythingv1_dpt_from_original_state_dict(
             state_dict, enable_cache, enable_optimizations, strict_load, dtype=dtype, device=device
         )
 

@@ -1,7 +1,10 @@
-"""Depth-Anything V2: the whole forward pipeline, patch embed -> DINOv2
-encoder (4 taps) -> reassembly -> fusion -> monocular head.
+"""Depth-Anything V1 and V2: the whole forward pipeline, patch embed ->
+DINOv2 encoder (4 taps) -> reassembly -> fusion -> monocular head.
 
-The counterpart of ``muggled_dpt_tpu/models/depth_anything.py`` for V2."""
+The counterpart of ``muggled_dpt_tpu/models/depth_anything.py``. V1 differs
+from V2 only in its taps (the last 4 blocks, not the end of each quarter) and
+has no ViT-Giant (SwiGLU) or metric variant; the V1 factory forces both
+flags off."""
 
 from __future__ import annotations
 
@@ -9,7 +12,7 @@ from torch import nn
 
 from ..checkpoints.depth_anything import REASSEMBLY_SCALES
 from ..ops.nn import patchify_embed
-from .dinov2 import DinoV2Encoder
+from .dinov2 import DinoV2Encoder, last4_taps, stage_taps
 from .dpt_neck import FusionBlock, Head, ReassembleStage, fusion_forward
 
 # ImageNet normalization
@@ -17,15 +20,22 @@ MEAN_RGB = (0.485, 0.456, 0.406)
 STD_RGB = (0.229, 0.224, 0.225)
 
 
-class DepthAnything(nn.Module):
-    """Built from a config dict of ``checkpoints.depth_anything.get_config_from_state_dict``.
-    ``enable_optimizations`` (default True) sends attention through the
-    fused-qkv flash kernel; False runs the plain attention path."""
+def encoder_taps(num_blocks: int, version: int) -> tuple[int, ...]:
+    """The blocks whose outputs feed the neck: V2 the end of each quarter, V1 the last 4."""
+    if version not in (1, 2):
+        raise ValueError(f"Depth-Anything version must be 1 or 2, got {version}")
+    return stage_taps(num_blocks) if version == 2 else last4_taps(num_blocks)
 
-    def __init__(self, config: dict, device=None):
+
+class DepthAnything(nn.Module):
+    """Built from a config dict of ``checkpoints.depth_anything.get_config_from_state_dict``
+    and a ``version`` (1 or 2), which picks the encoder taps; the config's
+    ``is_giant`` picks the SwiGLU blocks. ``enable_optimizations`` (default
+    True) sends attention through the fused-qkv flash kernel; False runs the
+    plain attention path."""
+
+    def __init__(self, config: dict, version: int = 2, device=None):
         super().__init__()
-        if config.get("is_giant", False):
-            raise NotImplementedError("SwiGLU (ViT-Giant) blocks are not ported yet: ROADMAP Queue A item 7")
         f = config["features_per_token"]
         p = config["patch_size_px"]
         cf = config["fusion_channels"]
@@ -37,6 +47,8 @@ class DepthAnything(nn.Module):
             config["num_blocks"],
             config["base_patch_grid_hw"],
             use_kernel=config.get("enable_optimizations", True),
+            is_giant=config.get("is_giant", False),
+            taps=encoder_taps(config["num_blocks"], version),
             device=device,
         )
         self.reassemble = nn.ModuleList(

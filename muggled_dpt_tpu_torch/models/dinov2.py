@@ -1,17 +1,19 @@
-"""DINOv2 image encoder for Depth-Anything V2.
+"""DINOv2 image encoder for Depth-Anything V1 and V2.
 
 The counterpart of ``muggled_dpt_tpu/models/dinov2.py``: cls token plus a
 learned position embedding resized per patch grid (float32 bicubic, no
-antialias), pre-norm blocks with LayerScale, the V2 stage taps (the output
-after each quarter of the blocks) and one output norm shared by the four
-taps. The blocks are an ``nn.ModuleList`` walked by a Python loop."""
+antialias), pre-norm blocks with LayerScale (a GELU MLP, or SwiGLU for
+ViT-Giant), four taps (V2: the output after each quarter of the blocks; V1:
+the last four blocks) and one output norm shared by the four taps. The
+blocks are an ``nn.ModuleList`` walked by a Python loop."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..ops.nn import layer_norm, mlp_gelu, self_attention
+from ..checkpoints.random_init import swiglu_hidden
+from ..ops.nn import layer_norm, mlp_gelu, mlp_swiglu, self_attention
 from ..ops.resize import resize_bicubic_hwc
 
 
@@ -19,6 +21,11 @@ def stage_taps(num_blocks: int) -> tuple[int, ...]:
     """V2: indices of the blocks whose outputs feed the DPT neck."""
     per = num_blocks // 4
     return tuple(per * (i + 1) - 1 for i in range(4))
+
+
+def last4_taps(num_blocks: int) -> tuple[int, ...]:
+    """V1: the outputs of the last 4 consecutive blocks feed the DPT neck."""
+    return tuple(range(num_blocks - 4, num_blocks))
 
 
 class Attention(nn.Module):
@@ -34,12 +41,28 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(features, hidden, device=device)
         self.fc2 = nn.Linear(hidden, features, device=device)
 
+    def forward(self, x):
+        return mlp_gelu(x, self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)
+
+
+class SwiGLUMlp(nn.Module):
+    """ViT-Giant's MLP: ``w12`` (2 * hidden, F) holds both gate halves."""
+
+    def __init__(self, features: int, hidden: int, device=None):
+        super().__init__()
+        self.w12 = nn.Linear(features, 2 * hidden, device=device)
+        self.w3 = nn.Linear(hidden, features, device=device)
+
+    def forward(self, x):
+        return mlp_swiglu(x, self.w12.weight, self.w12.bias, self.w3.weight, self.w3.bias)
+
 
 class Block(nn.Module):
     """Pre-norm transformer block with LayerScale. BEiT's blocks are the same
-    with an attention bias (``ops.nn.self_attention``'s ``bias``)."""
+    with an attention bias (``ops.nn.self_attention``'s ``bias``); ViT-Giant's
+    have a SwiGLU MLP (``is_giant``)."""
 
-    def __init__(self, features: int, num_heads: int, use_kernel: bool = True, device=None):
+    def __init__(self, features: int, num_heads: int, use_kernel: bool = True, is_giant: bool = False, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.use_kernel = use_kernel
@@ -47,30 +70,39 @@ class Block(nn.Module):
         self.attn = Attention(features, device=device)
         self.ls1 = nn.Parameter(torch.empty(features, device=device))
         self.norm2 = nn.LayerNorm(features, eps=1e-6, device=device)
-        self.mlp = Mlp(features, 4 * features, device=device)
+        if is_giant:
+            self.mlp = SwiGLUMlp(features, swiglu_hidden(features), device=device)
+        else:
+            self.mlp = Mlp(features, 4 * features, device=device)
         self.ls2 = nn.Parameter(torch.empty(features, device=device))
 
-    def forward(self, tokens, bias=None):
+    def attention_residual(self, tokens, bias=None):
+        """The first half: tokens + ls1 * attention(norm1(tokens))."""
         a = self.attn
         h = layer_norm(tokens, self.norm1.weight, self.norm1.bias)
         h = self_attention(h, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, self.num_heads, self.use_kernel, bias)
-        tokens = tokens + self.ls1 * h
-        m = self.mlp
-        h = layer_norm(tokens, self.norm2.weight, self.norm2.bias)
-        h = mlp_gelu(h, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
-        return tokens + self.ls2 * h
+        return tokens + self.ls1 * h
+
+    def mlp_residual(self, tokens):
+        """The second half: tokens + ls2 * mlp(norm2(tokens)). For a GELU
+        MLP this is what ``ops/kernels/fused_mlp.py`` computes in one kernel."""
+        return tokens + self.ls2 * self.mlp(layer_norm(tokens, self.norm2.weight, self.norm2.bias))
+
+    def forward(self, tokens, bias=None):
+        return self.mlp_residual(self.attention_residual(tokens, bias))
 
 
 class DinoV2Encoder(nn.Module):
-    def __init__(self, features: int, num_heads: int, num_blocks: int, base_grid_hw, use_kernel: bool = True, device=None):
+    def __init__(self, features: int, num_heads: int, num_blocks: int, base_grid_hw, use_kernel: bool = True,
+                 is_giant: bool = False, taps=None, device=None):
         super().__init__()
         self.features = features
         self.base_grid_hw = tuple(int(g) for g in base_grid_hw)
-        self.taps = stage_taps(num_blocks)
+        self.taps = stage_taps(num_blocks) if taps is None else tuple(taps)
         self.cls_token = nn.Parameter(torch.empty(1, 1, features, device=device))
         self.cls_embed = nn.Parameter(torch.empty(1, 1, features, device=device))
         self.pos_embed = nn.Parameter(torch.empty(1, self.base_grid_hw[0] * self.base_grid_hw[1], features, device=device))
-        self.blocks = nn.ModuleList(Block(features, num_heads, use_kernel, device=device) for _ in range(num_blocks))
+        self.blocks = nn.ModuleList(Block(features, num_heads, use_kernel, is_giant, device=device) for _ in range(num_blocks))
         self.outnorm = nn.LayerNorm(features, eps=1e-6, device=device)
 
     def resized_pos_embed(self, grid_hw):

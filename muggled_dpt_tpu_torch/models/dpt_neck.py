@@ -128,10 +128,16 @@ class Head(nn.Module):
         self.conv_mid = nn.Conv2d(channels // 2, 32, 3, padding=1, device=device)
         self.proj = nn.Conv2d(32, 1, 1, device=device)
 
-    def forward(self, x):
-        x = conv2d(x, self.conv_in.weight, self.conv_in.bias, padding=1)
-        x = resize_2d(x, resize_output_size(x.shape[-2:], self.upsample_factor), align_corners=True)
+    def tail(self, x):
+        """The tail at full output resolution: 3x3 conv -> 32, ReLU, 1x1 conv
+        -> 1, ReLU or sigmoid; (B, C/2, H, W) -> (B, H, W). What
+        ``ops/kernels/head_tail.py`` computes in one kernel."""
         x = torch.relu(conv2d(x, self.conv_mid.weight, self.conv_mid.bias, padding=1))
         x = conv2d(x, self.proj.weight, self.proj.bias)
         x = torch.sigmoid(x) if self.is_metric else torch.relu(x)
         return x[:, 0]
+
+    def forward(self, x):
+        x = conv2d(x, self.conv_in.weight, self.conv_in.bias, padding=1)
+        x = resize_2d(x, resize_output_size(x.shape[-2:], self.upsample_factor), align_corners=True)
+        return self.tail(x)

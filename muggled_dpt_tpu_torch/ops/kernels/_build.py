@@ -99,4 +99,12 @@ def kernel_library() -> ctypes.CDLL:
     # the int64 argument array (its slots in csrc/window_attention.cu), stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.mdpt_fused_mlp
+    # the int64 argument array (its slots in csrc/fused_mlp.cu), LayerNorm eps, stream
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mdpt_head_tail
+    # the int64 argument array (its slots in csrc/head_tail.cu), stream
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib

@@ -147,6 +147,17 @@ def _operand(name: str, t: torch.Tensor, device, dtype) -> tuple[int, ...]:
     return t.data_ptr(), *outer
 
 
+def _contiguous_pointer(kernel: str, name: str, t: torch.Tensor, device, dtype, align: int = 1) -> int:
+    """The address of a tensor a kernel reads or writes whole: on ``device``,
+    in ``dtype``, contiguous, its address a multiple of ``align`` bytes."""
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{kernel} kernel: {name} is {t.dtype} on {t.device}, want {dtype} on {device}")
+    if not t.is_contiguous() or t.data_ptr() % align != 0:
+        raise ValueError(f"{kernel} kernel: {name} must be contiguous and {align}-byte aligned, got strides {t.stride()} "
+                         f"at address {t.data_ptr():#x}")
+    return t.data_ptr()
+
+
 def _qkv_operands(qkv: torch.Tensor, d: int) -> list[tuple[int, int, int, int]]:
     """q, k and v in place in a head-major (B, N, 3C) qkv, as ``_operand``
     gives them: head h's q at column h*3D, its k at +D and its v at +2D."""
@@ -246,17 +257,24 @@ flash_attention.launches = 0
 
 def reset_launch_counts():
     """Zero the launch count of every kernel route of the package."""
+    from .fused_mlp import fused_ln_mlp_residual
+    from .head_tail import fused_head_tail
     from .window_attention import window_attention
 
     flash_attention_fused_qkv.launches = 0
     flash_attention_fused_qkv.biased_launches = 0
     flash_attention.launches = 0
     window_attention.launches = 0
+    fused_ln_mlp_residual.launches = 0
+    fused_head_tail.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """The launch count of every kernel route of the package, the SwinV2
-    window kernel (``ops/kernels/window_attention.py``) included."""
+    """The launch count of every kernel route of the package: the SwinV2
+    window kernel (``ops/kernels/window_attention.py``), the fused MLP
+    (``fused_mlp.py``) and the head tail (``head_tail.py``) included."""
+    from .fused_mlp import fused_ln_mlp_residual
+    from .head_tail import fused_head_tail
     from .window_attention import window_attention
 
     return {
@@ -264,4 +282,6 @@ def launch_counts() -> dict[str, int]:
         "fused_biased": flash_attention_fused_qkv.biased_launches,
         "bnhd": flash_attention.launches,
         "window": window_attention.launches,
+        "fused_mlp": fused_ln_mlp_residual.launches,
+        "head_tail": fused_head_tail.launches,
     }

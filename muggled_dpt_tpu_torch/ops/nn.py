@@ -35,6 +35,13 @@ def mlp_gelu(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias):
     return linear(gelu(linear(x, fc1_weight, fc1_bias)), fc2_weight, fc2_bias)
 
 
+def mlp_swiglu(x, w12_weight, w12_bias, w3_weight, w3_bias):
+    """SwiGLU (ViT-Giant): Linear(silu(a) * b) with a and b the two halves
+    of one fused Linear ``w12`` (2 * hidden, F)."""
+    a, b = linear(x, w12_weight, w12_bias).chunk(2, dim=-1)
+    return linear(F.silu(a) * b, w3_weight, w3_bias)
+
+
 def self_attention(
     tokens, qkv_weight, qkv_bias, proj_weight, proj_bias, num_heads: int, use_kernel: bool = True, bias=None
 ):

@@ -2,7 +2,7 @@
 """Host-cost and profile measurements of the port on one CUDA card.
 
     python3 muggled_dpt_tpu_torch/tools/measure.py host [--against DIR]
-    python3 muggled_dpt_tpu_torch/tools/measure.py profile [--model beit|swinv2] [--out DIR]
+    python3 muggled_dpt_tpu_torch/tools/measure.py profile [--model beit|swinv2|vitl|giant] [--out DIR]
 
 ``host``: the attention wrapper's host cost per call, and the DA-V2 ViT-L
 and BEiT-L-512 bf16 request times at B=1.
@@ -21,8 +21,10 @@ host wall time of the profiled loop), kernels per forward, device time per
 forward by kind; and the time to build the grid's aux once (``make_aux``).
 ``--model beit`` (the default): BEiT-L-512 at 512x512, the bias stack at
 512x512 and 1024x1024. ``--model swinv2``: SwinV2-L-384 at 384x384, the CPB
-stacks and shift masks at 384x384 and 512x512. ``--out`` also writes every
-kernel's time per forward to ``DIR/profile_<model>_kernels.txt``.
+stacks and shift masks at 384x384 and 512x512. ``--model vitl`` and
+``--model giant``: Depth-Anything V2 ViT-L and ViT-Giant at 504x504 (no
+per-grid aux). ``--out`` also writes every kernel's time per forward to
+``DIR/profile_<model>_kernels.txt``.
 
 Every printed line carries the card's name and power limit (nvidia-smi).
 Models have random weights from seed 0; nothing is downloaded."""
@@ -57,6 +59,8 @@ BEIT_L512 = {
     "patch_size_px": 16,
     "base_patch_grid_hw": (32, 32),
 }
+VITG = dict(VITL, features_per_token=1536, num_blocks=40, reassembly_features_list=[1536] * 4, fusion_channels=384,
+            is_giant=True)
 SWIN_L384 = {
     "features_per_stage": [192, 384, 768, 1536],
     "heads_per_stage": [6, 12, 24, 48],
@@ -275,11 +279,15 @@ def build_ms(model, grid, what, smi, repeats=3):
     torch.cuda.empty_cache()
 
 
-PROFILED = {  # model: (label, config module, config, checkpoint name, side, aux label, aux grids)
-    "beit": ("BEiT-L-512", "beit", BEIT_L512, "dpt_beit_large_512_random.pt", 512, "BEiT-L-512 bias stack",
-             ((32, 32), (64, 64))),
-    "swinv2": ("SwinV2-L-384", "swinv2", SWIN_L384, "dpt_swin2_large_384_random.pt", 384,
+PROFILED = {  # model: (label, checkpoints module.generator, config, checkpoint name, side, aux label, aux grids)
+    "beit": ("BEiT-L-512", "beit.random_original_state_dict", BEIT_L512, "dpt_beit_large_512_random.pt", 512,
+             "BEiT-L-512 bias stack", ((32, 32), (64, 64))),
+    "swinv2": ("SwinV2-L-384", "swinv2.random_original_state_dict", SWIN_L384, "dpt_swin2_large_384_random.pt", 384,
                "SwinV2-L-384 CPB stacks and shift masks", ((96, 96), (128, 128))),
+    "vitl": ("DA-V2 ViT-L", "random_init.random_original_depth_anything_state_dict", VITL,
+             "depth_anything_v2_vitl_random.pth", 518, None, ()),
+    "giant": ("DA-V2 ViT-Giant", "random_init.random_original_depth_anything_state_dict", VITG,
+              "depth_anything_v2_vitg_random.pth", 518, None, ()),
 }
 
 
@@ -291,8 +299,9 @@ def profile(args, smi):
 
     from muggled_dpt_tpu_torch.make_dpt import make_dpt_from_state_dict
 
-    label, module, config, name, side, aux_label, grids = PROFILED[args.model]
-    random_state_dict = importlib.import_module(f"muggled_dpt_tpu_torch.checkpoints.{module}").random_original_state_dict
+    label, generator, config, name, side, aux_label, grids = PROFILED[args.model]
+    module, function = generator.split(".")
+    random_state_dict = getattr(importlib.import_module(f"muggled_dpt_tpu_torch.checkpoints.{module}"), function)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = write_checkpoint(random_state_dict(config, seed=0), os.path.join(tmp, name))
         _, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device="cuda")

@@ -18,11 +18,12 @@ from muggled_dpt_tpu_torch.models.beit_family import aux_bytes_estimate
 from muggled_dpt_tpu_torch.models.swinv2 import aux_bytes
 
 GB = 1024**3
+DEVICE = "cpu"  # the entry points build on the CUDA card unless told otherwise
 
 
 @pytest.fixture()
 def beit():
-    return make_beit_dpt(128, 2, 4, (16, 24, 32, 40), (6, 6), 16)
+    return make_beit_dpt(128, 2, 4, (16, 24, 32, 40), (6, 6), 16, device=DEVICE)
 
 
 def test_beit_bias_budget_math():
@@ -148,7 +149,7 @@ def test_clear_cache_leaves_no_bias_or_index_behind(beit):
 def test_prewarm_returns_unique_sizes(beit):
     """As tests/test_ui_toolkit.py:66 for the JAX facade; prewarm also
     leaves each size's bias stack cached."""
-    m = make_depthanythingv2_dpt(64, 1, 4, (8, 16, 32, 64), (8, 8), 16)
+    m = make_depthanythingv2_dpt(64, 1, 4, (8, 16, 32, 64), (8, 8), 16, device=DEVICE)
     assert m.prewarm([56, 56, 84], image_hw=(120, 160)) == [(56, 56), (84, 84)]
     assert beit.prewarm([96, 96, 128], image_hw=(120, 160)) == [(96, 96), (128, 128)]
     assert set(beit._aux_cache) == {(6, 6), (8, 8)}
@@ -160,7 +161,7 @@ SWIN_L384 = {"features_per_stage": [192, 384, 768, 1536], "heads_per_stage": [6,
 
 @pytest.fixture()
 def swin():
-    return make_swinv2_dpt((16, 32, 64, 128), (2, 4, 4, 8), (2, 2, 2, 2), (16, 16), (4, 4), (None,) * 4, 16)
+    return make_swinv2_dpt((16, 32, 64, 128), (2, 4, 4, 8), (2, 2, 2, 2), (16, 16), (4, 4), (None,) * 4, 16, device=DEVICE)
 
 
 def test_nested_aux_bytes():

@@ -1,6 +1,6 @@
 """The PyTorch port must run where jax is not installed: importing every
-module of ``muggled_dpt_tpu_torch`` with jax blocked must succeed, and must
-not import jax or the JAX package."""
+module of ``muggled_dpt_tpu_torch``, and ``chip_smoke.py``, with jax blocked
+must succeed, and must not import jax, the JAX package or ``experiments``."""
 
 import os
 import subprocess
@@ -15,11 +15,14 @@ import muggled_dpt_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "muggled_dpt_tpu") and sys.modules[m] is not None)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "muggled_dpt_tpu", "experiments") and sys.modules[m] is not None)
 assert not leaked, leaked
-assert len(names) >= 23, names
+assert len(names) >= 26, names
 ported = ("checkpoints.beit", "models.beit", "models.beit_family", "make_beit_dpt", "ops.kernels.flash_attention",
-          "checkpoints.swinv2", "models.swinv2", "models.swinv2_family", "make_swinv2_dpt", "ops.kernels.window_attention")
+          "checkpoints.swinv2", "models.swinv2", "models.swinv2_family", "make_swinv2_dpt", "ops.kernels.window_attention",
+          "make_depthanythingv1_dpt", "ops.kernels.fused_mlp", "ops.kernels.head_tail")
 missing = [m for m in ported if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print("OK", len(names))

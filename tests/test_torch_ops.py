@@ -66,6 +66,15 @@ def test_mlp_gelu():
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
+def test_mlp_swiglu():
+    """ViT-Giant's MLP: w12's first half is the gate (silu), its second the value."""
+    x = _rand(9, 2, 9, 32)
+    w12, b12, w3, b3 = _rand(10, 2 * 24, 32, scale=0.2), _rand(11, 2 * 24), _rand(12, 32, 24, scale=0.2), _rand(13, 32)
+    got = tnn.mlp_swiglu(_t(x), _t(w12), _t(b12), _t(w3), _t(b3)).numpy()
+    want = jnn.mlp_swiglu(x, {"w12_kernel": w12.T, "w12_bias": b12, "w3_kernel": w3.T, "w3_bias": b3})
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
 def test_patchify_embed():
     img = _rand(9, 2, 42, 28, 3)  # NHWC, 3 x 2 patches of 14
     w, b = _rand(10, 24, 3, 14, 14, scale=0.05), _rand(11, 24)

@@ -34,6 +34,7 @@ CFG = {
     "base_patch_grid_hw": (6, 6),
 }
 SEED = 5
+DEVICE = "cpu"  # the entry points build on the CUDA card unless told otherwise
 ABS_REL_BUDGET = 1e-3
 
 
@@ -51,7 +52,7 @@ def ckpt(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def models(ckpt):
-    return jax_make_dpt(ckpt)[1], make_dpt_from_state_dict(ckpt)[1]
+    return jax_make_dpt(ckpt)[1], make_dpt_from_state_dict(ckpt, device=DEVICE)[1]
 
 
 def _frame(seed, hw=(120, 160)):
@@ -80,7 +81,7 @@ def test_beit_params_from_jax_equals_own_conversion():
 
 def test_config_matches_jax(ckpt):
     jcfg, _ = jax_make_dpt(ckpt)
-    cfg, model = make_dpt_from_state_dict(ckpt)
+    cfg, model = make_dpt_from_state_dict(ckpt, device=DEVICE)
     assert cfg == jcfg
     assert cfg["num_heads"] == 2 and cfg["base_patch_grid_hw"] == (6, 6)
     assert model.default_size_px == 96 and model.tiling_size == 32
@@ -169,7 +170,7 @@ def test_prepare_image_bgr_takes_interpolation_mode(models):
 @pytest.mark.parametrize("enable_cache", [True, False])
 def test_plain_attention_path_matches_kernel_path(ckpt, models, enable_cache):
     _, tm = models
-    _, plain = make_dpt_from_state_dict(ckpt, enable_optimizations=False, enable_cache=enable_cache)
+    _, plain = make_dpt_from_state_dict(ckpt, enable_optimizations=False, enable_cache=enable_cache, device=DEVICE)
     tm.config["enable_cache"] = enable_cache
     frame = _frame(4)
     assert _abs_rel(plain.inference(frame, 128).numpy(), tm.inference(frame, 128).numpy()) <= 1e-5
@@ -179,7 +180,7 @@ def test_plain_attention_path_matches_kernel_path(ckpt, models, enable_cache):
 def test_batched_inference_matches_single():
     """The batched contract of tests/test_batched_inference.py:69-76: the
     per-grid bias broadcasts over the batch; duplicate frames are bit-equal."""
-    m = make_beit_dpt(128, 2, 4, (16, 24, 32, 40), (6, 6), 16)
+    m = make_beit_dpt(128, 2, 4, (16, 24, 32, 40), (6, 6), 16, device=DEVICE)
     rng = np.random.default_rng(1)
     frames = [np.ascontiguousarray(rng.integers(0, 256, (120, 160, 3), np.uint8)) for _ in range(2)]
     hw = m.compute_scaled_hw(frames[0].shape[:2], 96, True)
@@ -196,7 +197,7 @@ def test_random_builder_matches_jax_random_builder():
     kwargs = dict(features_per_token=128, num_heads=2, num_blocks=4, reassembly_features_list=(16, 24, 32, 40),
                   base_patch_grid_hw=(6, 6), fusion_channels=16)
     jm = jax_make_random(**kwargs, dtype=jnp.float32, seed=2)
-    tm = make_beit_dpt(**kwargs, seed=2)
+    tm = make_beit_dpt(**kwargs, seed=2, device=DEVICE)
     frame = _frame(6)
     assert _abs_rel(tm.inference(frame, 128).numpy(), np.asarray(jm.inference(frame, 128))) <= ABS_REL_BUDGET
 

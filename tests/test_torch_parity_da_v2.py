@@ -17,6 +17,7 @@ from muggled_dpt_tpu.checkpoints.random_init import (
 )
 from muggled_dpt_tpu.make_depthanythingv2_dpt import make_depthanythingv2_dpt as jax_make_random
 from muggled_dpt_tpu.make_dpt import make_dpt_from_state_dict as jax_make_dpt
+from muggled_dpt_tpu_torch import dpt as dpt_mod
 from muggled_dpt_tpu_torch import make_depthanythingv2_dpt, make_dpt_from_state_dict
 from muggled_dpt_tpu_torch.checkpoints.depth_anything import convert_state_dict, get_config_from_state_dict
 from muggled_dpt_tpu_torch.checkpoints.from_jax import params_from_jax
@@ -32,6 +33,7 @@ CFG = {
     "base_patch_grid_hw": (8, 8),
 }
 SEED = 5
+DEVICE = "cpu"  # the entry points build on the CUDA card unless told otherwise
 # The repo's f32 parity budget (README "Numerical parity"); the two packages
 # differ only in float32 summation order, measured ~1e-7 here.
 ABS_REL_BUDGET = 1e-3
@@ -55,7 +57,7 @@ def ckpt(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def models(ckpt):
-    return jax_make_dpt(ckpt)[1], make_dpt_from_state_dict(ckpt)[1]
+    return jax_make_dpt(ckpt)[1], make_dpt_from_state_dict(ckpt, device=DEVICE)[1]
 
 
 def _frame(seed, hw=(120, 160)):
@@ -83,7 +85,7 @@ def test_params_from_jax_equals_own_conversion():
 
 def test_config_matches_jax(ckpt):
     jcfg, _ = jax_make_dpt(ckpt)
-    cfg, model = make_dpt_from_state_dict(ckpt)
+    cfg, model = make_dpt_from_state_dict(ckpt, device=DEVICE)
     assert cfg == jcfg
     assert cfg["num_heads"] == 2 and cfg["base_patch_grid_hw"] == (8, 8)
     assert model.dtype == torch.float32 and model.device == torch.device("cpu")
@@ -115,7 +117,7 @@ def test_forward_and_prepare_match_jax(models):
 
 def test_plain_attention_path_matches_kernel_path(ckpt, models):
     _, tm = models
-    _, plain = make_dpt_from_state_dict(ckpt, enable_optimizations=False)
+    _, plain = make_dpt_from_state_dict(ckpt, enable_optimizations=False, device=DEVICE)
     frame = _frame(3)
     assert _abs_rel(plain.inference(frame, 112).numpy(), tm.inference(frame, 112).numpy()) <= 1e-5
 
@@ -123,7 +125,7 @@ def test_plain_attention_path_matches_kernel_path(ckpt, models):
 def test_metric_filename_gives_sigmoid_head(tmp_path):
     path = _save(random_original_depth_anything_state_dict(CFG, seed=SEED), tmp_path / "depth_anything_v2_metric_tiny.pth")
     jcfg, jm = jax_make_dpt(path)
-    cfg, tm = make_dpt_from_state_dict(path)
+    cfg, tm = make_dpt_from_state_dict(path, device=DEVICE)
     assert cfg["is_metric"] and jcfg["is_metric"]
     frame = _frame(4)
     got = tm.inference(frame, 56).numpy()
@@ -131,10 +133,17 @@ def test_metric_filename_gives_sigmoid_head(tmp_path):
     assert _abs_rel(got, np.asarray(jm.inference(frame, 56))) <= ABS_REL_BUDGET
 
 
-def test_other_families_raise_not_implemented(tmp_path):
-    path = _save(random_original_depth_anything_state_dict(CFG, seed=SEED), tmp_path / "depth_anything_v1_tiny.pth")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        make_dpt_from_state_dict(path)
+def test_default_device_is_the_card(ckpt, monkeypatch):
+    """device=None means the CUDA card: without one the entry point raises
+    before it builds anything, and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    built = []
+    monkeypatch.setattr(dpt_mod.DPTModel, "__init__", lambda self, *a, **k: built.append(self))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_dpt_from_state_dict(ckpt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_depthanythingv2_dpt(64, 1, 4, (8, 16, 32, 64), (8, 8), 16)
+    assert not built
 
 
 def test_verify_input_rejects_bad_shapes(models):
@@ -161,7 +170,7 @@ def test_random_builder_matches_jax_random_builder():
         base_patch_grid_hw=(37, 37), fusion_channels=16,
     )
     jm = jax_make_random(**kwargs, dtype=jnp.float32, seed=2)
-    tm = make_depthanythingv2_dpt(**kwargs, seed=2)
+    tm = make_depthanythingv2_dpt(**kwargs, seed=2, device=DEVICE)
     frame = _frame(6)
     assert _abs_rel(tm.inference(frame, 140).numpy(), np.asarray(jm.inference(frame, 140))) <= ABS_REL_BUDGET
 
@@ -172,7 +181,7 @@ def test_batched_inference_matches_single():
     calls; duplicate frames in one batch are bit-equal."""
     m = make_depthanythingv2_dpt(
         features_per_token=128, num_heads=2, num_blocks=4, reassembly_features_list=(16, 24, 32, 40),
-        base_patch_grid_hw=(37, 37), fusion_channels=16,
+        base_patch_grid_hw=(37, 37), fusion_channels=16, device=DEVICE,
     )
     rng = np.random.default_rng(0)
     frames = [np.ascontiguousarray(rng.integers(0, 256, (120, 160, 3), np.uint8)) for _ in range(3)]

@@ -52,6 +52,7 @@ D32_CFG = {
 }
 CONFIGS = {"tiny": TINY_CFG, "d32": D32_CFG}
 SEED = 21
+DEVICE = "cpu"  # the entry points build on the CUDA card unless told otherwise
 ABS_REL_BUDGET = 1e-3
 
 
@@ -103,7 +104,7 @@ def test_swinv2_params_from_jax_equals_own_conversion(name):
 
 
 def test_config_and_sniffing_match_jax(ckpts, jax_models):
-    cfg, model = make_dpt_from_state_dict(ckpts["tiny"])
+    cfg, model = make_dpt_from_state_dict(ckpts["tiny"], device=DEVICE)
     assert isinstance(model.net, SwinV2DPT)
     assert cfg == jax_make_dpt(ckpts["tiny"])[0]
     assert cfg["heads_per_stage"] == [2, 4, 4, 8] and tuple(cfg["window_size_hw"]) == (4, 4)
@@ -230,7 +231,7 @@ def test_cpb_stack_matches_jax(ckpts, jax_models, name):
     i's b0 and block 2i+1 at its b1 of the JAX stack; the masks are the JAX
     shift masks of the stages that shift."""
     jm = jax_models[name]
-    _, tm = make_dpt_from_state_dict(ckpts[name])
+    _, tm = make_dpt_from_state_dict(ckpts[name], device=DEVICE)
     grid = (24, 16)
     want = jsw.compute_cpb_stack(jm.params["encoder"], grid, jm.spec["encoder_config"])
     with torch.inference_mode():
@@ -252,7 +253,7 @@ def test_cpb_stack_matches_jax(ckpts, jax_models, name):
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_inference_matches_jax(ckpts, jax_models, name, side, square, enable_optimizations, enable_cache):
     jm = jax_models[name]
-    _, tm = make_dpt_from_state_dict(ckpts[name], enable_optimizations=enable_optimizations, enable_cache=enable_cache)
+    _, tm = make_dpt_from_state_dict(ckpts[name], enable_optimizations=enable_optimizations, enable_cache=enable_cache, device=DEVICE)
     jm.config["enable_cache"] = enable_cache
     frame = _frame(17)
     want = np.asarray(jm.inference(frame, side, square))
@@ -272,7 +273,7 @@ def test_cache_equals_no_cache_and_kernel_route_equals_plain(ckpts, name):
     depths = {}
     for opt in (True, False):
         for cache in (True, False):
-            _, m = make_dpt_from_state_dict(ckpts[name], enable_optimizations=opt, enable_cache=cache)
+            _, m = make_dpt_from_state_dict(ckpts[name], enable_optimizations=opt, enable_cache=cache, device=DEVICE)
             depths[opt, cache] = m.inference(frame, 96, False).numpy()
     for key, depth in depths.items():
         np.testing.assert_allclose(depth, depths[True, True], rtol=1e-5, atol=1e-5, err_msg=str(key))
@@ -282,7 +283,7 @@ def test_batched_inference_matches_single():
     """The batched contract of tests/test_batched_inference.py:79-88: windows
     are carved per image, so the shift masks stay image-local; duplicate
     frames are bit-equal."""
-    m = make_swinv2_dpt((16, 32, 64, 128), (2, 4, 4, 8), (2, 2, 2, 2), (16, 16), (4, 4), (None,) * 4, 16)
+    m = make_swinv2_dpt((16, 32, 64, 128), (2, 4, 4, 8), (2, 2, 2, 2), (16, 16), (4, 4), (None,) * 4, 16, device=DEVICE)
     rng = np.random.default_rng(1)
     frames = [np.ascontiguousarray(rng.integers(0, 256, (120, 160, 3), np.uint8)) for _ in range(2)]
     hw = m.compute_scaled_hw(frames[0].shape[:2], 64, True)
@@ -298,13 +299,13 @@ def test_batched_inference_matches_single():
 def test_random_factory_matches_jax_random_factory():
     args = ((16, 32, 64, 128), (2, 4, 4, 8), (2, 2, 2, 2), (16, 16), (4, 4), (None,) * 4, 16)
     jm = jax_make_random(*args, dtype=jnp.float32, seed=2)
-    tm = make_swinv2_dpt(*args, seed=2)
+    tm = make_swinv2_dpt(*args, seed=2, device=DEVICE)
     frame = _frame(6)
     assert _abs_rel(tm.inference(frame, 64).numpy(), np.asarray(jm.inference(frame, 64))) <= ABS_REL_BUDGET
 
 
 def test_bf16_model_serves_finite_depth_with_aux_in_its_dtype(ckpts):
-    _, tm = make_dpt_from_state_dict(ckpts["d32"], dtype=torch.bfloat16)
+    _, tm = make_dpt_from_state_dict(ckpts["d32"], dtype=torch.bfloat16, device=DEVICE)
     depth = tm.inference(_frame(7), 64)
     assert depth.dtype == torch.bfloat16 and bool(torch.isfinite(depth).all())
     aux = next(iter(tm._aux_cache.values()))
@@ -319,7 +320,7 @@ def _live_tensors():
 def test_clear_cache_leaves_no_cpb_or_mask_behind(ckpts):
     """After clear_cache no CPB stack, shift mask or index of any grid the
     model served is alive: nothing outside the aux cache keeps them."""
-    _, tm = make_dpt_from_state_dict(ckpts["tiny"])
+    _, tm = make_dpt_from_state_dict(ckpts["tiny"], device=DEVICE)
     frame = _frame(8)
     for side in (64, 96, 128):
         tm.inference(frame, side)
