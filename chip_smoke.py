@@ -24,7 +24,7 @@ original-format checkpoint and loaded through ``make_dpt_from_state_dict``:
     max side 512 gives 512x512, where the window search picks 32 (A=1024)
     at stages 1-3 and 16 at stage 4.
 
-Four CUDA kernels port seven TPU kernels; the ``kernels`` JSON line has one
+Five CUDA kernels port nine TPU kernels; the ``kernels`` JSON line has one
 entry per TPU kernel:
   #1 fused qkv, unbiased  -- the Depth-Anything path;
   #2 fused qkv, biased    -- the BEiT path (cached bias stack or inline bias);
@@ -35,6 +35,12 @@ entry per TPU kernel:
      of the port calls it, since the port serves every BEiT grid through #2.
      Its path is that op, driven at BEiT-L-512's attention shape (#4) and
      past 32768 keys (#5, the online kernel's regime);
+  #6 / #7 int8-QK^T attention (csrc/flash_attention_int8.cu), the (B H, N,
+     D) entry and the head-major qkv-slab entry: as in the JAX package, no
+     model serves through them. Their path holds them against the int8+qkv
+     DA-V2 ViT-L's own qkv slabs (blocks 0, 11 and 23, B=8, captured by a
+     forward hook on the block's qkv layer), with CUDA-event times against
+     their plain versions, kernel #1 and SDPA on block 11's slab;
   #8 fused LayerNorm -> MLP -> LayerScale residual (csrc/fused_mlp.cu) and
   #9 fused head tail, 3x3 conv -> ReLU -> 1x1 -> ReLU or sigmoid
      (csrc/head_tail.cu): as in the JAX package, no model serves through
@@ -71,11 +77,23 @@ failure raises:
   12. DA-V1 ViT-L bf16 serving and f32 parity as 4-5, then #8 and #9 on its
       blocks and head (bf16 serving model and f32 kernel model);
   13. DA-V2-metric ViT-L bf16 serving (depth in (0, 1)), #9 on its head;
-  14. DA-V2 ViT-Giant bf16 serving (40 launches per forward) and f32 parity.
+  14. DA-V2 ViT-Giant bf16 serving (40 launches per forward), its int8
+      default tier served the same way, and f32 parity;
+  15. (between 3 and 4) #6 and #7 vs their plain versions and float32
+      attention, float32 and bfloat16 v: ragged N, all-negative logits, a
+      zero q row, the lossless case, #6 at N=32897;
+  16. (after 5) torch._int_mm on the card as the int8 tier calls it, then
+      DA-V2 ViT-L's int8 tiers (default, +qkv, +qkv calibrated on 2 frames,
+      +qkv+neck) served like 4 beside the dense model, each with its times
+      and abs-rel against dense bf16; #6 and #7 on the int8+qkv model's qkv
+      slabs; the f32 int8+qkv kernel model vs its plain-attention twin;
+  17. (in 6 and 8) BEiT-L-512 int8+qkv+neck and SwinV2-L-384 int8 (MLP
+      only): one request and one batch of 8 each, against the bf16 model.
 Then one JSON line of per-kernel results (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
-for bf16, 67 TFLOP/s for f32; and, where one PyTorch call computes the same
-function, that call's time), the card line, and last the ok line.
+for bf16, 1979 TOP/s for int8 (#6 and #7's QK^T); and, where one PyTorch call
+computes the same function, that call's time), the card line, and last the
+ok line.
 
 Imports only torch, numpy and the port: never jax or the JAX package."""
 
@@ -99,7 +117,9 @@ from muggled_dpt_tpu_torch.checkpoints.random_init import random_original_depth_
 from muggled_dpt_tpu_torch.checkpoints.swinv2 import random_original_state_dict as random_swinv2_state_dict
 from muggled_dpt_tpu_torch.make_dpt import make_dpt_from_state_dict
 from muggled_dpt_tpu_torch.models.swinv2 import shift_mask, stage_grids, window_plan
+from muggled_dpt_tpu_torch.ops import quant as tq
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
+from muggled_dpt_tpu_torch.ops.kernels import flash_attention_int8 as fi8
 from muggled_dpt_tpu_torch.ops.kernels import fused_mlp as fm
 from muggled_dpt_tpu_torch.ops.kernels import head_tail as ht
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
@@ -158,7 +178,17 @@ MLP_WIDTHS = (384, 768, 1024)  # ViT-S, B and L: F, with the hidden width 4F
 MLP_ROWS = (100, N_TOKENS, 8 * N_TOKENS, N_BEIT)
 HEAD_CHANNELS = (32, 64, 128, 192)  # the tail's input: half of fusion 64 (ViT-S), 128 (B), 256 (L), 384 (Giant)
 HEAD_SIZES = ((1, 504, 504), (8, 504, 504), (1, 37, 52), (1, 392, 518))
-TAP_BLOCKS = (0, 11, 23)  # DA-V1 ViT-L blocks whose second half #8 is held against
+TAP_BLOCKS = (0, 11, 23)  # DA-V1 ViT-L blocks whose second half #8 is held against; int8 DA-V2 qkv slabs for #6, #7
+INT8_TIERS = {  # DA-V2 ViT-L int8 serving tiers: quantize_encoder_int8 options ("calibrate": 2 frames)
+    "int8": {},
+    "int8+qkv": {"include_qkv": True},
+    "int8+qkv calibrated": {"include_qkv": True, "calibrate": True},
+    "int8+qkv+neck": {"include_qkv": True, "include_neck": True},
+}
+INT8_FUSED_CASES = ((1, 300), (2, N_BEIT), (8, N_TOKENS))  # #7: (B, N), 16 heads
+INT8_ONLINE_CASES = ((4, 300), (32, N_BEIT), (2, N_ONLINE))  # #6: (B H, N)
+TRUE_ATTN_MAX_ERR = 0.05  # int8 logits against float32 attention (tests/test_flash_int8_experiment.py:112)
+LOSSLESS_MAX_ERR = 2e-4  # integer-grid q and k quantize exactly: float32 round-off only
 
 # tolerances of the kernel against its plain version on the same inputs
 F32_MAX_ERR = 1e-4  # f32 FMAs in another summation order
@@ -172,8 +202,8 @@ BF16_REL_MAX, BF16_REL_MEAN = 1.6e-2, 2e-3  # same rounding points: two bf16 ulp
 # fc2's output, the LayerScale product (#8) and the conv output (#9) to bf16
 COMPOSITE_BF16_REL_MAX, COMPOSITE_BF16_REL_MEAN = 5e-2, 1e-2
 
-# H100 SXM peaks for the bound: dense bf16 tensor cores, f32 FMA, HBM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM peaks for the bound: dense bf16 and int8 tensor cores, f32 FMA, HBM
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 REPLACES = {
@@ -182,6 +212,8 @@ REPLACES = {
     3: "muggled_dpt_tpu/ops/pallas/window_attention.py:31",
     4: "muggled_dpt_tpu/ops/pallas/flash_attention.py:86",
     5: "muggled_dpt_tpu/ops/pallas/flash_attention.py:497",
+    6: "experiments/flash_attention_int8.py:44",
+    7: "experiments/flash_attention_int8.py:175",
     8: "experiments/pallas_fused_mlp.py:59",
     9: "experiments/pallas_head_conv.py:52",
 }
@@ -191,11 +223,14 @@ NAMES = {
     3: "window_attention (factored CPB bias + shift mask)",
     4: "flash_attention (B, N, H, D)",
     5: "flash_attention (B, N, H, D), past 32768 keys",
+    6: "flash_attention_int8_qk ((B H, N, D), int8 QK^T, key-blocked)",
+    7: "flash_attention_int8_qk_fused (head-major qkv slab, int8 QK^T, one pass)",
     8: "fused_ln_mlp_residual (LayerNorm -> fc1 -> GELU -> fc2 -> LayerScale residual)",
     9: "fused_head_tail (3x3 conv -> ReLU -> 1x1 conv -> ReLU or sigmoid)",
 }
 SOURCES = {1: "flash_attention", 2: "flash_attention", 3: "window_attention", 4: "flash_attention", 5: "flash_attention",
-           8: "fused_mlp", 9: "head_tail"}
+           6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp", 9: "head_tail"}
+SERVED = {}  # what -> (ms per request at B=1, ms per frame at B=8), filled by serve()
 
 
 def card_line() -> str:
@@ -553,6 +588,7 @@ def serve(smi, model, side, out_hw, route, blocks, what) -> torch.Tensor:
         torch.cuda.synchronize()
 
     ms_b1, ms_b8 = _host_ms(per_request), _host_ms(per_batch) / 8
+    SERVED[what] = (ms_b1, ms_b8)
     print(f"{what} bf16 steady state: {ms_b1:.3f} ms per request at B=1, {ms_b8:.3f} ms per frame at B=8 [{smi}]", flush=True)
     return first, frames[0]
 
@@ -616,6 +652,10 @@ def phase_beit_model(smi: str, ckpt: str):
     check(2, f"bfloat16 B=1 N={n} model stack layer {blocks - 1} (offset {offset} elements)",
           fa.flash_attention_fused_qkv(qkv, HEADS, **kw), fa.flash_attention_fused_qkv_reference(qkv, HEADS, **kw),
           (1, n, HEADS * HEAD_DIM))
+    del qkv, stack, kw
+    model.clear_cache()
+    serve_int8_once(smi, model, {"include_qkv": True, "include_neck": True}, BEIT_SIDE, BEIT_HW, "fused_biased", blocks,
+                    "BEiT-L-512 int8+qkv+neck", depth, frame)
     return launches, depth, frame, check.worst[2]
 
 
@@ -639,7 +679,9 @@ def phase_swin_model(smi: str, ckpt: str):
     gb = sum(t.numel() * t.element_size() for stage in aux for t in stage.values() if t is not None) / 1e9
     print(f"SwinV2-L-384 bf16 512x512 request: {ms:.1f} ms, first at this size (CPB stacks and masks, {gb:.3f} GB, "
           f"built once and cached); windows per stage {windows} [{smi}]", flush=True)
-    return wa.window_attention.launches, depth, frame
+    launches = wa.window_attention.launches
+    serve_int8_once(smi, model, {}, SWIN_SIDE, SWIN_HW, "window", SWIN_BLOCKS, "SwinV2-L-384 int8 (MLP only)", depth, frame)
+    return launches, depth, frame
 
 
 def phase_bnhd_path(smi: str) -> tuple[int, int]:
@@ -853,10 +895,282 @@ def phase_giant(smi: str, ckpt: str):
     fa.reset_launch_counts()
     depth, frame = serve(smi, model, MAX_SIDE, OUT_HW, "fused", VITG["num_blocks"], "DA-V2 ViT-Giant")
     launches = fa.flash_attention_fused_qkv.launches
-    del model
+    int8 = model.quantize_encoder_int8()
+    d_int8, _ = serve(smi, int8, MAX_SIDE, OUT_HW, "fused", VITG["num_blocks"], "DA-V2 ViT-Giant int8")
+    (b1, b8), (i1, i8) = SERVED["DA-V2 ViT-Giant"], SERVED["DA-V2 ViT-Giant int8"]
+    print(f"DA-V2 ViT-Giant int8 (default tier) vs bf16: {i8:.3f} vs {b8:.3f} ms per frame at B=8, {i1:.3f} vs {b1:.3f} ms "
+          f"per request at B=1, abs-rel {_abs_rel(d_int8, depth):.3e} [{smi}]", flush=True)
+    del model, int8
     torch.cuda.empty_cache()
     parity(ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITG["num_blocks"], "DA-V2 ViT-Giant", depth)
     return launches
+
+
+def true_attention_err(out, q, k, v) -> tuple[float, float]:
+    """Max abs error of an int8-QK^T output against float32 attention on the
+    same (B, N, H, D) q, k and v (no quantization; TF32 off), and that
+    attention's max |output|."""
+    ref = fa.flash_attention_reference(q.float(), k.float(), v.float())
+    return float((out.float().reshape(ref.shape) - ref).abs().max()), float(ref.abs().max())
+
+
+def check_int8(check, kid, label, got, ref, shape, qkv_views=None, gate=TRUE_ATTN_MAX_ERR, relative=False):
+    """The int8 kernel against its plain version (kernel #1's gates, or
+    #8/#9's relative ones on a model's slab), then, with ``qkv_views``
+    ((B, N, H, D) q, k, v), against true attention: within ``gate`` for
+    the synthetic cases, whose outputs stay below 1 in magnitude; with
+    ``relative`` (a model's slab, outputs up to 5 and larger logits, so a
+    larger int8 logit error) within ``gate`` times max(1, max |output|)."""
+    check(kid, label, got, ref, shape, relative=relative)
+    if qkv_views is not None:
+        err, top = true_attention_err(got, *qkv_views)
+        limit = gate * max(1.0, top) if relative else gate
+        print(f"kernel check #{kid} {label} vs float32 attention: max_abs_err={err:.3e} (max|out|={top:.3e}, gate {limit:.3g})",
+              flush=True)
+        if not err < limit:
+            raise RuntimeError(f"kernel #{kid} {label}: int8 attention off true attention by {err:.3e}")
+
+
+def lossless_inputs(rng, g, n, dtype):
+    """(G, N, 64) q, k on a 0.02 grid with every row's max |entry| at 127
+    steps (so they quantize exactly), v N(0, 1)."""
+    qi, ki = (rng.integers(-127, 128, (g, n, HEAD_DIM)).astype(np.float32) for _ in range(2))
+    qi[:, :, 0], ki[:, :, 0] = 127, 127
+    return (torch.from_numpy(a).to(DEVICE, dtype) for a in (qi * np.float32(0.02), ki * np.float32(0.02),
+                                                            rng.standard_normal((g, n, HEAD_DIM), dtype=np.float32)))
+
+
+def phase_int8_kernels(smi: str) -> dict:
+    """#6 and #7 against their plain versions and true attention, float32 and
+    bfloat16: ragged N, all-negative logits, a zero q row, the lossless
+    case, #6 past 32768 keys. Returns each kernel's worst error."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # true attention in true f32
+    rng = np.random.default_rng(SEED + 7)
+    check = Checker()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for b, n in INT8_FUSED_CASES:
+            qkv = make_qkv(rng, b, n, dtype)
+            check_int8(check, 7, f"{name} B={b} N={n} H={HEADS}", fi8.flash_attention_int8_qk_fused(qkv, HEADS),
+                       fi8.flash_attention_int8_qk_fused_reference(qkv, HEADS), (b, n, HEADS * HEAD_DIM), _split(qkv))
+        qkv = make_qkv(rng, 2, 200, dtype, all_negative=True)
+        check(7, f"{name} B=2 N=200 all-negative", fi8.flash_attention_int8_qk_fused(qkv, HEADS),
+              fi8.flash_attention_int8_qk_fused_reference(qkv, HEADS), (2, 200, HEADS * HEAD_DIM))
+        for g, n in INT8_ONLINE_CASES:
+            q, k, v = (make_bias(rng, (g, n, HEAD_DIM), dtype) for _ in range(3))
+            views = None if n == N_ONLINE else tuple(t[:, :, None] for t in (q, k, v))  # N_ONLINE: plain only (17 GB logits)
+            check_int8(check, 6, f"{name} BH={g} N={n}", fi8.flash_attention_int8_qk(q, k, v),
+                       fi8.flash_attention_int8_qk_reference(q, k, v), (g, n, HEAD_DIM), views)
+            del q, k, v
+        q, k, v = (make_bias(rng, (2, 200, HEAD_DIM), dtype) for _ in range(3))
+        q, k = -8.0 * q.abs(), k.abs()
+        q[:, 7] = 0.0  # a zero row: sq = 1e-12 / 127, q_i8 = 0, the uniform softmax
+        got = fi8.flash_attention_int8_qk(q, k, v)
+        check(6, f"{name} BH=2 N=200 all-negative, zero row 7", got, fi8.flash_attention_int8_qk_reference(q, k, v),
+              (2, 200, HEAD_DIM))
+        mean_err = float((got[:, 7].float() - v.float().mean(dim=1)).abs().max())
+        print(f"kernel check #6 {name} zero q row vs the mean of v: max_abs_err={mean_err:.3e}", flush=True)
+        if not mean_err < (F32_MAX_ERR if dtype == torch.float32 else BF16_MAX_ERR):
+            raise RuntimeError(f"kernel #6 {name}: a zero q row did not give the mean of v ({mean_err:.3e})")
+        torch.cuda.empty_cache()
+    q, k, v = lossless_inputs(rng, 2, 256, torch.float32)
+    check_int8(check, 6, "float32 BH=2 N=256 lossless", fi8.flash_attention_int8_qk(q, k, v),
+               fi8.flash_attention_int8_qk_reference(q, k, v), (2, 256, HEAD_DIM), tuple(t[:, :, None] for t in (q, k, v)),
+               gate=LOSSLESS_MAX_ERR)
+    qkv = torch.stack([q, k, v], dim=2).reshape(2, 256, 3 * HEAD_DIM)  # one head; #7 pre-scales q, still lossless
+    check_int8(check, 7, "float32 B=2 N=256 H=1 lossless", fi8.flash_attention_int8_qk_fused(qkv, 1),
+               fi8.flash_attention_int8_qk_fused_reference(qkv, 1), (2, 256, HEAD_DIM), tuple(t[:, :, None] for t in (q, k, v)),
+               gate=LOSSLESS_MAX_ERR)
+    return {kid: check.worst[kid] for kid in (6, 7)}
+
+
+def check_int_mm():
+    """torch._int_mm on the card as ops/quant.py calls it: the (in, out)
+    column-major view of an (out, in) int8 weight, exact against int64 on
+    the host; and a short input padded to 17 rows changes no row."""
+    rng = np.random.default_rng(SEED + 8)
+    x = torch.from_numpy(rng.integers(-127, 128, (64, 1024), dtype=np.int8)).to(DEVICE)
+    w = torch.from_numpy(rng.integers(-127, 128, (4096, 1024), dtype=np.int8)).to(DEVICE)
+    exact = (x.cpu().long() @ w.cpu().long().t()).int()
+    got = torch._int_mm(x, w.t())
+    short = tq.int8_matmul(x[:5], w)
+    ok = torch.equal(got.cpu(), exact) and torch.equal(short.cpu(), exact[:5])
+    print(f"torch._int_mm on the card: (64, 1024) x the column-major view of a (4096, 1024) weight exact: {ok}; "
+          "5 rows padded to 17 equal the unpadded rows", flush=True)
+    if not ok:
+        raise RuntimeError("torch._int_mm on the card disagrees with int64 on the host")
+
+
+def int8_tier(model, tier: str, calibration_frames):
+    opts = dict(INT8_TIERS[tier])
+    calibrate = opts.pop("calibrate", False)
+    return model.quantize_encoder_int8(calibration_images=calibration_frames if calibrate else None,
+                                       max_side_length=MAX_SIDE if calibrate else None, **opts)
+
+
+def capture_qkv(model, frames, blocks):
+    """Run the model on a (B, H, W, 3) frame stack at the DA serving size
+    and return each listed block's qkv projection output (a forward hook
+    on its qkv layer, a QuantLinear in the int8+qkv tier)."""
+    got = {}
+    hooks = [model.net.encoder.blocks[i].attn.qkv.register_forward_hook(lambda m, args, out, i=i: got.__setitem__(i, out))
+             for i in blocks]
+    try:
+        model.inference_rgb_device(frames, OUT_HW)
+        torch.cuda.synchronize()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return got
+
+
+def hold_int8_on_model(smi, model, check) -> tuple[dict, dict]:
+    """#7 on the int8+qkv DA-V2 ViT-L's own qkv slabs at blocks 0, 11 and 23
+    (B=8) and #6 on their (B H, N, D) copies: the launches counted on their
+    own (every count zeroed first), then each output against its plain
+    version and true attention; CUDA-event times on block 11's slab against
+    the plain versions, kernel #1 and SDPA. Returns (launches, times)."""
+    slabs = capture_qkv(model, frame_stacks()[1], TAP_BLOCKS)
+    heads_first = {i: tuple(t.transpose(1, 2).reshape(-1, N_TOKENS, HEAD_DIM).contiguous() for t in _split(slab))
+                   for i, slab in slabs.items()}
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()  # count this path's launches only
+    outs7 = {i: fi8.flash_attention_int8_qk_fused(slab, HEADS) for i, slab in slabs.items()}
+    outs6 = {i: fi8.flash_attention_int8_qk(*heads_first[i]) for i in slabs}
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    want = {**{r: 0 for r in counts}, "int8_qk": len(slabs), "int8_qk_fused": len(slabs)}
+    if counts != want:
+        raise RuntimeError(f"int8 attention on the model's slabs: launches {counts}, want {want}")
+    for i, slab in slabs.items():
+        label = f"bfloat16 DA-V2 ViT-L int8+qkv B=8 block {i} qkv slab"
+        check_int8(check, 7, label, outs7[i], fi8.flash_attention_int8_qk_fused_reference(slab, HEADS),
+                   (slab.shape[0], N_TOKENS, HEADS * HEAD_DIM), _split(slab), relative=True)
+        q, k, v = heads_first[i]
+        check_int8(check, 6, f"{label}, (B H, N, D) copies", outs6[i], fi8.flash_attention_int8_qk_reference(q, k, v), q.shape,
+                   tuple(t[:, :, None] for t in (q, k, v)), relative=True)
+    mid = TAP_BLOCKS[len(TAP_BLOCKS) // 2]
+    slab, (q, k, v) = slabs[mid], heads_first[mid]
+    sdpa = [t.transpose(1, 2) for t in _split(slab)]
+    times = {
+        7: timed_pair(smi, f"#7 bf16 B=8 N={N_TOKENS} H={HEADS} model block {mid} slab (prologue + kernel)",
+                      lambda: fi8.flash_attention_int8_qk_fused(slab, HEADS),
+                      lambda: fi8.flash_attention_int8_qk_fused_reference(slab, HEADS),
+                      lambda: F.scaled_dot_product_attention(*sdpa)),
+        6: timed_pair(smi, f"#6 bf16 BH={8 * HEADS} N={N_TOKENS} model block {mid} heads (prologue + kernel)",
+                      lambda: fi8.flash_attention_int8_qk(q, k, v), lambda: fi8.flash_attention_int8_qk_reference(q, k, v),
+                      lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])),
+    }
+    t_flash = time_ms(lambda: fa.flash_attention_fused_qkv(slab, HEADS))
+    t_pro7 = time_ms(lambda: fi8.quantize_fused(slab, HEADS, HEAD_DIM**-0.5))
+    t_pro6 = time_ms(lambda: fi8.quantize_rows(q, k, HEAD_DIM**-0.5))
+    print(f"same slab: kernel #1 (bf16 q, k) {t_flash:.4f} ms; the int8 prologues alone: #7 {t_pro7:.4f} ms, "
+          f"#6 {t_pro6:.4f} ms [{smi}]", flush=True)
+    launches = {6: counts["int8_qk"], 7: counts["int8_qk_fused"]}
+    del slabs, heads_first, outs6, outs7
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def phase_int8_da(smi: str, ckpt: str, check: Checker):
+    """DA-V2 ViT-L's int8 tiers in bf16: each serves like the dense model (24
+    launches of #1 per forward), with its times and its depth's abs-rel
+    against the dense bf16 model; the f32 int8+qkv kernel model against the
+    same model on the plain attention path; then #6 and #7 held against the
+    int8+qkv model's own qkv slabs. Returns (launches, times)."""
+    check_int_mm()
+    _, dense = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE)
+    blocks = VITL["num_blocks"]
+    d_dense, frame = serve(smi, dense, MAX_SIDE, OUT_HW, "fused", blocks, "DA-V2 ViT-L dense")
+    rng = np.random.default_rng(SEED + 6)
+    calibration = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(2)]
+    rows, held = {"dense": (*SERVED["DA-V2 ViT-L dense"], 0.0)}, None
+    for tier in INT8_TIERS:
+        model = int8_tier(dense, tier, calibration)
+        depth, _ = serve(smi, model, MAX_SIDE, OUT_HW, "fused", blocks, f"DA-V2 ViT-L {tier}")
+        rows[tier] = (*SERVED[f"DA-V2 ViT-L {tier}"], _abs_rel(depth, d_dense))
+        if tier == "int8+qkv":
+            held = model
+        del model
+        torch.cuda.empty_cache()
+    for tier, (b1, b8, rel) in rows.items():
+        print(f"DA-V2 ViT-L bf16 {tier:>20}: {b1:.3f} ms per request at B=1, {b8:.3f} ms per frame at B=8, "
+              f"abs-rel vs dense bf16 {rel:.3e} [{smi}]", flush=True)
+    del dense
+    torch.cuda.empty_cache()
+    launches, times = hold_int8_on_model(smi, held, check)
+    del held
+    torch.cuda.empty_cache()
+    int8_parity(ckpt, frame)
+    return launches, times
+
+
+def int8_parity(ckpt, frame):
+    """The f32 int8+qkv model on kernel #1 against the same model on the
+    plain attention path. Whole-model depth is not held to the 1e-3 budget:
+    a float32 rounding difference that moves one activation across an int8
+    rounding boundary changes that activation by a whole step, which moves
+    the next block's activations across theirs, so the difference grows
+    with depth to the size of the int8 error itself. So each block is run
+    on the plain model's own input to that block (captured by forward
+    pre-hooks), and its output is held to the budget; the whole-model
+    difference is held below the int8 tier's own error against the f32
+    dense model."""
+    blocks = VITL["num_blocks"]
+    models = {}
+    for kernel in (True, False):
+        _, m = make_dpt_from_state_dict(ckpt, dtype=torch.float32, device=DEVICE, enable_optimizations=kernel)
+        models[kernel] = m.quantize_encoder_int8(include_qkv=True)
+        if not kernel:
+            d_dense = _counted(lambda: m.inference(frame, MAX_SIDE), "fused", 0, "DA-V2 f32 plain dense model")
+        del m
+    d_kernel = _counted(lambda: models[True].inference(frame, MAX_SIDE), "fused", blocks, "DA-V2 int8+qkv f32 kernel model")
+    net = models[False].net
+    inputs = {}
+    hooks = [b.register_forward_pre_hook(lambda m, args, i=i: inputs.__setitem__(i, args[0])) for i, b in enumerate(net.encoder.blocks)]
+    try:
+        d_plain = _counted(lambda: models[False].inference(frame, MAX_SIDE), "fused", 0, "DA-V2 int8+qkv f32 plain model")
+    finally:
+        for hook in hooks:
+            hook.remove()
+    with torch.inference_mode(), models[True]._precision():
+        per_block = [_abs_rel(models[True].net.encoder.blocks[i](x), net.encoder.blocks[i](x)) for i, x in sorted(inputs.items())]
+    rel, rel_int8, worst = _abs_rel(d_kernel, d_plain), _abs_rel(d_plain, d_dense), max(per_block)
+    print(f"DA-V2 ViT-L int8+qkv f32 kernel vs plain: each block on the plain model's input, worst mean abs-rel {worst:.3e} "
+          f"(block {per_block.index(worst)}; budget {ABS_REL_BUDGET:g}); whole model {rel:.3e}, against the int8 tier's own "
+          f"{rel_int8:.3e} (plain int8+qkv vs plain dense, f32)", flush=True)
+    if not (worst <= ABS_REL_BUDGET and rel < rel_int8):
+        raise RuntimeError(f"DA-V2 int8+qkv f32: kernel model vs plain model per block {worst:.3e}, whole {rel:.3e} "
+                           f"(int8 error {rel_int8:.3e})")
+    del models, inputs
+    torch.cuda.empty_cache()
+
+
+def serve_int8_once(smi, model, opts, side, out_hw, route, blocks, what, dense_depth, frame):
+    """One B=1 request and one B=8 batch of ``model``'s int8 tier (``opts``):
+    launches counted, shapes and finite values checked, the request's depth
+    against the bf16 model's on the same frame, steady-state times."""
+    q = model.quantize_encoder_int8(**opts)
+    depth = _counted(lambda: q.inference(frame, side), route, blocks, f"{what} request")
+    _check_depth(depth, (1, *out_hw), f"{what} request")
+    stack = torch.from_numpy(np.stack([frame] * 8)).to(DEVICE)
+    hw = q.compute_scaled_hw(FRAME_HW, side)
+    batch = _counted(lambda: q.inference_rgb_device(stack, hw), route, blocks, f"{what} batch of 8")
+    _check_depth(batch, (8, *out_hw), f"{what} batch of 8")
+
+    def request():
+        q.inference(frame, side)
+        torch.cuda.synchronize()
+
+    def per_batch():
+        q.inference_rgb_device(stack, hw)
+        torch.cuda.synchronize()
+
+    b1, b8 = _host_ms(request, 5, 1), _host_ms(per_batch, 5, 1) / 8
+    print(f"{what} bf16: request {(1, *out_hw)} and batch {(8, *out_hw)} finite, {blocks} {route} launches per forward, "
+          f"abs-rel vs the bf16 model {_abs_rel(depth, dense_depth):.3e}; {b1:.3f} ms per request at B=1, {b8:.3f} ms per "
+          f"frame at B=8 [{smi}]", flush=True)
+    del q
 
 
 def timed(name, fn, *args):
@@ -871,18 +1185,22 @@ def write_checkpoint(sd: dict, path: str) -> str:
     return path
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """The least time the card could take (bf16): operations over the dense
-    bf16 peak or bytes over HBM's rate, whichever is larger."""
-    t_ops, t_bytes = ops / PEAK_FLOPS[torch.bfloat16] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound(ops: float, nbytes: float, int8_ops: float = 0.0) -> dict:
+    """The least time the card could take: bf16 operations over the dense
+    bf16 peak plus int8 operations over the dense int8 peak, or bytes over
+    HBM's rate, whichever is larger."""
+    t_ops = (ops / PEAK_FLOPS[torch.bfloat16] + int8_ops / PEAK_FLOPS[torch.int8]) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def bounds() -> dict:
     """Each kernel's bound at the shape its JSON entry was timed at, all
     bf16, from shape arithmetic: every input read once, every output written
-    once; attention 4 B H N^2 D operations (QK^T and PV); #8 the two GEMMs,
-    4 rows F H; #9 the 3x3 conv and the projection, 2 B H W 32 (9 ci + 1)."""
+    once; attention 4 B H N^2 D operations (QK^T and PV); #6 and #7 half
+    of them int8 (QK^T), the entry's bf16 inputs read and output written;
+    #8 the two GEMMs, 4 rows F H; #9 the 3x3 conv and the projection,
+    2 B H W 32 (9 ci + 1)."""
     e = 2  # bytes per bf16 element
 
     def attention(b, n, h, d, bias_elements=0):  # q, k and v read, out written, the bias's N x N read
@@ -892,12 +1210,16 @@ def bounds() -> dict:
     a = wh * ww
     rows, f = 8 * N_TOKENS, VITL["features_per_token"]
     b, ci, (hh, hw) = 8, VITL["fusion_channels"] // 2, OUT_HW
+    # #6 and #7 at DA-V2 ViT-L's slab, B=8: QK^T in int8, PV in bf16; q, k, v read, out written
+    int8_ops, int8_bytes = 2 * 8 * HEADS * N_TOKENS**2 * HEAD_DIM, 4 * 8 * N_TOKENS * HEADS * HEAD_DIM * e
     return {
         1: attention(8, N_TOKENS, HEADS, HEAD_DIM),
         2: attention(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2),
         3: bound(4 * 8 * nw * sh * a * a * SWIN_D, (4 * 8 * nw * a * sh * SWIN_D + sh * a * a + nw * a * a) * e),
         4: attention(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2),
         5: attention(1, N_ONLINE, 2, HEAD_DIM),
+        6: bound(int8_ops, int8_bytes, int8_ops),
+        7: bound(int8_ops, int8_bytes, int8_ops),
         8: bound(4 * rows * f * 4 * f, (2 * rows * f + 2 * f * 4 * f + 4 * f + 4 * f) * e),
         9: bound(2 * b * hh * hw * 32 * (9 * ci + 1), (b * ci * hh * hw + b * hh * hw + 32 * (9 * ci + 3) + 1) * e),
     }
@@ -909,12 +1231,14 @@ def main() -> int:
     timed("build", phase_build)
     numbers = timed("kernel checks and times", phase_kernel, smi)
     numbers.update(timed("fused MLP and head tail checks and times", phase_fused_kernels, smi))
+    int8_worst = timed("int8-QK^T attention checks", phase_int8_kernels, smi)
     launches, check, composite = {}, Checker(), {}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = write_checkpoint(random_original_depth_anything_state_dict(VITL, seed=SEED),
                                 os.path.join(tmp, "depth_anything_v2_vitl_random.pth"))
         launches[1], depth, frame = timed("DA-V2 model", phase_da_model, smi, ckpt)
         timed("DA-V2 f32 parity", parity, ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V2 ViT-L", depth)
+        int8_launches, int8_times = timed("DA-V2 int8 tiers, #6 and #7 on the int8+qkv model", phase_int8_da, smi, ckpt, check)
         metric = os.path.join(tmp, "depth_anything_v2_metric_hypersim_vitl_random.pth")
         os.replace(ckpt, metric)  # the same weights: only the file name makes the metric head
         head_launches = timed("DA-V2-metric model and #9 on its head", phase_metric, smi, metric, check)
@@ -938,6 +1262,10 @@ def main() -> int:
         ckpt = write_checkpoint(random_original_depth_anything_state_dict(VITG, seed=SEED),
                                 os.path.join(tmp, "depth_anything_v2_vitg_random.pth"))
         flash_giant = timed("DA-V2 ViT-Giant model and f32 parity", phase_giant, smi, ckpt)
+    for kid in (6, 7):
+        launches[kid] = int8_launches[kid]
+        numbers[kid] = {"max_abs_err": max(int8_worst[kid], check.worst[kid]),
+                        **dict(zip(("ms", "plain_ms", "library_ms"), int8_times[kid]))}
     launches[8] = fused["fused_mlp"]
     launches[9] = fused["head_tail"] + head_launches["head_tail"]
     print(f"flash launches on the DA-V1 and Giant paths: {flash_v1}, {flash_giant}", flush=True)

@@ -7,7 +7,16 @@ stack the encoder blocks along a leading (L, ...) axis (SwinV2: per stage, in
 pairs) and store linears as (in, out), convolutions as HWIO and transposed
 convolutions as (kh, kw, in, out). Their qkv columns are in the order this
 package's qkv rows are: head-major for DA and BEiT, torch's [q|k|v] for
-SwinV2. Only numpy arrays cross the boundary: this module imports no jax."""
+SwinV2. Only numpy arrays cross the boundary: this module imports no jax.
+
+A tree of the JAX package's int8 tier (``DPTModel.quantize_encoder_int8``)
+carries its quantized leaves across to the port's ``QuantLinear`` /
+``QuantConv3x3`` buffers: ``<name>_kernel_q8`` (in, out) becomes
+``weight_q8`` (out, in), ``<name>_kernel_scale`` (1, out) ``weight_scale``
+(out,), ``<name>_act_smooth`` ``act_smooth``, the shiftsum convolutions'
+``<name>_kernel9_q8`` (ci, 9 co) ``weight_q8`` (9 co, ci), and the BEiT
+readout's bare ``kernel_q8`` / ``kernel_scale`` likewise. Load such a state
+dict into a port model quantized with the same options."""
 
 from __future__ import annotations
 
@@ -36,6 +45,26 @@ def _conv_transpose(k):
 
 def _conv1x1(k):
     return _linear(k)[:, :, None, None]  # linear (in, out) -> (out, in, 1, 1)
+
+
+def _q8(q):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(q, dtype=np.int8).T))  # (in, out) -> (out, in)
+
+
+def _weights(p: dict, name: str, key: str, dense=_linear) -> dict:
+    """The port's weight entries under ``key`` for the JAX leaves of
+    ``name`` in ``p`` (``name`` "conv1" reads ``conv1_kernel``, "" the bare
+    ``kernel``): the int8 buffers where ``p`` holds them, else ``dense`` of
+    the kernel. Biases are not included."""
+    pre = name + "_" if name else ""
+    for kernel in ("kernel", "kernel9"):
+        if pre + kernel + "_q8" in p:
+            sd = {f"{key}.weight_q8": _q8(p[pre + kernel + "_q8"]),
+                  f"{key}.weight_scale": _t(np.asarray(p[pre + kernel + "_scale"]).reshape(-1))}
+            if pre + "act_smooth" in p:
+                sd[f"{key}.act_smooth"] = _t(p[pre + "act_smooth"])
+            return sd
+    return {f"{key}.weight": dense(p[pre + "kernel"])}
 
 
 def params_from_jax(params_np: dict) -> dict:
@@ -80,7 +109,7 @@ def beit_params_from_jax(params_np: dict) -> dict:
         sd[f"encoder.blocks.{i}.attn.qkv.bias"] = qkv_bias_head_major(q_bias, v_bias, heads)
     sd.update(_neck(p))
     for i, stage in enumerate(p["reassemble"]):
-        sd[f"reassemble.{i}.readout.weight"] = _linear(stage["readout"]["kernel"])
+        sd.update(_weights(stage["readout"], "", f"reassemble.{i}.readout"))
         sd[f"reassemble.{i}.readout.bias"] = _t(stage["readout"]["bias"])
     return sd
 
@@ -108,7 +137,7 @@ def swinv2_params_from_jax(params_np: dict) -> dict:
                 sd[f"{pre}.logit_scale"] = _t(bp["logit_scale"])
                 sd[f"{pre}.cpb1.weight"] = _linear(bp["cpb1_kernel"])
                 for name in ("proj", "cpb0", "fc1", "fc2"):
-                    sd[f"{pre}.{name}.weight"] = _linear(bp[f"{name}_kernel"])
+                    sd.update(_weights(bp, name, f"{pre}.{name}"))
                     sd[f"{pre}.{name}.bias"] = _t(bp[f"{name}_bias"])
                 for norm in ("norm1", "norm2"):
                     sd[f"{pre}.{norm}.weight"] = _t(bp[f"{norm}_scale"])
@@ -128,10 +157,11 @@ def _block(blocks: dict, i: int) -> dict:
     block (ViT-Giant) holds w12 and w3 where the others hold fc1 and fc2."""
     pre = f"encoder.blocks.{i}"
     sd = {}
-    mlp = ("w12", "w3") if "w12_kernel" in blocks else ("fc1", "fc2")
+    mlp = ("w12", "w3") if "w12_bias" in blocks else ("fc1", "fc2")
     linears = {"qkv": "attn.qkv", "proj": "attn.proj", **{name: f"mlp.{name}" for name in mlp}}
+    layer = {k: v[i] for k, v in blocks.items()}
     for jax_name, name in linears.items():
-        sd[f"{pre}.{name}.weight"] = _linear(blocks[f"{jax_name}_kernel"][i])
+        sd.update(_weights(layer, jax_name, f"{pre}.{name}"))
         if name != "attn.qkv":
             sd[f"{pre}.{name}.bias"] = _t(blocks[f"{jax_name}_bias"][i])
     for norm in ("norm1", "norm2"):
@@ -147,7 +177,7 @@ def _neck(p: dict) -> dict:
     sd = {}
     for i, stage in enumerate(p["reassemble"]):
         pre = f"reassemble.{i}"
-        sd[f"{pre}.proj.weight"] = _conv1x1(stage["proj_kernel"])
+        sd.update(_weights(stage, "proj", f"{pre}.proj", _conv1x1))
         sd[f"{pre}.proj.bias"] = _t(stage["proj_bias"])
         if "resample_kernel" in stage:
             rk = stage["resample_kernel"]
@@ -165,14 +195,14 @@ def _fusion_and_head(p: dict) -> dict:
         for unit in ("res1", "res2"):
             if unit in block:
                 for conv in ("conv1", "conv2"):
-                    sd[f"{pre}.{unit}.{conv}.weight"] = _conv(block[unit][f"{conv}_kernel"])
+                    sd.update(_weights(block[unit], conv, f"{pre}.{unit}.{conv}", _conv))
                     sd[f"{pre}.{unit}.{conv}.bias"] = _t(block[unit][f"{conv}_bias"])
-        sd[f"{pre}.out.weight"] = _conv1x1(block["out_kernel"])
+        sd.update(_weights(block, "out", f"{pre}.out", _conv1x1))
         sd[f"{pre}.out.bias"] = _t(block["out_bias"])
 
     head = p["head"]
     for name in ("conv_in", "conv_mid"):
-        sd[f"head.{name}.weight"] = _conv(head[f"{name}_kernel"])
+        sd.update(_weights(head, name, f"head.{name}", _conv))
         sd[f"head.{name}.bias"] = _t(head[f"{name}_bias"])
     sd["head.proj.weight"] = _conv1x1(head["proj_kernel"])
     sd["head.proj.bias"] = _t(head["proj_bias"])

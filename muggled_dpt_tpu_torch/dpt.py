@@ -18,7 +18,10 @@ None and the net builds what it needs inline.
 
 float32 is the parity mode: while the model runs, TF32 is switched off for
 both cuBLAS matmuls and cuDNN convolutions (cuDNN uses TF32 by default), and
-both settings are restored afterwards."""
+both settings are restored afterwards.
+
+``quantize_encoder_int8`` returns the opt-in int8 serving tier of a model
+(``ops/quant.py``), a port of JAX ``dpt.py:288-367``."""
 
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import copy
 import numpy as np
 import torch
 
+from .ops import quant
 from .ops.resize import resize_2d
 
 FALLBACK_BUDGET_BYTES = 8 * 1024**3  # where the device reports no memory stats (the CPU)
@@ -159,7 +163,7 @@ class DPTModel:
         estimate = self.spec.get("aux_bytes_estimate")
         if estimate is not None:
             needed = estimate(self.config, grid_hw, self.dtype)
-            params_bytes = _tensor_bytes(self.net.parameters())
+            params_bytes = _tensor_bytes([*self.net.parameters(), *self.net.buffers()])
             cache_bytes = _tensor_bytes(self._aux_cache.values())
             if not fits_device_budget(needed, self.device, resident_bytes=params_bytes + cache_bytes,
                                       reclaimable_bytes=cache_bytes):
@@ -271,4 +275,60 @@ class DPTModel:
                 f"Note: .to({dtype}) upcasts {self.dtype}-rounded weights; "
                 "for checkpoint-exact parity mode reload with dtype=torch.float32."
             )
-        return DPTModel(copy.deepcopy(self.net).to(dtype), self.config, self.spec, dtype=dtype)
+        net = copy.deepcopy(self.net)
+        # int8 scales and act_smooth stay float32 (ops/quant.py:is_scale_key)
+        kept = {name: t for name, t in net.named_buffers() if quant.is_scale_key(name)}
+        net.to(dtype)
+        for name, t in kept.items():
+            parent, _, leaf = name.rpartition(".")
+            setattr(net.get_submodule(parent), leaf, t)
+        return DPTModel(net, self.config, self.spec, dtype=dtype)
+
+    def quantize_encoder_int8(self, include_qkv: bool = False, calibration_images=None, max_side_length=None,
+                              include_neck: bool = False):
+        """Opt-in int8 (w8a8) serving tier: a copy of this model whose encoder
+        linears are symmetric per-channel int8 with per-token int8
+        activations (``ops/quant.py``). include_qkv=False (the default) keeps
+        the attention's qkv projection dense: softmax amplifies qkv
+        quantization noise. DINOv2 (Depth-Anything V1/V2, ViT-Giant's SwiGLU
+        included) and BEiT quantize every block linear of the subset; SwinV2
+        only its MLP (its window qkv and proj stay dense).
+
+        calibration_images: optional BGR uint8 frames for SmoothQuant
+        calibration: this model runs on each (at ``max_side_length``) while
+        the encoder's per-channel input maxima are recorded, and the outlier
+        magnitude they show is moved from the activations into the int8
+        weights (``ops/quant.py:compute_smoothing``). DINOv2 and BEiT only.
+        include_neck: the reassembly and readout projections, the fusion
+        blocks' convolutions and 1x1 outputs and the head's conv_in and
+        conv_mid go int8 too (``ops/quant.py:quantize_neck``)."""
+        blocks = getattr(self.net.encoder, "blocks", None)
+        subset = quant.QUANTIZABLE if include_qkv else tuple(n for n in quant.QUANTIZABLE if n != "qkv")
+        smoothing = None
+        if calibration_images is not None:
+            if blocks is None:
+                raise NotImplementedError("int8 calibration: only the stacked-blocks encoders (DINOv2/BEiT)")
+            with quant.collect_activation_stats() as stats:
+                for img in calibration_images:
+                    quant.reset_collection_pass()
+                    self.forward(self.prepare_image_bgr(img, max_side_length))
+            if not stats:
+                # the tier would silently degrade to dynamic quantization,
+                # which the calibration images were passed to avoid
+                raise RuntimeError("int8 calibration recorded no activation stats; refusing to quantize "
+                                   "without the smoothing the calibration images were for")
+            weights = quant.stacked_weights(blocks, subset)
+            smoothing = quant.compute_smoothing(weights, stats, subset)
+            missing = [n for n in subset if n in weights and n not in smoothing]
+            if missing:
+                print(f"int8 calibration: no activation stats for {missing}; those stay dynamic-only")
+        net = copy.deepcopy(self.net)
+        if blocks is not None:
+            quant.quantize_blocks(net.encoder.blocks, subset, smoothing)
+        elif hasattr(net.encoder, "stages"):
+            quant.quantize_blocks([b for stage in net.encoder.stages for b in stage], [n for n in subset if n in ("fc1", "fc2")])
+        else:
+            raise NotImplementedError("int8 tier: unrecognized encoder layout")
+        if include_neck:
+            quant.quantize_neck(net)
+        return DPTModel(net, self.config, self.spec, dtype=self.dtype)

@@ -42,7 +42,7 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, features, device=device)
 
     def forward(self, x):
-        return mlp_gelu(x, self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)
+        return mlp_gelu(x, self.fc1, self.fc2)
 
 
 class SwiGLUMlp(nn.Module):
@@ -54,7 +54,7 @@ class SwiGLUMlp(nn.Module):
         self.w3 = nn.Linear(hidden, features, device=device)
 
     def forward(self, x):
-        return mlp_swiglu(x, self.w12.weight, self.w12.bias, self.w3.weight, self.w3.bias)
+        return mlp_swiglu(x, self.w12, self.w3)
 
 
 class Block(nn.Module):
@@ -80,7 +80,7 @@ class Block(nn.Module):
         """The first half: tokens + ls1 * attention(norm1(tokens))."""
         a = self.attn
         h = layer_norm(tokens, self.norm1.weight, self.norm1.bias)
-        h = self_attention(h, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, self.num_heads, self.use_kernel, bias)
+        h = self_attention(h, a.qkv, a.proj, self.num_heads, self.use_kernel, bias)
         return tokens + self.ls1 * h
 
     def mlp_residual(self, tokens):

@@ -8,23 +8,28 @@ modes: 'ignore' (Depth-Anything: the cls token is dropped), 'project'
 ``FuseOnlyStage``). The ViT reassembly keeps the dense transposed-conv + 3x3
 conv pair; fusion and head upsample with bilinear align_corners=True; the
 head's upsample factor is P/8 for Depth-Anything and 2 for MiDaS; a metric
-head ends in a sigmoid instead of a ReLU."""
+head ends in a sigmoid instead of a ReLU.
+
+The int8 tier (``ops/quant.py:quantize_neck``) swaps the readout and 1x1
+projections for ``QuantLinear``s and the residual units' and head's 3x3
+convolutions for shiftsum ``QuantConv3x3``s; the ``*_p`` calls run either."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..ops.nn import conv2d, conv_transpose_blocky, gelu, linear
+from ..ops.nn import conv2d, conv_transpose_blocky, gelu
+from ..ops.quant import QuantLinear, conv1x1_p, conv3x3_p, linear_p
 from ..ops.resize import resize_2d, resize_output_size
 
 
-def readout_project(tokens, weight, bias):
+def readout_project(tokens, layer):
     """Readout 'project': [patch token, cls] -> Linear(2F -> F) -> exact GELU.
     tokens (B, 1+N, F) -> (B, N, F)."""
     patch = tokens[:, 1:, :]
     cls_tok = tokens[:, :1, :].expand_as(patch)
-    return gelu(linear(torch.cat([patch, cls_tok], dim=-1), weight, bias))
+    return gelu(linear_p(torch.cat([patch, cls_tok], dim=-1), layer))
 
 
 class ReassembleStage(nn.Module):
@@ -51,10 +56,12 @@ class ReassembleStage(nn.Module):
         if self.readout is None:
             tokens = tokens[:, 1:, :]
         else:
-            tokens = readout_project(tokens, self.readout.weight, self.readout.bias)
-        b, _, c = tokens.shape
-        x = tokens.transpose(1, 2).reshape(b, c, gh, gw)
-        x = conv2d(x, self.proj.weight, self.proj.bias)
+            tokens = readout_project(tokens, self.readout)
+        b = tokens.shape[0]
+        if isinstance(self.proj, QuantLinear):  # per token, before the tokens become a map
+            x = self.proj(tokens).transpose(1, 2).reshape(b, -1, gh, gw)
+        else:
+            x = conv2d(tokens.transpose(1, 2).reshape(b, -1, gh, gw), self.proj.weight, self.proj.bias)
         if self.scale in (2, 4):
             x = conv_transpose_blocky(x, self.resample.weight, self.resample.bias)
         elif self.scale == 0.5:
@@ -84,8 +91,8 @@ class ResidualConvUnit(nn.Module):
         self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, device=device)
 
     def forward(self, x):
-        h = conv2d(torch.relu(x), self.conv1.weight, self.conv1.bias, padding=1)
-        h = conv2d(torch.relu(h), self.conv2.weight, self.conv2.bias, padding=1)
+        h = conv3x3_p(torch.relu(x), self.conv1)
+        h = conv3x3_p(torch.relu(h), self.conv2)
         return h + x
 
 
@@ -104,7 +111,7 @@ class FusionBlock(nn.Module):
         x = fmap if prev is None else self.res1(fmap) + prev
         x = self.res2(x)
         x = resize_2d(x, resize_output_size(x.shape[-2:], 2.0), align_corners=True)
-        return conv2d(x, self.out.weight, self.out.bias)
+        return conv1x1_p(x, self.out)
 
 
 def fusion_forward(reassembly_maps, blocks):
@@ -132,12 +139,12 @@ class Head(nn.Module):
         """The tail at full output resolution: 3x3 conv -> 32, ReLU, 1x1 conv
         -> 1, ReLU or sigmoid; (B, C/2, H, W) -> (B, H, W). What
         ``ops/kernels/head_tail.py`` computes in one kernel."""
-        x = torch.relu(conv2d(x, self.conv_mid.weight, self.conv_mid.bias, padding=1))
+        x = torch.relu(conv3x3_p(x, self.conv_mid))
         x = conv2d(x, self.proj.weight, self.proj.bias)
         x = torch.sigmoid(x) if self.is_metric else torch.relu(x)
         return x[:, 0]
 
     def forward(self, x):
-        x = conv2d(x, self.conv_in.weight, self.conv_in.bias, padding=1)
+        x = conv3x3_p(x, self.conv_in)
         x = resize_2d(x, resize_output_size(x.shape[-2:], self.upsample_factor), align_corners=True)
         return self.tail(x)

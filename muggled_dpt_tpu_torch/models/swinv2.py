@@ -232,7 +232,7 @@ class SwinBlock(nn.Module):
     def forward(self, x, window_hw, shift_hw, cpb, mask=None):
         h = self.attention(x, window_hw, shift_hw, cpb, mask)
         x = x + layer_norm(h, self.norm1.weight, self.norm1.bias, eps=SWIN_LN_EPS)
-        h = mlp_gelu(x, self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)
+        h = mlp_gelu(x, self.fc1, self.fc2)  # int8 tier: fc1 and fc2 only, qkv and proj stay dense
         return x + layer_norm(h, self.norm2.weight, self.norm2.bias, eps=SWIN_LN_EPS)
 
 

@@ -107,4 +107,8 @@ def kernel_library() -> ctypes.CDLL:
     # the int64 argument array (its slots in csrc/head_tail.cu), stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.mdpt_flash_attention_int8
+    # the int64 argument array (its slots in csrc/flash_attention_int8.cu), stream
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib

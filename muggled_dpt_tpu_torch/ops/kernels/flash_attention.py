@@ -257,6 +257,7 @@ flash_attention.launches = 0
 
 def reset_launch_counts():
     """Zero the launch count of every kernel route of the package."""
+    from .flash_attention_int8 import flash_attention_int8_qk, flash_attention_int8_qk_fused
     from .fused_mlp import fused_ln_mlp_residual
     from .head_tail import fused_head_tail
     from .window_attention import window_attention
@@ -267,12 +268,16 @@ def reset_launch_counts():
     window_attention.launches = 0
     fused_ln_mlp_residual.launches = 0
     fused_head_tail.launches = 0
+    flash_attention_int8_qk.launches = 0
+    flash_attention_int8_qk_fused.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     """The launch count of every kernel route of the package: the SwinV2
     window kernel (``ops/kernels/window_attention.py``), the fused MLP
-    (``fused_mlp.py``) and the head tail (``head_tail.py``) included."""
+    (``fused_mlp.py``), the head tail (``head_tail.py``) and the int8-QK^T
+    attention's two entries (``flash_attention_int8.py``) included."""
+    from .flash_attention_int8 import flash_attention_int8_qk, flash_attention_int8_qk_fused
     from .fused_mlp import fused_ln_mlp_residual
     from .head_tail import fused_head_tail
     from .window_attention import window_attention
@@ -284,4 +289,6 @@ def launch_counts() -> dict[str, int]:
         "window": window_attention.launches,
         "fused_mlp": fused_ln_mlp_residual.launches,
         "head_tail": fused_head_tail.launches,
+        "int8_qk": flash_attention_int8_qk.launches,
+        "int8_qk_fused": flash_attention_int8_qk_fused.launches,
     }

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 from .kernels.flash_attention import flash_attention_fused_qkv
 from .kernels.flash_attention import flash_attention_reference as sdpa  # the plain attention path, JAX's name
+from .quant import linear_p
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-6):
@@ -30,24 +31,24 @@ def gelu(x):
     return F.gelu(x)
 
 
-def mlp_gelu(x, fc1_weight, fc1_bias, fc2_weight, fc2_bias):
-    """Linear -> GELU -> Linear."""
-    return linear(gelu(linear(x, fc1_weight, fc1_bias)), fc2_weight, fc2_bias)
+def mlp_gelu(x, fc1, fc2):
+    """Linear -> GELU -> Linear. ``fc1`` and ``fc2`` are linear layers
+    (``weight``, ``bias``) or ``QuantLinear``s (``ops/quant.py:linear_p``)."""
+    return linear_p(gelu(linear_p(x, fc1, "fc1")), fc2, "fc2")
 
 
-def mlp_swiglu(x, w12_weight, w12_bias, w3_weight, w3_bias):
+def mlp_swiglu(x, w12, w3):
     """SwiGLU (ViT-Giant): Linear(silu(a) * b) with a and b the two halves
     of one fused Linear ``w12`` (2 * hidden, F)."""
-    a, b = linear(x, w12_weight, w12_bias).chunk(2, dim=-1)
-    return linear(F.silu(a) * b, w3_weight, w3_bias)
+    a, b = linear_p(x, w12, "w12").chunk(2, dim=-1)
+    return linear_p(F.silu(a) * b, w3, "w3")
 
 
-def self_attention(
-    tokens, qkv_weight, qkv_bias, proj_weight, proj_bias, num_heads: int, use_kernel: bool = True, bias=None
-):
-    """Fused-qkv multi-head self-attention. ``qkv_weight`` (3C, C) has its
-    rows in head-major [head][q|k|v][dim] order, so the projection output is
-    the slab the flash kernel reads with no transposes.
+def self_attention(tokens, qkv, proj, num_heads: int, use_kernel: bool = True, bias=None):
+    """Fused-qkv multi-head self-attention. ``qkv`` and ``proj`` are linear
+    layers or ``QuantLinear``s (``ops/quant.py:linear_p``); the qkv weight
+    (3C, C) has its rows in head-major [head][q|k|v][dim] order, so the
+    projection output is the slab the flash kernel reads with no transposes.
 
     ``bias``: None, a tensor broadcastable to (B, H, N, N), or a
     ``(stack, layer)`` tuple: a cached (L, H, Np, Np) per-layer stack plus
@@ -57,19 +58,18 @@ def self_attention(
     (on CUDA tensors, the hand-written kernel); False is the plain path,
     which materializes the layer's slice of a stack."""
     b, n, c = tokens.shape
-    qkv = linear(tokens, qkv_weight, qkv_bias)  # (B, N, [h][3][d])
+    x = linear_p(tokens, qkv, "qkv")  # (B, N, [h][3][d])
     bias_stack = layer = None
     if isinstance(bias, tuple):
         (bias_stack, layer), bias = bias, None
     if use_kernel:
-        out = flash_attention_fused_qkv(qkv, num_heads, bias=bias, bias_stack=bias_stack, layer=layer)
+        out = flash_attention_fused_qkv(x, num_heads, bias=bias, bias_stack=bias_stack, layer=layer)
     else:
         if bias_stack is not None:
             bias = bias_stack[layer][None]
-        d = c // num_heads
-        x = qkv.reshape(b, n, num_heads, 3, d)
+        x = x.reshape(b, n, num_heads, 3, c // num_heads)
         out = sdpa(x[..., 0, :], x[..., 1, :], x[..., 2, :], bias=bias).reshape(b, n, c)
-    return linear(out, proj_weight, proj_bias)
+    return linear_p(out, proj, "proj")
 
 
 def conv2d(x, weight, bias=None, stride: int = 1, padding: int = 0):

@@ -3,6 +3,7 @@
 
     python3 muggled_dpt_tpu_torch/tools/measure.py host [--against DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py profile [--model beit|swinv2|vitl|giant] [--out DIR]
+    python3 muggled_dpt_tpu_torch/tools/measure.py profile --int8 [dense] [default] [qkv] [neck] [--out DIR]
 
 ``host``: the attention wrapper's host cost per call, and the DA-V2 ViT-L
 and BEiT-L-512 bf16 request times at B=1.
@@ -24,7 +25,17 @@ forward by kind; and the time to build the grid's aux once (``make_aux``).
 stacks and shift masks at 384x384 and 512x512. ``--model vitl`` and
 ``--model giant``: Depth-Anything V2 ViT-L and ViT-Giant at 504x504 (no
 per-grid aux). ``--out`` also writes every kernel's time per forward to
-``DIR/profile_<model>_kernels.txt``.
+``DIR/profile_<model>[_int8]_kernels.txt``. ``--int8 TIER ...`` profiles
+the model's int8 tiers (``DPTModel.quantize_encoder_int8``; ``--model``
+defaults to vitl): ``default`` (qkv dense), ``qkv``, ``neck`` (qkv and the
+neck) and ``dense`` (the bf16 model, for a comparison in the same run),
+one after the other in one process; the int8 GEMMs (cuBLASLt's s8 kernels)
+are a kind of their own. Before them it times one int8 linear's parts
+with CUDA events at each encoder linear shape over the B=8 tokens: the
+per-token quantize, the int8 GEMM, the dequantize (scales, bias, cast)
+beside the bf16 linear, and their sums over the blocks of each tier; the
+quantize and dequantize passes are generic elementwise kernels that the
+profile cannot tell apart by name.
 
 Every printed line carries the card's name and power limit (nvidia-smi).
 Models have random weights from seed 0; nothing is downloaded."""
@@ -73,6 +84,7 @@ SWIN_L384 = {
 }
 FRAME_HW = (720, 1280)
 KINDS = [  # (kind, substrings of the kernel name), first match wins
+    ("int8 GEMM (torch._int_mm)", ("gemm_s8", "i16832gemm", "imma")),
     ("attention kernel", ("fa_bf16", "fa_f32")),
     ("window attention kernel", ("wa_bf16", "wa_f32")),
     ("conv (cuDNN, with layout transforms)", ("cudnn", "xmma", "fprop", "dgrad", "nchwToNhwc", "nhwcToNchw")),
@@ -226,6 +238,67 @@ def busy_us(intervals) -> float:
     return total
 
 
+INT8_TIERS = {"dense": None, "default": {}, "qkv": {"include_qkv": True},
+              "neck": {"include_qkv": True, "include_neck": True}}
+
+
+def event_ms(fn, iters=30, warmup=5) -> float:
+    """Median CUDA-event time of fn, after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def int8_linear_breakdown(config, rows, smi):
+    """CUDA-event times of one int8 linear's parts (ops/quant.py:linear_w8a8)
+    at each encoder linear shape of ``config`` over ``rows`` tokens, bf16,
+    beside the dense bf16 linear; then the sums over the blocks of the
+    default tier (proj and the MLP) and of the qkv tier (qkv too)."""
+    import torch
+    import torch.nn.functional as F
+
+    from muggled_dpt_tpu_torch.ops import quant
+
+    f = config["features_per_token"]
+    shapes = {"qkv": (f, 3 * f), "proj": (f, f), "fc1": (f, 4 * f), "fc2": (4 * f, f)}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    per = {}
+    for name, (k, n) in shapes.items():
+        x = torch.randn(rows, k, device="cuda", dtype=torch.bfloat16, generator=gen)
+        w = torch.randn(n, k, device="cuda", dtype=torch.bfloat16, generator=gen) * k**-0.5
+        bias = torch.randn(n, device="cuda", dtype=torch.bfloat16, generator=gen)
+        q8, w_scale = quant.quantize_weight(w)
+        xq, x_scale = quant.quantize_per_token(x)
+        acc = quant.int8_matmul(xq, q8)
+        parts = {
+            "bf16 linear": event_ms(lambda: F.linear(x, w, bias)),
+            "quantize": event_ms(lambda: quant.quantize_per_token(x)),
+            "int8 GEMM": event_ms(lambda: quant.int8_matmul(xq, q8)),
+            "dequantize": event_ms(lambda: (acc.float() * x_scale * w_scale + bias.float()).to(torch.bfloat16)),
+            "whole int8 linear": event_ms(lambda: quant.linear_w8a8(x, q8, w_scale, bias)),
+        }
+        per[name] = parts
+        print(f"int8 linear {name} ({rows} x {k} -> {n}): " + ", ".join(f"{p} {ms:.4f} ms" for p, ms in parts.items())
+              + f" [{smi}]", flush=True)
+        del x, w, q8, xq, acc
+    blocks = config["num_blocks"]
+    for tier, names in (("default", ("proj", "fc1", "fc2")), ("qkv", tuple(shapes))):
+        sums = {p: blocks * sum(per[n][p] for n in names) for p in per["qkv"]}
+        print(f"int8 linears of the {tier} tier over {blocks} blocks: " + ", ".join(f"{p} {ms:.3f} ms" for p, ms in sums.items())
+              + f" [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+
+
 def profile_forward(fn, forwards, label, smi, out_lines):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -300,6 +373,8 @@ def profile(args, smi):
     from muggled_dpt_tpu_torch.make_dpt import make_dpt_from_state_dict
 
     label, generator, config, name, side, aux_label, grids = PROFILED[args.model]
+    if args.int8 and grids:
+        raise SystemExit("--int8 profiles a model without a per-grid aux: --model vitl or giant")
     module, function = generator.split(".")
     random_state_dict = getattr(importlib.import_module(f"muggled_dpt_tpu_torch.checkpoints.{module}"), function)
     with tempfile.TemporaryDirectory() as tmp:
@@ -312,11 +387,21 @@ def profile(args, smi):
     hw = model.compute_scaled_hw(FRAME_HW, side)
     lines = []
     size = f"{hw[0]}x{hw[1]}"
-    profile_forward(lambda: model.inference(frames[0], side), 10, f"{label} bf16 {size} B=1", smi, lines)
-    profile_forward(lambda: model.inference_rgb_device(batch, hw), 5, f"{label} bf16 {size} B=8", smi, lines)
+    if args.int8:
+        tokens = 1 + (hw[0] // config["patch_size_px"]) * (hw[1] // config["patch_size_px"])
+        int8_linear_breakdown(config, 8 * tokens, smi)
+    tiers = {tier: INT8_TIERS[tier] for tier in args.int8} if args.int8 else {"": None}
+    for tier, opts in tiers.items():
+        served = model if opts is None else model.quantize_encoder_int8(**opts)
+        what = f"{label}{' int8 ' + tier if opts is not None else ''} bf16 {size}"
+        for b, forwards, fn in ((1, 10, lambda: served.inference(frames[0], side)),
+                                (8, 5, lambda: served.inference_rgb_device(batch, hw))):
+            profile_forward(fn, forwards, f"{what} B={b}", smi, lines)
+        del served
+        torch.cuda.empty_cache()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, f"profile_{args.model}_kernels.txt"), "w") as f:
+        with open(os.path.join(args.out, f"profile_{args.model}{'_int8' if args.int8 else ''}_kernels.txt"), "w") as f:
             f.write(f"# ms per forward per kernel [{smi}]\n" + "\n".join(lines) + "\n")
 
 
@@ -324,9 +409,13 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("what", choices=["host", "profile"])
     parser.add_argument("--against", default=None, help="another checkout whose package host also measures, interleaved")
-    parser.add_argument("--model", choices=sorted(PROFILED), default="beit", help="the model profile measures")
+    parser.add_argument("--model", choices=sorted(PROFILED), default=None, help="the model profile measures (default beit; "
+                        "vitl with --int8)")
+    parser.add_argument("--int8", nargs="+", choices=list(INT8_TIERS), default=None,
+                        help="profile these int8 tiers of the model (dense: the bf16 model) instead of the bf16 model")
     parser.add_argument("--out", default=None, help="directory for the per-kernel profile table")
     args = parser.parse_args()
+    args.model = args.model or ("vitl" if args.int8 else "beit")
     sys.path.insert(0, REPO_ROOT)
     import torch
 

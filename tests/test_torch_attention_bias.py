@@ -7,6 +7,8 @@ Tolerance: atol = rtol = 2e-5 in float32, as the JAX package holds its own
 kernels to its naive reference: the two differ only in float32 summation
 order and exp vs exp2."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -143,11 +145,12 @@ def test_self_attention_stack_tuple_equals_dense_layer_bias():
     kernel entry and in the plain path."""
     x = _t(_rand(30, 2, 40, 128))
     wq, bq, wp, bp = (_t(_rand(31 + i, *s, scale=0.1)) for i, s in enumerate([(384, 128), (384,), (128, 128), (128,)]))
+    qkv, proj = types.SimpleNamespace(weight=wq, bias=bq), types.SimpleNamespace(weight=wp, bias=bp)
     stack = _t(np.pad(_rand(40, 3, 2, 40, 40), ((0, 0), (0, 0), (0, 8), (0, 8)), constant_values=1e6))
     dense = stack[1:2, :, :40, :40]
-    want = tnn.self_attention(x, wq, bq, wp, bp, 2, use_kernel=False, bias=dense)
+    want = tnn.self_attention(x, qkv, proj, 2, use_kernel=False, bias=dense)
     for use_kernel in (True, False):
-        got = tnn.self_attention(x, wq, bq, wp, bp, 2, use_kernel=use_kernel, bias=(stack, 1))
+        got = tnn.self_attention(x, qkv, proj, 2, use_kernel=use_kernel, bias=(stack, 1))
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
@@ -167,7 +170,8 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     _fused(qkv, 2, bias=bias)
     _fused(qkv, 2, bias_stack=stack, layer=1)
     _bnhd(q, k, v, bias)
-    assert fa.launch_counts() == {"fused": 0, "fused_biased": 0, "bnhd": 0, "window": 0, "fused_mlp": 0, "head_tail": 0}
+    assert fa.launch_counts() == {"fused": 0, "fused_biased": 0, "bnhd": 0, "window": 0, "fused_mlp": 0, "head_tail": 0,
+                                  "int8_qk": 0, "int8_qk_fused": 0}
     torch.testing.assert_close(
         fa.flash_attention_fused_qkv(_t(qkv), 2, bias=_t(bias)),
         fa.flash_attention_fused_qkv_reference(_t(qkv), 2, bias=_t(bias)),

@@ -19,10 +19,11 @@ import chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "muggled_dpt_tpu", "experiments") and sys.modules[m] is not None)
 assert not leaked, leaked
-assert len(names) >= 26, names
+assert len(names) >= 35, names
 ported = ("checkpoints.beit", "models.beit", "models.beit_family", "make_beit_dpt", "ops.kernels.flash_attention",
           "checkpoints.swinv2", "models.swinv2", "models.swinv2_family", "make_swinv2_dpt", "ops.kernels.window_attention",
-          "make_depthanythingv1_dpt", "ops.kernels.fused_mlp", "ops.kernels.head_tail")
+          "make_depthanythingv1_dpt", "ops.kernels.fused_mlp", "ops.kernels.head_tail", "ops.quant",
+          "ops.kernels.flash_attention_int8")
 missing = [m for m in ported if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print("OK", len(names))

@@ -6,6 +6,8 @@ JAX: (in, out), HWIO, NHWC), so each test converts the numpy weights for
 the JAX side. Tolerance: 1e-5 absolute and relative unless noted; the two
 frameworks sum in different orders in float32."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -58,10 +60,15 @@ def test_gelu_is_exact_erf():
     np.testing.assert_allclose(tnn.gelu(_t(x)).numpy(), np.asarray(jnn.gelu(jnp.asarray(x))), **TOL)
 
 
+def _layer(w, b):
+    """A linear layer as the ops take it: ``weight`` (out, in) and ``bias``."""
+    return types.SimpleNamespace(weight=_t(w), bias=_t(b))
+
+
 def test_mlp_gelu():
     x = _rand(4, 2, 9, 32)
     w1, b1, w2, b2 = _rand(5, 128, 32, scale=0.2), _rand(6, 128), _rand(7, 32, 128, scale=0.1), _rand(8, 32)
-    got = tnn.mlp_gelu(_t(x), _t(w1), _t(b1), _t(w2), _t(b2)).numpy()
+    got = tnn.mlp_gelu(_t(x), _layer(w1, b1), _layer(w2, b2)).numpy()
     want = jnn.mlp_gelu(x, {"fc1_kernel": w1.T, "fc1_bias": b1, "fc2_kernel": w2.T, "fc2_bias": b2})
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
@@ -70,7 +77,7 @@ def test_mlp_swiglu():
     """ViT-Giant's MLP: w12's first half is the gate (silu), its second the value."""
     x = _rand(9, 2, 9, 32)
     w12, b12, w3, b3 = _rand(10, 2 * 24, 32, scale=0.2), _rand(11, 2 * 24), _rand(12, 32, 24, scale=0.2), _rand(13, 32)
-    got = tnn.mlp_swiglu(_t(x), _t(w12), _t(b12), _t(w3), _t(b3)).numpy()
+    got = tnn.mlp_swiglu(_t(x), _layer(w12, b12), _layer(w3, b3)).numpy()
     want = jnn.mlp_swiglu(x, {"w12_kernel": w12.T, "w12_bias": b12, "w3_kernel": w3.T, "w3_bias": b3})
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
@@ -108,9 +115,9 @@ def test_self_attention_kernel_path_matches_plain_path():
     """On CPU tensors the kernel path runs the kernel's plain version, which
     must agree with the plain (sdpa) path to float32 rounding."""
     x = _t(_rand(18, 2, 50, 128))
-    wq, bq, wp, bp = (_t(_rand(19 + i, *s, scale=0.1)) for i, s in enumerate([(384, 128), (384,), (128, 128), (128,)]))
-    a = tnn.self_attention(x, wq, bq, wp, bp, num_heads=2, use_kernel=True)
-    b = tnn.self_attention(x, wq, bq, wp, bp, num_heads=2, use_kernel=False)
+    wq, bq, wp, bp = (_rand(19 + i, *s, scale=0.1) for i, s in enumerate([(384, 128), (384,), (128, 128), (128,)]))
+    a = tnn.self_attention(x, _layer(wq, bq), _layer(wp, bp), num_heads=2, use_kernel=True)
+    b = tnn.self_attention(x, _layer(wq, bq), _layer(wp, bp), num_heads=2, use_kernel=False)
     torch.testing.assert_close(a, b, **TOL)
 
 
