@@ -9,7 +9,8 @@ original-format checkpoint and loaded through ``make_dpt_from_state_dict``:
   * Depth-Anything V2 ViT-L (F=1024, 24 blocks, 16 heads x 64, patch 14):
     a 720x1280 BGR frame at max side 518 snaps to 504x504 (1297 tokens);
     the same weights under a ``..._metric_...`` file name give the metric
-    model (sigmoid head);
+    model (sigmoid head); the long-N ladder serves one request at each max
+    side 756, 1036, 1428 and 1904 (square: N = 2917, 5477, 10405, 18497);
   * Depth-Anything V1 ViT-L (the same widths; ``depth_anything_vitl14.pth``,
     so the family sniffing picks V1: taps on the last 4 blocks);
   * Depth-Anything V2 ViT-Giant (F=1536, 40 blocks, 24 heads x 64, SwiGLU
@@ -24,8 +25,9 @@ original-format checkpoint and loaded through ``make_dpt_from_state_dict``:
     max side 512 gives 512x512, where the window search picks 32 (A=1024)
     at stages 1-3 and 16 at stage 4.
 
-Five CUDA kernels port nine TPU kernels; the ``kernels`` JSON line has one
-entry per TPU kernel:
+Eight CUDA kernels (three of them one template, ``csrc/flash_variants.cuh``)
+port twelve TPU kernels; the ``kernels`` JSON line has one entry per TPU
+kernel:
   #1 fused qkv, unbiased  -- the Depth-Anything path;
   #2 fused qkv, biased    -- the BEiT path (cached bias stack or inline bias);
   #3 window attention     -- the SwinV2 path (csrc/window_attention.cu; the
@@ -48,7 +50,13 @@ entry per TPU kernel:
      ``Block.mlp_residual`` of DA-V1 ViT-L's blocks 0, 11 and 23 on the
      residual stream after each block's attention (#8), ``Head.tail`` of
      the DA-V1 and DA-V2-metric ViT-L heads on the head's own input (#9),
-     at B=1 and B=8, with CUDA-event times against those composites.
+     at B=1 and B=8, with CUDA-event times against those composites;
+  #10 XL, #11 staged and #12 the variant shootout (csrc/flash_attention_xl.cu,
+     flash_attention_staged.cu, flash_variant.cu): measurement variants of
+     #1, as in the JAX package served by no model. Their path is the attention
+     sweep (``muggled_dpt_tpu_torch/tools/flash_tune.py``) on DA-V2 ViT-L's
+     own block-11 qkv slabs across the long-N ladder, against #1, SDPA and
+     their plain versions.
 
 Phases, in order; each prints its lines and the seconds it took, and any
 failure raises:
@@ -88,7 +96,18 @@ failure raises:
       and abs-rel against dense bf16; #6 and #7 on the int8+qkv model's qkv
       slabs; the f32 int8+qkv kernel model vs its plain-attention twin;
   17. (in 6 and 8) BEiT-L-512 int8+qkv+neck and SwinV2-L-384 int8 (MLP
-      only): one request and one batch of 8 each, against the bf16 model.
+      only): one request and one batch of 8 each, against the bf16 model;
+  18. (after 5) DA-V2 ViT-L bf16 on the long-N ladder: one request at each
+      of 756, 1036, 1428 and 1904 (24 launches per forward), block 11's
+      qkv slab captured, ms per request; f32 parity at 1428x1428;
+  19. the attention sweep on those slabs: #1 against its plain version at
+      every ladder N (bf16 and f32) and on an all-negative slab; #10 in
+      every sweep case and #11 at 1, 2, 4 and 8 panels on the N=10405 and
+      18497 slabs and at N=700 and 200 (all-negative); #12 in every mode at
+      (16, 1297, 64) and on the N=18497 slab's heads, mask_exp2 against true
+      attention with every logit negative, where padfix and chunk must
+      fail; the sweep's path run once with its launches counted; its
+      CUDA-event tables at every ladder N.
 Then one JSON line of per-kernel results (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
 for bf16, 1979 TOP/s for int8 (#6 and #7's QK^T); and, where one PyTorch call
@@ -120,9 +139,13 @@ from muggled_dpt_tpu_torch.models.swinv2 import shift_mask, stage_grids, window_
 from muggled_dpt_tpu_torch.ops import quant as tq
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_int8 as fi8
+from muggled_dpt_tpu_torch.ops.kernels import flash_attention_staged as fst
+from muggled_dpt_tpu_torch.ops.kernels import flash_attention_xl as fxl
 from muggled_dpt_tpu_torch.ops.kernels import fused_mlp as fm
 from muggled_dpt_tpu_torch.ops.kernels import head_tail as ht
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
+from muggled_dpt_tpu_torch.tools import attn_variants as fav
+from muggled_dpt_tpu_torch.tools import flash_tune as ft
 
 VITL = {
     "features_per_token": 1024,
@@ -189,6 +212,11 @@ INT8_FUSED_CASES = ((1, 300), (2, N_BEIT), (8, N_TOKENS))  # #7: (B, N), 16 head
 INT8_ONLINE_CASES = ((4, 300), (32, N_BEIT), (2, N_ONLINE))  # #6: (B H, N)
 TRUE_ATTN_MAX_ERR = 0.05  # int8 logits against float32 attention (tests/test_flash_int8_experiment.py:112)
 LOSSLESS_MAX_ERR = 2e-4  # integer-grid q and k quantize exactly: float32 round-off only
+LADDER = ft.LADDER  # DA-V2 ViT-L max side -> tokens: 756 -> 2917, 1036 -> 5477, 1428 -> 10405, 1904 -> 18497
+LADDER_PARITY_SIDE = 1428  # the f32 kernel model against the f32 plain model at N=10405
+SWEEP_CHECK_N = (10405, 18497)  # #10 and #11 held on these slabs; #12 on the last one's heads
+ALL_NEGATIVE_MAX_ERR = 2e-4  # f32 mask_exp2 against true attention with every logit far below 0 (the JAX tests' gate)
+EXPECTED_FAILURE = 0.5  # padfix and chunk must miss true attention by more than this in the all-negative case
 
 # tolerances of the kernel against its plain version on the same inputs
 F32_MAX_ERR = 1e-4  # f32 FMAs in another summation order
@@ -216,6 +244,9 @@ REPLACES = {
     7: "experiments/flash_attention_int8.py:175",
     8: "experiments/pallas_fused_mlp.py:59",
     9: "experiments/pallas_head_conv.py:52",
+    10: "experiments/flash_attention_xl.py:69",
+    11: "experiments/flash_attention_staged.py:74",
+    12: "tools/attn_variants.py:77",
 }
 NAMES = {
     1: "flash_attention_fused_qkv",
@@ -227,9 +258,13 @@ NAMES = {
     7: "flash_attention_int8_qk_fused (head-major qkv slab, int8 QK^T, one pass)",
     8: "fused_ln_mlp_residual (LayerNorm -> fc1 -> GELU -> fc2 -> LayerScale residual)",
     9: "fused_head_tail (3x3 conv -> ReLU -> 1x1 conv -> ReLU or sigmoid)",
+    10: "flash_attention_fused_qkv_xl (qp q blocks per CTA, next tile's QK^T pipelined; qp=1 pipelined)",
+    11: "flash_attention_fused_qkv_staged (row max by key panel, then exp2 and PV; panels=2)",
+    12: "flash_variant (pre-scaled (BH, N, D); mode padfix, the JAX default)",
 }
 SOURCES = {1: "flash_attention", 2: "flash_attention", 3: "window_attention", 4: "flash_attention", 5: "flash_attention",
-           6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp", 9: "head_tail"}
+           6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp", 9: "head_tail", 10: "flash_attention_xl",
+           11: "flash_attention_staged", 12: "flash_variant"}
 SERVED = {}  # what -> (ms per request at B=1, ms per frame at B=8), filled by serve()
 
 
@@ -326,7 +361,7 @@ class Checker:
     def __init__(self):
         self.worst = {kid: 0.0 for kid in NAMES}
 
-    def __call__(self, kid, label, got, ref, shape, relative=False, composite=False):
+    def __call__(self, kid, label, got, ref, shape, relative=False, composite=False, versus=None):
         torch.cuda.synchronize()
         got, ref = got.float(), ref.float()
         err = (got - ref).abs()
@@ -342,12 +377,12 @@ class Checker:
         else:
             ok = ok and (max_err <= F32_MAX_ERR if f32 else max_err <= BF16_MAX_ERR and mean_err <= BF16_MEAN_ERR)
             scale = ""
-        what = "the model's composite" if composite else "its plain version"
-        print(f"kernel check #{kid} {label}{' vs composite' if composite else ''}: max_abs_err={max_err:.3e} "
-              f"mean_abs_err={mean_err:.3e}{scale}", flush=True)
+        what = versus or ("the model's composite" if composite else "its plain version")
+        vs = f" vs {versus}" if versus else " vs composite" if composite else ""
+        print(f"kernel check #{kid} {label}{vs}: max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e}{scale}", flush=True)
         if not ok:
             raise RuntimeError(f"kernel #{kid} disagrees with {what} at {label}")
-        if not composite:
+        if not (composite or versus):
             self.worst[kid] = max(self.worst[kid], max_err)
 
 
@@ -1173,6 +1208,180 @@ def serve_int8_once(smi, model, opts, side, out_hw, route, blocks, what, dense_d
     del q
 
 
+def phase_ladder(smi: str, ckpt: str):
+    """DA-V2 ViT-L bf16 serving one request at each max side of the long-N
+    ladder (24 launches of #1 per forward, depth finite and square), with
+    block 11's qkv slab taken on the way (``flash_tune.capture_slab``: the
+    block's input by a forward pre-hook, then its norm1 and qkv layer) and
+    ms per request; then the f32 kernel model against the f32 plain model at
+    1428x1428 (N=10405; the plain attention in steps of q rows). Returns
+    ({N: bf16 slab}, {side: ms per request})."""
+    _, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE)
+    frame = np.random.default_rng(SEED + 9).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    blocks = VITL["num_blocks"]
+    slabs, request_ms, parity_depth = {}, {}, None
+    for side, n in LADDER.items():
+        fa.reset_launch_counts()
+        slab, depth = _counted(lambda: ft.capture_slab(model, frame, side), "fused", blocks, f"DA-V2 ViT-L {side}x{side}")
+        _check_depth(depth, (1, side, side), f"DA-V2 ViT-L {side}x{side}")
+        if tuple(slab.shape) != (1, n, 3 * HEADS * HEAD_DIM) or slab.dtype != torch.bfloat16:
+            raise RuntimeError(f"DA-V2 ViT-L {side}x{side}: block {ft.SLAB_BLOCK} qkv slab {tuple(slab.shape)} {slab.dtype}")
+        slabs[n] = slab
+        parity_depth = depth if side == LADDER_PARITY_SIDE else parity_depth
+
+        def request():
+            model.inference(frame, side)
+            torch.cuda.synchronize()
+
+        request_ms[side] = _host_ms(request, 5, 1)
+        print(f"DA-V2 ViT-L bf16 {side}x{side} (N={n}): depth {tuple(depth.shape)} finite, {blocks} fused launches per "
+              f"forward, {request_ms[side]:.3f} ms per request at B=1 (median of 5 after 1) [{smi}]", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    side = LADDER_PARITY_SIDE
+    parity(ckpt, frame, side, (side, side), "fused", blocks, f"DA-V2 ViT-L {side}x{side}", parity_depth)
+    torch.cuda.empty_cache()
+    return slabs, request_ms
+
+
+def check_ablation(check, kid, label, got, ref, shape):
+    """An ablation (a timing floor, not an attention) against its plain
+    version, not kept as the kernel's worst error: non-finite exactly where
+    the plain version is (exponly's exp2 overflows past logit 128), and on
+    the finite entries within #8/#9's relative gates: max error 1.6e-2 x
+    max|plain| and mean 2e-3 x mean|plain| in bf16, 1e-4 x in f32."""
+    torch.cuda.synchronize()
+    finite = torch.isfinite(ref)
+    if not torch.equal(torch.isfinite(got), finite):
+        raise RuntimeError(f"kernel #{kid} {label}: non-finite outputs where its plain version has none, or the reverse")
+    if not bool(finite.all()):
+        print(f"kernel check #{kid} {label}: {int((~finite).sum())} outputs overflow in both", flush=True)
+        got, ref = got.masked_fill(~finite, 0), ref.masked_fill(~finite, 0)
+    check(kid, label, got, ref, shape, relative=True, versus="its plain version (ablation: relative gates)")
+
+
+def true_exp2_attention(q, k, v):
+    """float32 attention with base-2 weights on (G, N, D) q (pre-scaled), k, v."""
+    return fa.flash_attention_reference(q[:, :, None].float(), k[:, :, None].float(), v[:, :, None].float(),
+                                        scale=math.log(2.0))[:, :, 0]
+
+
+def check_variants(check, label, q_s, q_s2, k, v, relative=False):
+    """#12 in every mode of the sweep against its plain version."""
+    for case, kw in ft.VARIANT_CASES:
+        q = q_s if kw.get("mode") == "mask_exp" else q_s2
+        got = fav.flash_variant(q, k, v, **kw)
+        ref = fav.flash_variant_reference(q, k, v, kw.get("mode", "padfix"), kw.get("chunk"))
+        if kw.get("mode") in ("nosm", "maxonly", "exponly"):
+            check_ablation(check, 12, f"{label} {case}", got, ref, q.shape)
+        else:
+            check(12, f"{label} {case}", got, ref, q.shape, relative=relative)
+
+
+def phase_sweep(smi: str, slabs: dict) -> tuple[dict, dict, float]:
+    """The attention sweep on the ladder's slabs (``tools/flash_tune.py``):
+    1. #1 against its plain version on every slab, bf16 and an f32 copy,
+       and on an all-negative slab at N=2917;
+    2. #10 in every case of the sweep and #11 at panels 1, 2, 4 and 8
+       against their plain versions (#11 also against kernel #1's output)
+       on the slabs at N=10405 and 18497 and at N=700 (pads straddling the
+       key tiles) and N=200 all-negative, bf16 and f32;
+    3. #12 in every mode at ViT-L's (16, 1297, 64) and on the N=18497
+       slab's heads, bf16 and f32; in the all-negative case mask_exp2
+       against true attention, and padfix and chunk shown to fail;
+    4. the path: every case of the sweep once on every slab, launches
+       counted (every count zeroed first);
+    5. the sweep's CUDA-event tables at every ladder N in bf16, and #12's
+       times at (16, 1297, 64).
+    On the model's slabs the gates are relative (#8/#9's, as #6/#7 are held
+    on the int8 model's slabs): outputs reach past 4, where one bf16 ulp
+    exceeds the absolute 2e-2. Returns (numbers, launches) of #10-#12 and #1's worst
+    error on the slabs."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in true f32
+    rng = np.random.default_rng(SEED + 10)
+    check = Checker()
+    shape = lambda x: (x.shape[0], x.shape[1], HEADS * HEAD_DIM)  # noqa: E731
+    for n, slab in slabs.items():
+        for x in (slab, slab.float()):
+            check(1, f"{str(x.dtype)[6:]} DA-V2 ViT-L block {ft.SLAB_BLOCK} slab N={n}", fa.flash_attention_fused_qkv(x, HEADS),
+                  fa.flash_attention_fused_qkv_reference(x, HEADS), shape(x), relative=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        n = min(LADDER.values())
+        x = make_qkv(rng, 1, n, dtype, all_negative=True)
+        check(1, f"{name} B=1 N={n} all-negative", fa.flash_attention_fused_qkv(x, HEADS),
+              fa.flash_attention_fused_qkv_reference(x, HEADS), shape(x))
+        inputs = {f"DA-V2 ViT-L block {ft.SLAB_BLOCK} slab N={n}": slabs[n].to(dtype) for n in SWEEP_CHECK_N}
+        inputs["B=2 N=700"] = make_qkv(rng, 2, 700, dtype)
+        inputs["B=1 N=200 all-negative"] = make_qkv(rng, 1, 200, dtype, all_negative=True)
+        for what, x in inputs.items():
+            rel = what.startswith("DA-V2")  # a model slab: relative gates
+            ref, out1 = fa.flash_attention_fused_qkv_reference(x, HEADS), fa.flash_attention_fused_qkv(x, HEADS)
+            for case, kw in ft.XL_CASES:
+                got = fxl.flash_attention_fused_qkv_xl(x, HEADS, **kw)
+                if kw.get("ablate_softmax"):
+                    check_ablation(check, 10, f"{name} {what} {case}", got, fxl.ablation_reference(x, HEADS), shape(x))
+                else:
+                    check(10, f"{name} {what} {case}", got, ref, shape(x), relative=rel)
+            for panels in (1, 2, 4, 8):
+                got = fst.flash_attention_fused_qkv_staged(x, HEADS, panels=panels)
+                label = f"{name} {what} panels={panels}"
+                check(11, label, got, fst.flash_attention_fused_qkv_staged_reference(x, HEADS, panels=panels), shape(x),
+                      relative=rel)
+                check(11, label, got, out1, shape(x), relative=rel, versus="kernel #1's output")
+            del ref, out1
+            torch.cuda.empty_cache()
+        for what, x in ((f"(16, 1297, {HEAD_DIM})", make_qkv(rng, 1, N_TOKENS, dtype)),
+                        (f"DA-V2 ViT-L slab N={SWEEP_CHECK_N[-1]} heads", slabs[SWEEP_CHECK_N[-1]].to(dtype))):
+            vi = ft.variant_inputs(x)
+            check_variants(check, f"{name} {what}", vi["q_s"], vi["q_s2"], vi["k"], vi["v"], relative=what.startswith("DA-V2"))
+            del vi
+            torch.cuda.empty_cache()
+        # every logit far below 0: q > 0, k < 0, both scaled by 4 (q then by D^-0.5 log2(e))
+        q, k, v = (make_bias(rng, (2, 200, HEAD_DIM), torch.float32) for _ in range(3))
+        q = ((q.abs() + 0.5) * 4.0 * (HEAD_DIM**-0.5 * fa.LOG2E)).to(dtype)
+        k, v = (-(k.abs() + 0.5) * 4.0).to(dtype), v.to(dtype)
+        true = true_exp2_attention(q, k, v)
+        err = float((fav.flash_variant(q, k, v, mode="mask_exp2").float() - true).abs().max())
+        gate = ALL_NEGATIVE_MAX_ERR if dtype == torch.float32 else BF16_MAX_ERR
+        print(f"kernel check #12 {name} G=2 N=200 all-negative mask_exp2 vs true attention: max_abs_err={err:.3e} (gate {gate:g})",
+              flush=True)
+        if not err <= gate:
+            raise RuntimeError(f"kernel #12 {name} mask_exp2 misses true attention by {err:.3e} with every logit negative")
+        for case, kw in (("padfix", {"mode": "padfix"}), ("chunk=128", {"chunk": 128})):
+            err = float((fav.flash_variant(q, k, v, **kw).float() - true).abs().max())
+            print(f"kernel check #12 {name} G=2 N=200 all-negative {case} vs true attention: max_abs_err={err:.3e}: the "
+                  f"pad-count correction cancels (expected failure, above {EXPECTED_FAILURE} as required)"
+                  if err > EXPECTED_FAILURE else f"{case}: {err:.3e}", flush=True)
+            if not err > EXPECTED_FAILURE:
+                raise RuntimeError(f"kernel #12 {name} {case}: the all-negative case did not fail ({err:.3e})")
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()  # the path: every case of the sweep once per ladder slab
+    for slab in slabs.values():
+        ft.run_once(slab)
+    counts = fa.launch_counts()
+    launches = {10: counts["xl"], 11: counts["staged"], 12: counts["variant"]}
+    want = {10: len(ft.XL_CASES) * len(slabs), 11: len(ft.STAGED_CASES) * len(slabs), 12: len(ft.VARIANT_CASES) * len(slabs)}
+    if launches != want or counts["fused"] != len(slabs):
+        raise RuntimeError(f"attention sweep path: launches {counts}, want {want} and {len(slabs)} fused")
+    print(f"attention sweep path on the {len(slabs)} ladder slabs: launches #10 {launches[10]}, #11 {launches[11]}, "
+          f"#12 {launches[12]}, #1 {counts['fused']}", flush=True)
+    tables = {n: ft.sweep(slab, smi) for n, slab in slabs.items()}
+    top = tables[max(tables)]
+    vi = ft.variant_inputs(make_qkv(rng, 1, N_TOKENS, torch.bfloat16))
+    q, k, v = vi["q_s2"], vi["k"], vi["v"]
+    t12 = timed_pair(smi, f"#12 bf16 (16, {N_TOKENS}, {HEAD_DIM}) padfix", lambda: fav.flash_variant(q, k, v),
+                     lambda: fav.flash_variant_reference(q, k, v),
+                     lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=math.log(2.0)))
+    numbers = {
+        10: (top[ft.XL_DEFAULT], top["#1 / #10 plain version"], top[ft.SDPA]),
+        11: (top[ft.STAGED_DEFAULT], top["#11 plain version (panels=2)"], top[ft.SDPA]),
+        12: t12,
+    }
+    return ({kid: {"max_abs_err": check.worst[kid], **dict(zip(("ms", "plain_ms", "library_ms"), t))}
+             for kid, t in numbers.items()}, launches, check.worst[1])
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1200,7 +1409,7 @@ def bounds() -> dict:
     once; attention 4 B H N^2 D operations (QK^T and PV); #6 and #7 half
     of them int8 (QK^T), the entry's bf16 inputs read and output written;
     #8 the two GEMMs, 4 rows F H; #9 the 3x3 conv and the projection,
-    2 B H W 32 (9 ci + 1)."""
+    2 B H W 32 (9 ci + 1); #10 and #11 at N=18497, #12 at (16, 1297, 64)."""
     e = 2  # bytes per bf16 element
 
     def attention(b, n, h, d, bias_elements=0):  # q, k and v read, out written, the bias's N x N read
@@ -1222,6 +1431,9 @@ def bounds() -> dict:
         7: bound(int8_ops, int8_bytes, int8_ops),
         8: bound(4 * rows * f * 4 * f, (2 * rows * f + 2 * f * 4 * f + 4 * f + 4 * f) * e),
         9: bound(2 * b * hh * hw * 32 * (9 * ci + 1), (b * ci * hh * hw + b * hh * hw + 32 * (9 * ci + 3) + 1) * e),
+        10: attention(1, max(LADDER.values()), HEADS, HEAD_DIM),  # the N=18497 slab, B=1
+        11: attention(1, max(LADDER.values()), HEADS, HEAD_DIM),  # the recompute pass is the kernel's, not the function's
+        12: attention(HEADS, N_TOKENS, 1, HEAD_DIM),  # (16, 1297, 64)
     }
 
 
@@ -1238,6 +1450,11 @@ def main() -> int:
                                 os.path.join(tmp, "depth_anything_v2_vitl_random.pth"))
         launches[1], depth, frame = timed("DA-V2 model", phase_da_model, smi, ckpt)
         timed("DA-V2 f32 parity", parity, ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V2 ViT-L", depth)
+        slabs, ladder_ms = timed("DA-V2 ViT-L long-N ladder, f32 parity at 1428x1428", phase_ladder, smi, ckpt)
+        sweep_numbers, sweep_launches, ladder_worst = timed("attention sweep on the ladder's slabs: #1, #10, #11, #12",
+                                                            phase_sweep, smi, slabs)
+        del slabs
+        torch.cuda.empty_cache()
         int8_launches, int8_times = timed("DA-V2 int8 tiers, #6 and #7 on the int8+qkv model", phase_int8_da, smi, ckpt, check)
         metric = os.path.join(tmp, "depth_anything_v2_metric_hypersim_vitl_random.pth")
         os.replace(ckpt, metric)  # the same weights: only the file name makes the metric head
@@ -1272,6 +1489,11 @@ def main() -> int:
     for kid in (8, 9):
         numbers[kid]["max_abs_err"] = max(numbers[kid]["max_abs_err"], check.worst[kid])
         numbers[kid]["composite_ms"] = composite[(kid, torch.bfloat16, 8)][1]  # the model's own unfused layers
+    numbers.update(sweep_numbers)
+    launches.update(sweep_launches)
+    numbers[1]["max_abs_err"] = max(numbers[1]["max_abs_err"], ladder_worst)
+    print("DA-V2 ViT-L bf16 ms per request at B=1 on the ladder: "
+          + ", ".join(f"{side}x{side} (N={LADDER[side]}) {ms:.3f}" for side, ms in ladder_ms.items()) + f" [{smi}]", flush=True)
     limits = bounds()
     kernels = [
         {

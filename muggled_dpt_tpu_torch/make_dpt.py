@@ -25,12 +25,12 @@ def make_dpt_from_state_dict(
     dtype=torch.float32,
     device=None,
 ):
-    """Load an original .pt/.pth checkpoint (unchanged, as downloaded) and
-    build the matching DPT model on ``device`` in ``dtype``. ``device=None``
-    means the CUDA card and raises without one; pass ``device="cpu"`` for the
-    CPU. Returns (config_dict, model)."""
+    """Load an original .pt/.pth or .safetensors checkpoint (unchanged, as
+    downloaded; see ``load_state_dict``) and build the matching DPT model on
+    ``device`` in ``dtype``. ``device=None`` means the CUDA card and raises
+    without one; pass ``device="cpu"`` for the CPU. Returns (config_dict, model)."""
     device = resolve_device(device)
-    state_dict = torch.load(path_to_state_dict, map_location="cpu", weights_only=True)
+    state_dict = load_state_dict(path_to_state_dict)
 
     if model_type is None:
         model_type = determine_model_type_from_state_dict(path_to_state_dict, state_dict)
@@ -75,6 +75,29 @@ def make_dpt_from_state_dict(
     return make_depthanythingv2_dpt_from_original_state_dict(
         state_dict, enable_cache, enable_optimizations, strict_load, dtype=dtype, device=device
     )
+
+
+def load_state_dict(path: str) -> dict:
+    """A checkpoint as a flat {name: tensor} state dict: a .safetensors file
+    through safetensors, anything else through ``torch.load``; a single
+    ``{"state_dict": ...}`` or ``{"model": ...}`` container is unwrapped
+    when no value beside it is a tensor. The JAX package's
+    ``checkpoints/pt_loader.py:load_state_dict`` (its copy, since that
+    module belongs to the JAX package)."""
+    if str(path).lower().endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return load_file(path)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict):
+        for wrapper in ("state_dict", "model"):
+            inner = obj.get(wrapper)
+            if isinstance(inner, dict) and inner and not any(isinstance(v, torch.Tensor) for v in obj.values()):
+                obj = inner
+                break
+    if not isinstance(obj, dict):
+        raise ValueError(f"Checkpoint at {path} did not contain a state dict")
+    return obj
 
 
 def determine_model_type_from_state_dict(model_path: str, state_dict: dict) -> str:

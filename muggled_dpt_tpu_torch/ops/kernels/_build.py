@@ -111,4 +111,9 @@ def kernel_library() -> ctypes.CDLL:
     # the int64 argument array (its slots in csrc/flash_attention_int8.cu), stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    for name in ("mdpt_flash_attention_xl", "mdpt_flash_attention_staged", "mdpt_flash_variant"):
+        fn = getattr(lib, name)
+        # the int64 argument array (its slots in csrc/flash_variants.cuh), qk_scale, stream
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib

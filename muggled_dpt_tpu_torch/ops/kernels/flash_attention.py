@@ -83,17 +83,35 @@ def _layer_bias(bias, bias_stack, layer):
     return bias_stack[_stack_layer(bias_stack, layer)][None]
 
 
+REFERENCE_LOGITS = 1 << 28  # logits per step of a plain version: 1 GiB in float32
+
+
+def reference_row_step(b: int, h: int, n_keys: int) -> int:
+    """Query rows per step of a plain version, so that its (B, H, rows, N)
+    float32 logits stay within ``REFERENCE_LOGITS`` elements (at N=18497 and
+    16 heads the whole logit tensor would be 22 GB)."""
+    return max(1, REFERENCE_LOGITS // (b * h * n_keys))
+
+
 def flash_attention_reference(q, k, v, bias=None, scale=None) -> torch.Tensor:
     """Plain version on (B, N, H, D) tensors: float32 logits, bias added,
     softmax, weights cast to the input dtype for the PV product. Returns
-    (B, N, H, D) in q's dtype."""
+    (B, N, H, D) in q's dtype. Query rows go in steps of
+    ``reference_row_step``: every row's softmax is its own, so the steps
+    change no arithmetic."""
     b, n, h, d = q.shape
     s = d**-0.5 if scale is None else scale
-    logits = torch.einsum("bnhd,bmhd->bhnm", q.float() * s, k.float())
-    if bias is not None:
-        logits = logits + fit_bias(bias, b, h, n).float()
-    weights = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhnm,bmhd->bnhd", weights.to(q.dtype), v)
+    kf = k.float()
+    bias = None if bias is None else fit_bias(bias, b, h, n)
+    step = reference_row_step(b, h, n)
+    outs = []
+    for i in range(0, n, step):
+        rows = slice(i, i + step)
+        logits = torch.einsum("bnhd,bmhd->bhnm", q[:, rows].float() * s, kf)
+        if bias is not None:
+            logits = logits + (bias if bias.shape[2] == 1 else bias[:, :, rows]).float()
+        outs.append(torch.einsum("bhnm,bmhd->bnhd", torch.softmax(logits, dim=-1).to(q.dtype), v))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def flash_attention_fused_qkv_reference(qkv, num_heads, bias=None, scale=None, bias_stack=None, layer=None):
@@ -255,40 +273,47 @@ flash_attention_fused_qkv.biased_launches = 0
 flash_attention.launches = 0
 
 
-def reset_launch_counts():
-    """Zero the launch count of every kernel route of the package."""
+def _counted_entries() -> dict:
+    """Route name -> the entry whose ``launches`` counts it (the unbiased
+    and biased fused routes are this module's own two counters)."""
+    from ...tools.attn_variants import flash_variant
     from .flash_attention_int8 import flash_attention_int8_qk, flash_attention_int8_qk_fused
-    from .fused_mlp import fused_ln_mlp_residual
-    from .head_tail import fused_head_tail
-    from .window_attention import window_attention
-
-    flash_attention_fused_qkv.launches = 0
-    flash_attention_fused_qkv.biased_launches = 0
-    flash_attention.launches = 0
-    window_attention.launches = 0
-    fused_ln_mlp_residual.launches = 0
-    fused_head_tail.launches = 0
-    flash_attention_int8_qk.launches = 0
-    flash_attention_int8_qk_fused.launches = 0
-
-
-def launch_counts() -> dict[str, int]:
-    """The launch count of every kernel route of the package: the SwinV2
-    window kernel (``ops/kernels/window_attention.py``), the fused MLP
-    (``fused_mlp.py``), the head tail (``head_tail.py``) and the int8-QK^T
-    attention's two entries (``flash_attention_int8.py``) included."""
-    from .flash_attention_int8 import flash_attention_int8_qk, flash_attention_int8_qk_fused
+    from .flash_attention_staged import flash_attention_fused_qkv_staged
+    from .flash_attention_xl import flash_attention_fused_qkv_xl
     from .fused_mlp import fused_ln_mlp_residual
     from .head_tail import fused_head_tail
     from .window_attention import window_attention
 
     return {
+        "bnhd": flash_attention,
+        "window": window_attention,
+        "fused_mlp": fused_ln_mlp_residual,
+        "head_tail": fused_head_tail,
+        "int8_qk": flash_attention_int8_qk,
+        "int8_qk_fused": flash_attention_int8_qk_fused,
+        "xl": flash_attention_fused_qkv_xl,
+        "staged": flash_attention_fused_qkv_staged,
+        "variant": flash_variant,
+    }
+
+
+def reset_launch_counts():
+    """Zero the launch count of every kernel route of the package."""
+    flash_attention_fused_qkv.launches = 0
+    flash_attention_fused_qkv.biased_launches = 0
+    for entry in _counted_entries().values():
+        entry.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """The launch count of every kernel route of the package: the SwinV2
+    window kernel (``ops/kernels/window_attention.py``), the fused MLP
+    (``fused_mlp.py``), the head tail (``head_tail.py``), the int8-QK^T
+    attention's two entries (``flash_attention_int8.py``) and the attention
+    sweep's variants #10-#12 (``flash_attention_xl.py``,
+    ``flash_attention_staged.py``, ``tools/attn_variants.py``) included."""
+    return {
         "fused": flash_attention_fused_qkv.launches,
         "fused_biased": flash_attention_fused_qkv.biased_launches,
-        "bnhd": flash_attention.launches,
-        "window": window_attention.launches,
-        "fused_mlp": fused_ln_mlp_residual.launches,
-        "head_tail": fused_head_tail.launches,
-        "int8_qk": flash_attention_int8_qk.launches,
-        "int8_qk_fused": flash_attention_int8_qk_fused.launches,
+        **{route: entry.launches for route, entry in _counted_entries().items()},
     }

@@ -1,6 +1,8 @@
 """The PyTorch port must run where jax is not installed: importing every
-module of ``muggled_dpt_tpu_torch``, and ``chip_smoke.py``, with jax blocked
-must succeed, and must not import jax, the JAX package or ``experiments``."""
+module of ``muggled_dpt_tpu_torch`` (the attention sweep's
+``tools/flash_tune.py`` and ``tools/attn_variants.py`` included), and
+``chip_smoke.py``, with jax blocked must succeed, and must not import jax,
+the JAX package, ``experiments`` or the root ``tools``."""
 
 import os
 import subprocess
@@ -17,13 +19,14 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "muggled_dpt_tpu", "experiments") and sys.modules[m] is not None)
+                if m.split(".")[0] in ("jax", "jaxlib", "muggled_dpt_tpu", "experiments", "tools") and sys.modules[m] is not None)
 assert not leaked, leaked
-assert len(names) >= 35, names
+assert len(names) >= 40, names
 ported = ("checkpoints.beit", "models.beit", "models.beit_family", "make_beit_dpt", "ops.kernels.flash_attention",
           "checkpoints.swinv2", "models.swinv2", "models.swinv2_family", "make_swinv2_dpt", "ops.kernels.window_attention",
           "make_depthanythingv1_dpt", "ops.kernels.fused_mlp", "ops.kernels.head_tail", "ops.quant",
-          "ops.kernels.flash_attention_int8")
+          "ops.kernels.flash_attention_int8", "ops.kernels.flash_attention_xl", "ops.kernels.flash_attention_staged",
+          "ops.kernels.flash_variants", "tools.attn_variants", "tools.flash_tune")
 missing = [m for m in ported if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print("OK", len(names))

@@ -22,6 +22,7 @@ from muggled_dpt_tpu_torch import make_depthanythingv2_dpt, make_dpt_from_state_
 from muggled_dpt_tpu_torch.checkpoints.depth_anything import convert_state_dict, get_config_from_state_dict
 from muggled_dpt_tpu_torch.checkpoints.from_jax import params_from_jax
 from muggled_dpt_tpu_torch.checkpoints.random_init import random_original_depth_anything_state_dict
+from muggled_dpt_tpu_torch.make_dpt import load_state_dict
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 
 CFG = {
@@ -91,7 +92,9 @@ def test_config_matches_jax(ckpt):
     assert model.dtype == torch.float32 and model.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("square,side", [(True, 112), (False, 140)])
+# side 420 is 3.75x the 8x8 base grid (30x30 patches, N=901): about the
+# long-N ladder's 1904/518, so the bicubic pos-embed resize runs at that ratio
+@pytest.mark.parametrize("square,side", [(True, 112), (False, 140), (True, 420)])
 def test_inference_matches_jax(models, square, side):
     jm, tm = models
     frame = _frame(1)
@@ -120,6 +123,35 @@ def test_plain_attention_path_matches_kernel_path(ckpt, models):
     _, plain = make_dpt_from_state_dict(ckpt, enable_optimizations=False, device=DEVICE)
     frame = _frame(3)
     assert _abs_rel(plain.inference(frame, 112).numpy(), tm.inference(frame, 112).numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("form", ["model", "state_dict", "safetensors"])
+def test_wrapped_and_safetensors_checkpoints_build(tmp_path, form):
+    """A checkpoint wrapped as {"model": sd} or {"state_dict": sd}, and a
+    .safetensors file, build as the JAX loader builds them
+    (tests/test_loader_edge_cases.py:36, :66)."""
+    sd = random_original_depth_anything_state_dict(CFG, seed=SEED)
+    if form == "safetensors":
+        from safetensors.numpy import save_file
+
+        path = str(tmp_path / "depth_anything_v2_tiny.safetensors")
+        save_file(sd, path)
+    else:
+        path = str(tmp_path / "depth_anything_v2_tiny.pth")
+        torch.save({form: {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
+    jcfg, jm = jax_make_dpt(path)
+    cfg, tm = make_dpt_from_state_dict(path, device=DEVICE)
+    assert cfg == jcfg
+    frame = _frame(7)
+    assert _abs_rel(tm.inference(frame, 112).numpy(), np.asarray(jm.inference(frame, 112))) <= ABS_REL_BUDGET
+
+
+def test_container_beside_tensors_is_not_unwrapped(tmp_path):
+    """The JAX predicate: a "model" entry beside tensor values is a key of
+    the state dict, not a container."""
+    path = str(tmp_path / "mixed.pt")
+    torch.save({"model": {"a": torch.zeros(1)}, "pretrained.cls_token": torch.zeros(1, 1, 4)}, path)
+    assert set(load_state_dict(path)) == {"model", "pretrained.cls_token"}
 
 
 def test_metric_filename_gives_sigmoid_head(tmp_path):

@@ -374,6 +374,88 @@ def test_int8_include_neck_beit_matches_jax_f32():
     assert _parity(_carry("beit", tm.quantize_encoder_int8(**opts), jax_int8), jax_int8, _frame(4)) < PARITY_BUDGET
 
 
+SWIN_NECK_LAYERS = ("reassemble.0", "reassemble.1", "reassemble.2", "reassemble.3", "fusion.3", "fusion.2", "fusion.1",
+                    "fusion.0", "head.conv_in", "head.conv_mid")
+
+
+@pytest.fixture(scope="module")
+def swin_int8_neck():
+    """The port's and the JAX package's float32 SwinV2 int8 models with the
+    neck quantized, every JAX leaf carried across, and the JAX model's own
+    input and output of each neck layer on the JAX-preprocessed frame, its
+    forward run op by op (``_jax_depth``'s precision): {layer: (inputs as
+    NCHW tensors, output as an NCHW array)}."""
+    from muggled_dpt_tpu.models import dpt_neck as jneck
+    from muggled_dpt_tpu.models.swinv2 import SWIN_LN_EPS, encoder_forward
+    from muggled_dpt_tpu.ops.resize import resize_2d, resize_output_size
+
+    tm, jm = _pair("swin")
+    jax_int8 = jm.quantize_encoder_int8(include_neck=True)
+    port = _carry("swin", tm.quantize_encoder_int8(include_neck=True), jax_int8)
+    x = np.asarray(jax_int8.prepare_image_bgr(_frame(4)))
+    p, params = jax_int8.patch_size_px, jax_int8.params
+    aux = jax_int8._get_aux((x.shape[2] // p, x.shape[3] // p))
+    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))  # noqa: E731
+    layers = {}
+
+    @jax.jit
+    def encode(params, image_nhwc, aux):  # jit only feeds the neck: the layers held below run op by op
+        pe = params["patch_embed"]
+        tokens, grid = jnn.patchify_embed(image_nhwc, pe["kernel"], pe["bias"])
+        tokens = jnn.layer_norm(tokens, pe["norm_scale"], pe["norm_bias"], eps=SWIN_LN_EPS)
+        return encoder_forward(params["encoder"], tokens, grid, jax_int8.spec["encoder_config"], aux=aux)
+
+    with jax.default_matmul_precision("highest"):
+        stages, grids = encode(params, jnp.asarray(x.transpose(0, 2, 3, 1)), aux)
+        maps = []
+        for i, (t, (gh, gw), pr) in enumerate(zip(stages, grids, params["reassemble"])):
+            xin = t.reshape(t.shape[0], int(gh), int(gw), t.shape[-1])
+            maps.append(jnn.conv2d(xin, pr["fuse_kernel"], None, stride=1, padding=1))
+            layers[f"reassemble.{i}"] = ((xin,), maps[-1])
+        upx4, upx2, noscale, downx2 = maps
+        fused = jneck._upsample_projection(downx2, params["fusion"][3])
+        layers["fusion.3"] = ((downx2,), fused)
+        for i, fmap in ((2, noscale), (1, upx2), (0, upx4)):
+            prev = fused
+            fused = jneck._upsample_projection(jneck.residual_conv_unit(fmap, params["fusion"][i]["res1"]) + prev,
+                                               params["fusion"][i])
+            layers[f"fusion.{i}"] = ((fmap, prev), fused)
+        ph = params["head"]
+        h = jq.conv3x3_shiftsum_w8a8(fused, ph["conv_in_kernel9_q8"], ph["conv_in_kernel9_scale"], ph["conv_in_bias"])
+        layers["head.conv_in"] = ((fused,), h)
+        h_up = resize_2d(h, resize_output_size(h.shape[1:3], 2.0), mode="bilinear", align_corners=True)
+        mid = jq.conv3x3_shiftsum_w8a8(h_up, ph["conv_mid_kernel9_q8"], ph["conv_mid_kernel9_scale"], ph["conv_mid_bias"])
+        layers["head.conv_mid"] = ((h_up,), mid)
+    return port, {k: (tuple(nchw(a) for a in ins), np.asarray(out).transpose(0, 3, 1, 2)) for k, (ins, out) in layers.items()}
+
+
+@pytest.mark.parametrize("layer", SWIN_NECK_LAYERS)
+def test_int8_include_neck_swinv2_matches_jax_per_layer(swin_int8_neck, layer):
+    """The SwinV2 int8+neck tier held against the JAX int8 model one layer at
+    a time: each reassembly stage, fusion block and head conv of the port,
+    with every quantized leaf carried across, gets the JAX model's own input
+    to that layer, and its output is held to the 1e-3 budget (measured:
+    reassembly 2.1e-7 to 3.6e-7, fusion 3.9e-9 to 3.9e-8, head convs 0).
+    Whole-model parity cannot hold on the toy model: its int8 neck moves
+    4e-3 under a 1e-7 relative change of its input
+    (test_int8_include_neck_beit_matches_jax_f32)."""
+    port, layers = swin_int8_neck
+    ins, want = layers[layer]
+    net = port.net
+    kind, idx = layer.split(".")
+    with torch.no_grad():
+        if kind == "reassemble":
+            got = net.reassemble[int(idx)](*ins)
+        elif kind == "fusion":
+            got = net.fusion[int(idx)](*ins)
+        else:
+            got = tq.conv3x3_p(ins[0], getattr(net.head, idx))
+    assert isinstance(net.fusion[0].res2.conv1, tq.QuantConv3x3) and isinstance(net.head.conv_mid, tq.QuantConv3x3)
+    assert tuple(got.shape) == want.shape, layer
+    rel = _abs_rel(got, want)
+    assert rel < PARITY_BUDGET, f"{layer}: abs-rel {rel:.3e} against the JAX int8 model on its own input"
+
+
 def test_int8_shiftsum_conv_close_to_dense():
     """The shiftsum int8 3x3 convolution against the dense one (the JAX
     gate) and against the JAX package's on the same int8 weights."""
