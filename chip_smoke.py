@@ -25,10 +25,12 @@ original-format checkpoint and loaded through ``make_dpt_from_state_dict``:
     max side 512 gives 512x512, where the window search picks 32 (A=1024)
     at stages 1-3 and 16 at stage 4.
 
-Eight CUDA kernels (three of them one template, ``csrc/flash_variants.cuh``)
+Nine CUDA kernels (three of them one template, ``csrc/flash_variants.cuh``)
 port twelve TPU kernels; the ``kernels`` JSON line has one entry per TPU
 kernel:
-  #1 fused qkv, unbiased  -- the Depth-Anything path;
+  #1 fused qkv, unbiased  -- the Depth-Anything path; in bf16 the wgmma/TMA
+     kernel of csrc/flash_attention_sm90.cu, which takes every unbiased bf16
+     launch (#4's too), in f32 csrc/flash_attention.cu;
   #2 fused qkv, biased    -- the BEiT path (cached bias stack or inline bias);
   #3 window attention     -- the SwinV2 path (csrc/window_attention.cu; the
      CPB bias and shift mask read factored, by head and by window);
@@ -36,7 +38,8 @@ kernel:
      ``flash_attention`` op (the drop-in for dot_product_attention); no model
      of the port calls it, since the port serves every BEiT grid through #2.
      Its path is that op, driven at BEiT-L-512's attention shape (#4) and
-     past 32768 keys (#5, the online kernel's regime);
+     past 32768 keys (#5, the online kernel's regime; bf16 in
+     csrc/flash_attention_sm90.cu);
   #6 / #7 int8-QK^T attention (csrc/flash_attention_int8.cu), the (B H, N,
      D) entry and the head-major qkv-slab entry: as in the JAX package, no
      model serves through them. Their path holds them against the int8+qkv
@@ -62,10 +65,13 @@ Phases, in order; each prints its lines and the seconds it took, and any
 failure raises:
   1. device: a CUDA card, or fail; the nvidia-smi name and power limit;
   2. build: nvcc builds the kernel library from csrc/, one nvcc per source,
-     all started together;
+     all started together; the unbiased bf16 kernel's registers, spills and
+     shared memory (cudaFuncGetAttributes);
   3. each kernel vs its plain version at the paths' shapes and edge cases,
-     float32 and bfloat16, then CUDA-event times of both, in turns (the
-     window kernel at each SwinV2-L-384 stage shape, B=1 and B=8);
+     float32 and bfloat16 (#1 also at N = 127-385 around the bf16 kernel's
+     128-key and 192-row tiles and at a negative scale; #4 on strided views
+     at N = 129 and 1025, B = 1 and 8), then CUDA-event times of both, in
+     turns (the window kernel at each SwinV2-L-384 stage shape, B=1 and B=8);
   4. DA-V2 bf16 serves 3 requests and a batch of 8 (24 launches per forward);
   5. DA-V2 float32 kernel model vs float32 plain model;
   6. BEiT-L-512 bf16 serves 3 requests and a batch of 8 at 512x512 (24
@@ -118,6 +124,7 @@ Imports only torch, numpy and the port: never jax or the JAX package."""
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -262,9 +269,9 @@ NAMES = {
     11: "flash_attention_fused_qkv_staged (row max by key panel, then exp2 and PV; panels=2)",
     12: "flash_variant (pre-scaled (BH, N, D); mode padfix, the JAX default)",
 }
-SOURCES = {1: "flash_attention", 2: "flash_attention", 3: "window_attention", 4: "flash_attention", 5: "flash_attention",
-           6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp", 9: "head_tail", 10: "flash_attention_xl",
-           11: "flash_attention_staged", 12: "flash_variant"}
+SOURCES = {1: "flash_attention_sm90", 2: "flash_attention", 3: "window_attention", 4: "flash_attention",
+           5: "flash_attention_sm90", 6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp", 9: "head_tail",
+           10: "flash_attention_xl", 11: "flash_attention_staged", 12: "flash_variant"}
 SERVED = {}  # what -> (ms per request at B=1, ms per frame at B=8), filled by serve()
 
 
@@ -286,8 +293,14 @@ def phase_build():
     from muggled_dpt_tpu_torch.ops.kernels._build import build_library, kernel_library
 
     path = build_library(verbose=True)
-    kernel_library()
-    print(f"build: {path.name}", flush=True)
+    info = (ctypes.c_int * 5)()
+    err = kernel_library().mdpt_flash_attention_sm90_info(info)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes of the unbiased bf16 attention kernel failed: CUDA error {err}")
+    regs, spill, static_smem, dynamic_smem, threads = info
+    print(f"build: {path.name}; csrc/flash_attention_sm90.cu fa_sm90_bf16: {regs} registers per thread at launch "
+          f"(setmaxnreg: producer 24, consumers 160), {spill} B local memory per thread, {static_smem} B static + "
+          f"{dynamic_smem} B dynamic shared memory, {threads} threads", flush=True)
 
 
 def make_qkv(rng, b, n, dtype, all_negative=False):
@@ -438,10 +451,14 @@ def phase_kernel(smi: str) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         other = torch.bfloat16 if dtype == torch.float32 else torch.float32
-        # #1: unbiased fused, the DA shapes and edge cases
+        # #1: unbiased fused, the DA shapes and edge cases; N = 127-257 straddle
+        # the bf16 kernel's 128-key K/V tiles, N = 191-385 its 192-row q tiles
         for b, n, neg, scale in [(1, N_TOKENS, False, None), (8, N_TOKENS, False, None), (1, 1, False, None),
                                  (1, 63, False, None), (1, 65, False, None), (2, 200, False, None),
-                                 (2, 200, False, 0.3), (2, 200, True, None), (1, N_TOKENS, True, None)]:
+                                 (2, 200, False, 0.3), (2, 200, False, -0.3), (2, 200, True, None), (1, N_TOKENS, True, None),
+                                 (2, 127, False, None), (1, 128, False, None), (2, 129, False, None),
+                                 (1, 255, False, None), (2, 257, True, None), (1, 191, False, None), (2, 192, False, None),
+                                 (1, 193, False, None), (2, 385, False, None)]:
             qkv = make_qkv(rng, b, n, dtype, neg)
             label = f"{name} B={b} N={n}{' all-negative' if neg else ''}{f' scale={scale}' if scale else ''}"
             got = fa.flash_attention_fused_qkv(qkv, HEADS, scale=scale)
@@ -476,16 +493,18 @@ def phase_kernel(smi: str) -> dict:
         check(2, f"{name} B=2 N={N_BEIT} all-negative, bias ~ -50", got,
               fa.flash_attention_fused_qkv_reference(qkv, HEADS, bias=bias), (2, N_BEIT, HEADS * HEAD_DIM))
         # #4: the (B, N, H, D) entry, contiguous and strided views of one qkv
+        # (unbiased bf16: the tensor maps take the views' own strides)
         for b in (1, 8):
-            qkv = make_qkv(rng, b, N_BEIT, dtype)
-            bias = make_bias(rng, (1, HEADS, N_BEIT, N_BEIT), dtype)
-            views = {"strided views of one qkv": _split(qkv), "contiguous": tuple(t.contiguous() for t in _split(qkv))}
-            for kind, (q, k, v) in views.items():
-                for bias_kw in ({}, {"bias": bias}):
-                    got = fa.flash_attention(q, k, v, **bias_kw)
-                    ref = fa.flash_attention_reference(q, k, v, **bias_kw)
-                    label = f"{name} B={b} N={N_BEIT} {kind}{' bias (1,H,N,N)' if bias_kw else ''}"
-                    check(4, label, got, ref, (b, N_BEIT, HEADS, HEAD_DIM))
+            for n in (129, N_BEIT):
+                qkv = make_qkv(rng, b, n, dtype)
+                bias = make_bias(rng, (1, HEADS, n, n), dtype)
+                views = {"strided views of one qkv": _split(qkv), "contiguous": tuple(t.contiguous() for t in _split(qkv))}
+                for kind, (q, k, v) in views.items():
+                    for bias_kw in ({}, {"bias": bias}):
+                        got = fa.flash_attention(q, k, v, **bias_kw)
+                        ref = fa.flash_attention_reference(q, k, v, **bias_kw)
+                        label = f"{name} B={b} N={n} {kind}{' bias (1,H,N,N)' if bias_kw else ''}"
+                        check(4, label, got, ref, (b, n, HEADS, HEAD_DIM))
         # #5: unbiased past 32768 keys
         q, k, v = (make_bias(rng, (1, N_ONLINE, 2, HEAD_DIM), dtype) for _ in range(3))
         check(5, f"{name} B=1 N={N_ONLINE} H=2", fa.flash_attention(q, k, v), fa.flash_attention_reference(q, k, v),

@@ -1,12 +1,17 @@
 // Flash attention for Hopper (sm_90a), float32 and bfloat16, on strided q, k
-// and v with an optional additive bias.
+// and v with an optional additive bias: the C entry of every launch, and the
+// kernels of the biased bfloat16 launches and of all float32 launches. The
+// unbiased bfloat16 launches go to flash_attention_sm90.cu (wgmma, TMA, a
+// warp-specialised producer), the only kernel they can reach.
 //
 // Replaces four TPU kernels of muggled_dpt_tpu/ops/pallas/flash_attention.py,
 // which compute the same math on differently laid-out inputs:
 //   #1 flash_attention_fused_qkv, unbiased       -> _onepass_qkv_kernel (:125)
+//      (bfloat16: flash_attention_sm90.cu; float32: fa_f32 here)
 //   #2 the same, biased: a bias tensor (:472-478) or bias_stack + layer (:434-464)
 //   #4 flash_attention (B, N, H, D), one-pass     -> _onepass_kernel (:86)
 //   #5 the same past 32768 keys (online)          -> _online_kernel (:497)
+//      (unbiased: bfloat16 in flash_attention_sm90.cu, float32 here)
 // Per batch b and head h it computes
 //   out[b, i, h, :] = sum_j softmax_j(q_i . k_j * scale + bias[b, h, i, j]) v_j
 // where q, k, v and out are addressed by (batch, row, head) strides in
@@ -46,14 +51,14 @@
 //
 // Bounds on an H100: at N=1025, D=64, 16 heads one call does about
 // 2 * 2 * N^2 * D * H = 4.3 GFLOP per image against 3 * N * C * 2 B = 6.3 MB
-// of bf16 qkv and, with a bias, H * N^2 * 2 B = 34 MB of bf16 bias: compute
-// bound without a bias, near the ridge with one. The bf16 kernel runs both
-// products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32 out),
-// with K/V double-buffered by cp.async and the bias fetched a tile ahead;
-// the f32 kernel (the parity mode) uses plain FMAs, since TF32 tensor cores
-// would not hold float32 accuracy.
-// Left for later: wgmma and TMA with a warp-specialised producer, keeping P
-// in registers across a 64-row warpgroup tile, and a persistent grid.
+// of bf16 qkv and, with a bias, H * N^2 * 2 B = 34 MB of bf16 bias: near
+// the ridge with a bias. The biased bf16 kernel runs both products on the
+// tensor cores with mma.sync m16n8k16 (bf16 in, f32 out), with K/V
+// double-buffered by cp.async and the bias fetched a tile ahead; the f32
+// kernel (the parity mode) uses plain FMAs, since TF32 tensor cores would
+// not hold float32 accuracy.
+// Left for later on the biased path: the design of flash_attention_sm90.cu
+// (wgmma, TMA, a warp-specialised producer) with the bias operand.
 // The mma.sync, cp.async and ldmatrix helpers live in flash_tile.cuh, which
 // the measurement variants (#10-#12) share.
 
@@ -64,6 +69,11 @@
 #include <type_traits>
 
 #include "flash_tile.cuh"
+
+// flash_attention_sm90.cu: every unbiased bfloat16 launch
+cudaError_t flash_attention_sm90(const void* q, const long long* q_st, const void* k, const long long* k_st, const void* v,
+                                 const long long* v_st, void* o, const long long* o_st, int batch, int n, int heads,
+                                 float qk_scale_log2, cudaStream_t stream);
 
 namespace {
 
@@ -461,7 +471,7 @@ cudaError_t launch(const Args& a, int dtype, bool pairs, dim3 grid, cudaStream_t
     if (dtype == 0) {
         fa_f32<BIAS><<<grid, F32_BQ, 0, s>>>(a);
     } else if constexpr (BIAS == BIAS_NONE) {
-        fa_bf16<BIAS, false><<<grid, THREADS, 0, s>>>(a);
+        return cudaErrorInvalidValue;  // unbiased bf16 runs in flash_attention_sm90.cu only
     } else if (pairs) {
         fa_bf16<BIAS, true><<<grid, THREADS, 0, s>>>(a);
     } else {
@@ -471,6 +481,11 @@ cudaError_t launch(const Args& a, int dtype, bool pairs, dim3 grid, cudaStream_t
 }
 
 cudaError_t launch_any(const Args& a, int dtype, int bias_dtype, int batch, int num_heads, cudaStream_t s) {
+    if (dtype == 1 && bias_dtype == -1) {
+        const long long qs[3] = {a.q_sb, a.q_sn, a.q_sh}, ks[3] = {a.k_sb, a.k_sn, a.k_sh};
+        const long long vs[3] = {a.v_sb, a.v_sn, a.v_sh}, os[3] = {a.o_sb, a.o_sn, a.o_sh};
+        return flash_attention_sm90(a.q, qs, a.k, ks, a.v, vs, a.o, os, batch, a.n, num_heads, a.qk_scale_log2, s);
+    }
     bool pairs = false;
     if (bias_dtype >= 0) {
         const long long esize = bias_dtype == 0 ? 4 : 2;

@@ -95,6 +95,10 @@ def kernel_library() -> ctypes.CDLL:
     # the int64 argument array (its slots in csrc/flash_attention.cu), qk_scale_log2, stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.mdpt_flash_attention_sm90_info
+    # five int32 out values (csrc/flash_attention_sm90.cu): registers, spill bytes, static and dynamic shared bytes, threads
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     fn = lib.mdpt_window_attention
     # the int64 argument array (its slots in csrc/window_attention.cu), stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]

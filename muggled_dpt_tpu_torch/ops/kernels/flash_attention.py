@@ -1,5 +1,11 @@
-"""Flash attention: one hand-written Hopper kernel (``csrc/flash_attention.cu``)
-behind two entries, each with its plain PyTorch version beside it.
+"""Flash attention: hand-written Hopper kernels behind one C entry
+(``csrc/flash_attention.cu``) and two Python entries, each with its plain
+PyTorch version beside it. The C entry sends every bfloat16 launch without a
+bias to ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, a warp-specialised
+producer; its tensor maps take the 16-byte aligned bases and strides that
+``_operand`` and ``_qkv_operands`` require) and the biased bfloat16 and all
+float32 launches to the kernels of ``csrc/flash_attention.cu``: the dtype
+and the presence of a bias decide, nothing else.
 
 * ``flash_attention_fused_qkv(qkv, num_heads, bias, scale, bias_stack, layer)``
   replaces ``muggled_dpt_tpu/ops/pallas/flash_attention.py:flash_attention_fused_qkv``
@@ -11,7 +17,7 @@ behind two entries, each with its plain PyTorch version beside it.
 * ``flash_attention(q, k, v, bias, scale)`` on (B, N, H, D) tensors, which may
   be strided views, replaces the JAX package's ``flash_attention`` wrapper
   (TPU kernel #4, ``_onepass_kernel``, and #5, ``_online_kernel`` past 32768
-  keys): the same kernel streams keys at every N.
+  keys): the same kernels stream keys at every N.
 
 Bias contract (the JAX package's ``_fit_bias``, ``flash_attention.py:574-599``):
 the bias is broadcastable to (B, H, N, N); a size-1 row or column dim
@@ -151,8 +157,9 @@ def _bias_operand(bias, bias_stack, layer, b: int, h: int, n: int, device):
 def _operand(name: str, t: torch.Tensor, device, dtype) -> tuple[int, ...]:
     """(address, then the element stride of every dim but the last) of a
     q, k or v input: (B, N, H, D) here, (B, nW, A, H, D) for the window
-    kernel. Rows are copied as 16-byte chunks: the head dim must be
-    contiguous and every row start 16-byte aligned."""
+    kernel. Rows are copied as 16-byte chunks, by cp.async or a TMA tensor
+    map: the head dim must be contiguous, the base and every other stride a
+    multiple of 16 bytes."""
     if t.device != device or t.dtype != dtype:
         raise ValueError(f"attention kernel: {name} is {t.dtype} on {t.device}, want {dtype} on {device}")
     step = 16 // t.element_size()
@@ -178,7 +185,9 @@ def _contiguous_pointer(kernel: str, name: str, t: torch.Tensor, device, dtype, 
 
 def _qkv_operands(qkv: torch.Tensor, d: int) -> list[tuple[int, int, int, int]]:
     """q, k and v in place in a head-major (B, N, 3C) qkv, as ``_operand``
-    gives them: head h's q at column h*3D, its k at +D and its v at +2D."""
+    gives them: head h's q at column h*3D, its k at +D and its v at +2D.
+    Every base and stride is then a multiple of 16 bytes, as the tensor maps
+    of the unbiased bf16 kernel require."""
     es, ptr = qkv.element_size(), qkv.data_ptr()
     sb, sn, sc = qkv.stride()
     if sc != 1 or ptr % 16 != 0 or sb % (16 // es) or sn % (16 // es) or d * es % 16:

@@ -2,6 +2,7 @@
 """Host-cost and profile measurements of the port on one CUDA card.
 
     python3 muggled_dpt_tpu_torch/tools/measure.py host [--against DIR]
+    python3 muggled_dpt_tpu_torch/tools/measure.py attention [--against DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py profile [--model beit|swinv2|vitl|giant] [--out DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py profile --int8 [dense] [default] [qkv] [neck] [--out DIR]
 
@@ -15,6 +16,12 @@ earlier commit unpacked with ``git archive``, say) under another module name
 into the same process, and alternates the two packages round by round, so
 both see the same host noise; each line then says in how many rounds this
 checkout was faster.
+
+``attention``: CUDA-event times of the unbiased bf16 attention kernel
+(csrc/flash_attention_sm90.cu) at DA-V2 ViT-L's (8, 1297, 3072) and
+(1, 18497, 3072) qkv slabs (#1) and at (1, 32897, 2, 64) (#5), on random
+inputs from a seed, beside one SDPA call and the bound; ``--against DIR``
+times DIR's kernel on the same inputs in turns (DIR, this, this, DIR).
 
 ``profile``: a torch.profiler breakdown of a bf16 forward (10 forwards at
 B=1, 5 at B=8): device busy share (the union of kernel intervals over the
@@ -85,7 +92,7 @@ SWIN_L384 = {
 FRAME_HW = (720, 1280)
 KINDS = [  # (kind, substrings of the kernel name), first match wins
     ("int8 GEMM (torch._int_mm)", ("gemm_s8", "i16832gemm", "imma")),
-    ("attention kernel", ("fa_bf16", "fa_f32")),
+    ("attention kernel", ("fa_sm90_bf16", "fa_bf16", "fa_f32")),
     ("window attention kernel", ("wa_bf16", "wa_f32")),
     ("conv (cuDNN, with layout transforms)", ("cudnn", "xmma", "fprop", "dgrad", "nchwToNhwc", "nhwcToNchw")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm")),
@@ -220,6 +227,52 @@ def host(args, smi):
         model = importlib.import_module("muggled_dpt_tpu_torch.make_dpt").make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device="cuda")[1]
         fns = {REPO_ROOT: lambda: model.inference(frame, 512)}
         report("BEiT-L-512 bf16 512x512 ms per request, B=1", interleaved(fns, request_ms, 30), "ms", smi)
+
+
+ATTENTION_CASES = (  # (label, batch, tokens, heads, fused): #1 at DA-V2 ViT-L's B=8 504x504 and 1904x1904 shapes, #5
+    ("#1 fused qkv, DA-V2 ViT-L 504x504 B=8", 8, 1297, 16, True),
+    ("#1 fused qkv, DA-V2 ViT-L 1904x1904 B=1", 1, 18497, 16, True),
+    ("#5 (B, N, H, D), N past 32768", 1, 32897, 2, False),
+)
+
+
+def attention(args, smi):
+    """bf16 CUDA-event times of the unbiased attention kernel at each of
+    ``ATTENTION_CASES`` on random inputs from a seed; with ``--against``, the
+    other checkout's kernel on the same inputs, in turns (other, this, this,
+    other); then one SDPA call on the same views and the bound (4 B H N^2 D
+    operations over 989 TFLOP/s)."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    packages = {"this": "muggled_dpt_tpu_torch"}
+    if args.against:
+        load_package(args.against, "against_muggled_dpt_tpu_torch")
+        packages = {"against": "against_muggled_dpt_tpu_torch", **packages}
+    fas = {name: importlib.import_module(pkg + ".ops.kernels.flash_attention") for name, pkg in packages.items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, b, n, h, fused in ATTENTION_CASES:
+        qkv = torch.randn(b, n, 3 * h * 64, device="cuda", dtype=torch.bfloat16, generator=gen)
+        q, k, v = qkv.unflatten(2, (h, 3, 64)).unbind(3)
+        if not fused:  # #5 as chip_smoke.py times it: three (B, N, H, D) tensors
+            q, k, v = (t.contiguous() for t in (q, k, v))
+        calls = {name: (lambda fa=fa: fa.flash_attention_fused_qkv(qkv, h)) if fused else (lambda fa=fa: fa.flash_attention(q, k, v))
+                 for name, fa in fas.items()}
+        iters, warmup = (30, 5) if n < 10000 else (10, 2)
+        order = ["against", "this", "this", "against"] if args.against else ["this", "this"]
+        times = {name: [] for name in calls}
+        for name in order:
+            times[name].append(event_ms(calls[name], iters, warmup))
+        sdpa = [t.transpose(1, 2) for t in (q, k, v)]
+        library = event_ms(lambda: F.scaled_dot_product_attention(*sdpa), iters, warmup)
+        bound = 4 * b * h * n * n * 64 / 989e12 * 1e3
+        readings = ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
+        print(f"{label} (B={b}, N={n}, H={h}, D=64): {readings} (median of {iters} after {warmup}); SDPA {library:.4f} ms; "
+              f"bound {bound:.4f} ms (ops) [{smi}]", flush=True)
+        del qkv, q, k, v, sdpa
+        torch.cuda.empty_cache()
 
 
 def kind_of(name: str) -> str:
@@ -407,8 +460,9 @@ def profile(args, smi):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=["host", "profile"])
-    parser.add_argument("--against", default=None, help="another checkout whose package host also measures, interleaved")
+    parser.add_argument("what", choices=["host", "attention", "profile"])
+    parser.add_argument("--against", default=None, help="another checkout whose package host or attention also measures, "
+                        "interleaved")
     parser.add_argument("--model", choices=sorted(PROFILED), default=None, help="the model profile measures (default beit; "
                         "vitl with --int8)")
     parser.add_argument("--int8", nargs="+", choices=list(INT8_TIERS), default=None,
@@ -423,7 +477,7 @@ def main() -> int:
         print("no CUDA device: this script measures the port on a GPU", file=sys.stderr)
         return 1
     smi = card_line()
-    (host if args.what == "host" else profile)(args, smi)
+    {"host": host, "attention": attention, "profile": profile}[args.what](args, smi)
     return 0
 
 
