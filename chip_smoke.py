@@ -29,9 +29,12 @@ Nine CUDA kernels (three of them one template, ``csrc/flash_variants.cuh``)
 port twelve TPU kernels; the ``kernels`` JSON line has one entry per TPU
 kernel:
   #1 fused qkv, unbiased  -- the Depth-Anything path; in bf16 the wgmma/TMA
-     kernel of csrc/flash_attention_sm90.cu, which takes every unbiased bf16
-     launch (#4's too), in f32 csrc/flash_attention.cu;
-  #2 fused qkv, biased    -- the BEiT path (cached bias stack or inline bias);
+     kernel of csrc/flash_attention_sm90.cu, which takes every bf16 launch
+     without a bias or with a bf16 one (#2's and #4's too), in f32
+     csrc/flash_attention.cu;
+  #2 fused qkv, biased    -- the BEiT path (cached bias stack or inline bias;
+     in bf16 the same kernel's BIAS_BF16 instantiation, its bias tiles
+     filled by TMA or, for layouts TMA cannot read, by the producer's warps);
   #3 window attention     -- the SwinV2 path (csrc/window_attention.cu; the
      CPB bias and shift mask read factored, by head and by window);
   #4 / #5 (B, N, H, D) op -- the JAX package reaches it through its
@@ -65,13 +68,16 @@ Phases, in order; each prints its lines and the seconds it took, and any
 failure raises:
   1. device: a CUDA card, or fail; the nvidia-smi name and power limit;
   2. build: nvcc builds the kernel library from csrc/, one nvcc per source,
-     all started together; the unbiased bf16 kernel's registers, spills and
-     shared memory (cudaFuncGetAttributes);
+     all started together; the bf16 kernel's registers, spills and shared
+     memory, unbiased and biased (cudaFuncGetAttributes);
   3. each kernel vs its plain version at the paths' shapes and edge cases,
-     float32 and bfloat16 (#1 also at N = 127-385 around the bf16 kernel's
-     128-key and 192-row tiles and at a negative scale; #4 on strided views
-     at N = 129 and 1025, B = 1 and 8), then CUDA-event times of both, in
-     turns (the window kernel at each SwinV2-L-384 stage shape, B=1 and B=8);
+     float32 and bfloat16 (#1 and #2 also at N = 127-385 around the bf16
+     kernel's 128-key and 192-row tiles, #2 there with a padded stack layer
+     and an unpadded bias, B=8 with a (B, H, Np, Np) bias and an odd-offset
+     view, scales 0.3 and -0.3 with a bias; #4 on strided views at N = 129,
+     385 and 1025, B = 1 and 8; each bf16 bias check names its fill), then
+     CUDA-event times of both, in turns (the window kernel at each
+     SwinV2-L-384 stage shape, B=1 and B=8);
   4. DA-V2 bf16 serves 3 requests and a batch of 8 (24 launches per forward);
   5. DA-V2 float32 kernel model vs float32 plain model;
   6. BEiT-L-512 bf16 serves 3 requests and a batch of 8 at 512x512 (24
@@ -269,7 +275,7 @@ NAMES = {
     11: "flash_attention_fused_qkv_staged (row max by key panel, then exp2 and PV; panels=2)",
     12: "flash_variant (pre-scaled (BH, N, D); mode padfix, the JAX default)",
 }
-SOURCES = {1: "flash_attention_sm90", 2: "flash_attention", 3: "window_attention", 4: "flash_attention",
+SOURCES = {1: "flash_attention_sm90", 2: "flash_attention_sm90", 3: "window_attention", 4: "flash_attention_sm90",
            5: "flash_attention_sm90", 6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp", 9: "head_tail",
            10: "flash_attention_xl", 11: "flash_attention_staged", 12: "flash_variant"}
 SERVED = {}  # what -> (ms per request at B=1, ms per frame at B=8), filled by serve()
@@ -293,14 +299,15 @@ def phase_build():
     from muggled_dpt_tpu_torch.ops.kernels._build import build_library, kernel_library
 
     path = build_library(verbose=True)
-    info = (ctypes.c_int * 5)()
-    err = kernel_library().mdpt_flash_attention_sm90_info(info)
-    if err != 0:
-        raise RuntimeError(f"cudaFuncGetAttributes of the unbiased bf16 attention kernel failed: CUDA error {err}")
-    regs, spill, static_smem, dynamic_smem, threads = info
-    print(f"build: {path.name}; csrc/flash_attention_sm90.cu fa_sm90_bf16: {regs} registers per thread at launch "
-          f"(setmaxnreg: producer 24, consumers 160), {spill} B local memory per thread, {static_smem} B static + "
-          f"{dynamic_smem} B dynamic shared memory, {threads} threads", flush=True)
+    for bias, what in ((0, "BIAS_NONE"), (1, "BIAS_BF16")):
+        info = (ctypes.c_int * 5)()
+        err = kernel_library().mdpt_flash_attention_sm90_info(bias, info)
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes of the bf16 attention kernel ({what}) failed: CUDA error {err}")
+        regs, spill, static_smem, dynamic_smem, threads = info
+        print(f"build: {path.name}; csrc/flash_attention_sm90.cu fa_sm90_bf16<{what}>: {regs} registers per thread at "
+              f"launch (setmaxnreg: producer 32, consumers 160), {spill} B local memory per thread, {static_smem} B static + "
+              f"{dynamic_smem} B dynamic shared memory, {threads} threads", flush=True)
 
 
 def make_qkv(rng, b, n, dtype, all_negative=False):
@@ -327,6 +334,16 @@ def padded_stack(rng, layers, n, dtype):
     stack[..., n:, :] = 1e6
     stack[..., :, n:] = 1e6
     return stack
+
+
+def fill_name(bias=None, bias_stack=None, layer=None, b=1, n=1) -> str:
+    """" [tma]" or " [copy]": how the bf16 kernel fills its bias tiles for a
+    bf16 bias given so; "" for a float32 one."""
+    t = bias if bias_stack is None else bias_stack
+    if t.dtype != torch.bfloat16:
+        return ""
+    operand = fa._bias_operand(bias, bias_stack, layer, b, HEADS, n, t.device)
+    return " [tma]" if fa.bias_fill(operand) == fa.BIAS_FILL_TMA else " [copy]"
 
 
 def timed_pair(smi, what, kernel, plain, library=None, iters=30, warmup=5):
@@ -481,7 +498,7 @@ def phase_kernel(smi: str) -> dict:
             for src, kw in sources.items():
                 got = fa.flash_attention_fused_qkv(qkv, HEADS, **kw)
                 ref = fa.flash_attention_fused_qkv_reference(qkv, HEADS, **kw)
-                check(2, f"{name} B={b} N={n} bias {src}", got, ref, (b, n, HEADS * HEAD_DIM))
+                check(2, f"{name} B={b} N={n} bias {src}{fill_name(**kw, b=b, n=n)}", got, ref, (b, n, HEADS * HEAD_DIM))
         del stack
         for n in (1, 63, 65, 577, 4097):
             qkv, bias = make_qkv(rng, 1, n, dtype), make_bias(rng, (1, HEADS, n, n), dtype)
@@ -492,6 +509,41 @@ def phase_kernel(smi: str) -> dict:
         got = fa.flash_attention_fused_qkv(qkv, HEADS, bias=bias)
         check(2, f"{name} B=2 N={N_BEIT} all-negative, bias ~ -50", got,
               fa.flash_attention_fused_qkv_reference(qkv, HEADS, bias=bias), (2, N_BEIT, HEADS * HEAD_DIM))
+        # #2 at the bf16 kernel's edges (N = 127-257 straddle its 128-key
+        # tiles, 191-385 its 192-row q tiles), each with a padded stack layer
+        # (TMA fill) and an unpadded bias (copy fill); B=8 with a padded
+        # (B, H, Np, Np) bias (TMA over the batch dim); a view at an odd
+        # offset into a padded layer (copy, pads 1e6 never read); scales
+        # 0.3 and -0.3 with a bias
+        for b, n in ((2, 127), (1, 128), (2, 129), (1, 191), (2, 192), (1, 193), (2, 257), (1, 385)):
+            qkv, stack = make_qkv(rng, b, n, dtype), padded_stack(rng, 2, n, dtype)
+            sources = {"stack layer 1, pads 1e6": {"bias_stack": stack, "layer": 1},
+                       "(1,H,N,N) unpadded": {"bias": make_bias(rng, (1, HEADS, n, n), dtype)}}
+            for src, kw in sources.items():
+                got = fa.flash_attention_fused_qkv(qkv, HEADS, **kw)
+                ref = fa.flash_attention_fused_qkv_reference(qkv, HEADS, **kw)
+                check(2, f"{name} B={b} N={n} bias {src}{fill_name(**kw, b=b, n=n)}", got, ref, (b, n, HEADS * HEAD_DIM))
+        n = 385
+        qkv = make_qkv(rng, 8, n, dtype)
+        padded = padded_stack(rng, 9, n, dtype)[1:, :, :, :]  # (B, H, Np, Np), batch stride H Np^2
+        odd = padded_stack(rng, 1, n + 1, dtype)[:, :, 1:, 1:]  # (1, H, N + 7, N + 7) at an odd element offset
+        for src, kw in {"(B,H,Np,Np) pads 1e6": {"bias": padded},
+                        "(1,H,Np,Np) view at an odd offset, pads 1e6": {"bias": odd}}.items():
+            got = fa.flash_attention_fused_qkv(qkv, HEADS, **kw)
+            ref = fa.flash_attention_fused_qkv_reference(qkv, HEADS, **kw)
+            check(2, f"{name} B=8 N={n} bias {src}{fill_name(**kw, b=8, n=n)}", got, ref, (8, n, HEADS * HEAD_DIM))
+        q, k, v = _split(qkv)
+        for kw in ({"bias": padded}, {"bias": padded[:1]}, {"bias": odd}):
+            label = f"{name} B=8 N={n} strided views bias {tuple(kw['bias'].shape)}{fill_name(**kw, b=8, n=n)}"
+            check(4, label, fa.flash_attention(q, k, v, **kw), fa.flash_attention_reference(q, k, v, **kw), (8, n, HEADS, HEAD_DIM))
+        qkv = make_qkv(rng, 2, n, dtype)
+        for scale in (0.3, -0.3):
+            kw = {"bias_stack": padded, "layer": 0}
+            got = fa.flash_attention_fused_qkv(qkv, HEADS, scale=scale, **kw)
+            ref = fa.flash_attention_fused_qkv_reference(qkv, HEADS, scale=scale, **kw)
+            check(2, f"{name} B=2 N={n} bias stack layer 0 scale={scale}{fill_name(**kw, b=2, n=n)}", got, ref,
+                  (2, n, HEADS * HEAD_DIM))
+        del padded, odd
         # #4: the (B, N, H, D) entry, contiguous and strided views of one qkv
         # (unbiased bf16: the tensor maps take the views' own strides)
         for b in (1, 8):

@@ -1,17 +1,20 @@
 // Flash attention for Hopper (sm_90a), float32 and bfloat16, on strided q, k
 // and v with an optional additive bias: the C entry of every launch, and the
-// kernels of the biased bfloat16 launches and of all float32 launches. The
-// unbiased bfloat16 launches go to flash_attention_sm90.cu (wgmma, TMA, a
-// warp-specialised producer), the only kernel they can reach.
+// kernels of the float32 launches and of the one bfloat16 launch the sm_90
+// kernel does not take. Routing, by dtype alone:
+//   bf16 q/k/v, no bias or a bf16 bias -> flash_attention_sm90.cu (wgmma, TMA,
+//                                         a warp-specialised producer)
+//   bf16 q/k/v, a float32 bias         -> fa_bf16 here (no model path sends
+//                                         one: the models hand the bias over
+//                                         in their own dtype)
+//   float32                            -> fa_f32 here (the parity mode)
 //
 // Replaces four TPU kernels of muggled_dpt_tpu/ops/pallas/flash_attention.py,
 // which compute the same math on differently laid-out inputs:
 //   #1 flash_attention_fused_qkv, unbiased       -> _onepass_qkv_kernel (:125)
-//      (bfloat16: flash_attention_sm90.cu; float32: fa_f32 here)
 //   #2 the same, biased: a bias tensor (:472-478) or bias_stack + layer (:434-464)
 //   #4 flash_attention (B, N, H, D), one-pass     -> _onepass_kernel (:86)
 //   #5 the same past 32768 keys (online)          -> _online_kernel (:497)
-//      (unbiased: bfloat16 in flash_attention_sm90.cu, float32 here)
 // Per batch b and head h it computes
 //   out[b, i, h, :] = sum_j softmax_j(q_i . k_j * scale + bias[b, h, i, j]) v_j
 // where q, k, v and out are addressed by (batch, row, head) strides in
@@ -23,20 +26,18 @@
 // column stride broadcasts a (.., 1, N) or (.., N, 1) bias, and the offset
 // selects one layer of a cached (L, H, Np, Np) stack without a copy.
 //
-// Design: one CTA per (q tile of 64 rows, head, batch), FlashAttention-2
-// style. K/V tiles stream through shared memory at every N; each q row keeps
-// a running (max m, sum l, accumulator acc) in registers. That one streaming
-// loop replaces the TPU's one-pass/online split, its whole-row VMEM residency,
-// its head grouping (hpp) and its bias downcast, which were TPU tactics.
-// The bias is read straight from global memory into registers, in the layout
-// of the logits it is added to, one key tile ahead: tile t+1's loads are
-// issued at the top of tile t, so a whole tile of work hides their latency
-// (loading each tile's bias just before its use left the biased kernel 2.3x
-// slower at BEiT-L-512's shape). No shared-memory stage, so any stride is
-// legal; an even row stride with unit column stride gets its own
-// instantiation with 2-element loads at immediate offsets (134 registers
-// against 237 for one kernel that branched between the two load forms),
-// which is why the BEiT encoder pads its bias rows to a multiple of 8.
+// The kernels here: one CTA per (q tile of 64 rows, head, batch),
+// FlashAttention-2 style. K/V tiles stream through shared memory at every
+// N; each q row keeps a running (max m, sum l, accumulator acc) in
+// registers. That one streaming loop replaces the TPU's one-pass/online
+// split, its whole-row VMEM residency, its head grouping (hpp) and its bias
+// downcast, which were TPU tactics. fa_bf16 runs both products on the
+// tensor cores with mma.sync m16n8k16 (bf16 in, f32 out), K/V
+// double-buffered by cp.async, and reads its float32 bias from global
+// memory into registers in the layout of the logits it is added to, one
+// key tile ahead; a unit column stride with even rows gets its own
+// instantiation with 8-byte loads. fa_f32 uses plain FMAs, since TF32
+// tensor cores would not hold float32 accuracy.
 // Numerics kept from the TPU kernels:
 //   * exp2 domain: logits are s * scale * log2(e) + bias * log2(e), in f32,
 //     equal to the natural-exp softmax of s * scale + bias. The f32 kernel
@@ -48,17 +49,6 @@
 //   * logits, softmax and accumulation in f32; p is rounded to the input
 //     type before the PV product; out = acc / max(l, 1e-30);
 //   * q rows past N are computed on zero input and never written.
-//
-// Bounds on an H100: at N=1025, D=64, 16 heads one call does about
-// 2 * 2 * N^2 * D * H = 4.3 GFLOP per image against 3 * N * C * 2 B = 6.3 MB
-// of bf16 qkv and, with a bias, H * N^2 * 2 B = 34 MB of bf16 bias: near
-// the ridge with a bias. The biased bf16 kernel runs both products on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, f32 out), with K/V
-// double-buffered by cp.async and the bias fetched a tile ahead; the f32
-// kernel (the parity mode) uses plain FMAs, since TF32 tensor cores would
-// not hold float32 accuracy.
-// Left for later on the biased path: the design of flash_attention_sm90.cu
-// (wgmma, TMA, a warp-specialised producer) with the bias operand.
 // The mma.sync, cp.async and ldmatrix helpers live in flash_tile.cuh, which
 // the measurement variants (#10-#12) share.
 
@@ -66,14 +56,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "flash_tile.cuh"
 
-// flash_attention_sm90.cu: every unbiased bfloat16 launch
+// flash_attention_sm90.cu: every bfloat16 launch without a bias or with a bfloat16 one
 cudaError_t flash_attention_sm90(const void* q, const long long* q_st, const void* k, const long long* k_st, const void* v,
-                                 const long long* v_st, void* o, const long long* o_st, int batch, int n, int heads,
-                                 float qk_scale_log2, cudaStream_t stream);
+                                 const long long* v_st, void* o, const long long* o_st, const void* bias,
+                                 const long long* bias_st, int fill, int batch, int n, int heads, float qk_scale_log2,
+                                 cudaStream_t stream);
 
 namespace {
 
@@ -217,7 +206,8 @@ __global__ void __launch_bounds__(F32_BQ) fa_f32(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core kernel, 4 warps x 16 q rows, mma.sync m16n8k16
+// bfloat16 with a float32 bias: tensor-core kernel, 4 warps x 16 q rows,
+// mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;       // q rows per CTA (16 per warp)
@@ -236,47 +226,29 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[LDS], const __nv_
     }
 }
 
-// Raw bias of one fragment element pair: packed bf16x2, or float2 for a
-// float32 bias. Fetched a tile ahead, unpacked where it is added.
-template <int BIAS>
-using BiasRaw = typename std::conditional<BIAS == BIAS_F32, float2, uint32_t>::type;
-
-template <int BIAS>
-__device__ __forceinline__ float2 bias_unpack(BiasRaw<BIAS> v) {
-    if constexpr (BIAS == BIAS_F32) {
-        return v;
-    } else {
-        return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-    }
-}
-
-// This thread's bias for the 64-key tile at kbase, in the S C-fragment
-// layout: rows g and g + 8 (row pointers row_g, row_g8; null past N),
-// columns 2cq and 2cq + 1 of each 8-key tile nt; 0 past N.
-template <int BIAS, bool PAIRS>
-__device__ __forceinline__ void bias_fetch(BiasRaw<BIAS> (&raw)[2][BK / 8], const Args& a, const void* row_g,
-                                           const void* row_g8, int kbase, int n, int cq) {
-    using T = typename std::conditional<BIAS == BIAS_F32, float, unsigned short>::type;
+// This thread's float32 bias for the 64-key tile at kbase, in the S
+// C-fragment layout: rows g and g + 8 (row pointers row_g, row_g8; null
+// past N), columns 2cq and 2cq + 1 of each 8-key tile nt; 0 past N.
+template <bool PAIRS>
+__device__ __forceinline__ void bias_fetch(float2 (&raw)[2][BK / 8], const Args& a, const float* row_g, const float* row_g8,
+                                           int kbase, int n, int cq) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-        const T* row = static_cast<const T*>(r == 0 ? row_g : row_g8);
+        const float* row = r == 0 ? row_g : row_g8;
 #pragma unroll
         for (int nt = 0; nt < BK / 8; ++nt) {
             const int key = kbase + nt * 8 + 2 * cq;
-            BiasRaw<BIAS> v{};
+            float2 v{0.f, 0.f};
             if (row != nullptr) {
                 if constexpr (PAIRS) {  // column stride 1: immediate offsets off the row pointer
                     if (key + 1 < n) {
-                        v = *reinterpret_cast<const BiasRaw<BIAS>*>(row + key);
+                        v = *reinterpret_cast<const float2*>(row + key);
                     } else if (key < n) {
-                        if constexpr (BIAS == BIAS_F32) v.x = row[key]; else v = row[key];
+                        v.x = row[key];
                     }
-                } else if constexpr (BIAS == BIAS_F32) {
+                } else {
                     if (key < n) v.x = row[key * a.b_sk];
                     if (key + 1 < n) v.y = row[(key + 1) * a.b_sk];
-                } else {
-                    if (key < n) v = row[key * a.b_sk];
-                    if (key + 1 < n) v |= (uint32_t)row[(key + 1) * a.b_sk] << 16;
                 }
             }
             raw[r][nt] = v;
@@ -284,7 +256,7 @@ __device__ __forceinline__ void bias_fetch(BiasRaw<BIAS> (&raw)[2][BK / 8], cons
     }
 }
 
-template <int BIAS, bool PAIRS>
+template <bool PAIRS>
 __global__ void __launch_bounds__(THREADS) fa_bf16(const Args a) {
     __shared__ __align__(16) __nv_bfloat16 qs[BQ][LDS];
     __shared__ __align__(16) __nv_bfloat16 ks[2][BK][LDS];
@@ -319,16 +291,11 @@ __global__ void __launch_bounds__(THREADS) fa_bf16(const Args a) {
 
     // The bias is fetched one tile ahead into registers, so its loads are in
     // flight through a whole tile of work.
-    const void* bias_g = nullptr;   // bias row of logit row row_g
-    const void* bias_g8 = nullptr;  // and of row_g + 8
-    BiasRaw<BIAS> bias_next[2][BK / 8];
-    if constexpr (BIAS != BIAS_NONE) {
-        using T = typename std::conditional<BIAS == BIAS_F32, float, __nv_bfloat16>::type;
-        const T* head = static_cast<const T*>(a.bias) + a.b_off + b * a.b_sb + h * a.b_sh;
-        if (row_g < n) bias_g = head + row_g * a.b_sn;
-        if (row_g + 8 < n) bias_g8 = head + (row_g + 8) * a.b_sn;
-        bias_fetch<BIAS, PAIRS>(bias_next, a, bias_g, bias_g8, 0, n, cq);
-    }
+    const float* head = static_cast<const float*>(a.bias) + a.b_off + b * a.b_sb + h * a.b_sh;
+    const float* bias_g = row_g < n ? head + row_g * a.b_sn : nullptr;             // bias row of logit row row_g
+    const float* bias_g8 = row_g + 8 < n ? head + (row_g + 8) * a.b_sn : nullptr;  // and of row_g + 8
+    float2 bias_next[2][BK / 8];
+    bias_fetch<PAIRS>(bias_next, a, bias_g, bias_g8, 0, n, cq);
 
     const int num_tiles = (n + BK - 1) / BK;
     for (int t = 0; t < num_tiles; ++t) {
@@ -356,14 +323,12 @@ __global__ void __launch_bounds__(THREADS) fa_bf16(const Args a) {
             }
         }
 
-        BiasRaw<BIAS> bias_cur[2][BK / 8];
-        if constexpr (BIAS != BIAS_NONE) {
+        float2 bias_cur[2][BK / 8];
 #pragma unroll
-            for (int r = 0; r < 2; ++r)
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-                for (int nt = 0; nt < BK / 8; ++nt) bias_cur[r][nt] = bias_next[r][nt];
-            if (t + 1 < num_tiles) bias_fetch<BIAS, PAIRS>(bias_next, a, bias_g, bias_g8, (t + 1) * BK, n, cq);
-        }
+            for (int nt = 0; nt < BK / 8; ++nt) bias_cur[r][nt] = bias_next[r][nt];
+        if (t + 1 < num_tiles) bias_fetch<PAIRS>(bias_next, a, bias_g, bias_g8, (t + 1) * BK, n, cq);
 
         // S = Q K^T for this warp's 16 rows x 64 keys
         float s[BK / 8][4];
@@ -386,11 +351,8 @@ __global__ void __launch_bounds__(THREADS) fa_bf16(const Args a) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int key = kbase + nt * 8 + 2 * cq + (e & 1);
-                float v = s[nt][e] * a.qk_scale_log2;
-                if constexpr (BIAS != BIAS_NONE) {
-                    const float2 bp = bias_unpack<BIAS>(bias_cur[e >> 1][nt]);
-                    v = fmaf(s[nt][e], a.qk_scale_log2, ((e & 1) ? bp.y : bp.x) * LOG2E);
-                }
+                const float2 bp = bias_cur[e >> 1][nt];
+                float v = fmaf(s[nt][e], a.qk_scale_log2, ((e & 1) ? bp.y : bp.x) * LOG2E);
                 v = key < n ? v : NEG_INF;
                 s[nt][e] = v;
                 mx[e >> 1] = fmaxf(mx[e >> 1], v);
@@ -464,33 +426,37 @@ __global__ void __launch_bounds__(THREADS) fa_bf16(const Args a) {
     }
 }
 
-// pairs: the bias has column stride 1 and every bias row starts at an even
-// element, so the bf16 kernel loads bias pairs at immediate offsets
+// Every launch but the two that flash_attention_sm90.cu takes (bf16 without
+// a bias or with a bf16 one). pairs: the float32 bias has column stride 1 and
+// every bias row starts at an even element, so fa_bf16 loads bias pairs at
+// immediate offsets.
 template <int BIAS>
 cudaError_t launch(const Args& a, int dtype, bool pairs, dim3 grid, cudaStream_t s) {
     if (dtype == 0) {
         fa_f32<BIAS><<<grid, F32_BQ, 0, s>>>(a);
-    } else if constexpr (BIAS == BIAS_NONE) {
-        return cudaErrorInvalidValue;  // unbiased bf16 runs in flash_attention_sm90.cu only
+    } else if constexpr (BIAS != BIAS_F32) {
+        return cudaErrorInvalidValue;  // bf16 without a bias or with a bf16 one: flash_attention_sm90.cu only
     } else if (pairs) {
-        fa_bf16<BIAS, true><<<grid, THREADS, 0, s>>>(a);
+        fa_bf16<true><<<grid, THREADS, 0, s>>>(a);
     } else {
-        fa_bf16<BIAS, false><<<grid, THREADS, 0, s>>>(a);
+        fa_bf16<false><<<grid, THREADS, 0, s>>>(a);
     }
     return cudaGetLastError();
 }
 
-cudaError_t launch_any(const Args& a, int dtype, int bias_dtype, int batch, int num_heads, cudaStream_t s) {
-    if (dtype == 1 && bias_dtype == -1) {
+cudaError_t launch_any(const Args& a, int dtype, int bias_dtype, int fill, int batch, int num_heads, cudaStream_t s) {
+    if (dtype == 1 && bias_dtype != 0) {
         const long long qs[3] = {a.q_sb, a.q_sn, a.q_sh}, ks[3] = {a.k_sb, a.k_sn, a.k_sh};
         const long long vs[3] = {a.v_sb, a.v_sn, a.v_sh}, os[3] = {a.o_sb, a.o_sn, a.o_sh};
-        return flash_attention_sm90(a.q, qs, a.k, ks, a.v, vs, a.o, os, batch, a.n, num_heads, a.qk_scale_log2, s);
+        const long long bs[4] = {a.b_sb, a.b_sh, a.b_sn, a.b_sk};
+        const void* bias = bias_dtype == 1 ? static_cast<const __nv_bfloat16*>(a.bias) + a.b_off : nullptr;
+        return flash_attention_sm90(a.q, qs, a.k, ks, a.v, vs, a.o, os, bias, bs, fill, batch, a.n, num_heads,
+                                    a.qk_scale_log2, s);
     }
     bool pairs = false;
-    if (bias_dtype >= 0) {
-        const long long esize = bias_dtype == 0 ? 4 : 2;
-        const uintptr_t first = reinterpret_cast<uintptr_t>(a.bias) + (uintptr_t)(a.b_off * esize);
-        pairs = a.b_sk == 1 && first % (2 * esize) == 0 && a.b_sb % 2 == 0 && a.b_sh % 2 == 0 && a.b_sn % 2 == 0;
+    if (bias_dtype == 0) {
+        const uintptr_t first = reinterpret_cast<uintptr_t>(a.bias) + (uintptr_t)(a.b_off * 4);
+        pairs = a.b_sk == 1 && first % 8 == 0 && a.b_sb % 2 == 0 && a.b_sh % 2 == 0 && a.b_sn % 2 == 0;
     }
     const dim3 grid((a.n + BQ - 1) / BQ, num_heads, batch);
     if (bias_dtype == -1) return launch<BIAS_NONE>(a, dtype, pairs, grid, s);
@@ -512,6 +478,7 @@ enum Slot {
     SLOT_DTYPE,        // q, k, v and out: 0 = float32, 1 = bfloat16
     SLOT_BIAS_DTYPE,   // -1 = no bias, 0 = float32, 1 = bfloat16
     SLOT_DEVICE,       // the CUDA device of every tensor
+    SLOT_BIAS_FILL,    // a bf16 bias with bf16 q/k/v: 0 = tensor map (TMA), 1 = copied by the producer's warps
     NUM_SLOTS,
 };
 
@@ -527,10 +494,12 @@ enum Slot {
 extern "C" int mdpt_flash_attention(const long long* args, float qk_scale_log2, void* stream) {
     const int batch = (int)args[SLOT_BATCH], n = (int)args[SLOT_N], num_heads = (int)args[SLOT_HEADS];
     const int dtype = (int)args[SLOT_DTYPE], bias_dtype = (int)args[SLOT_BIAS_DTYPE], device = (int)args[SLOT_DEVICE];
+    const int fill = (int)args[SLOT_BIAS_FILL];
     const void* bias = reinterpret_cast<const void*>(args[SLOT_BIAS]);
     if (args[SLOT_HEAD_DIM] != D || n < 1 || batch < 1 || num_heads < 1 || batch > 65535 || num_heads > 65535)
         return (int)cudaErrorInvalidValue;
-    if ((dtype != 0 && dtype != 1) || bias_dtype < -1 || bias_dtype > 1 || (bias_dtype >= 0 && bias == nullptr))
+    if ((dtype != 0 && dtype != 1) || bias_dtype < -1 || bias_dtype > 1 || (bias_dtype >= 0 && bias == nullptr) ||
+        (fill != 0 && fill != 1))
         return (int)cudaErrorInvalidValue;
     const long long* q = args + SLOT_Q;
     const long long* k = args + SLOT_K;
@@ -545,7 +514,7 @@ extern "C" int mdpt_flash_attention(const long long* args, float qk_scale_log2, 
     cudaError_t err = cudaGetDevice(&current);
     if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    err = launch_any(a, dtype, bias_dtype, batch, num_heads, static_cast<cudaStream_t>(stream));
+    err = launch_any(a, dtype, bias_dtype, fill, batch, num_heads, static_cast<cudaStream_t>(stream));
     if (current != device) {
         const cudaError_t restored = cudaSetDevice(current);
         if (err == cudaSuccess) err = restored;

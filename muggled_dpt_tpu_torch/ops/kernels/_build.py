@@ -96,8 +96,9 @@ def kernel_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_flash_attention_sm90_info
-    # five int32 out values (csrc/flash_attention_sm90.cu): registers, spill bytes, static and dynamic shared bytes, threads
-    fn.argtypes = [ctypes.c_void_p]
+    # 0 (unbiased) or 1 (bf16 bias), then five int32 out values (csrc/flash_attention_sm90.cu): registers, spill bytes,
+    # static and dynamic shared bytes, threads
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_window_attention
     # the int64 argument array (its slots in csrc/window_attention.cu), stream

@@ -1,11 +1,22 @@
 """Flash attention: hand-written Hopper kernels behind one C entry
 (``csrc/flash_attention.cu``) and two Python entries, each with its plain
-PyTorch version beside it. The C entry sends every bfloat16 launch without a
-bias to ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, a warp-specialised
-producer; its tensor maps take the 16-byte aligned bases and strides that
-``_operand`` and ``_qkv_operands`` require) and the biased bfloat16 and all
-float32 launches to the kernels of ``csrc/flash_attention.cu``: the dtype
-and the presence of a bias decide, nothing else.
+PyTorch version beside it. The dtypes decide the kernel, nothing else:
+
+=========================  ==================================================
+bf16 q/k/v, no bias        ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, a
+                           warp-specialised producer), ``BIAS_NONE``
+bf16 q/k/v, bf16 bias      the same source, ``BIAS_BF16``: the bias tile goes
+                           through shared memory, filled by TMA or copied by
+                           the producer's warps (``bias_fill``)
+bf16 q/k/v, float32 bias   ``fa_bf16`` in ``csrc/flash_attention.cu`` (no
+                           model sends one: ``ops/nn.py`` hands the bias over
+                           in the model's dtype)
+float32                    ``fa_f32`` in ``csrc/flash_attention.cu``
+=========================  ==================================================
+
+The tensor maps of the sm_90 kernel take the 16-byte aligned bases and
+strides that ``_operand`` and ``_qkv_operands`` require of q, k and v; a bias
+TMA cannot read is copied instead, so no bias layout is refused.
 
 * ``flash_attention_fused_qkv(qkv, num_heads, bias, scale, bias_stack, layer)``
   replaces ``muggled_dpt_tpu/ops/pallas/flash_attention.py:flash_attention_fused_qkv``
@@ -132,6 +143,22 @@ def flash_attention_fused_qkv_reference(qkv, num_heads, bias=None, scale=None, b
 
 
 _NO_BIAS = (-1, (0, 0, 0, 0, 0, 0))
+BIAS_FILL_TMA, BIAS_FILL_COPY = 0, 1  # the argument array's SLOT_BIAS_FILL
+
+
+def bias_fill(bias) -> int:
+    """How the bf16 kernel fills its shared-memory bias tiles, from
+    ``_bias_operand``'s result: ``BIAS_FILL_TMA`` where a tensor map can read
+    the bias (bf16, column stride 1, rows not broadcast, the first element
+    and every batch, head and row stride a multiple of 16 bytes: BEiT's
+    cached stack and inline layer, whose rows are padded to 8 elements),
+    else ``BIAS_FILL_COPY`` (the kernel's producer warps load it at any
+    strides). Decided from the layout alone, before the launch; a launch
+    without a bf16 bias ignores it."""
+    code, (addr, offset, sb, sh, sn, sk) = bias
+    es = 2  # bf16
+    aligned = (addr + offset * es) % 16 == 0 and all(st * es % 16 == 0 for st in (sb, sh, sn))
+    return BIAS_FILL_TMA if code == _DTYPE_CODES[torch.bfloat16] and sk == 1 and sn != 0 and aligned else BIAS_FILL_COPY
 
 
 def _bias_operand(bias, bias_stack, layer, b: int, h: int, n: int, device):
@@ -215,7 +242,7 @@ def _launch(shape, dtype, device, q, k, v, out, bias, scale):
     if n < 1 or b < 1 or b > MAX_GRID_YZ or h > MAX_GRID_YZ:
         raise ValueError(f"flash attention kernel: bad grid batch={b} heads={h} n={n}")
     bias_code, bias_args = bias
-    args = array.array("q", [*q, *k, *v, *out, *bias_args, b, n, h, d, dtype_code, bias_code, device.index])
+    args = array.array("q", [*q, *k, *v, *out, *bias_args, b, n, h, d, dtype_code, bias_code, device.index, bias_fill(bias)])
     stream = torch.cuda.current_stream(device).cuda_stream
     err = kernel_library().mdpt_flash_attention(args.buffer_info()[0], scale * LOG2E, stream)
     if err != 0:

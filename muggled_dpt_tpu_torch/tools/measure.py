@@ -6,8 +6,9 @@
     python3 muggled_dpt_tpu_torch/tools/measure.py profile [--model beit|swinv2|vitl|giant] [--out DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py profile --int8 [dense] [default] [qkv] [neck] [--out DIR]
 
-``host``: the attention wrapper's host cost per call, and the DA-V2 ViT-L
-and BEiT-L-512 bf16 request times at B=1.
+``host``: the attention wrapper's host cost per call, the DA-V2 ViT-L and
+BEiT-L-512 bf16 request times at B=1, and BEiT-L-512's ms per frame at B=8
+(24 biased attention launches per forward).
 Per-call cost: each route is called 200 times back to back at a shape
 whose device time (a few us) is far below the host's, and the host clock
 stops at the last call's return, so it reads the host work of a launch
@@ -17,11 +18,18 @@ into the same process, and alternates the two packages round by round, so
 both see the same host noise; each line then says in how many rounds this
 checkout was faster.
 
-``attention``: CUDA-event times of the unbiased bf16 attention kernel
+``attention``: CUDA-event times of the bf16 attention kernel
 (csrc/flash_attention_sm90.cu) at DA-V2 ViT-L's (8, 1297, 3072) and
-(1, 18497, 3072) qkv slabs (#1) and at (1, 32897, 2, 64) (#5), on random
-inputs from a seed, beside one SDPA call and the bound; ``--against DIR``
-times DIR's kernel on the same inputs in turns (DIR, this, this, DIR).
+(1, 18497, 3072) qkv slabs (#1), at (1, 32897, 2, 64) (#5), and biased at
+BEiT-L-512's (8, 1025, 3072) slab with layer 23 of its padded
+(24, 16, 1032, 1032) stack (#2; #4 on the slab's q, k, v views with that
+layer as a (1, H, Np, Np) bias) and at the 1024x1024 request's
+(1, 4097, 3072) slab with layer 23 of the (24, 16, 4104, 4104) stack (#2,
+12.9 GB), on random inputs from a seed (1e6 in the stacks' pads), beside one
+SDPA call (the layer as attn_mask) and the bound (4 B H N^2 D operations
+over 989 TFLOP/s, or q, k, v, out and the layer's H N^2 bias read once over
+3.35 TB/s); ``--against DIR`` times DIR's kernel on the same inputs in
+turns (DIR, this, this, DIR).
 
 ``profile``: a torch.profiler breakdown of a bf16 forward (10 forwards at
 B=1, 5 at B=8): device busy share (the union of kernel intervals over the
@@ -227,13 +235,25 @@ def host(args, smi):
         model = importlib.import_module("muggled_dpt_tpu_torch.make_dpt").make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device="cuda")[1]
         fns = {REPO_ROOT: lambda: model.inference(frame, 512)}
         report("BEiT-L-512 bf16 512x512 ms per request, B=1", interleaved(fns, request_ms, 30), "ms", smi)
+        del model, fns
+        models = {root: importlib.import_module(pkg + ".make_dpt").make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device="cuda")[1]
+                  for root, pkg in packages.items()}
+        frames = np.random.default_rng(2).integers(0, 256, (8, *FRAME_HW, 3), dtype=np.uint8)
+        batch = torch.from_numpy(frames).cuda()
+        hw = next(iter(models.values())).compute_scaled_hw(FRAME_HW, 512)
+        fns = {root: (lambda m=m: m.inference_rgb_device(batch, hw)) for root, m in models.items()}
+        report("BEiT-L-512 bf16 512x512 ms per frame, B=8", interleaved(fns, lambda fn: request_ms(fn) / 8, 20), "ms", smi)
 
 
-ATTENTION_CASES = (  # (label, batch, tokens, heads, fused): #1 at DA-V2 ViT-L's B=8 504x504 and 1904x1904 shapes, #5
-    ("#1 fused qkv, DA-V2 ViT-L 504x504 B=8", 8, 1297, 16, True),
-    ("#1 fused qkv, DA-V2 ViT-L 1904x1904 B=1", 1, 18497, 16, True),
-    ("#5 (B, N, H, D), N past 32768", 1, 32897, 2, False),
+ATTENTION_CASES = (  # (label, batch, tokens, heads, entry, padded bias rows or None)
+    ("#1 fused qkv, DA-V2 ViT-L 504x504 B=8", 8, 1297, 16, "fused", None),
+    ("#1 fused qkv, DA-V2 ViT-L 1904x1904 B=1", 1, 18497, 16, "fused", None),
+    ("#5 (B, N, H, D), N past 32768", 1, 32897, 2, "bnhd", None),
+    ("#2 fused qkv, BEiT-L-512 512x512 B=8, stack layer 23", 8, 1025, 16, "fused", 1032),
+    ("#4 (B, N, H, D) views, (1, H, Np, Np) layer 23, BEiT-L-512 B=8", 8, 1025, 16, "views", 1032),
+    ("#2 fused qkv, BEiT-L-512 1024x1024 B=1, stack layer 23", 1, 4097, 16, "fused", 4104),
 )
+STACK_LAYERS = 24
 
 
 def attention(args, smi):
@@ -253,25 +273,40 @@ def attention(args, smi):
         packages = {"against": "against_muggled_dpt_tpu_torch", **packages}
     fas = {name: importlib.import_module(pkg + ".ops.kernels.flash_attention") for name, pkg in packages.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for label, b, n, h, fused in ATTENTION_CASES:
+    stacks = {}
+    for label, b, n, h, entry, n_pad in ATTENTION_CASES:
         qkv = torch.randn(b, n, 3 * h * 64, device="cuda", dtype=torch.bfloat16, generator=gen)
         q, k, v = qkv.unflatten(2, (h, 3, 64)).unbind(3)
-        if not fused:  # #5 as chip_smoke.py times it: three (B, N, H, D) tensors
+        if entry == "bnhd":  # #5 as chip_smoke.py times it: three (B, N, H, D) tensors
             q, k, v = (t.contiguous() for t in (q, k, v))
-        calls = {name: (lambda fa=fa: fa.flash_attention_fused_qkv(qkv, h)) if fused else (lambda fa=fa: fa.flash_attention(q, k, v))
-                 for name, fa in fas.items()}
+        kw, mask, bias_elements = {}, None, 0
+        if n_pad is not None:
+            if n_pad not in stacks:  # one stack at a time: the 1024x1024 one is 12.9 GB
+                stacks.clear()
+                torch.cuda.empty_cache()
+                stack = torch.randn(STACK_LAYERS, h, n_pad, n_pad, device="cuda", dtype=torch.bfloat16, generator=gen)
+                stack[..., n:, :] = 1e6
+                stack[..., :, n:] = 1e6
+                stacks[n_pad] = stack
+            stack = stacks[n_pad]
+            kw = {"bias_stack": stack, "layer": STACK_LAYERS - 1} if entry == "fused" else {"bias": stack[STACK_LAYERS - 1][None]}
+            mask, bias_elements = stack[STACK_LAYERS - 1][None, :, :n, :n], h * n * n
+        calls = {name: (lambda fa=fa: fa.flash_attention_fused_qkv(qkv, h, **kw)) if entry == "fused"
+                 else (lambda fa=fa: fa.flash_attention(q, k, v, **kw)) for name, fa in fas.items()}
         iters, warmup = (30, 5) if n < 10000 else (10, 2)
         order = ["against", "this", "this", "against"] if args.against else ["this", "this"]
         times = {name: [] for name in calls}
         for name in order:
             times[name].append(event_ms(calls[name], iters, warmup))
         sdpa = [t.transpose(1, 2) for t in (q, k, v)]
-        library = event_ms(lambda: F.scaled_dot_product_attention(*sdpa), iters, warmup)
-        bound = 4 * b * h * n * n * 64 / 989e12 * 1e3
+        library = event_ms(lambda: F.scaled_dot_product_attention(*sdpa, attn_mask=mask), iters, warmup)
+        ops_ms = 4 * b * h * n * n * 64 / 989e12 * 1e3
+        bytes_ms = (4 * b * n * h * 64 + bias_elements) * 2 / 3.35e12 * 1e3
+        bound = f"bound {max(ops_ms, bytes_ms):.4f} ms ({'ops' if ops_ms >= bytes_ms else 'bytes'})"
         readings = ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
         print(f"{label} (B={b}, N={n}, H={h}, D=64): {readings} (median of {iters} after {warmup}); SDPA {library:.4f} ms; "
-              f"bound {bound:.4f} ms (ops) [{smi}]", flush=True)
-        del qkv, q, k, v, sdpa
+              f"{bound} [{smi}]", flush=True)
+        del qkv, q, k, v, sdpa, kw, mask
         torch.cuda.empty_cache()
 
 

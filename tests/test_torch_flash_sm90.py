@@ -12,7 +12,7 @@ nvcc or triton needed.
    head dim that is not contiguous) raises ValueError in both entries
    before any launch.
 3. A stub of the kernel library reads the int64 argument array as the C
-   entry does (``enum Slot`` of csrc/flash_attention.cu, unchanged), checks
+   entry does (``enum Slot`` of csrc/flash_attention.cu), checks
    that every base and stride is what a tensor map takes, and runs the plain
    version into ``out``: the fused slab at DA widths and (B, N, H, D) views
    reach it with the right strides and reproduce the plain version exactly."""
