@@ -25,7 +25,7 @@ original-format checkpoint and loaded through ``make_dpt_from_state_dict``:
     max side 512 gives 512x512, where the window search picks 32 (A=1024)
     at stages 1-3 and 16 at stage 4.
 
-Nine CUDA kernels (three of them one template, ``csrc/flash_variants.cuh``)
+Ten CUDA sources (three of them one template, ``csrc/flash_variants.cuh``)
 port twelve TPU kernels; the ``kernels`` JSON line has one entry per TPU
 kernel:
   #1 fused qkv, unbiased  -- the Depth-Anything path; in bf16 the wgmma/TMA
@@ -35,8 +35,12 @@ kernel:
   #2 fused qkv, biased    -- the BEiT path (cached bias stack or inline bias;
      in bf16 the same kernel's BIAS_BF16 instantiation, its bias tiles
      filled by TMA or, for layouts TMA cannot read, by the producer's warps);
-  #3 window attention     -- the SwinV2 path (csrc/window_attention.cu; the
-     CPB bias and shift mask read factored, by head and by window);
+  #3 window attention     -- the SwinV2 path, the CPB bias and shift mask
+     read factored, by head and by window: in bf16 with bf16 biases (the
+     model's cached CPB stacks and masks) the wgmma/TMA kernel of
+     csrc/window_attention_sm90.cu, which takes every such launch a tensor
+     map can read (route ``window_sm90``); in f32, and bf16 with an f32
+     bias, csrc/window_attention.cu (route ``window``);
   #4 / #5 (B, N, H, D) op -- the JAX package reaches it through its
      ``flash_attention`` op (the drop-in for dot_product_attention); no model
      of the port calls it, since the port serves every BEiT grid through #2.
@@ -68,8 +72,10 @@ Phases, in order; each prints its lines and the seconds it took, and any
 failure raises:
   1. device: a CUDA card, or fail; the nvidia-smi name and power limit;
   2. build: nvcc builds the kernel library from csrc/, one nvcc per source,
-     all started together; the bf16 kernel's registers, spills and shared
-     memory, unbiased and biased (cudaFuncGetAttributes);
+     all started together; the bf16 attention kernel's registers, spills and
+     shared memory, unbiased and biased, and the sm_90 window kernel's, with
+     and without the mask (cudaFuncGetAttributes); fails if ptxas serialized
+     the window kernel's wgmma (C7510-C7520) or spilled;
   3. each kernel vs its plain version at the paths' shapes and edge cases,
      float32 and bfloat16 (#1 and #2 also at N = 127-385 around the bf16
      kernel's 128-key and 192-row tiles, #2 there with a padded stack layer
@@ -77,7 +83,9 @@ failure raises:
      view, scales 0.3 and -0.3 with a bias; #4 on strided views at N = 129,
      385 and 1025, B = 1 and 8; each bf16 bias check names its fill), then
      CUDA-event times of both, in turns (the window kernel at each
-     SwinV2-L-384 stage shape, B=1 and B=8);
+     SwinV2-L-384 stage shape, B=1 and B=8, beside its bound and its exp
+     floor); each window check requires the kernel it expects (bf16 with
+     bf16 biases: sm_90; f32 and the mixed bias: window_attention.cu);
   4. DA-V2 bf16 serves 3 requests and a batch of 8 (24 launches per forward);
   5. DA-V2 float32 kernel model vs float32 plain model;
   6. BEiT-L-512 bf16 serves 3 requests and a batch of 8 at 512x512 (24
@@ -85,8 +93,8 @@ failure raises:
      cached bias stack;
   7. BEiT-L-512 float32 kernel model vs plain model, cached and inline bias;
   8. SwinV2-L-384 bf16 serves 3 requests and a batch of 8 at 384x384 (24
-     window launches per forward) and one 512x512 request, its CPB stack
-     build included;
+     window launches per forward, every one on the sm_90 kernel) and one
+     512x512 request, its CPB stack build included;
   9. SwinV2-L-384 float32 kernel model vs plain model, cached and inline
      CPB and masks;
   10. the (B, N, H, D) op path;
@@ -122,7 +130,9 @@ failure raises:
       CUDA-event tables at every ladder N.
 Then one JSON line of per-kernel results (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
-for bf16, 1979 TOP/s for int8 (#6 and #7's QK^T); and, where one PyTorch call
+for bf16, 1979 TOP/s for int8 (#6 and #7's QK^T); #3's exp floor, one exp2
+per (q, k) pair over the SFU's 3.86e12 per second, is printed beside its
+times; and, where one PyTorch call
 computes the same function, that call's time), the card line, and last the
 ok line.
 
@@ -134,6 +144,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -246,6 +257,7 @@ COMPOSITE_BF16_REL_MAX, COMPOSITE_BF16_REL_MEAN = 5e-2, 1e-2
 # H100 SXM peaks for the bound: dense bf16 and int8 tensor cores, f32 FMA, HBM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
+WINDOW_SM90 = "window_attention_sm90.cu"
 
 REPLACES = {
     1: "muggled_dpt_tpu/ops/pallas/flash_attention.py:125",
@@ -275,7 +287,7 @@ NAMES = {
     11: "flash_attention_fused_qkv_staged (row max by key panel, then exp2 and PV; panels=2)",
     12: "flash_variant (pre-scaled (BH, N, D); mode padfix, the JAX default)",
 }
-SOURCES = {1: "flash_attention_sm90", 2: "flash_attention_sm90", 3: "window_attention", 4: "flash_attention_sm90",
+SOURCES = {1: "flash_attention_sm90", 2: "flash_attention_sm90", 3: "window_attention_sm90", 4: "flash_attention_sm90",
            5: "flash_attention_sm90", 6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp", 9: "head_tail",
            10: "flash_attention_xl", 11: "flash_attention_staged", 12: "flash_variant"}
 SERVED = {}  # what -> (ms per request at B=1, ms per frame at B=8), filled by serve()
@@ -296,9 +308,10 @@ def phase_device() -> str:
 
 
 def phase_build():
-    from muggled_dpt_tpu_torch.ops.kernels._build import build_library, kernel_library
+    from muggled_dpt_tpu_torch.ops.kernels._build import build_library, kernel_library, ptxas_report
 
-    path = build_library(verbose=True)
+    logs = {}
+    path = build_library(verbose=True, logs=logs)
     for bias, what in ((0, "BIAS_NONE"), (1, "BIAS_BF16")):
         info = (ctypes.c_int * 5)()
         err = kernel_library().mdpt_flash_attention_sm90_info(bias, info)
@@ -308,6 +321,21 @@ def phase_build():
         print(f"build: {path.name}; csrc/flash_attention_sm90.cu fa_sm90_bf16<{what}>: {regs} registers per thread at "
               f"launch (setmaxnreg: producer 32, consumers 160), {spill} B local memory per thread, {static_smem} B static + "
               f"{dynamic_smem} B dynamic shared memory, {threads} threads", flush=True)
+    for mask, what in ((0, "no mask"), (1, "MASK")):
+        info = (ctypes.c_int * 5)()
+        err = kernel_library().mdpt_window_attention_sm90_info(mask, info)
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes of the sm_90 window kernel ({what}) failed: CUDA error {err}")
+        regs, spill, static_smem, dynamic_smem, threads = info
+        print(f"build: csrc/{WINDOW_SM90} wa_sm90_bf16<{what}>: {regs} registers per thread at launch (setmaxnreg: "
+              f"producer 32, consumers 160), {spill} B local memory per thread, {static_smem} B static + {dynamic_smem} B "
+              f"dynamic shared memory, {threads} threads", flush=True)
+    report = logs.get(WINDOW_SM90) or ptxas_report(WINDOW_SM90)  # the library may have been built before
+    serialized = sorted(set(re.findall(r"C75(?:1\d|20)\)?[^\n]*", report)))
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
+    if serialized or any(spills):
+        raise RuntimeError(f"ptxas on csrc/{WINDOW_SM90}: wgmma serialization {serialized}, spill bytes {spills}")
+    print(f"build: ptxas reports no wgmma serialization (C7510-C7520) and no spills for csrc/{WINDOW_SM90}", flush=True)
 
 
 def make_qkv(rng, b, n, dtype, all_negative=False):
@@ -445,12 +473,16 @@ def make_windows(rng, b, nw, window_hw, h, dtype, bias_dtype, with_mask, views=F
 
 
 def check_windows(check, rng, dtype, b, nw, window_hw, h, with_mask, bias_dtype=None, views=False):
+    """#3 against its plain version, on the kernel the inputs must reach:
+    the sm_90 kernel for bf16 with bf16 biases, window_attention.cu else."""
     bias_dtype = bias_dtype or dtype
     args = make_windows(rng, b, nw, window_hw, h, dtype, bias_dtype, with_mask, views)
     a = window_hw[0] * window_hw[1]
+    route = "window_sm90" if dtype == bias_dtype == torch.bfloat16 else "window"
     label = (f"{str(dtype)[6:]} B={b} nW={nw} A={a} H={h}{' mask' if with_mask else ''} bias {str(bias_dtype)[6:]}"
-             f"{' strided views of one qkv' if views else ''}")
-    check(3, label, wa.window_attention(*args), wa.window_attention_reference(*args), (b, nw, a, h, SWIN_D))
+             f"{' strided views of one qkv' if views else ''} [{route}]")
+    got = _counted(lambda: wa.window_attention(*args), route, 1, f"#3 {label}")
+    check(3, label, got, wa.window_attention_reference(*args), (b, nw, a, h, SWIN_D))
 
 
 def _split(qkv):
@@ -624,6 +656,9 @@ def phase_kernel(smi: str) -> dict:
                 library = lambda: F.scaled_dot_product_attention(*sdpa_args[:3], attn_mask=sdpa_args[3], scale=1.0)  # noqa: E731
                 what = f"#3 {name} B={b} stage {s} nW={nw} A={a} H={h} D={SWIN_D}{' mask' if with_mask else ''}"
                 times[(3, dtype, b, s)] = timed_pair(smi, what, kernel, plain, library)
+                limit = wa.window_bound(b, nw, a, h, with_mask)
+                print(f"{what}: bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}), exp floor {limit['exp_floor_ms']:.4f} ms, "
+                      f"kernel / exp floor {times[(3, dtype, b, s)][0] / limit['exp_floor_ms']:.2f}x [{smi}]", flush=True)
                 del args, sdpa_args
         torch.cuda.empty_cache()
     # the JSON line carries the bf16 serving shape of each kernel (#3: stage 1, the most windows)
@@ -770,11 +805,11 @@ def phase_swin_model(smi: str, ckpt: str):
     CPB stacks and masks built on the way."""
     _, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE)
     fa.reset_launch_counts()  # count the path's run only
-    depth, frame = serve(smi, model, SWIN_SIDE, SWIN_HW, "window", SWIN_BLOCKS, "SwinV2-L-384")
+    depth, frame = serve(smi, model, SWIN_SIDE, SWIN_HW, "window_sm90", SWIN_BLOCKS, "SwinV2-L-384")
     big = np.random.default_rng(SEED + 2).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = _counted(lambda: model.inference(big, SWIN_BIG_SIDE), "window", SWIN_BLOCKS, "SwinV2-L-384 512x512")
+    out = _counted(lambda: model.inference(big, SWIN_BIG_SIDE), "window_sm90", SWIN_BLOCKS, "SwinV2-L-384 512x512")
     ms = (time.perf_counter() - t0) * 1e3
     _check_depth(out, (1, SWIN_BIG_SIDE, SWIN_BIG_SIDE), "SwinV2-L-384 512x512")
     grid = (SWIN_BIG_SIDE // model.patch_size_px,) * 2
@@ -785,8 +820,9 @@ def phase_swin_model(smi: str, ckpt: str):
     gb = sum(t.numel() * t.element_size() for stage in aux for t in stage.values() if t is not None) / 1e9
     print(f"SwinV2-L-384 bf16 512x512 request: {ms:.1f} ms, first at this size (CPB stacks and masks, {gb:.3f} GB, "
           f"built once and cached); windows per stage {windows} [{smi}]", flush=True)
-    launches = wa.window_attention.launches
-    serve_int8_once(smi, model, {}, SWIN_SIDE, SWIN_HW, "window", SWIN_BLOCKS, "SwinV2-L-384 int8 (MLP only)", depth, frame)
+    launches = wa.window_attention.sm90_launches
+    serve_int8_once(smi, model, {}, SWIN_SIDE, SWIN_HW, "window_sm90", SWIN_BLOCKS, "SwinV2-L-384 int8 (MLP only)", depth,
+                    frame)
     return launches, depth, frame
 
 
@@ -1495,7 +1531,7 @@ def bounds() -> dict:
     return {
         1: attention(8, N_TOKENS, HEADS, HEAD_DIM),
         2: attention(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2),
-        3: bound(4 * 8 * nw * sh * a * a * SWIN_D, (4 * 8 * nw * a * sh * SWIN_D + sh * a * a + nw * a * a) * e),
+        3: {key: value for key, value in wa.window_bound(8, nw, a, sh, True).items() if key != "exp_floor_ms"},
         4: attention(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2),
         5: attention(1, N_ONLINE, 2, HEAD_DIM),
         6: bound(int8_ops, int8_bytes, int8_ops),

@@ -1,5 +1,10 @@
 // SwinV2 window attention for Hopper (sm_90a), float32 and bfloat16, with the
-// continuous-position bias (CPB) and the shift mask kept factored.
+// continuous-position bias (CPB) and the shift mask kept factored. The C
+// entry mdpt_window_attention sends every bfloat16 launch whose CPB and mask
+// are bfloat16 and whose layouts a tensor map can read to
+// csrc/window_attention_sm90.cu (wgmma and TMA); the kernels here take the
+// float32 launches, bfloat16 activations with float32 biases, and layouts
+// TMA cannot read.
 //
 // Replaces the TPU kernel muggled_dpt_tpu/ops/pallas/window_attention.py
 // window_flash_attention -> _kernel (:31). Per batch b, window w and head h:
@@ -36,8 +41,8 @@
 // Numerics kept from the TPU kernel: logits, softmax and accumulation in f32
 // (exp2 domain: the logits are multiplied by log2(e)); p rounded to the input
 // type before the PV product; out = acc / max(l, 1e-30).
-// Left for later: wgmma and TMA, several heads per CTA to reuse the mask tile,
-// and a persistent grid.
+// Left for later here: several heads per CTA to reuse the mask tile, and a
+// persistent grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -508,19 +513,38 @@ enum Slot {
     SLOT_DTYPE,        // q, k, v and out: 0 = float32, 1 = bfloat16
     SLOT_BIAS_DTYPE,   // cpb and mask: 0 = float32, 1 = bfloat16
     SLOT_DEVICE,       // the CUDA device of every tensor
+    SLOT_ROUTE,        // written by the call: 1 = window_attention_sm90.cu ran, 0 = a kernel of this file
     NUM_SLOTS,
 };
 
+// Whether a tensor map can read an operand: a 16-byte aligned base and, for
+// every dim of size > 1, a positive stride of a multiple of 8 elements (16
+// bytes of bf16) below 2^39 elements (TMA: under 2^40 bytes).
+bool tma_readable(long long addr, const long long* strides, const long long* sizes, int dims) {
+    if (addr % 16 != 0) return false;
+    for (int i = 0; i < dims; ++i)
+        if (sizes[i] > 1 && (strides[i] <= 0 || strides[i] % 8 != 0 || strides[i] >= (1ll << 39))) return false;
+    return true;
+}
+
 }  // namespace
+
+cudaError_t window_attention_sm90(const void* q, const long long* q_st, const void* k, const long long* k_st, const void* v,
+                                  const long long* v_st, void* o, const long long* o_st, const void* cpb, const long long* c_st,
+                                  const void* mask, const long long* m_st, int batch, int nw, int n, int heads,
+                                  cudaStream_t stream);
 
 // C interface, bound with ctypes: `args` holds NUM_SLOTS int64 values laid out
 // as in `Slot`. Strides are in elements; the head dim of q, k, v and out and
 // the column dim of cpb and mask are contiguous. The caller checks alignment:
 // 16 B for q, k, v and out rows; an even element offset for every bias row.
-// The launch goes to args[SLOT_DEVICE]; the calling thread's current device is
-// the same after the call as before. Returns the cudaError_t of the launch (0
-// on success); the launch is asynchronous on `stream`.
-extern "C" int mdpt_window_attention(const long long* args, void* stream) {
+// bfloat16 q, k, v with bfloat16 biases go to window_attention_sm90.cu when
+// tma_readable holds for every operand (the kernels of this file take the
+// rest); the call writes its choice to args[SLOT_ROUTE]. The launch goes to
+// args[SLOT_DEVICE]; the calling thread's current device is the same after
+// the call as before. Returns the cudaError_t of the launch (0 on success);
+// the launch is asynchronous on `stream`.
+extern "C" int mdpt_window_attention(long long* args, void* stream) {
     const int batch = (int)args[SLOT_BATCH], nw = (int)args[SLOT_WINDOWS], n = (int)args[SLOT_AREA];
     const int num_heads = (int)args[SLOT_HEADS], dtype = (int)args[SLOT_DTYPE];
     const int bias_dtype = (int)args[SLOT_BIAS_DTYPE], device = (int)args[SLOT_DEVICE];
@@ -545,9 +569,20 @@ extern "C" int mdpt_window_attention(const long long* args, void* stream) {
     cudaError_t err = cudaGetDevice(&current);
     if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((n + BQ - 1) / BQ, num_heads, batch * nw);
+    const long long rows[4] = {batch, nw, n, num_heads}, bias_rows[2] = {num_heads, n}, mask_rows[2] = {nw, n};
+    const bool sm90 = dtype == 1 && bias_dtype == 1 && (long long)nw * num_heads <= 65535 &&
+                      tma_readable(q[0], q + 1, rows, 4) && tma_readable(k[0], k + 1, rows, 4) &&
+                      tma_readable(v[0], v + 1, rows, 4) && tma_readable(o[0], o + 1, rows, 4) &&
+                      tma_readable(c[0], c + 1, bias_rows, 2) && (mk[0] == 0 || tma_readable(mk[0], mk + 1, mask_rows, 2));
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    err = bias_dtype == 0 ? launch<float>(a, dtype, grid, s) : launch<__nv_bfloat16>(a, dtype, grid, s);
+    if (sm90) {
+        err = window_attention_sm90(a.q, q + 1, a.k, k + 1, a.v, v + 1, a.o, o + 1, cpb, c + 1, a.mask, mk + 1, batch, nw, n,
+                                    num_heads, s);
+    } else {
+        const dim3 grid((n + BQ - 1) / BQ, num_heads, batch * nw);
+        err = bias_dtype == 0 ? launch<float>(a, dtype, grid, s) : launch<__nv_bfloat16>(a, dtype, grid, s);
+    }
+    args[SLOT_ROUTE] = sm90 ? 1 : 0;
     if (current != device) {
         const cudaError_t restored = cudaSetDevice(current);
         if (err == cudaSuccess) err = restored;

@@ -46,9 +46,12 @@ def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def build_library(verbose: bool = False) -> Path:
+def build_library(verbose: bool = False, logs: dict | None = None) -> Path:
     """Compile csrc/ into build/libmdpt_kernels-<hash>.so unless that file
-    exists already; return its path. Raises with nvcc's output on failure."""
+    exists already; return its path. Raises with nvcc's output on failure.
+    ``verbose``: ptxas reports each kernel's resources (-Xptxas=-v) and the
+    output is printed; ``logs``: filled with each compiled source's output,
+    by file name (left empty when the library existed)."""
     sources = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
@@ -71,6 +74,8 @@ def build_library(verbose: bool = False) -> Path:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
             if verbose:
                 print(out, flush=True)
+            if logs is not None:
+                logs[Path(cmd[-1]).name] = out
         cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for obj, _, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -84,6 +89,22 @@ def build_library(verbose: bool = False) -> Path:
             obj.unlink(missing_ok=True)
         tmp.unlink(missing_ok=True)
     return lib_path
+
+
+def ptxas_report(source: str) -> str:
+    """nvcc's output for one csrc/ source compiled alone with -Xptxas=-v
+    (each kernel's registers, spills and shared memory, and any warning),
+    into a scratch object under build/ that is removed again."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = BUILD_DIR / f"report-{os.getpid()}.o"
+    cmd = [find_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / source)]
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    finally:
+        obj.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}")
+    return proc.stdout
 
 
 @functools.cache
@@ -101,8 +122,12 @@ def kernel_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_window_attention
-    # the int64 argument array (its slots in csrc/window_attention.cu), stream
+    # the int64 argument array (its slots in csrc/window_attention.cu; the call writes SLOT_ROUTE), stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mdpt_window_attention_sm90_info
+    # 0 (no mask) or 1 (mask), then five int32 out values (csrc/window_attention_sm90.cu), as the flash kernel's
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_fused_mlp
     # the int64 argument array (its slots in csrc/fused_mlp.cu), LayerNorm eps, stream

@@ -310,8 +310,7 @@ flash_attention.launches = 0
 
 
 def _counted_entries() -> dict:
-    """Route name -> the entry whose ``launches`` counts it (the unbiased
-    and biased fused routes are this module's own two counters)."""
+    """Route name -> (the entry, its attribute that counts the route's launches)."""
     from ...tools.attn_variants import flash_variant
     from .flash_attention_int8 import flash_attention_int8_qk, flash_attention_int8_qk_fused
     from .flash_attention_staged import flash_attention_fused_qkv_staged
@@ -321,35 +320,33 @@ def _counted_entries() -> dict:
     from .window_attention import window_attention
 
     return {
-        "bnhd": flash_attention,
-        "window": window_attention,
-        "fused_mlp": fused_ln_mlp_residual,
-        "head_tail": fused_head_tail,
-        "int8_qk": flash_attention_int8_qk,
-        "int8_qk_fused": flash_attention_int8_qk_fused,
-        "xl": flash_attention_fused_qkv_xl,
-        "staged": flash_attention_fused_qkv_staged,
-        "variant": flash_variant,
+        "fused": (flash_attention_fused_qkv, "launches"),
+        "fused_biased": (flash_attention_fused_qkv, "biased_launches"),
+        "bnhd": (flash_attention, "launches"),
+        "window": (window_attention, "launches"),
+        "window_sm90": (window_attention, "sm90_launches"),
+        "fused_mlp": (fused_ln_mlp_residual, "launches"),
+        "head_tail": (fused_head_tail, "launches"),
+        "int8_qk": (flash_attention_int8_qk, "launches"),
+        "int8_qk_fused": (flash_attention_int8_qk_fused, "launches"),
+        "xl": (flash_attention_fused_qkv_xl, "launches"),
+        "staged": (flash_attention_fused_qkv_staged, "launches"),
+        "variant": (flash_variant, "launches"),
     }
 
 
 def reset_launch_counts():
     """Zero the launch count of every kernel route of the package."""
-    flash_attention_fused_qkv.launches = 0
-    flash_attention_fused_qkv.biased_launches = 0
-    for entry in _counted_entries().values():
-        entry.launches = 0
+    for entry, attribute in _counted_entries().values():
+        setattr(entry, attribute, 0)
 
 
 def launch_counts() -> dict[str, int]:
     """The launch count of every kernel route of the package: the SwinV2
-    window kernel (``ops/kernels/window_attention.py``), the fused MLP
+    window kernels (``ops/kernels/window_attention.py``: ``window`` and the
+    sm_90 kernel's ``window_sm90``), the fused MLP
     (``fused_mlp.py``), the head tail (``head_tail.py``), the int8-QK^T
     attention's two entries (``flash_attention_int8.py``) and the attention
     sweep's variants #10-#12 (``flash_attention_xl.py``,
     ``flash_attention_staged.py``, ``tools/attn_variants.py``) included."""
-    return {
-        "fused": flash_attention_fused_qkv.launches,
-        "fused_biased": flash_attention_fused_qkv.biased_launches,
-        **{route: entry.launches for route, entry in _counted_entries().items()},
-    }
+    return {route: getattr(entry, attribute) for route, (entry, attribute) in _counted_entries().items()}

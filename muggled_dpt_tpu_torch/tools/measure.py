@@ -6,9 +6,11 @@
     python3 muggled_dpt_tpu_torch/tools/measure.py profile [--model beit|swinv2|vitl|giant] [--out DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py profile --int8 [dense] [default] [qkv] [neck] [--out DIR]
 
-``host``: the attention wrapper's host cost per call, the DA-V2 ViT-L and
-BEiT-L-512 bf16 request times at B=1, and BEiT-L-512's ms per frame at B=8
-(24 biased attention launches per forward).
+``host``: the attention and window attention wrappers' host cost per call,
+the DA-V2 ViT-L, BEiT-L-512 and SwinV2-L-384 bf16 request times at B=1, and
+BEiT-L-512's and SwinV2-L-384's ms per frame at B=8 (24 attention or window
+launches per forward; the sm_90 window kernel encodes six tensor maps per
+launch).
 Per-call cost: each route is called 200 times back to back at a shape
 whose device time (a few us) is far below the host's, and the host clock
 stops at the last call's return, so it reads the host work of a launch
@@ -29,7 +31,13 @@ layer as a (1, H, Np, Np) bias) and at the 1024x1024 request's
 SDPA call (the layer as attn_mask) and the bound (4 B H N^2 D operations
 over 989 TFLOP/s, or q, k, v, out and the layer's H N^2 bias read once over
 3.35 TB/s); ``--against DIR`` times DIR's kernel on the same inputs in
-turns (DIR, this, this, DIR).
+turns (DIR, this, this, DIR). Then the SwinV2 window kernel (#3; bf16:
+csrc/window_attention_sm90.cu) at SwinV2-L-384's four stage shapes at B=8
+and stage 1 at B=1, on the inputs of ``tools/window_sm90_variants.py``, the
+same way, beside one SDPA call on the summed bias, the bound (4 B
+nW H A^2 D operations, or q, k, v, out, CPB and mask read once) and the exp
+floor (B nW H A^2 exp2 over the SFU's 16 per clock per SM, 132 SMs at
+1.83 GHz).
 
 ``profile``: a torch.profiler breakdown of a bf16 forward (10 forwards at
 B=1, 5 at B=8): device busy share (the union of kernel intervals over the
@@ -149,6 +157,9 @@ def attention_routes(pkg_name: str, heads=16, n=65, d=64) -> dict:
     import torch
 
     fa = importlib.import_module(pkg_name + ".ops.kernels.flash_attention")
+    wa = importlib.import_module(pkg_name + ".ops.kernels.window_attention")
+    wq, wk, wv = torch.randn(1, 4, 16, 3, 2, 32, device="cuda", dtype=torch.bfloat16).unbind(3)
+    cpb, mask = torch.zeros(2, 16, 16, device="cuda", dtype=torch.bfloat16), torch.zeros(4, 16, 16, device="cuda", dtype=torch.bfloat16)
     qkv = torch.randn(1, n, 3 * heads * d, device="cuda", dtype=torch.bfloat16)
     routes = {"fused, unbiased": lambda: fa.flash_attention_fused_qkv(qkv, heads)}
     if "bias_stack" in inspect.signature(fa.flash_attention_fused_qkv).parameters:
@@ -156,6 +167,7 @@ def attention_routes(pkg_name: str, heads=16, n=65, d=64) -> dict:
         q, k, v = qkv.unflatten(2, (heads, 3, d)).unbind(3)
         routes["fused, stack layer 23"] = lambda: fa.flash_attention_fused_qkv(qkv, heads, bias_stack=stack, layer=23)
         routes["(B, N, H, D) views, (1, H, Np, Np) bias"] = lambda: fa.flash_attention(q, k, v, bias=stack[23][None])
+    routes["window, bf16 CPB and mask (B=1, nW=4, A=16, H=2)"] = lambda: wa.window_attention(wq, wk, wv, cpb, mask)
     return routes
 
 
@@ -243,6 +255,16 @@ def host(args, smi):
         hw = next(iter(models.values())).compute_scaled_hw(FRAME_HW, 512)
         fns = {root: (lambda m=m: m.inference_rgb_device(batch, hw)) for root, m in models.items()}
         report("BEiT-L-512 bf16 512x512 ms per frame, B=8", interleaved(fns, lambda fn: request_ms(fn) / 8, 20), "ms", smi)
+        del models, fns
+        swin = importlib.import_module("muggled_dpt_tpu_torch.checkpoints.swinv2")
+        ckpt = write_checkpoint(swin.random_original_state_dict(SWIN_L384, seed=0), os.path.join(tmp, "dpt_swin2_large_384_random.pt"))
+        models = {root: importlib.import_module(pkg + ".make_dpt").make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device="cuda")[1]
+                  for root, pkg in packages.items()}
+        fns = {root: (lambda m=m: m.inference(frame, 384)) for root, m in models.items()}
+        report("SwinV2-L-384 bf16 384x384 ms per request, B=1", interleaved(fns, request_ms, 30), "ms", smi)
+        hw = next(iter(models.values())).compute_scaled_hw(FRAME_HW, 384)
+        fns = {root: (lambda m=m: m.inference_rgb_device(batch, hw)) for root, m in models.items()}
+        report("SwinV2-L-384 bf16 384x384 ms per frame, B=8", interleaved(fns, lambda fn: request_ms(fn) / 8, 20), "ms", smi)
 
 
 ATTENTION_CASES = (  # (label, batch, tokens, heads, entry, padded bias rows or None)
@@ -254,6 +276,13 @@ ATTENTION_CASES = (  # (label, batch, tokens, heads, entry, padded bias rows or 
     ("#2 fused qkv, BEiT-L-512 1024x1024 B=1, stack layer 23", 1, 4097, 16, "fused", 4104),
 )
 STACK_LAYERS = 24
+WINDOW_CASES = (  # (label, B, windows per image, window side, heads, shift mask): SwinV2-L-384 at 384x384
+    ("#3 window, SwinV2-L-384 stage 1 B=8", 8, 16, 24, 6, True),
+    ("#3 window, SwinV2-L-384 stage 2 B=8", 8, 4, 24, 12, True),
+    ("#3 window, SwinV2-L-384 stage 3 B=8", 8, 1, 24, 24, False),
+    ("#3 window, SwinV2-L-384 stage 4 B=8", 8, 1, 12, 48, False),
+    ("#3 window, SwinV2-L-384 stage 1 B=1", 1, 16, 24, 6, True),
+)
 
 
 def attention(args, smi):
@@ -307,6 +336,38 @@ def attention(args, smi):
         print(f"{label} (B={b}, N={n}, H={h}, D=64): {readings} (median of {iters} after {warmup}); SDPA {library:.4f} ms; "
               f"{bound} [{smi}]", flush=True)
         del qkv, q, k, v, sdpa, kw, mask
+        torch.cuda.empty_cache()
+    stacks.clear()
+    window(packages, gen, smi, args.against)
+
+
+def window(packages: dict, gen, smi: str, against):
+    """#3 at ``WINDOW_CASES``, as ``attention`` times the flash kernel."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from muggled_dpt_tpu_torch.ops.kernels.window_attention import window_bound
+    from muggled_dpt_tpu_torch.tools.window_sm90_variants import inputs, sdpa_inputs
+
+    was = {name: importlib.import_module(pkg + ".ops.kernels.window_attention") for name, pkg in packages.items()}
+    for label, b, nw, side, h, with_mask in WINDOW_CASES:
+        a, d = side * side, 32
+        q, k, v, cpb, mask = inputs(gen, b, nw, side, h, with_mask)
+        calls = {name: (lambda wa=wa: wa.window_attention(q, k, v, cpb, mask)) for name, wa in was.items()}
+        order = ["against", "this", "this", "against"] if against else ["this", "this"]
+        times = {name: [] for name in calls}
+        for name in order:
+            times[name].append(event_ms(calls[name]))
+        q4, k4, v4, bias = sdpa_inputs(q, k, v, cpb, mask)
+        library = event_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias, scale=1.0))
+        limit = window_bound(b, nw, a, h, with_mask)
+        readings = ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
+        print(f"{label} (nW={nw}, A={a}, H={h}, D={d}{', mask' if with_mask else ''}): {readings} (median of 30 after 5); "
+              f"SDPA {library:.4f} ms; bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}); "
+              f"exp floor {limit['exp_floor_ms']:.4f} ms [{smi}]", flush=True)
+        del q, k, v, cpb, mask, q4, k4, v4, bias
         torch.cuda.empty_cache()
 
 
