@@ -25,9 +25,8 @@ original-format checkpoint and loaded through ``make_dpt_from_state_dict``:
     max side 512 gives 512x512, where the window search picks 32 (A=1024)
     at stages 1-3 and 16 at stage 4.
 
-Ten CUDA sources (three of them one template, ``csrc/flash_variants.cuh``)
-port twelve TPU kernels; the ``kernels`` JSON line has one entry per TPU
-kernel:
+Twelve CUDA sources port twelve TPU kernels; the ``kernels`` JSON line has
+one entry per TPU kernel:
   #1 fused qkv, unbiased  -- the Depth-Anything path; in bf16 the wgmma/TMA
      kernel of csrc/flash_attention_sm90.cu, which takes every bf16 launch
      without a bias or with a bf16 one (#2's and #4's too), in f32
@@ -61,21 +60,28 @@ kernel:
      residual stream after each block's attention (#8), ``Head.tail`` of
      the DA-V1 and DA-V2-metric ViT-L heads on the head's own input (#9),
      at B=1 and B=8, with CUDA-event times against those composites;
-  #10 XL, #11 staged and #12 the variant shootout (csrc/flash_attention_xl.cu,
-     flash_attention_staged.cu, flash_variant.cu): measurement variants of
-     #1, as in the JAX package served by no model. Their path is the attention
-     sweep (``muggled_dpt_tpu_torch/tools/flash_tune.py``) on DA-V2 ViT-L's
-     own block-11 qkv slabs across the long-N ladder, against #1, SDPA and
-     their plain versions.
+  #10 XL, #11 staged and #12 the variant shootout: measurement variants of
+     #1, as in the JAX package served by no model. In bf16 #10 and #11 run
+     on #1's wgmma/TMA pipeline (csrc/flash_xl_sm90.cu, one instantiation
+     per qp, pipelining and mode; csrc/flash_staged_sm90.cu), #12 on the
+     mma.sync template of csrc/flash_variants.cuh; f32 on that template's
+     FMA kernel (C entries csrc/flash_attention_xl.cu, flash_attention_staged.cu,
+     flash_variant.cu). Their path is the attention sweep
+     (``muggled_dpt_tpu_torch/tools/flash_tune.py``) on DA-V2 ViT-L's own
+     block-11 qkv slabs across the long-N ladder, against #1, SDPA and their
+     plain versions.
 
 Phases, in order; each prints its lines and the seconds it took, and any
 failure raises:
   1. device: a CUDA card, or fail; the nvidia-smi name and power limit;
   2. build: nvcc builds the kernel library from csrc/, one nvcc per source,
      all started together; the bf16 attention kernel's registers, spills and
-     shared memory, unbiased and biased, and the sm_90 window kernel's, with
-     and without the mask (cudaFuncGetAttributes); fails if ptxas serialized
-     the window kernel's wgmma (C7510-C7520) or spilled;
+     shared memory, unbiased and biased, the sm_90 window kernel's, with
+     and without the mask, and those of each sm_90 instantiation of #10
+     (qp, pipelined, mode: also its key tile and consumer registers) and #11
+     (cudaFuncGetAttributes); fails if ptxas serialized the wgmma of the
+     window kernel or of #10's or #11's sm_90 source (C7510-C7520) or any
+     of them spilled;
   3. each kernel vs its plain version at the paths' shapes and edge cases,
      float32 and bfloat16 (#1 and #2 also at N = 127-385 around the bf16
      kernel's 128-key and 192-row tiles, #2 there with a padded stack layer
@@ -123,11 +129,15 @@ failure raises:
   19. the attention sweep on those slabs: #1 against its plain version at
       every ladder N (bf16 and f32) and on an all-negative slab; #10 in
       every sweep case and #11 at 1, 2, 4 and 8 panels on the N=10405 and
-      18497 slabs and at N=700 and 200 (all-negative); #12 in every mode at
+      18497 slabs and at N=700 (also at scale -0.3) and 200 (all-negative), each bf16 launch of
+      #10 and #11 held to its sm_90 kernel by name in a torch.profiler
+      trace; #12 in every mode at
       (16, 1297, 64) and on the N=18497 slab's heads, mask_exp2 against true
       attention with every logit negative, where padfix and chunk must
       fail; the sweep's path run once with its launches counted; its
-      CUDA-event tables at every ladder N.
+      CUDA-event tables at every ladder N, with #11's time beside its bound
+      and its design floor (6 B H N^2 D over 989 TFLOP/s: pass 2
+      recomputes pass 1's QK^T).
 Then one JSON line of per-kernel results (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
 for bf16, 1979 TOP/s for int8 (#6 and #7's QK^T); #3's exp floor, one exp2
@@ -258,6 +268,8 @@ COMPOSITE_BF16_REL_MAX, COMPOSITE_BF16_REL_MEAN = 5e-2, 1e-2
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 WINDOW_SM90 = "window_attention_sm90.cu"
+SM90_SOURCES = (WINDOW_SM90, "flash_xl_sm90.cu", "flash_staged_sm90.cu")  # ptxas must not serialize their wgmma or spill
+SM90_KERNEL = {10: "fxl_sm90", 11: "fst_sm90"}  # the sm_90 kernels' names, as a profiler trace records them
 
 REPLACES = {
     1: "muggled_dpt_tpu/ops/pallas/flash_attention.py:125",
@@ -289,7 +301,7 @@ NAMES = {
 }
 SOURCES = {1: "flash_attention_sm90", 2: "flash_attention_sm90", 3: "window_attention_sm90", 4: "flash_attention_sm90",
            5: "flash_attention_sm90", 6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp", 9: "head_tail",
-           10: "flash_attention_xl", 11: "flash_attention_staged", 12: "flash_variant"}
+           10: "flash_xl_sm90", 11: "flash_staged_sm90", 12: "flash_variant"}
 SERVED = {}  # what -> (ms per request at B=1, ms per frame at B=8), filled by serve()
 
 
@@ -330,12 +342,28 @@ def phase_build():
         print(f"build: csrc/{WINDOW_SM90} wa_sm90_bf16<{what}>: {regs} registers per thread at launch (setmaxnreg: "
               f"producer 32, consumers 160), {spill} B local memory per thread, {static_smem} B static + {dynamic_smem} B "
               f"dynamic shared memory, {threads} threads", flush=True)
-    report = logs.get(WINDOW_SM90) or ptxas_report(WINDOW_SM90)  # the library may have been built before
-    serialized = sorted(set(re.findall(r"C75(?:1\d|20)\)?[^\n]*", report)))
-    spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
-    if serialized or any(spills):
-        raise RuntimeError(f"ptxas on csrc/{WINDOW_SM90}: wgmma serialization {serialized}, spill bytes {spills}")
-    print(f"build: ptxas reports no wgmma serialization (C7510-C7520) and no spills for csrc/{WINDOW_SM90}", flush=True)
+    sm90_variants = [(f"fxl_sm90<qp={qp}, pipelined={pipelined}, {'ablate' if ablate else 'flash'}>",
+                      lambda info, qp=qp, pipelined=pipelined, ablate=ablate:
+                      kernel_library().mdpt_flash_xl_sm90_info(qp, pipelined, ablate, info))
+                     for qp in (1, 2, 4) for pipelined in (0, 1) for ablate in (0, 1)]
+    sm90_variants += [(f"fst_sm90<NEG={neg}>", lambda info, neg=neg: kernel_library().mdpt_flash_staged_sm90_info(neg, info))
+                      for neg in (0, 1)]
+    for what, query in sm90_variants:
+        info = (ctypes.c_int * 7)()
+        err = query(info)
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes of {what} failed: CUDA error {err}")
+        regs, spill, static_smem, dynamic_smem, threads, keys, consumer_regs = info
+        print(f"build: {what}: {regs} registers per thread at launch (setmaxnreg: consumers {consumer_regs}), {spill} B "
+              f"local memory per thread, {static_smem} B static + {dynamic_smem} B dynamic shared memory, {threads} "
+              f"threads, {keys}-key tiles", flush=True)
+    for source in SM90_SOURCES:
+        report = logs.get(source) or ptxas_report(source)  # the library may have been built before
+        serialized = sorted(set(re.findall(r"C75(?:1\d|20)\)?[^\n]*", report)))
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
+        if serialized or any(spills):
+            raise RuntimeError(f"ptxas on csrc/{source}: wgmma serialization {serialized}, spill bytes {spills}")
+        print(f"build: ptxas reports no wgmma serialization (C7510-C7520) and no spills for csrc/{source}", flush=True)
 
 
 def make_qkv(rng, b, n, dtype, all_negative=False):
@@ -1385,6 +1413,28 @@ def check_variants(check, label, q_s, q_s2, k, v, relative=False):
             check(12, f"{label} {case}", got, ref, q.shape, relative=relative)
 
 
+def sm90_launch(kid, fn, traces=3):
+    """fn() (one bf16 launch of #10 or #11) under torch.profiler; returns its
+    output and, for the check's label, the kernel that ran, once the trace
+    shows that the launch ran kernel #kid's sm_90 kernel (``SM90_KERNEL``) and
+    nothing of flash_variants.cuh's template. A trace that recorded no device
+    event at all (the profiler lost it; seen once on an H100) is taken again,
+    up to ``traces`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    ran = [re.search(rf"{SM90_KERNEL[kid]}(<[^>]*>)?", name).group(0) for name in names if SM90_KERNEL[kid] in name]
+    if len(ran) != 1 or any("fv_bf16" in name or "fv_f32" in name for name in names):
+        raise RuntimeError(f"kernel #{kid}: a bf16 launch ran {names}, want one {SM90_KERNEL[kid]} kernel")
+    return out, f" [{ran[0]}]"
+
+
 def phase_sweep(smi: str, slabs: dict) -> tuple[dict, dict, float]:
     """The attention sweep on the ladder's slabs (``tools/flash_tune.py``):
     1. #1 against its plain version on every slab, bf16 and an f32 copy,
@@ -1392,14 +1442,16 @@ def phase_sweep(smi: str, slabs: dict) -> tuple[dict, dict, float]:
     2. #10 in every case of the sweep and #11 at panels 1, 2, 4 and 8
        against their plain versions (#11 also against kernel #1's output)
        on the slabs at N=10405 and 18497 and at N=700 (pads straddling the
-       key tiles) and N=200 all-negative, bf16 and f32;
+       key tiles; also at scale -0.3) and N=200 all-negative, bf16 and f32;
+       each bf16 launch held to its sm_90 kernel (``sm90_launch``);
     3. #12 in every mode at ViT-L's (16, 1297, 64) and on the N=18497
        slab's heads, bf16 and f32; in the all-negative case mask_exp2
        against true attention, and padfix and chunk shown to fail;
     4. the path: every case of the sweep once on every slab, launches
        counted (every count zeroed first);
-    5. the sweep's CUDA-event tables at every ladder N in bf16, and #12's
-       times at (16, 1297, 64).
+    5. the sweep's CUDA-event tables at every ladder N in bf16, #11's time
+       beside its bound and its design floor, and #12's times at
+       (16, 1297, 64).
     On the model's slabs the gates are relative (#8/#9's, as #6/#7 are held
     on the int8 model's slabs): outputs reach past 4, where one bf16 ulp
     exceeds the absolute 2e-2. Returns (numbers, launches) of #10-#12 and #1's worst
@@ -1425,17 +1477,31 @@ def phase_sweep(smi: str, slabs: dict) -> tuple[dict, dict, float]:
             rel = what.startswith("DA-V2")  # a model slab: relative gates
             ref, out1 = fa.flash_attention_fused_qkv_reference(x, HEADS), fa.flash_attention_fused_qkv(x, HEADS)
             for case, kw in ft.XL_CASES:
-                got = fxl.flash_attention_fused_qkv_xl(x, HEADS, **kw)
+                call = lambda kw=kw: fxl.flash_attention_fused_qkv_xl(x, HEADS, **kw)  # noqa: E731
+                got, kernel = sm90_launch(10, call) if dtype == torch.bfloat16 else (call(), "")
                 if kw.get("ablate_softmax"):
-                    check_ablation(check, 10, f"{name} {what} {case}", got, fxl.ablation_reference(x, HEADS), shape(x))
+                    check_ablation(check, 10, f"{name} {what} {case}{kernel}", got, fxl.ablation_reference(x, HEADS), shape(x))
                 else:
-                    check(10, f"{name} {what} {case}", got, ref, shape(x), relative=rel)
+                    check(10, f"{name} {what} {case}{kernel}", got, ref, shape(x), relative=rel)
             for panels in (1, 2, 4, 8):
-                got = fst.flash_attention_fused_qkv_staged(x, HEADS, panels=panels)
-                label = f"{name} {what} panels={panels}"
+                call = lambda panels=panels: fst.flash_attention_fused_qkv_staged(x, HEADS, panels=panels)  # noqa: E731
+                got, kernel = sm90_launch(11, call) if dtype == torch.bfloat16 else (call(), "")
+                label = f"{name} {what} panels={panels}{kernel}"
                 check(11, label, got, fst.flash_attention_fused_qkv_staged_reference(x, HEADS, panels=panels), shape(x),
                       relative=rel)
                 check(11, label, got, out1, shape(x), relative=rel, versus="kernel #1's output")
+            if what == "B=2 N=700":  # a negative scale: #10's and #11's max of -s (#11: its NEG instantiation)
+                scale = -0.3
+                ref_neg = fa.flash_attention_fused_qkv_reference(x, HEADS, scale=scale)
+                negs = [(10, f"xl qp={qp} {'pipelined' if pipelined else 'seq'}", ref_neg, lambda qp=qp, pipelined=pipelined:
+                         fxl.flash_attention_fused_qkv_xl(x, HEADS, scale=scale, qp=qp, pipelined=pipelined))
+                        for qp, pipelined in ((1, True), (2, False), (4, True))]
+                negs.append((11, "panels=2", fst.flash_attention_fused_qkv_staged_reference(x, HEADS, scale, panels=2),
+                             lambda: fst.flash_attention_fused_qkv_staged(x, HEADS, scale=scale, panels=2)))
+                for kid, case, want, call in negs:
+                    got, kernel = sm90_launch(kid, call) if dtype == torch.bfloat16 else (call(), "")
+                    check(kid, f"{name} {what} scale {scale} {case}{kernel}", got, want, shape(x))
+                del ref_neg, negs
             del ref, out1
             torch.cuda.empty_cache()
         for what, x in ((f"(16, 1297, {HEAD_DIM})", make_qkv(rng, 1, N_TOKENS, dtype)),
@@ -1474,6 +1540,11 @@ def phase_sweep(smi: str, slabs: dict) -> tuple[dict, dict, float]:
     print(f"attention sweep path on the {len(slabs)} ladder slabs: launches #10 {launches[10]}, #11 {launches[11]}, "
           f"#12 {launches[12]}, #1 {counts['fused']}", flush=True)
     tables = {n: ft.sweep(slab, smi) for n, slab in slabs.items()}
+    for n, table in tables.items():
+        limit, floor = attention_bound(1, n, HEADS, HEAD_DIM), staged_floor_ms(1, n, HEADS, HEAD_DIM)
+        print(f"#11 bf16 N={n} {ft.STAGED_DEFAULT}: {table[ft.STAGED_DEFAULT]:.4f} ms; bound {limit['bound_ms']:.4f} ms "
+              f"({limit['bound_by']}); design floor {floor:.4f} ms (6 B H N^2 D over 989 TFLOP/s: pass 2 recomputes pass "
+              f"1's QK^T); #10 {ft.XL_DEFAULT} {table[ft.XL_DEFAULT]:.4f} ms; SDPA {table[ft.SDPA]:.4f} ms [{smi}]", flush=True)
     top = tables[max(tables)]
     vi = ft.variant_inputs(make_qkv(rng, 1, N_TOKENS, torch.bfloat16))
     q, k, v = vi["q_s2"], vi["k"], vi["v"]
@@ -1510,6 +1581,18 @@ def bound(ops: float, nbytes: float, int8_ops: float = 0.0) -> dict:
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def attention_bound(b, n, h, d, bias_elements=0) -> dict:
+    """Attention's bound: 4 B H N^2 D operations (QK^T and PV); q, k and v
+    read, out written, a bias's N x N read once."""
+    return bound(4 * b * h * n * n * d, (4 * b * n * h * d + bias_elements) * 2)
+
+
+def staged_floor_ms(b, n, h, d) -> float:
+    """#11's design floor: its tensor-core work, 6 B H N^2 D operations
+    (pass 1's QK^T, then QK^T again and PV), over the dense bf16 peak."""
+    return 6 * b * h * n * n * d / PEAK_FLOPS[torch.bfloat16] * 1e3
+
+
 def bounds() -> dict:
     """Each kernel's bound at the shape its JSON entry was timed at, all
     bf16, from shape arithmetic: every input read once, every output written
@@ -1519,9 +1602,6 @@ def bounds() -> dict:
     2 B H W 32 (9 ci + 1); #10 and #11 at N=18497, #12 at (16, 1297, 64)."""
     e = 2  # bytes per bf16 element
 
-    def attention(b, n, h, d, bias_elements=0):  # q, k and v read, out written, the bias's N x N read
-        return bound(4 * b * h * n * n * d, (4 * b * n * h * d + bias_elements) * e)
-
     nw, (wh, ww), sh, _ = SWIN_STAGES[0]
     a = wh * ww
     rows, f = 8 * N_TOKENS, VITL["features_per_token"]
@@ -1529,18 +1609,18 @@ def bounds() -> dict:
     # #6 and #7 at DA-V2 ViT-L's slab, B=8: QK^T in int8, PV in bf16; q, k, v read, out written
     int8_ops, int8_bytes = 2 * 8 * HEADS * N_TOKENS**2 * HEAD_DIM, 4 * 8 * N_TOKENS * HEADS * HEAD_DIM * e
     return {
-        1: attention(8, N_TOKENS, HEADS, HEAD_DIM),
-        2: attention(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2),
+        1: attention_bound(8, N_TOKENS, HEADS, HEAD_DIM),
+        2: attention_bound(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2),
         3: {key: value for key, value in wa.window_bound(8, nw, a, sh, True).items() if key != "exp_floor_ms"},
-        4: attention(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2),
-        5: attention(1, N_ONLINE, 2, HEAD_DIM),
+        4: attention_bound(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2),
+        5: attention_bound(1, N_ONLINE, 2, HEAD_DIM),
         6: bound(int8_ops, int8_bytes, int8_ops),
         7: bound(int8_ops, int8_bytes, int8_ops),
         8: bound(4 * rows * f * 4 * f, (2 * rows * f + 2 * f * 4 * f + 4 * f + 4 * f) * e),
         9: bound(2 * b * hh * hw * 32 * (9 * ci + 1), (b * ci * hh * hw + b * hh * hw + 32 * (9 * ci + 3) + 1) * e),
-        10: attention(1, max(LADDER.values()), HEADS, HEAD_DIM),  # the N=18497 slab, B=1
-        11: attention(1, max(LADDER.values()), HEADS, HEAD_DIM),  # the recompute pass is the kernel's, not the function's
-        12: attention(HEADS, N_TOKENS, 1, HEAD_DIM),  # (16, 1297, 64)
+        10: attention_bound(1, max(LADDER.values()), HEADS, HEAD_DIM),  # the N=18497 slab, B=1
+        11: attention_bound(1, max(LADDER.values()), HEADS, HEAD_DIM),  # the recompute pass is the kernel's, not the function's
+        12: attention_bound(HEADS, N_TOKENS, 1, HEAD_DIM),  # (16, 1297, 64)
     }
 
 

@@ -92,11 +92,10 @@
 
 #include <atomic>
 
+#include "sm90_attention.cuh"
+
 namespace {
 
-constexpr int D = 64;              // head dim: one 128-byte swizzle row of bf16
-constexpr float NEG_INF = -1e30f;  // the JAX package's masking constant
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BIAS_NONE = 0, BIAS_BF16 = 1;       // template argument BIAS
 constexpr int FILL_TMA = 0, FILL_COPY = 1;        // how a bias stage is filled (the wrapper's choice)
 constexpr int CONSUMERS = 3;       // consumer warpgroups, 64 q rows each
@@ -144,104 +143,6 @@ struct Params {
     float qk_scale_log2;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) { return static_cast<uint32_t>(__cvta_generic_to_shared(p)); }
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    uint32_t done;
-    do {
-        asm volatile(
-            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(smem_u32(bar)), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// One 4-D box at coordinates (c0, c1, c2, c3), innermost first, into shared
-// memory; completion counted on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2, int c3) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
-            smem_u32(dst)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-        : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving register reads or writes across a wgmma
-// issue or wait: the accumulators change asynchronously.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[j][i])::"memory");
-}
-
-// wgmma descriptor of a 128B-swizzled tile of 128-byte rows: start address
-// >> 4, leading byte offset 1 (unused by the swizzled layouts at these
-// widths), stride byte offset 1024 B >> 4 (from one 8-row group to the
-// next), swizzle mode 1 (128B). Both the K-major Q and K tiles and the
-// MN-major V tile have this layout; a k step moves the start address.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-    return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-#define ACC8(i) \
-    "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
-
-// d (64 rows x 128 keys, f32) = or += A (64 x 16 of D) B^T (128 keys x 16 of D), both K-major in shared memory
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d (64 rows x 64, f32) += A (64 x 16 keys, bf16 registers) B (16 keys x 64, MN-major in shared memory)
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-#undef ACC8
-
 // Four 8x8 bf16 matrices of shared memory, one row address per lane (lanes
 // 8m..8m+7: matrix m); register m gets this lane's pair of matrix m in the
 // mma C-fragment layout: row lane / 4, columns 2 (lane % 4) and + 1.
@@ -254,48 +155,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], uint32_t addr) {
 
 __device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
-
-__device__ __forceinline__ float ex2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// S = Q K^T over D = 64: four k steps of 16 (32 bytes along the swizzled rows)
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq, const __nv_bfloat16* k_tile) {
-    const uint64_t dk = sw128_desc(k_tile);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_qk(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
-}
-
-// O += P V over 128 keys: eight k steps of 16 keys (16 rows of 128 B = 2048 B)
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[8][4], const __nv_bfloat16* v_tile) {
-    const uint64_t dv = sw128_desc(v_tile);
-#pragma unroll
-    for (int j = 0; j < BKV / 16; ++j) wgmma_pv(o, p[j], dv + j * (16 * 128 >> 4));
-}
-
-// This thread holds rows g and g + 8 of its warp's 16 in an S tile:
-// s[4i + e] is row g + 8 (e >> 1), key kbase + 8i + 2c + (e & 1).
-__device__ __forceinline__ bool key_masked(int kbase, int i, int e, int c, int n) { return kbase + 8 * i + 2 * c + (e & 1) >= n; }
-
-// The raw row max of s (of -s for a negative scale), keys at or past N left out.
-template <bool MASK, bool NEG>
-__device__ __forceinline__ void row_max(const float (&s)[64], float (&mx)[2], int kbase, int n, int c) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const float x = NEG ? -s[4 * i + e] : s[4 * i + e];
-            mx[e >> 1] = fmaxf(mx[e >> 1], MASK && key_masked(kbase, i, e, c, n) ? -INFINITY : x);
-        }
-    }
-}
 
 // The online softmax of one S tile in place, exp2 domain. Keys at or past
 // N (MASK: the last tile) count in neither the max nor the sum. Unbiased:
@@ -364,29 +223,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     } else {
         online_softmax<BIAS, true>(s, m, l, alpha, scale_log2, scale, bias_addr, kbase, n, c);
     }
-}
-
-// P in bf16: the S fragments of keys 16j..16j+15 are the A fragment of PV k step j
-__device__ __forceinline__ void pack_p(uint32_t (&p)[8][4], const float (&s)[64]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) p[j][i] = pack_bf16(s[8 * j + 2 * i], s[8 * j + 2 * i + 1]);
-    }
-}
-
-__device__ __forceinline__ void rescale(float (&o)[32], const float (&alpha)[2]) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        o[4 * i] *= alpha[0];
-        o[4 * i + 1] *= alpha[0];
-        o[4 * i + 2] *= alpha[1];
-        o[4 * i + 3] *= alpha[1];
-    }
-}
-
-__device__ __forceinline__ void release(uint64_t* bar, int lane) {
-    if (lane == 0) mbar_arrive(bar);
 }
 
 // Consumer warpgroup `wg`: q rows q0 + 64 wg .. + 63 over every key tile.
@@ -577,48 +413,6 @@ __global__ void __launch_bounds__(THREADS, 1)
         asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
         consume<BIAS>(sm, a, threadIdx.x / 128 - 1, q0, b, h, tiles);
     }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime: no -lcuda.
-EncodeTiled encode_tiled() {
-    static const EncodeTiled fn = [] {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-        const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-    }();
-    return fn;
-}
-
-// A 4-D bf16 tensor map, 128B swizzle, zeros past the edges. `stride`
-// holds the byte strides of dims 1-3; a dim of size 1 is never stepped
-// over, so it gets a packed stride whatever the caller's (TMA takes
-// non-zero multiples of 16 B).
-CUresult encode4(EncodeTiled fn, CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4], cuuint64_t (&stride)[3],
-                 const cuuint32_t (&box)[4]) {
-    for (int i = 0; i < 3; ++i)
-        if (dims[i + 1] == 1) stride[i] = i == 0 ? dims[0] * 2 : stride[i - 1] * dims[i];
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, stride, box, unit,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-// The (D, H, N, B) tensor map of q, k or v: `st` holds the element strides (batch, row, head).
-CUresult encode_qkv(EncodeTiled fn, CUtensorMap* map, const void* ptr, const long long* st, int batch, int n, int heads,
-                    cuuint32_t box_rows) {
-    const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(batch)};
-    cuuint64_t stride[3] = {static_cast<cuuint64_t>(st[2]) * 2, static_cast<cuuint64_t>(st[1]) * 2,
-                            static_cast<cuuint64_t>(st[0]) * 2};
-    return encode4(fn, map, ptr, dims, stride, {D, 1, box_rows, 1});
 }
 
 // The (N, N, H, B) tensor map of the bias: the logical N in both dims, so a

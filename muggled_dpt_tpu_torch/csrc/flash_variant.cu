@@ -15,14 +15,19 @@
 
 namespace {
 
+template <int MODE>
+cudaError_t launch_either(const VArgs& a, int dtype, dim3 grid, cudaStream_t s) {
+    return dtype == 0 ? launch_f32<1, MODE>(a, grid, s) : launch_bf16<MODE>(a, grid, s);
+}
+
 cudaError_t launch_mode(const VArgs& a, int mode, int dtype, dim3 grid, cudaStream_t s) {
     switch (mode) {
-        case MODE_MASK_EXP: return launch_variant<1, false, MODE_MASK_EXP>(a, dtype, grid, s);
-        case MODE_MASK_EXP2: return launch_variant<1, false, MODE_MASK_EXP2>(a, dtype, grid, s);
-        case MODE_PADFIX: return launch_variant<1, false, MODE_PADFIX>(a, dtype, grid, s);
-        case MODE_NOSM: return launch_variant<1, false, MODE_NOSM>(a, dtype, grid, s);
-        case MODE_MAXONLY: return launch_variant<1, false, MODE_MAXONLY>(a, dtype, grid, s);
-        case MODE_EXPONLY: return launch_variant<1, false, MODE_EXPONLY>(a, dtype, grid, s);
+        case MODE_MASK_EXP: return launch_either<MODE_MASK_EXP>(a, dtype, grid, s);
+        case MODE_MASK_EXP2: return launch_either<MODE_MASK_EXP2>(a, dtype, grid, s);
+        case MODE_PADFIX: return launch_either<MODE_PADFIX>(a, dtype, grid, s);
+        case MODE_NOSM: return launch_either<MODE_NOSM>(a, dtype, grid, s);
+        case MODE_MAXONLY: return launch_either<MODE_MAXONLY>(a, dtype, grid, s);
+        case MODE_EXPONLY: return launch_either<MODE_EXPONLY>(a, dtype, grid, s);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -34,7 +39,7 @@ cudaError_t launch_mode(const VArgs& a, int mode, int dtype, dim3 grid, cudaStre
 // SLOT_QP 1. Returns the cudaError_t of the launch (0 on success); the launch
 // is asynchronous on `stream`.
 extern "C" int mdpt_flash_variant(const long long* args, float qk_scale, void* stream) {
-    return variant_entry(args, qk_scale, stream,
+    return variant_entry(args, qk_scale, stream, false,
                          [](const VArgs& a, int mode, int qp, bool pipelined, int dtype, dim3 grid, cudaStream_t s) {
                              if (qp != 1 || pipelined) return cudaErrorInvalidValue;
                              return launch_mode(a, mode, dtype, grid, s);

@@ -1,11 +1,18 @@
-// Measurement variants of flash attention #1 for Hopper (sm_90a): one kernel
-// template per dtype over #1's streaming key-tile loop, the variant chosen by
-// template parameters. Three sources instantiate it, each its own nvcc job:
+// Measurement variants of flash attention #1 for Hopper (sm_90a): the C
+// entries of the attention sweep's kernels, their one argument layout (enum
+// Slot), and the kernel template of the launches that do not run on the
+// wgmma/TMA kernels, the variant chosen by template parameters. Three
+// sources include it, each its own nvcc job:
 //   #10 flash_attention_xl.cu     <- experiments/flash_attention_xl.py:_xl_qkv_kernel (:69)
 //   #11 flash_attention_staged.cu <- experiments/flash_attention_staged.py:_staged_qkv_kernel (:74)
 //   #12 flash_variant.cu          <- tools/attn_variants.py:_onepass_kernel (:77), _innerloop_kernel (:110)
 // No model serves through them, as in the JAX package: they are the
 // attention sweep's variants (muggled_dpt_tpu_torch/tools/flash_tune.py).
+// Which kernel a launch reaches:
+//   #10 bf16 (MODE_FLASH, MODE_ABLATE; qp, pipelined)  flash_xl_sm90.cu (wgmma, TMA)
+//   #11 bf16 (MODE_STAGED; panel)                      flash_staged_sm90.cu (wgmma, TMA)
+//   #12 bf16 (the #12 modes)                           fv_bf16 below (mma.sync)
+//   #10, #11, #12 float32                              fv_f32 below (FMAs; #10's qp)
 //
 // Per batch b and head h, over q rows i < n and the keys j < kend:
 //   s[i, j] = (q_i . k_j) * qk_scale; keys at or past kend are excluded
@@ -18,14 +25,13 @@
 //                   out = p v; no max, sum or division (a timing floor);
 //   MODE_STAGED     #11: two passes with no online rescaling. Pass 1
 //                   streams K only and keeps the row max, panel by panel:
-//                   each key panel reduces its own max (quad shuffles at
-//                   the panel's end) and the row max is the maximum of the
-//                   panels'. Pass 2 recomputes QK^T, streams K and V, and
-//                   takes p = exp2(s - m), PV and the row sum. The panels run
-//                   in sequence in one CTA (no split-K grid): a 64-row f32
-//                   logit block at N=18497 is 4.7 MB, so it is recomputed,
-//                   never kept. Max is exact, so the output does not depend
-//                   on the panels at all;
+//                   each key panel reduces its own max and the row max is
+//                   the maximum of the panels'. Pass 2 recomputes QK^T,
+//                   streams K and V, and takes p = exp2(s - m), PV and the
+//                   row sum. The panels run in sequence in one CTA (no
+//                   split-K grid): a 64-row f32 logit block at N=18497 is
+//                   4.7 MB, so it is recomputed, never kept. Max is exact,
+//                   so the output does not depend on the panels at all;
 //   MODE_MASK_EXP   #12 mask_exp: online softmax in natural exp (q pre-scaled);
 //   MODE_MASK_EXP2  #12 mask_exp2: the same in exp2;
 //   MODE_PADFIX     #12 padfix and chunk: online softmax over the zero pad
@@ -39,24 +45,20 @@
 //   MODE_MAXONLY    #12 maxonly: pass 1 the row max over real and pad keys,
 //                   pass 2 p = s - m, l = 1;
 //   MODE_EXPONLY    #12 exponly: p = exp2(s), l = 1.
-// bf16 (fv_bf16): 4 warps of 16 q rows per 64-row q block, QP q blocks per
-// CTA (#10's qp: 128 * QP threads sharing each K/V tile in shared memory);
-// both products on mma.sync m16n8k16; the Q fragments are read once from
-// global memory into registers. PIPELINED (#10): K runs one tile ahead of V
-// (two rings of two stages, 36 KB of static shared memory), so each
-// iteration issues key tile t+1's QK^T mma.sync before tile t's softmax and
-// PV: the FA3 intra-warpgroup overlap on synchronous MMAs, where the
-// scheduler interleaves the independent tensor-core and exp2 work. p is
-// rounded to bf16 before PV; logits, softmax and sums stay f32.
+// bf16 (fv_bf16, #12's modes): 4 warps of 16 q rows per 64-row CTA; both
+// products on mma.sync m16n8k16; the Q fragments are read once from global
+// memory into registers; K and V tiles of 64 keys double-buffered by
+// cp.async. p is rounded to bf16 before PV; logits, softmax and sums stay f32.
 // f32 (fv_f32): #1's FMA kernel, one thread per q row, QP * 64 threads per
-// CTA sharing 32-key tiles; pipelining has no meaning there and is ignored.
+// CTA sharing 32-key tiles (#10's qp); pipelining has no meaning there and
+// is ignored.
 //
 // Bounds on an H100: 4 B H N^2 D operations (QK^T and PV) against 4 B N H D
 // bf16 elements moved: at N=18497, 16 heads, one call is 1.40 TFLOP,
 // 1.417 ms at the dense bf16 peak, compute bound by far (#11's recompute
-// pass is the implementation's, not the function's). The kernels run on
-// mma.sync, not wgmma: they are for measuring the variants against #1 on the
-// same tile code, not for peak.
+// pass is the implementation's, not the function's). fv_bf16 runs on
+// mma.sync, not wgmma: #12 measures its modes against each other on that
+// tile code, not for peak.
 
 #pragma once
 
@@ -259,7 +261,7 @@ __device__ __forceinline__ void tile_weights(uint32_t (&pf)[BK / 16][4], const f
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const float m = st.m[e >> 1];
-                if constexpr (SM == SM_ONLINE || MODE == MODE_STAGED) {
+                if constexpr (SM == SM_ONLINE) {
                     p[e] = expf_mode<MODE>(s[nt][e] - m);  // excluded keys: exp(-1e30 - m) = 0
                     st.l[e >> 1] += p[e];
                 } else {
@@ -287,15 +289,14 @@ __device__ __forceinline__ void tile_weights(uint32_t (&pf)[BK / 16][4], const f
     }
 }
 
-template <int QP, bool PIPELINED, int MODE>
-__global__ void __launch_bounds__(128 * QP) fv_bf16(const VArgs a) {
-    constexpr int THREADS = 128 * QP;
+template <int MODE>
+__global__ void __launch_bounds__(128) fv_bf16(const VArgs a) {
+    constexpr int THREADS = 128;
     constexpr int SM = softmax_of(MODE);
-    static_assert(!(PIPELINED && SM == SM_TWO_PASS), "the two-pass modes are not pipelined");
     __shared__ __align__(16) __nv_bfloat16 ks[2][BK][LDS];
     __shared__ __align__(16) __nv_bfloat16 vs[2][BK][LDS];
 
-    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * (64 * QP);
+    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 64;
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, cq = lane % 4;  // fragment row group and column pair
     const int n = a.n, kend = a.kend;
@@ -361,34 +362,6 @@ __global__ void __launch_bounds__(128 * QP) fv_bf16(const VArgs a) {
             tile_pv(acc, pf, vs[stg], lane);
             __syncthreads();
         }
-    } else if constexpr (PIPELINED) {
-        // K one tile ahead of V: at the top of iteration t, K_{t+1} and V_t
-        // are resident; K_{t+2} and V_{t+1} are issued into the slots that
-        // iteration t-1 finished with.
-        float s_cur[BK / 8][4], s_next[BK / 8][4];
-        load_rows<THREADS>(ks[0], kb, a.k_sn, 0, n, tid);
-        cp_async_commit();
-        if (num_tiles > 1) load_rows<THREADS>(ks[1], kb, a.k_sn, BK, n, tid);
-        load_rows<THREADS>(vs[0], vb, a.v_sn, 0, n, tid);
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
-        tile_logits(s_cur, qf, ks[0], 0, kend, a.qk_scale, g, cq);
-        for (int t = 0; t < num_tiles; ++t) {
-            cp_async_wait<0>();
-            __syncthreads();
-            if (t + 2 < num_tiles) load_rows<THREADS>(ks[t & 1], kb, a.k_sn, (t + 2) * BK, n, tid);
-            if (t + 1 < num_tiles) load_rows<THREADS>(vs[(t + 1) & 1], vb, a.v_sn, (t + 1) * BK, n, tid);
-            cp_async_commit();
-            if (t + 1 < num_tiles) tile_logits(s_next, qf, ks[(t + 1) & 1], (t + 1) * BK, kend, a.qk_scale, g, cq);
-            tile_weights<MODE>(pf, s_cur, acc, st, a, t * BK, cq);
-            tile_pv(acc, pf, vs[t & 1], lane);
-#pragma unroll
-            for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) s_cur[nt][e] = s_next[nt][e];
-            }
-        }
     } else {
         load_rows<THREADS>(ks[0], kb, a.k_sn, 0, n, tid);
         load_rows<THREADS>(vs[0], vb, a.v_sn, 0, n, tid);
@@ -408,7 +381,7 @@ __global__ void __launch_bounds__(128 * QP) fv_bf16(const VArgs a) {
         }
     }
 
-    constexpr bool NORMALIZED = SM == SM_ONLINE || MODE == MODE_STAGED;
+    constexpr bool NORMALIZED = SM == SM_ONLINE;
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -579,13 +552,16 @@ __global__ void __launch_bounds__(64 * QP) fv_f32(const VArgs a) {
     }
 }
 
-template <int QP, bool PIPELINED, int MODE>
-cudaError_t launch_variant(const VArgs& a, int dtype, dim3 grid, cudaStream_t s) {
-    if (dtype == 0) {
-        fv_f32<QP, MODE><<<grid, 64 * QP, 0, s>>>(a);
-    } else {
-        fv_bf16<QP, PIPELINED, MODE><<<grid, 128 * QP, 0, s>>>(a);
-    }
+// float32 launches (every entry) and #12's bfloat16 ones.
+template <int QP, int MODE>
+cudaError_t launch_f32(const VArgs& a, dim3 grid, cudaStream_t s) {
+    fv_f32<QP, MODE><<<grid, 64 * QP, 0, s>>>(a);
+    return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_bf16(const VArgs& a, dim3 grid, cudaStream_t s) {
+    fv_bf16<MODE><<<grid, 128, 0, s>>>(a);
     return cudaGetLastError();
 }
 
@@ -603,18 +579,45 @@ enum Slot {
     SLOT_DTYPE,      // q, k, v and out: 0 = float32, 1 = bfloat16
     SLOT_DEVICE,     // the CUDA device of every tensor
     SLOT_MODE,       // the Mode
-    SLOT_QP,         // q blocks of 64 rows per CTA: 1, 2 or 4
+    SLOT_QP,         // q blocks of 64 rows per CTA: 1, 2 or 4 (bf16 #10: consumer warpgroups)
     SLOT_PIPELINED,  // 1: key tile t+1's QK^T issued before tile t's softmax
-    SLOT_PANEL,      // two-pass modes: keys per panel, a positive multiple of 64
+    SLOT_PANEL,      // two-pass modes: keys per panel, a positive multiple of 64 (bf16 #11: of 128)
     SLOT_CHUNK,      // MODE_PADFIX: keys per chunk
     NUM_SLOTS,
 };
 
+// Whether 4-D tensor maps read q, k and v, and out, as the slots give them:
+// 16-byte aligned bases and, on every dim of size > 1, a positive stride of
+// a multiple of 8 bf16 elements (16 bytes) below 2^39 elements (TMA's 2^40
+// bytes). The head dim is unit-stride by the slots' layout.
+bool tma_readable(const long long* args) {
+    const long long sizes[3] = {args[SLOT_BATCH], args[SLOT_N], args[SLOT_HEADS]};
+    for (int slot = SLOT_Q; slot <= SLOT_O; slot += 4) {
+        if (args[slot] % 16 != 0) return false;
+        for (int i = 0; i < 3; ++i) {
+            const long long st = args[slot + 1 + i];
+            if (sizes[i] > 1 && (st <= 0 || st % 8 != 0 || st >= (1ll << 39))) return false;
+        }
+    }
+    return true;
+}
+
+// The (batch, row, head) element strides of q, k, v and out, for the sm_90 kernels.
+struct Strides {
+    long long q[3], k[3], v[3], o[3];
+};
+
+Strides strides_of(const VArgs& a) {
+    return {{a.q_sb, a.q_sn, a.q_sh}, {a.k_sb, a.k_sn, a.k_sh}, {a.v_sb, a.v_sn, a.v_sh}, {a.o_sb, a.o_sn, a.o_sh}};
+}
+
 // Decode and check the argument array, switch to its device, call
-// launch(args, mode, qp, pipelined, dtype, grid, stream) and switch back.
-// Returns the cudaError_t (0 on success).
+// launch(a, mode, qp, pipelined, dtype, grid, stream) and switch back.
+// `sm90_bf16` (#10, #11): a bfloat16 launch runs the entry's wgmma/TMA
+// kernel, so its layout must be one tensor maps read and all N keys are
+// taken; anything else is refused. Returns the cudaError_t (0 on success).
 template <class Launch>
-int variant_entry(const long long* args, float qk_scale, void* stream, Launch launch) {
+int variant_entry(const long long* args, float qk_scale, void* stream, bool sm90_bf16, Launch launch) {
     const int batch = (int)args[SLOT_BATCH], n = (int)args[SLOT_N], kend = (int)args[SLOT_KEYS];
     const int heads = (int)args[SLOT_HEADS], dtype = (int)args[SLOT_DTYPE], device = (int)args[SLOT_DEVICE];
     const int mode = (int)args[SLOT_MODE], qp = (int)args[SLOT_QP], pipelined = (int)args[SLOT_PIPELINED];
@@ -623,6 +626,8 @@ int variant_entry(const long long* args, float qk_scale, void* stream, Launch la
         return (int)cudaErrorInvalidValue;
     if ((dtype != 0 && dtype != 1) || (qp != 1 && qp != 2 && qp != 4) || panel < BK || panel % BK != 0 || chunk < 1)
         return (int)cudaErrorInvalidValue;
+    const bool sm90 = sm90_bf16 && dtype == 1;
+    if (sm90 && !(kend == n && tma_readable(args))) return (int)cudaErrorInvalidValue;
     const long long* q = args + SLOT_Q;
     const long long* k = args + SLOT_K;
     const long long* v = args + SLOT_V;

@@ -141,6 +141,15 @@ def kernel_library() -> ctypes.CDLL:
     # the int64 argument array (its slots in csrc/flash_attention_int8.cu), stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.mdpt_flash_xl_sm90_info
+    # qp, pipelined, ablate, then seven int32 out values (csrc/flash_xl_sm90.cu): the five of the flash kernel's, the key
+    # tile and the consumers' registers after setmaxnreg
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mdpt_flash_staged_sm90_info
+    # 0 or 1 (the scale's sign), then seven int32 out values (csrc/flash_staged_sm90.cu), as #10's
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     for name in ("mdpt_flash_attention_xl", "mdpt_flash_attention_staged", "mdpt_flash_variant"):
         fn = getattr(lib, name)
         # the int64 argument array (its slots in csrc/flash_variants.cuh), qk_scale, stream

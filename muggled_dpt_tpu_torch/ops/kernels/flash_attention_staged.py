@@ -1,6 +1,9 @@
-"""TPU kernel #11, staged (key-panel) flash attention: a hand-written Hopper
-kernel (``csrc/flash_attention_staged.cu``, on the template of
-``csrc/flash_variants.cuh``) with its plain PyTorch version beside it.
+"""TPU kernel #11, staged (key-panel) flash attention: hand-written Hopper
+kernels with their plain PyTorch version beside them. bfloat16 runs
+``csrc/flash_staged_sm90.cu`` (#1's wgmma/TMA pipeline: pass 1 the row max
+with the next tile's QK^T in flight, pass 2 exp2 and PV with no rescale);
+float32 runs the FMA kernel of ``csrc/flash_variants.cuh``. The C entry is
+``csrc/flash_attention_staged.cu``.
 
 ``flash_attention_fused_qkv_staged(qkv, num_heads, scale, block_q, hpp,
 panels)`` replaces
@@ -15,7 +18,8 @@ imports jax). As in the JAX package, no model serves through it: it is a
 variant of the attention sweep (``muggled_dpt_tpu_torch/tools/flash_tune.py``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. Launches are counted in ``flash_attention_fused_qkv_staged.launches``."""
+raises. Launches are counted in ``flash_attention_fused_qkv_staged.launches``
+(bfloat16 ones all run the sm_90 kernel)."""
 
 from __future__ import annotations
 
@@ -84,8 +88,8 @@ def flash_attention_fused_qkv_staged(qkv, num_heads, scale=None, block_q=None, h
     reads their maximum; the output does not depend on them beyond float32
     round-off. ``block_q`` and ``hpp`` are the TPU kernel's VMEM tactics:
     accepted so that the JAX call sites map one to one, and ignored (the
-    CUDA grid has 64 q rows and one head per CTA). Counts its launches in
-    ``flash_attention_fused_qkv_staged.launches``."""
+    CUDA grid has 192 q rows in bf16, 64 in f32, and one head per CTA).
+    Counts its launches in ``flash_attention_fused_qkv_staged.launches``."""
     b, n, d = qkv_dims(qkv, num_heads)
     scale = d**-0.5 if scale is None else float(scale)
     device = qkv.device

@@ -1,20 +1,25 @@
-"""TPU kernel #10, the XL-N variants of flash attention #1: a hand-written
-Hopper kernel (``csrc/flash_attention_xl.cu``, on the template of
-``csrc/flash_variants.cuh``) with its plain PyTorch version beside it.
+"""TPU kernel #10, the XL-N variants of flash attention #1: hand-written
+Hopper kernels with their plain PyTorch version beside them. bfloat16 runs
+``csrc/flash_xl_sm90.cu`` (#1's wgmma/TMA pipeline, one instantiation per
+qp, pipelining and mode); float32 runs the FMA kernel of
+``csrc/flash_variants.cuh``. The C entry is ``csrc/flash_attention_xl.cu``.
 
 ``flash_attention_fused_qkv_xl(qkv, num_heads, scale, block_q, hpp, qp,
 pipelined, ablate_softmax)`` replaces
 ``experiments/flash_attention_xl.py:flash_attention_fused_qkv_xl``
 (``_xl_qkv_kernel``): #1 on the head-major (B, N, 3C) qkv slab, unbiased,
-D = 64, with ``qp`` q blocks of 64 rows per CTA sharing each K/V tile and
-``pipelined`` issuing key tile t+1's QK^T before tile t's softmax.
+D = 64, with ``qp`` q blocks of 64 rows per CTA sharing each K/V tile (in
+bf16: ``qp`` consumer warpgroups on one TMA ring) and ``pipelined`` issuing
+key tile t+1's QK^T before tile t's softmax (in bf16: two S tiles in
+registers, the next tile's QK^T wgmma in flight under this tile's softmax).
 ``ablate_softmax`` gives p = (s * 1e-6) cast to v's dtype and o = p v, with
 no max, sum or division: the kernel structure's timing floor, not a valid
 attention. As in the JAX package, no model serves through it: it is a
 variant of the attention sweep (``muggled_dpt_tpu_torch/tools/flash_tune.py``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. Launches are counted in ``flash_attention_fused_qkv_xl.launches``."""
+raises. Launches are counted in ``flash_attention_fused_qkv_xl.launches``
+(bfloat16 ones all run the sm_90 kernels)."""
 
 from __future__ import annotations
 

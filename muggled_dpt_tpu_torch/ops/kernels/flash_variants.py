@@ -1,8 +1,12 @@
 """The launcher shared by the measurement variants of flash attention #1
-(TPU kernels #10-#12): one kernel template (``csrc/flash_variants.cuh``)
-instantiated by three sources, each with its own C entry and one argument
-layout (``enum Slot``). The entries live beside their plain versions:
-``flash_attention_xl.py`` (#10), ``flash_attention_staged.py`` (#11) and
+(TPU kernels #10-#12): three C entries with one argument layout (``enum
+Slot`` of ``csrc/flash_variants.cuh``). bfloat16 launches of #10 and #11
+run their wgmma/TMA kernels (``csrc/flash_xl_sm90.cu``,
+``csrc/flash_staged_sm90.cu``), which need 16-byte aligned bases and
+strides (the C entry refuses anything else); #12's bfloat16 launches and
+every float32 launch run the kernel template of ``flash_variants.cuh``.
+The entries live beside their plain versions: ``flash_attention_xl.py``
+(#10), ``flash_attention_staged.py`` (#11) and
 ``muggled_dpt_tpu_torch/tools/attn_variants.py`` (#12)."""
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel template's Mode (csrc/flash_variants.cuh)
 MODES = {"flash": 0, "ablate": 1, "staged": 2, "mask_exp": 3, "mask_exp2": 4, "padfix": 5, "nosm": 6, "maxonly": 7,
          "exponly": 8}
-TILE_KEYS = 64  # the bf16 kernel's key tile: panels are multiples of it
+TILE_KEYS = 64  # the key tile of flash_variants.cuh's bf16 kernel: panels are multiples of it (#11's bf16 kernel: of 128)
 QP_CHOICES = (1, 2, 4)  # q blocks of 64 rows per CTA the kernel is built for
 
 

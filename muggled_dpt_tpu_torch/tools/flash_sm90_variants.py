@@ -6,7 +6,8 @@ unbiased and biased, timed on the card.
 
 Each variant is the source as committed with one design decision undone by
 a text edit, built by nvcc into a library of its own (under the gitignored
-``build/variants/``) with a C entry over raw pointers, and timed with CUDA
+``build/variants/``, with ``csrc/`` on the include path for its header
+``sm90_attention.cuh``) with a C entry over raw pointers, and timed with CUDA
 events in two turns (forward, then backward, the faster median kept) beside
 one SDPA call, on random inputs from a seed:
   * unbiased (#1): head-major qkv slabs at DA-V2 ViT-L's (8, 1297, 3072) and
@@ -87,7 +88,7 @@ def build() -> dict:
     for i, (name, replacements) in enumerate(VARIANTS.items()):
         src, lib = out_dir / f"variant{i}.cu", out_dir / f"variant{i}.so"
         src.write_text(variant_source(source, replacements))
-        cmd = [find_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-shared", "-o", str(lib), str(src)]
+        cmd = [find_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-I", str(CSRC_DIR), "-shared", "-o", str(lib), str(src)]
         jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in jobs.items():

@@ -21,6 +21,14 @@ launch. Times: median per launch after warm-up, the kernels in two turns
 (forward, then backward) and the faster of the two kept; 30 launches after
 5 up to N=10405, 5 after 1 past it and for every plain version.
 
+In bf16 #10 and #11 run their wgmma/TMA kernels on #1's Hopper pipeline
+(``csrc/flash_xl_sm90.cu``: qp consumer warpgroups per CTA, pipelined = the
+next tile's QK^T in flight under this tile's softmax; ``csrc/flash_staged_sm90.cu``:
+pass 1 the row max, pass 2 exp2 and PV with no rescale), so the sweep's
+questions (two passes against the online softmax, more q blocks per CTA,
+QK^T under the softmax) are asked of the serving kernel's machinery; #12
+stays on the ``mma.sync`` template of ``csrc/flash_variants.cuh``.
+
 ``chip_smoke.py`` drives the same cases, timing and capture through this
 module. Runs only on a CUDA card."""
 

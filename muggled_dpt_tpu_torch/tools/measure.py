@@ -31,7 +31,14 @@ layer as a (1, H, Np, Np) bias) and at the 1024x1024 request's
 SDPA call (the layer as attn_mask) and the bound (4 B H N^2 D operations
 over 989 TFLOP/s, or q, k, v, out and the layer's H N^2 bias read once over
 3.35 TB/s); ``--against DIR`` times DIR's kernel on the same inputs in
-turns (DIR, this, this, DIR). Then the SwinV2 window kernel (#3; bf16:
+turns (DIR, this, this, DIR). Then the attention sweep's #10 (every case
+of ``flash_tune.XL_CASES``; bf16: csrc/flash_xl_sm90.cu) and #11 (panels
+1, 2, 4 and 8; csrc/flash_staged_sm90.cu) beside #1 and SDPA on random
+(1, N, 3072) bf16 slabs from the seed at N = 10405 and 18497 (DA-V2
+ViT-L's 1428x1428 and 1904x1904 token counts, 16 heads x 64), the same
+way, with the bound and #11's design floor (6 B H N^2 D over 989 TFLOP/s:
+its pass 2 recomputes pass 1's QK^T), and #12 (``tools/attn_variants.py``,
+padfix) at (16, 1297, 64). Then the SwinV2 window kernel (#3; bf16:
 csrc/window_attention_sm90.cu) at SwinV2-L-384's four stage shapes at B=8
 and stage 1 at B=1, on the inputs of ``tools/window_sm90_variants.py``, the
 same way, beside one SDPA call on the summed bias, the bound (4 B
@@ -67,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import inspect
+import math
 import os
 import statistics
 import subprocess
@@ -338,7 +346,56 @@ def attention(args, smi):
         del qkv, q, k, v, sdpa, kw, mask
         torch.cuda.empty_cache()
     stacks.clear()
+    sweep_variants(packages, gen, smi, args.against)
     window(packages, gen, smi, args.against)
+
+
+SWEEP_NS = (10405, 18497)  # #10 and #11 at DA-V2 ViT-L's 1428x1428 and 1904x1904 token counts
+
+
+def sweep_variants(packages: dict, gen, smi: str, against):
+    """#10 in every ``flash_tune.XL_CASES`` case and #11 at panels 1, 2, 4
+    and 8, with #1 as the anchor, at ``SWEEP_NS``, as ``attention`` times #1."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from muggled_dpt_tpu_torch.tools.flash_tune import XL_CASES
+
+    h = 16
+    kernels = {name: [importlib.import_module(f"{pkg}.ops.kernels.{mod}") for mod in
+                      ("flash_attention", "flash_attention_xl", "flash_attention_staged")] for name, pkg in packages.items()}
+    order = ["against", "this", "this", "against"] if against else ["this", "this"]
+    for n in SWEEP_NS:
+        qkv = torch.randn(1, n, 3 * h * 64, device="cuda", dtype=torch.bfloat16, generator=gen)
+        cases = [("#1 (anchor)", lambda m: m[0].flash_attention_fused_qkv(qkv, h))]
+        cases += [(f"#10 {label}", lambda m, kw=kw: m[1].flash_attention_fused_qkv_xl(qkv, h, **kw)) for label, kw in XL_CASES]
+        cases += [(f"#11 panels={p}", lambda m, p=p: m[2].flash_attention_fused_qkv_staged(qkv, h, panels=p)) for p in (1, 2, 4, 8)]
+        sdpa = [t.transpose(1, 2) for t in qkv.unflatten(2, (h, 3, 64)).unbind(3)]
+        library = event_ms(lambda: F.scaled_dot_product_attention(*sdpa), 10, 2)
+        bound_ms = 4 * h * n * n * 64 / 989e12 * 1e3  # operations bound: the bytes, 4 N H D bf16, are far below
+        floor_ms = 6 * h * n * n * 64 / 989e12 * 1e3
+        for label, call in cases:
+            times = {name: [] for name in kernels}
+            for name in order:
+                times[name].append(event_ms(lambda: call(kernels[name]), 10, 2))
+            readings = ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
+            floor = f"; design floor {floor_ms:.4f} ms" if label.startswith("#11") else ""
+            print(f"{label} (B=1, N={n}, H={h}, D=64, random slab): {readings} (median of 10 after 2); SDPA {library:.4f} ms; "
+                  f"bound {bound_ms:.4f} ms (ops){floor} [{smi}]", flush=True)
+        del qkv, sdpa
+        torch.cuda.empty_cache()
+    # #12, whose kernel template lost its #10 and #11 instantiations: padfix at the JAX tool's (16, 1297, 64)
+    q, k, v = (torch.randn(16, 1297, 64, device="cuda", dtype=torch.bfloat16, generator=gen) for _ in range(3))
+    variant = {name: importlib.import_module(f"{pkg}.tools.attn_variants").flash_variant for name, pkg in packages.items()}
+    times = {name: [] for name in variant}
+    for name in order:
+        times[name].append(event_ms(lambda: variant[name](q, k, v)))
+    library = event_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=math.log(2.0)))
+    readings = ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
+    print(f"#12 flash_variant padfix (16, 1297, 64), random: {readings} (median of 30 after 5); SDPA {library:.4f} ms [{smi}]",
+          flush=True)
 
 
 def window(packages: dict, gen, smi: str, against):

@@ -6,7 +6,8 @@ inputs: every executable case of tests/test_flash_staged_experiment.py (the
 TPU-lowering cases have no counterpart), the D=128 case on the plain version.
 Tolerances as there: 3e-5 in float32, 2e-4 where every logit is far below
 zero. Then the entry's pointer and stride arithmetic through a stub of the
-kernel library that reads ``enum Slot`` of ``csrc/flash_variants.cuh``."""
+kernel library that reads ``enum Slot`` of ``csrc/flash_variants.cuh`` and
+takes the C entry's route (``test_torch_flash_sm90_variants.c_entry_route``)."""
 
 import array
 import ctypes
@@ -24,6 +25,7 @@ from experiments.flash_attention_staged import flash_attention_fused_qkv_staged 
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_staged as st
 from muggled_dpt_tpu_torch.ops.kernels import flash_variants as fv
+from test_torch_flash_sm90_variants import CUDA_ERROR_INVALID_VALUE, c_entry_route
 
 TOL = dict(rtol=3e-5, atol=3e-5)
 NEG_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -124,7 +126,10 @@ class StubLibrary:
         q, k, v, o = (self._view(a[s[k]], (b, n, h, d), [*a[s[k] + 1 : s[k] + 4], 1], dtype)
                       for k in ("SLOT_Q", "SLOT_K", "SLOT_V", "SLOT_O"))
         panel = a[s["SLOT_PANEL"]]
-        self.calls.append({k: a[s[k]] for k in ("SLOT_KEYS", "SLOT_MODE", "SLOT_QP", "SLOT_PANEL")})
+        route = c_entry_route(s, a, "mdpt_flash_attention_staged")  # the kernel the C entry takes
+        self.calls.append({"route": route, **{k: a[s[k]] for k in ("SLOT_KEYS", "SLOT_MODE", "SLOT_QP", "SLOT_PANEL")}})
+        if route is None:
+            return CUDA_ERROR_INVALID_VALUE
         n_pad = (n + 127) // 128 * 128
         panels = -(-n_pad // panel)  # the panel count whose _panel_bounds has this width
         assert st._panel_bounds(n_pad, panels)[1] == panel
@@ -147,13 +152,16 @@ def stub(monkeypatch):
 @pytest.mark.parametrize("n,panels", [(70, 1), (300, 2), (700, 4)])
 def test_staged_entry_arithmetic_through_stub_library(stub, dtype, n, panels):
     """q, k and v read in place in the slab, the panel width of
-    ``_panel_bounds`` in its slot: the stub's result equals the plain entry."""
+    ``_panel_bounds`` in its slot, the route the C entry takes (bf16: the
+    sm_90 kernel; f32: fv_f32): the stub's result equals the plain entry."""
     qkv = torch.from_numpy(_qkv(np.random.default_rng(8), 2, n, 3)).to(dtype)
     st.flash_attention_fused_qkv_staged.launches = 0
     got = st.flash_attention_fused_qkv_staged(qkv, 3, panels=panels, hpp=3, block_q=256)
     assert st.flash_attention_fused_qkv_staged.launches == 1 and len(stub.calls) == 1
     bounds = st._panel_bounds((n + 127) // 128 * 128, panels)
-    assert stub.calls[0] == {"SLOT_KEYS": n, "SLOT_MODE": fv.MODES["staged"], "SLOT_QP": 1, "SLOT_PANEL": bounds[1]}
+    want_route = "sm90" if dtype == torch.bfloat16 else "fv_f32"  # bf16: the wgmma/TMA kernel of csrc/flash_staged_sm90.cu
+    assert stub.calls[0] == {"route": want_route, "SLOT_KEYS": n, "SLOT_MODE": fv.MODES["staged"], "SLOT_QP": 1,
+                             "SLOT_PANEL": bounds[1]}
     want = st.flash_attention_fused_qkv_staged_reference(qkv, 3, panels=panels)
     assert got.shape == want.shape == (2, n, 3 * 64) and got.dtype == dtype
     torch.testing.assert_close(got, want)  # the scale crosses as scale * log2(e): round-off only

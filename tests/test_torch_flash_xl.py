@@ -5,7 +5,8 @@ same numpy inputs, every executable case of tests/test_flash_attention_xl.py
 (the TPU-lowering cases have no counterpart). Tolerances as there: 3e-5 in
 float32, 2e-4 where every logit is far below zero. Then the entry's pointer
 and stride arithmetic through a stub of the kernel library that reads
-``enum Slot`` of ``csrc/flash_variants.cuh``."""
+``enum Slot`` of ``csrc/flash_variants.cuh`` and takes the C entry's route
+(``test_torch_flash_sm90_variants.c_entry_route``)."""
 
 import array
 import ctypes
@@ -22,6 +23,7 @@ from experiments.flash_attention_xl import flash_attention_fused_qkv_xl as jax_x
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_xl as xl
 from muggled_dpt_tpu_torch.ops.kernels import flash_variants as fv
+from test_torch_flash_sm90_variants import CUDA_ERROR_INVALID_VALUE, c_entry_route
 
 TOL = dict(rtol=3e-5, atol=3e-5)
 NEG_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -129,7 +131,10 @@ class StubLibrary:
         dtype = [torch.float32, torch.bfloat16][a[s["SLOT_DTYPE"]]]
         q, k, v, o = (self._view(a[s[k]], (b, n, h, d), [*a[s[k] + 1 : s[k] + 4], 1], dtype)
                       for k in ("SLOT_Q", "SLOT_K", "SLOT_V", "SLOT_O"))
-        self.calls.append({k: a[s[k]] for k in ("SLOT_KEYS", "SLOT_MODE", "SLOT_QP", "SLOT_PIPELINED")})
+        route = c_entry_route(s, a, "mdpt_flash_attention_xl")  # the kernel the C entry takes
+        self.calls.append({"route": route, **{k: a[s[k]] for k in ("SLOT_KEYS", "SLOT_MODE", "SLOT_QP", "SLOT_PIPELINED")}})
+        if route is None:
+            return CUDA_ERROR_INVALID_VALUE
         scale = qk_scale / fa.LOG2E
         if a[s["SLOT_MODE"]] == fv.MODES["ablate"]:
             qkv = torch.stack([q, k, v], dim=3).reshape(b, n, 3 * h * d)
@@ -160,7 +165,8 @@ def stub(monkeypatch):
 @pytest.mark.parametrize("qp,pipelined,ablate", [(1, True, False), (2, False, False), (4, True, True)])
 def test_xl_entry_arithmetic_through_stub_library(stub, dtype, qp, pipelined, ablate):
     """q, k and v read in place in the slab (row stride 3C, head stride 3D),
-    the output (B, N, C), the mode, qp and pipelining in their slots: the
+    the output (B, N, C), the mode, qp and pipelining in their slots, the
+    route the C entry takes (bf16: the sm_90 kernel; f32: fv_f32): the
     stub's result equals the plain entry."""
     qkv = torch.from_numpy(_qkv(np.random.default_rng(8), 2, 70, 3)).to(dtype)
     xl.flash_attention_fused_qkv_xl.launches = 0
@@ -168,7 +174,9 @@ def test_xl_entry_arithmetic_through_stub_library(stub, dtype, qp, pipelined, ab
     assert xl.flash_attention_fused_qkv_xl.launches == 1 and len(stub.calls) == 1
     assert len(stub.recorded["values"]) == stub.slots["NUM_SLOTS"]
     want_mode = fv.MODES["ablate" if ablate else "flash"]
-    assert stub.calls[0] == {"SLOT_KEYS": 70, "SLOT_MODE": want_mode, "SLOT_QP": qp, "SLOT_PIPELINED": int(pipelined)}
+    want_route = "sm90" if dtype == torch.bfloat16 else "fv_f32"  # bf16: the wgmma/TMA kernel of csrc/flash_xl_sm90.cu
+    assert stub.calls[0] == {"route": want_route, "SLOT_KEYS": 70, "SLOT_MODE": want_mode, "SLOT_QP": qp,
+                             "SLOT_PIPELINED": int(pipelined)}
     want = xl.flash_attention_fused_qkv_xl_reference(qkv, 3, ablate_softmax=ablate)
     assert got.shape == want.shape == (2, 70, 3 * 64) and got.dtype == dtype
     torch.testing.assert_close(got, want)  # the scale crosses as scale * log2(e): round-off only

@@ -26,7 +26,8 @@ ported = ("checkpoints.beit", "models.beit", "models.beit_family", "make_beit_dp
           "checkpoints.swinv2", "models.swinv2", "models.swinv2_family", "make_swinv2_dpt", "ops.kernels.window_attention",
           "make_depthanythingv1_dpt", "ops.kernels.fused_mlp", "ops.kernels.head_tail", "ops.quant",
           "ops.kernels.flash_attention_int8", "ops.kernels.flash_attention_xl", "ops.kernels.flash_attention_staged",
-          "ops.kernels.flash_variants", "tools.attn_variants", "tools.flash_tune", "tools.flash_sm90_variants")
+          "ops.kernels.flash_variants", "tools.attn_variants", "tools.flash_tune", "tools.flash_sm90_variants",
+          "tools.sweep_sm90_variants")
 missing = [m for m in ported if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print("OK", len(names))
