@@ -53,20 +53,22 @@ one entry per TPU kernel:
      forward hook on the block's qkv layer), with CUDA-event times against
      their plain versions, kernel #1 and SDPA on block 11's slab;
   #8 fused LayerNorm -> MLP -> LayerScale residual (csrc/fused_mlp.cu) and
-  #9 fused head tail, 3x3 conv -> ReLU -> 1x1 -> ReLU or sigmoid
-     (csrc/head_tail.cu): as in the JAX package, no model serves through
-     them. Their paths hold them against the DA models' own layers:
+  #9 fused head tail, 3x3 conv -> ReLU -> 1x1 -> ReLU or sigmoid: in bf16
+     at a width a tensor map reads the implicit GEMM on wgmma of
+     csrc/head_tail_sm90.cu (route ``head_tail_sm90``), in f32 and at other
+     widths csrc/head_tail.cu (route ``head_tail``); as in the JAX package,
+     no model serves through them. Their paths hold them against the DA models' own layers:
      ``Block.mlp_residual`` of DA-V1 ViT-L's blocks 0, 11 and 23 on the
      residual stream after each block's attention (#8), ``Head.tail`` of
      the DA-V1 and DA-V2-metric ViT-L heads on the head's own input (#9),
      at B=1 and B=8, with CUDA-event times against those composites;
   #10 XL, #11 staged and #12 the variant shootout: measurement variants of
-     #1, as in the JAX package served by no model. In bf16 #10 and #11 run
-     on #1's wgmma/TMA pipeline (csrc/flash_xl_sm90.cu, one instantiation
-     per qp, pipelining and mode; csrc/flash_staged_sm90.cu), #12 on the
-     mma.sync template of csrc/flash_variants.cuh; f32 on that template's
-     FMA kernel (C entries csrc/flash_attention_xl.cu, flash_attention_staged.cu,
-     flash_variant.cu). Their path is the attention sweep
+     #1, as in the JAX package served by no model. In bf16 they run on
+     #1's wgmma/TMA pipeline (csrc/flash_xl_sm90.cu, one instantiation per
+     qp, pipelining and mode; csrc/flash_staged_sm90.cu;
+     csrc/flash_variant_sm90.cu, one instantiation per mode); f32 on the
+     FMA template of csrc/flash_variants.cuh (C entries
+     csrc/flash_attention_xl.cu, flash_attention_staged.cu, flash_variant.cu). Their path is the attention sweep
      (``muggled_dpt_tpu_torch/tools/flash_tune.py``) on DA-V2 ViT-L's own
      block-11 qkv slabs across the long-N ladder, against #1, SDPA and their
      plain versions.
@@ -78,10 +80,10 @@ failure raises:
      all started together; the bf16 attention kernel's registers, spills and
      shared memory, unbiased and biased, the sm_90 window kernel's, with
      and without the mask, and those of each sm_90 instantiation of #10
-     (qp, pipelined, mode: also its key tile and consumer registers) and #11
-     (cudaFuncGetAttributes); fails if ptxas serialized the wgmma of the
-     window kernel or of #10's or #11's sm_90 source (C7510-C7520) or any
-     of them spilled;
+     (qp, pipelined, mode: also its key tile and consumer registers), #11,
+     #12 (each mode) and #9 (cudaFuncGetAttributes); fails if ptxas
+     serialized the wgmma (C7510-C7520) of any sm_90 source (the attention,
+     window, #9, #10, #11 and #12 kernels) or any of them spilled;
   3. each kernel vs its plain version at the paths' shapes and edge cases,
      float32 and bfloat16 (#1 and #2 also at N = 127-385 around the bf16
      kernel's 128-key and 192-row tiles, #2 there with a padded stack layer
@@ -106,8 +108,11 @@ failure raises:
   10. the (B, N, H, D) op path;
   11. #8 and #9 vs their plain versions (#8 at F = 384, 768, 1024 and
       100, 1297, 8 x 1297 and 1025 rows; #9 at ci = 32, 64, 128, 192, at
-      504x504 with B=1 and 8, 37x52 and 392x518, ReLU and sigmoid), float32
-      and bfloat16, then CUDA-event times of both, in turns;
+      504x504 with B=1 and 8, 389x512, 37x52 and 392x518, ReLU and
+      sigmoid), float32 and bfloat16, each bf16 #9 launch held to the route
+      its size must take, as the wrapper counted it and by the kernel's
+      name (ht_sm90 at 504x504 and 389x512, head_tail<bf16> at 37x52 and
+      392x518), then CUDA-event times of both, in turns;
   12. DA-V1 ViT-L bf16 serving and f32 parity as 4-5, then #8 and #9 on its
       blocks and head (bf16 serving model and f32 kernel model);
   13. DA-V2-metric ViT-L bf16 serving (depth in (0, 1)), #9 on its head;
@@ -130,14 +135,22 @@ failure raises:
       every ladder N (bf16 and f32) and on an all-negative slab; #10 in
       every sweep case and #11 at 1, 2, 4 and 8 panels on the N=10405 and
       18497 slabs and at N=700 (also at scale -0.3) and 200 (all-negative), each bf16 launch of
-      #10 and #11 held to its sm_90 kernel by name in a torch.profiler
-      trace; #12 in every mode at
+      #10 and #11 held to its sm_90 kernel by name (the kernel names of
+      its launches, from CUPTI's callback API); #12 in every mode at
       (16, 1297, 64) and on the N=18497 slab's heads, mask_exp2 against true
       attention with every logit negative, where padfix and chunk must
-      fail; the sweep's path run once with its launches counted; its
-      CUDA-event tables at every ladder N, with #11's time beside its bound
-      and its design floor (6 B H N^2 D over 989 TFLOP/s: pass 2
-      recomputes pass 1's QK^T).
+      fail, each bf16 launch held to fv_sm90 by name; the sweep's path run
+      once with its launches counted; its CUDA-event tables at every
+      ladder N, with #11's time beside its bound and its design floor (6 B
+      H N^2 D over 989 TFLOP/s: pass 2 recomputes pass 1's QK^T); #12's
+      padfix at (16, 1297, 64) per launch (CUDA events around each call,
+      as every kernel's time) and as device time (launches queued back to
+      back behind a spin of the card: the host's cost per call left out),
+      beside its plain version and SDPA timed the same ways, and the host's
+      cost per call of its bf16 and f32 routes (the same wrapper, with and
+      without the sm_90 route's tensor-map encodes) and of SDPA; the JSON
+      line carries the per-launch times as ``ms``, ``plain_ms`` and
+      ``library_ms``, and the device times and host costs beside them.
 Then one JSON line of per-kernel results (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
 for bf16, 1979 TOP/s for int8 (#6 and #7's QK^T); #3's exp floor, one exp2
@@ -180,6 +193,7 @@ from muggled_dpt_tpu_torch.ops.kernels import head_tail as ht
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 from muggled_dpt_tpu_torch.tools import attn_variants as fav
 from muggled_dpt_tpu_torch.tools import flash_tune as ft
+from muggled_dpt_tpu_torch.tools import measure
 
 VITL = {
     "features_per_token": 1024,
@@ -234,7 +248,12 @@ DEVICE = "cuda"
 MLP_WIDTHS = (384, 768, 1024)  # ViT-S, B and L: F, with the hidden width 4F
 MLP_ROWS = (100, N_TOKENS, 8 * N_TOKENS, N_BEIT)
 HEAD_CHANNELS = (32, 64, 128, 192)  # the tail's input: half of fusion 64 (ViT-S), 128 (B), 256 (L), 384 (Giant)
-HEAD_SIZES = ((1, 504, 504), (8, 504, 504), (1, 37, 52), (1, 392, 518))
+# (B, H, W) and the bf16 route the wrapper must count there: the sm_90 kernel where a tensor map reads the map (the DA
+# serving size; 389 rows, no multiple of either unit height, and 512 columns, a whole last column block whose right
+# edge box lies past W), head_tail<bf16> at widths it cannot read
+HEAD_SIZES = ((1, 504, 504, "head_tail_sm90"), (8, 504, 504, "head_tail_sm90"), (1, 389, 512, "head_tail_sm90"),
+              (1, 37, 52, "head_tail"), (1, 392, 518, "head_tail"))
+HEAD_ROUTE_KERNEL = {"head_tail_sm90": "ht_sm90", "head_tail": "head_tail<"}  # a #9 route and its kernel, as traced
 TAP_BLOCKS = (0, 11, 23)  # DA-V1 ViT-L blocks whose second half #8 is held against; int8 DA-V2 qkv slabs for #6, #7
 INT8_TIERS = {  # DA-V2 ViT-L int8 serving tiers: quantize_encoder_int8 options ("calibrate": 2 frames)
     "int8": {},
@@ -268,8 +287,10 @@ COMPOSITE_BF16_REL_MAX, COMPOSITE_BF16_REL_MEAN = 5e-2, 1e-2
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 WINDOW_SM90 = "window_attention_sm90.cu"
-SM90_SOURCES = (WINDOW_SM90, "flash_xl_sm90.cu", "flash_staged_sm90.cu")  # ptxas must not serialize their wgmma or spill
-SM90_KERNEL = {10: "fxl_sm90", 11: "fst_sm90"}  # the sm_90 kernels' names, as a profiler trace records them
+SM90_SOURCES = ("flash_attention_sm90.cu", WINDOW_SM90, "head_tail_sm90.cu", "flash_xl_sm90.cu", "flash_staged_sm90.cu",
+                "flash_variant_sm90.cu")  # ptxas must not serialize their wgmma or spill
+SM90_KERNEL = {9: "ht_sm90", 10: "fxl_sm90", 11: "fst_sm90", 12: "fv_sm90"}  # sm_90 kernels' names, as launches show them
+FV_MODES = ("MASK", "PADFIX", "NOSM", "EXPONLY", "MAXONLY")  # csrc/flash_variant_sm90.cu's FvMode, in order
 
 REPLACES = {
     1: "muggled_dpt_tpu/ops/pallas/flash_attention.py:125",
@@ -300,8 +321,8 @@ NAMES = {
     12: "flash_variant (pre-scaled (BH, N, D); mode padfix, the JAX default)",
 }
 SOURCES = {1: "flash_attention_sm90", 2: "flash_attention_sm90", 3: "window_attention_sm90", 4: "flash_attention_sm90",
-           5: "flash_attention_sm90", 6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp", 9: "head_tail",
-           10: "flash_xl_sm90", 11: "flash_staged_sm90", 12: "flash_variant"}
+           5: "flash_attention_sm90", 6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp",
+           9: "head_tail_sm90", 10: "flash_xl_sm90", 11: "flash_staged_sm90", 12: "flash_variant_sm90"}
 SERVED = {}  # what -> (ms per request at B=1, ms per frame at B=8), filled by serve()
 
 
@@ -348,6 +369,8 @@ def phase_build():
                      for qp in (1, 2, 4) for pipelined in (0, 1) for ablate in (0, 1)]
     sm90_variants += [(f"fst_sm90<NEG={neg}>", lambda info, neg=neg: kernel_library().mdpt_flash_staged_sm90_info(neg, info))
                       for neg in (0, 1)]
+    sm90_variants += [(f"fv_sm90<{name}>", lambda info, mode=mode: kernel_library().mdpt_flash_variant_sm90_info(mode, info))
+                      for mode, name in enumerate(FV_MODES)]
     for what, query in sm90_variants:
         info = (ctypes.c_int * 7)()
         err = query(info)
@@ -357,6 +380,15 @@ def phase_build():
         print(f"build: {what}: {regs} registers per thread at launch (setmaxnreg: consumers {consumer_regs}), {spill} B "
               f"local memory per thread, {static_smem} B static + {dynamic_smem} B dynamic shared memory, {threads} "
               f"threads, {keys}-key tiles", flush=True)
+    for rows, channels in ((8, 128), (6, 192)):
+        info = (ctypes.c_int * 7)()
+        err = kernel_library().mdpt_head_tail_sm90_info(rows, info)
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes of ht_sm90<{rows}> failed: CUDA error {err}")
+        regs, spill, static_smem, dynamic_smem, threads, rows, stages = info
+        print(f"build: csrc/head_tail_sm90.cu ht_sm90<{rows}>: {regs} registers per thread, {spill} B local memory per "
+              f"thread, {static_smem} B static + {dynamic_smem} B dynamic shared memory at ci={channels}, {threads} "
+              f"threads, {rows} output rows per unit, {stages} TMA stages", flush=True)
     for source in SM90_SOURCES:
         report = logs.get(source) or ptxas_report(source)  # the library may have been built before
         serialized = sorted(set(re.findall(r"C75(?:1\d|20)\)?[^\n]*", report)))
@@ -412,6 +444,30 @@ def timed_pair(smi, what, kernel, plain, library=None, iters=30, warmup=5):
     extra = "" if lib is None else f", library call {lib:.4f} ms"
     print(f"kernel time {what}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms{extra} [{smi}]", flush=True)
     return min(k1, k2), min(p1, p2), lib
+
+
+def device_pair(smi, what, kernel, plain, library=None):
+    """Device times (``flash_tune.device_ms``) of a kernel and its plain
+    version, in turns (plain, kernel, kernel, plain), then of ``library``;
+    printed and returned as ``timed_pair`` returns its times."""
+    p1, k1, k2, p2 = (ft.device_ms(f) for f in (plain, kernel, kernel, plain))
+    lib = None if library is None else ft.device_ms(library)
+    extra = "" if lib is None else f", library call {lib:.4f} ms"
+    print(f"kernel time {what}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms{extra} (20 launches queued "
+          f"behind a spin, after 3) [{smi}]", flush=True)
+    return min(k1, k2), min(p1, p2), lib
+
+
+def host_pair(smi, what, fns: dict, rounds: int = 5) -> list:
+    """Host microseconds per call of each of ``fns`` (``flash_tune.host_us``:
+    200 calls queued behind a spin of the card), in ``rounds`` rounds, the
+    order reversed every other round (``measure.interleaved``); prints and
+    returns each median."""
+    readings = measure.interleaved(fns, ft.host_us, rounds)
+    medians = [statistics.median(readings[label]) for label in fns]
+    print(f"host us per call, {what} (200 calls queued behind a spin, median of {rounds} rounds): "
+          + ", ".join(f"{label} {us:.1f}" for label, us in zip(fns, medians)) + f" [{smi}]", flush=True)
+    return medians
 
 
 def window_sdpa_inputs(q, k, v, cpb, mask):
@@ -907,13 +963,23 @@ def phase_fused_kernels(smi: str) -> dict:
                 x, params = mlp_inputs(rng, mlp_shape(rows, f), dtype)
                 check(8, f"{name} rows={rows} F={f} H={4 * f}", fm.fused_ln_mlp_residual(x, *params),
                       fm.fused_ln_mlp_residual_reference(x, *params), x.shape, relative=True)
-        for ci in HEAD_CHANNELS:
-            for b, h, w in HEAD_SIZES:
-                x, params = head_inputs(rng, b, ci, h, w, dtype)
-                for metric in (False, True):
-                    check(9, f"{name} B={b} ci={ci} {h}x{w} {'sigmoid' if metric else 'relu'}",
-                          ht.fused_head_tail(x, *params, metric), ht.fused_head_tail_reference(x, *params, metric), (b, h, w),
-                          relative=True)
+        cases = [(ci, b, h, w, route, metric, *head_inputs(rng, b, ci, h, w, dtype)) for ci in HEAD_CHANNELS
+                 for b, h, w, route in HEAD_SIZES for metric in (False, True)]
+        calls = [lambda x=x, params=params, metric=metric: ht.fused_head_tail(x, *params, metric)
+                 for *_, metric, x, params in cases]
+        if dtype == torch.bfloat16:  # each launch held to its size's route, as counted and by name, in one trace
+            results, names = device_kernels(lambda: [counted_route(call, HEAD_ROUTE_KERNEL) for call in calls])
+            routes = [route for _, route in results]
+            want = [route for _, _, _, _, route, *_ in cases]
+            if routes != want:
+                raise RuntimeError(f"kernel #9: the launches took the routes {routes}, want {want}")
+            outs, kernels = [out for out, _ in results], ran_labels(9, names, [HEAD_ROUTE_KERNEL[r] for r in routes])
+        else:
+            outs, kernels = [call() for call in calls], [""] * len(calls)
+        for (ci, b, h, w, _, metric, x, params), got, kernel in zip(cases, outs, kernels):
+            check(9, f"{name} B={b} ci={ci} {h}x{w} {'sigmoid' if metric else 'relu'}{kernel}", got,
+                  ht.fused_head_tail_reference(x, *params, metric), (b, h, w), relative=True)
+        del cases, calls, outs
         torch.cuda.empty_cache()
     times = {}
     f, ci = VITL["features_per_token"], VITL["fusion_channels"] // 2  # ViT-L's block and head tail
@@ -961,7 +1027,7 @@ def hold_on_model(smi, model, what, stacks, check, blocks=None, times=None) -> d
     kernel vs composite (block 11 and the head), in turns."""
     name, net = str(model.dtype)[6:], model.net
     blocks = TAP_BLOCKS if blocks is None else blocks
-    launches = {"fused_mlp": 0, "head_tail": 0}
+    launches = {"fused_mlp": 0, "head_tail": 0, "head_tail_sm90": 0}
     with torch.inference_mode(), model._precision():  # f32: no TF32 in the composites' GEMMs and convs
         for frames in stacks:
             b = frames.shape[0]
@@ -977,11 +1043,15 @@ def hold_on_model(smi, model, what, stacks, check, blocks=None, times=None) -> d
             torch.cuda.synchronize()
             fa.reset_launch_counts()  # count this path's launches only
             outs = {i: fm.fused_ln_mlp_residual(*mlp_args[i]) for i in blocks}
-            out_head = ht.fused_head_tail(*head_args)
+            if model.dtype == torch.bfloat16:  # the serving size: the sm_90 kernel
+                out_head, kernel = sm90_launch(9, lambda: ht.fused_head_tail(*head_args))
+            else:
+                out_head, kernel = ht.fused_head_tail(*head_args), ""
             torch.cuda.synchronize()
             counts = fa.launch_counts()
-            if counts != {**{r: 0 for r in counts}, "fused_mlp": len(blocks), "head_tail": 1}:
-                raise RuntimeError(f"{what} B={b}: launches {counts}, want {len(blocks)} fused_mlp and 1 head_tail")
+            route = "head_tail_sm90" if model.dtype == torch.bfloat16 else "head_tail"
+            if counts != {**{r: 0 for r in counts}, "fused_mlp": len(blocks), route: 1}:
+                raise RuntimeError(f"{what} B={b}: launches {counts}, want {len(blocks)} fused_mlp and 1 {route}")
             for r in launches:
                 launches[r] += counts[r]
             for i in blocks:
@@ -989,7 +1059,8 @@ def hold_on_model(smi, model, what, stacks, check, blocks=None, times=None) -> d
                 check(8, label, outs[i], fm.fused_ln_mlp_residual_reference(*mlp_args[i]), tokens[i].shape, relative=True)
                 check(8, label, outs[i], net.encoder.blocks[i].mlp_residual(tokens[i]), tokens[i].shape, relative=True,
                       composite=True)
-            label = f"{name} {what} B={b} head ci={hx.shape[1]} {hx.shape[2]}x{hx.shape[3]} {'sigmoid' if head.is_metric else 'relu'}"
+            label = (f"{name} {what} B={b} head ci={hx.shape[1]} {hx.shape[2]}x{hx.shape[3]} "
+                     f"{'sigmoid' if head.is_metric else 'relu'}{kernel}")
             shape = (b, *hx.shape[2:])
             check(9, label, out_head, ht.fused_head_tail_reference(*head_args), shape, relative=True)
             check(9, label, out_head, head.tail(hx), shape, relative=True, composite=True)
@@ -1053,7 +1124,8 @@ def phase_metric(smi: str, ckpt: str, check: Checker):
     launches = hold_on_model(smi, model, "DA-V2-metric ViT-L", stacks, check, blocks=())
     del model
     torch.cuda.empty_cache()
-    launches["head_tail"] += hold_on_model(smi, m_f32, "DA-V2-metric ViT-L", stacks, check, blocks=())["head_tail"]
+    for r, n in hold_on_model(smi, m_f32, "DA-V2-metric ViT-L", stacks, check, blocks=()).items():
+        launches[r] += n
     return launches
 
 
@@ -1402,37 +1474,130 @@ def true_exp2_attention(q, k, v):
 
 
 def check_variants(check, label, q_s, q_s2, k, v, relative=False):
-    """#12 in every mode of the sweep against its plain version."""
-    for case, kw in ft.VARIANT_CASES:
+    """#12 in every mode of the sweep against its plain version; each bf16
+    launch held to fv_sm90 by name."""
+    calls = [lambda kw=kw: fav.flash_variant(q_s if kw.get("mode") == "mask_exp" else q_s2, k, v, **kw)
+             for _, kw in ft.VARIANT_CASES]
+    if q_s.dtype == torch.bfloat16:  # every launch held to fv_sm90, in one trace
+        outs, kernels = traced_launches(12, calls, [SM90_KERNEL[12]] * len(calls))
+    else:
+        outs, kernels = [call() for call in calls], [""] * len(calls)
+    for (case, kw), got, kernel in zip(ft.VARIANT_CASES, outs, kernels):
         q = q_s if kw.get("mode") == "mask_exp" else q_s2
-        got = fav.flash_variant(q, k, v, **kw)
         ref = fav.flash_variant_reference(q, k, v, kw.get("mode", "padfix"), kw.get("chunk"))
         if kw.get("mode") in ("nosm", "maxonly", "exponly"):
-            check_ablation(check, 12, f"{label} {case}", got, ref, q.shape)
+            check_ablation(check, 12, f"{label} {case}{kernel}", got, ref, q.shape)
         else:
-            check(12, f"{label} {case}", got, ref, q.shape, relative=relative)
+            check(12, f"{label} {case}{kernel}", got, ref, q.shape, relative=relative)
 
 
-def sm90_launch(kid, fn, traces=3):
-    """fn() (one bf16 launch of #10 or #11) under torch.profiler; returns its
-    output and, for the check's label, the kernel that ran, once the trace
-    shows that the launch ran kernel #kid's sm_90 kernel (``SM90_KERNEL``) and
-    nothing of flash_variants.cuh's template. A trace that recorded no device
-    event at all (the profiler lost it; seen once on an H100) is taken again,
-    up to ``traces`` times."""
-    from torch.profiler import ProfilerActivity, profile
+KNOWN_KERNELS = ("fv_f32", "fv_sm90", "fxl_sm90", "fst_sm90", "ht_sm90", "head_tail<")  # the sweep's and #9's, as traced
 
-    for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
-    ran = [re.search(rf"{SM90_KERNEL[kid]}(<[^>]*>)?", name).group(0) for name in names if SM90_KERNEL[kid] in name]
-    if len(ran) != 1 or any("fv_bf16" in name or "fv_f32" in name for name in names):
-        raise RuntimeError(f"kernel #{kid}: a bf16 launch ran {names}, want one {SM90_KERNEL[kid]} kernel")
-    return out, f" [{ran[0]}]"
+
+CUPTI_API_DOMAIN = 1  # cupti_callbacks.h: the domain of CUDA's C API calls, cuLaunchKernel among them
+CUPTI_CALLBACK = ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p)
+
+
+def _cupti():
+    """(libcupti, its subscriber, the callback, the list it fills): CUPTI's
+    callback API subscribed once per process to CUDA's launch entry points
+    (the cuLaunchKernel* family), enabled only inside ``device_kernels``. The callback keeps the
+    kernel name (``symbolName``) of each cuLaunchKernel* call it sees.
+    (torch.profiler's traces, which rest on CUPTI's activity API, lost
+    every device event on an H100 once libraries had loaded or kernels
+    had run between them.)"""
+    if _cupti.state is None:
+        import glob
+
+        nvidia = os.path.join(os.path.dirname(os.path.dirname(torch.__file__)), "nvidia", "cuda_cupti", "lib")
+        paths = [p for pattern in (os.path.join(nvidia, "libcupti.so*"), "/usr/local/cuda/lib64/libcupti.so*",
+                                   "/usr/local/cuda/extras/CUPTI/lib64/libcupti.so*") for p in sorted(glob.glob(pattern))]
+        if not paths:
+            raise RuntimeError("libcupti not found: the kernels' name checks need CUPTI")
+        lib = ctypes.CDLL(paths[0])
+        lib.cuptiSubscribe.argtypes = [ctypes.c_void_p, CUPTI_CALLBACK, ctypes.c_void_p]
+        lib.cuptiEnableDomain.argtypes = [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int]
+        names = []
+
+        def on_call(user, domain, cbid, data):  # CUpti_CallbackData: site at 0, functionName at 8, symbolName at 32
+            if ctypes.c_int.from_address(data).value == 0:  # CUPTI_API_ENTER
+                function = ctypes.c_char_p.from_address(data + 8).value or b""
+                if function.startswith(b"cuLaunchKernel"):
+                    names.append((ctypes.c_char_p.from_address(data + 32).value or b"?").decode())
+
+        callback, subscriber = CUPTI_CALLBACK(on_call), ctypes.c_void_p()
+        err = lib.cuptiSubscribe(ctypes.byref(subscriber), callback, None)
+        if err != 0:
+            raise RuntimeError(f"cuptiSubscribe failed: CUPTI error {err}")
+        _cupti.state = (lib, subscriber, callback, names)
+    return _cupti.state
+
+
+_cupti.state = None
+
+
+def device_kernels(fn):
+    """fn()'s output and the names of the kernels it launched (its
+    cuLaunchKernel* calls), in launch order, demangled (c++filt)."""
+    lib, subscriber, _, names = _cupti()
+    names.clear()
+    torch.cuda.synchronize()
+    err = lib.cuptiEnableDomain(1, subscriber, CUPTI_API_DOMAIN)
+    if err != 0:
+        raise RuntimeError(f"cuptiEnableDomain failed: CUPTI error {err}")
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        lib.cuptiEnableDomain(0, subscriber, CUPTI_API_DOMAIN)
+    mangled = list(names)
+    demangled = subprocess.run(["c++filt"], input="\n".join(mangled), capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+    return out, demangled
+
+
+def traced_launches(kid, calls, kernels):
+    """Each of ``calls`` (one launch of kernel #kid each) with its kernel
+    launches traced (``device_kernels``); returns their outputs and
+    ``ran_labels``."""
+    outs, names = device_kernels(lambda: [call() for call in calls])
+    return outs, ran_labels(kid, names, kernels)
+
+
+def ran_labels(kid, names, kernels) -> list:
+    """For each check's label, the kernel each launch ran, once the traced
+    ``names`` show that the launches ran ``kernels``, in order, and no other
+    kernel of ``KNOWN_KERNELS``."""
+    ran = [name for name in names if any(k in name for k in KNOWN_KERNELS)]
+    if len(ran) != len(kernels) or not all(k in name for k, name in zip(kernels, ran)):
+        raise RuntimeError(f"kernel #{kid}: the launches ran {names}, want {list(kernels)}")
+    return [f" [{kernel_label(k, name)}]" for k, name in zip(kernels, ran)]
+
+
+def counted_route(fn, routes):
+    """fn()'s output and the one of ``routes`` (``launch_counts`` keys) whose
+    count fn() raised, by one."""
+    before = fa.launch_counts()
+    out = fn()
+    after = fa.launch_counts()
+    moved = {r: after[r] - before[r] for r in routes if after[r] != before[r]}
+    if list(moved.values()) != [1]:
+        raise RuntimeError(f"one launch counted on one of {list(routes)} expected, got {moved}")
+    return out, next(iter(moved))
+
+
+def kernel_label(kernel: str, name: str) -> str:
+    """The part of a traced kernel's name that names it: ``kernel`` and its template arguments."""
+    return re.search(re.escape(kernel.rstrip("<")) + r"(<[^>]*>)?", name).group(0)
+
+
+def sm90_launch(kid, fn):
+    """fn() (one launch of kernel #kid) traced; returns its output and, for
+    the check's label, the kernel that ran, once the trace shows that the
+    launch ran #kid's sm_90 kernel (``SM90_KERNEL``) once and no other
+    kernel of ``KNOWN_KERNELS``."""
+    (out,), (label,) = traced_launches(kid, [fn], [SM90_KERNEL[kid]])
+    return out, label
 
 
 def phase_sweep(smi: str, slabs: dict) -> tuple[dict, dict, float]:
@@ -1515,15 +1680,22 @@ def phase_sweep(smi: str, slabs: dict) -> tuple[dict, dict, float]:
         q = ((q.abs() + 0.5) * 4.0 * (HEAD_DIM**-0.5 * fa.LOG2E)).to(dtype)
         k, v = (-(k.abs() + 0.5) * 4.0).to(dtype), v.to(dtype)
         true = true_exp2_attention(q, k, v)
-        err = float((fav.flash_variant(q, k, v, mode="mask_exp2").float() - true).abs().max())
+        cases = (("mask_exp2", {"mode": "mask_exp2"}), ("padfix", {"mode": "padfix"}), ("chunk=128", {"chunk": 128}))
+        calls = [lambda kw=kw: fav.flash_variant(q, k, v, **kw) for _, kw in cases]
+        if dtype == torch.bfloat16:  # the three launches held to fv_sm90, in one trace
+            outs, kernels = traced_launches(12, calls, [SM90_KERNEL[12]] * len(calls))
+        else:
+            outs, kernels = [call() for call in calls], [""] * len(calls)
+        got, kernel = outs[0], kernels[0]
+        err = float((got.float() - true).abs().max())
         gate = ALL_NEGATIVE_MAX_ERR if dtype == torch.float32 else BF16_MAX_ERR
-        print(f"kernel check #12 {name} G=2 N=200 all-negative mask_exp2 vs true attention: max_abs_err={err:.3e} (gate {gate:g})",
-              flush=True)
+        print(f"kernel check #12 {name} G=2 N=200 all-negative mask_exp2{kernel} vs true attention: max_abs_err={err:.3e} "
+              f"(gate {gate:g})", flush=True)
         if not err <= gate:
             raise RuntimeError(f"kernel #12 {name} mask_exp2 misses true attention by {err:.3e} with every logit negative")
-        for case, kw in (("padfix", {"mode": "padfix"}), ("chunk=128", {"chunk": 128})):
-            err = float((fav.flash_variant(q, k, v, **kw).float() - true).abs().max())
-            print(f"kernel check #12 {name} G=2 N=200 all-negative {case} vs true attention: max_abs_err={err:.3e}: the "
+        for (case, _), got, kernel in zip(cases[1:], outs[1:], kernels[1:]):
+            err = float((got.float() - true).abs().max())
+            print(f"kernel check #12 {name} G=2 N=200 all-negative {case}{kernel} vs true attention: max_abs_err={err:.3e}: the "
                   f"pad-count correction cancels (expected failure, above {EXPECTED_FAILURE} as required)"
                   if err > EXPECTED_FAILURE else f"{case}: {err:.3e}", flush=True)
             if not err > EXPECTED_FAILURE:
@@ -1548,16 +1720,26 @@ def phase_sweep(smi: str, slabs: dict) -> tuple[dict, dict, float]:
     top = tables[max(tables)]
     vi = ft.variant_inputs(make_qkv(rng, 1, N_TOKENS, torch.bfloat16))
     q, k, v = vi["q_s2"], vi["k"], vi["v"]
-    t12 = timed_pair(smi, f"#12 bf16 (16, {N_TOKENS}, {HEAD_DIM}) padfix", lambda: fav.flash_variant(q, k, v),
-                     lambda: fav.flash_variant_reference(q, k, v),
-                     lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=math.log(2.0)))
+    calls = (lambda: fav.flash_variant(q, k, v), lambda: fav.flash_variant_reference(q, k, v),
+             lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=math.log(2.0)))
     numbers = {
         10: (top[ft.XL_DEFAULT], top["#1 / #10 plain version"], top[ft.SDPA]),
         11: (top[ft.STAGED_DEFAULT], top["#11 plain version (panels=2)"], top[ft.SDPA]),
-        12: t12,
+        12: timed_pair(smi, f"#12 bf16 (16, {N_TOKENS}, {HEAD_DIM}) padfix, per launch", *calls),
     }
-    return ({kid: {"max_abs_err": check.worst[kid], **dict(zip(("ms", "plain_ms", "library_ms"), t))}
-             for kid, t in numbers.items()}, launches, check.worst[1])
+    numbers = {kid: {"max_abs_err": check.worst[kid], **dict(zip(("ms", "plain_ms", "library_ms"), t))}
+               for kid, t in numbers.items()}
+    # #12's launch is short enough that the host's cost per call shows in its per-launch time: its device time and
+    # host cost beside it, the host's split by the f32 route, which runs the same wrapper without tensor-map encodes
+    device = device_pair(smi, f"#12 bf16 (16, {N_TOKENS}, {HEAD_DIM}) padfix, device time", *calls)
+    numbers[12].update(zip(("device_ms", "plain_device_ms", "library_device_ms"), device))
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    host = host_pair(smi, f"#12 (16, {N_TOKENS}, {HEAD_DIM}) padfix", {
+        "bf16 (fv_sm90: three tensor-map encodes)": calls[0],
+        "f32 (fv_f32: no encode)": lambda: fav.flash_variant(q32, k32, v32),
+        "SDPA bf16": calls[2]})
+    numbers[12].update(host_us=host[0], library_host_us=host[2])
+    return numbers, launches, check.worst[1]
 
 
 def timed(name, fn, *args):
@@ -1671,8 +1853,12 @@ def main() -> int:
         numbers[kid] = {"max_abs_err": max(int8_worst[kid], check.worst[kid]),
                         **dict(zip(("ms", "plain_ms", "library_ms"), int8_times[kid]))}
     launches[8] = fused["fused_mlp"]
-    launches[9] = fused["head_tail"] + head_launches["head_tail"]
-    print(f"flash launches on the DA-V1 and Giant paths: {flash_v1}, {flash_giant}", flush=True)
+    head_routes = {r: fused[r] + head_launches[r] for r in ("head_tail_sm90", "head_tail")}
+    launches[9] = sum(head_routes.values())
+    print(f"flash launches on the DA-V1 and Giant paths: {flash_v1}, {flash_giant}; #9 launches on the DA-V1 and "
+          f"DA-V2-metric paths by route: {head_routes}", flush=True)
+    if head_routes["head_tail_sm90"] == 0:
+        raise RuntimeError(f"#9's sm_90 kernel never launched on its path: {head_routes}")
     for kid in (8, 9):
         numbers[kid]["max_abs_err"] = max(numbers[kid]["max_abs_err"], check.worst[kid])
         numbers[kid]["composite_ms"] = composite[(kid, torch.bfloat16, 8)][1]  # the model's own unfused layers

@@ -49,8 +49,8 @@
 //   * logits, softmax and accumulation in f32; p is rounded to the input
 //     type before the PV product; out = acc / max(l, 1e-30);
 //   * q rows past N are computed on zero input and never written.
-// The mma.sync, cp.async and ldmatrix helpers live in flash_tile.cuh, which
-// the measurement variants (#10-#12) share.
+// The mma.sync, cp.async and ldmatrix helpers live in flash_tile.cuh, whose
+// constants the measurement variants' float32 template shares.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

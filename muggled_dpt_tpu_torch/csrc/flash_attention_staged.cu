@@ -23,7 +23,7 @@ cudaError_t flash_staged_sm90(const void* q, const long long* q_st, const void* 
 // cudaError_t of the launch (0 on success); the launch is asynchronous on
 // `stream`.
 extern "C" int mdpt_flash_attention_staged(const long long* args, float qk_scale, void* stream) {
-    return variant_entry(args, qk_scale, stream, true,
+    return variant_entry(args, qk_scale, stream, false,
                          [](const VArgs& a, int mode, int qp, bool pipelined, int dtype, dim3 grid, cudaStream_t s) {
                              if (mode != MODE_STAGED || qp != 1 || pipelined) return cudaErrorInvalidValue;
                              if (dtype == 1) {

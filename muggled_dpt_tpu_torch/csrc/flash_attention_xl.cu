@@ -31,7 +31,7 @@ cudaError_t launch_f32_xl(const VArgs& a, int mode, dim3 grid, cudaStream_t s) {
 // MODE_ABLATE. Returns the cudaError_t of the launch (0 on success); the
 // launch is asynchronous on `stream`.
 extern "C" int mdpt_flash_attention_xl(const long long* args, float qk_scale, void* stream) {
-    return variant_entry(args, qk_scale, stream, true,
+    return variant_entry(args, qk_scale, stream, false,
                          [](const VArgs& a, int mode, int qp, bool pipelined, int dtype, dim3 grid, cudaStream_t s) {
                              if (mode != MODE_FLASH && mode != MODE_ABLATE) return cudaErrorInvalidValue;
                              if (dtype == 1) {

@@ -1,9 +1,8 @@
-// Tile code shared by the flash attention kernels for Hopper (sm_90a):
-// flash_attention.cu (#1, #2, #4, #5) and the measurement variants in
-// flash_variants.cuh (#10 flash_attention_xl.cu, #11
-// flash_attention_staged.cu, #12 flash_variant.cu).
+// Tile code of the mma.sync flash attention kernel for Hopper (sm_90a),
+// flash_attention.cu's fa_bf16 (bf16 with a float32 bias); the measurement
+// variants' float32 template (flash_variants.cuh) takes its constants.
 //
-// The bf16 kernels run both attention products on the tensor cores with
+// The bf16 kernel runs both attention products on the tensor cores with
 // mma.sync m16n8k16 (bf16 in, f32 out): a warp owns 16 q rows, key tiles of
 // 64 rows stream through shared memory by cp.async, rows padded to LDS
 // elements so that fragment loads hit no bank conflicts.

@@ -1,10 +1,15 @@
-// Fused depth-head tail for Hopper (sm_90a), float32 and bfloat16: per pixel
+// Fused depth-head tail for Hopper (sm_90a), the C entry and the kernel of
+// float32 and of the bfloat16 maps a tensor map cannot read: per pixel
 //   t[o] = relu(conv_b[o] + sum_{c, dy, dx} conv_w[o, c, dy, dx] * x[c, y + dy - 1, x + dx - 1])   (o < 32)
 //   out  = act(proj_b + sum_o proj_w[o] * t[o]),  act = ReLU, or sigmoid for a metric head
 // on an NCHW (B, ci, H, W) map with zero padding 1, giving (B, H, W).
 //
 // Replaces TPU kernel #9: experiments/pallas_head_conv.py:fused_head_tail
-// (_kernel, :52). The TPU kernel takes one NHWC image and pads it in HBM; this
+// (_kernel, :52). The C entry sends every bfloat16 launch whose map a
+// tensor map reads (sm90_takes) to the implicit GEMM on wgmma of
+// head_tail_sm90.cu, and reports the route it took in SLOT_ROUTE; float32,
+// and bfloat16 at a width whose rows are no multiple of 16 bytes apart,
+// run head_tail<T> below. The TPU kernel takes one NHWC image and pads it in HBM; this
 // one takes the batch the head runs, reads the NCHW map where it lies and
 // does the halo at the image borders by index (no padded copy). Its rounding
 // points are kept: the conv summed in f32 plus the bias, ReLU, the 32 -> 1
@@ -21,10 +26,8 @@
 // Bounds on an H100 at ci = 128, 504 x 504, one image: 2 * H * W * 32 * 9 * ci
 // = 18.7 GFLOP against 65 MB of bf16 input: 19-20 us at 989 TFLOP/s and
 // 3.35 TB/s (the tensor cores and HBM about even). This simple kernel runs on
-// the FP32 pipes (67 TFLOP/s, 0.28 ms per image) in both dtypes, so its bf16
-// path is bound by operations at the f32 rate. Left for later: the bf16 path
-// as an implicit GEMM on the tensor cores (M = pixels, N = 32, K = 9 * ci),
-// with cp.async double buffering of the halo tiles.
+// the FP32 pipes (67 TFLOP/s, 0.28 ms per image), so it is bound by
+// operations at the f32 rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -152,17 +155,35 @@ enum Slot {
     SLOT_IS_METRIC,     // 1: sigmoid, 0: ReLU
     SLOT_DTYPE,         // every tensor: 0 = float32, 1 = bfloat16
     SLOT_DEVICE,        // the CUDA device of every tensor
+    SLOT_ROUTE,         // written by the call: ROUTE_SM90 or ROUTE_FMA, the kernel that ran
     NUM_SLOTS,
 };
 
+constexpr long long ROUTE_FMA = 0, ROUTE_SM90 = 1;
+constexpr long long SM90_MAX_CHANNELS = 192;  // head_tail_sm90.cu's MAX_CHANNELS
+
+// Whether head_tail_sm90.cu takes the launch: bfloat16, a map a tensor map
+// reads (a 16-byte aligned base; W % 8 == 0, so that rows lie a multiple of
+// 16 bytes apart) and whole 16-channel chunks whose weights fit its shared memory.
+bool sm90_takes(const long long* args) {
+    const long long ci = args[SLOT_CHANNELS];
+    return args[SLOT_DTYPE] == 1 && args[SLOT_X] % 16 == 0 && args[SLOT_WIDTH] % 8 == 0 && ci % 16 == 0 &&
+           ci <= SM90_MAX_CHANNELS;
+}
+
 }  // namespace
+
+// head_tail_sm90.cu: the bfloat16 launches sm90_takes
+cudaError_t head_tail_sm90(const void* x, const void* conv_w, const void* conv_b, const void* proj_w, const void* proj_b,
+                           void* out, int batch, int ci, int h, int w, bool is_metric, cudaStream_t stream);
 
 // C interface, bound with ctypes: `args` holds NUM_SLOTS int64 values laid
 // out as in `Slot`. Every tensor is contiguous and in one dtype (the caller
 // checks). The launch goes to args[SLOT_DEVICE]; the calling thread's current
-// device is the same after the call as before. Returns the cudaError_t of the
-// launch (0 on success); the launch is asynchronous on `stream`.
-extern "C" int mdpt_head_tail(const long long* args, void* stream) {
+// device is the same after the call as before. The call writes the route it
+// took to args[SLOT_ROUTE]. Returns the cudaError_t of the launch (0 on
+// success); the launch is asynchronous on `stream`.
+extern "C" int mdpt_head_tail(long long* args, void* stream) {
     const long long batch = args[SLOT_BATCH], ci = args[SLOT_CHANNELS], h = args[SLOT_HEIGHT], w = args[SLOT_WIDTH];
     const int dtype = (int)args[SLOT_DTYPE], device = (int)args[SLOT_DEVICE];
     if (batch < 1 || batch > 65535 || ci < 1 || h < 1 || w < 1 || args[SLOT_OUT_CHANNELS] != CO)
@@ -181,12 +202,18 @@ extern "C" int mdpt_head_tail(const long long* args, void* stream) {
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)((w + TW - 1) / TW), (unsigned)((h + TH - 1) / TH), (unsigned)batch);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 1) {
-        head_tail<bf16><<<grid, THREADS, 0, s>>>(a);
+    const bool sm90 = sm90_takes(args);
+    args[SLOT_ROUTE] = sm90 ? ROUTE_SM90 : ROUTE_FMA;
+    if (sm90) {
+        err = head_tail_sm90(a.x, a.conv_w, a.conv_b, a.proj_w, a.proj_b, a.out, (int)batch, a.ci, a.h, a.w, a.is_metric != 0, s);
     } else {
-        head_tail<float><<<grid, THREADS, 0, s>>>(a);
+        if (dtype == 1) {
+            head_tail<bf16><<<grid, THREADS, 0, s>>>(a);
+        } else {
+            head_tail<float><<<grid, THREADS, 0, s>>>(a);
+        }
+        err = cudaGetLastError();
     }
-    err = cudaGetLastError();
     if (current != device) {
         const cudaError_t restored = cudaSetDevice(current);
         if (err == cudaSuccess) err = restored;

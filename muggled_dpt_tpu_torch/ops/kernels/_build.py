@@ -134,7 +134,7 @@ def kernel_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_head_tail
-    # the int64 argument array (its slots in csrc/head_tail.cu), stream
+    # the int64 argument array (its slots in csrc/head_tail.cu; the call writes SLOT_ROUTE), stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_flash_attention_int8
@@ -148,6 +148,15 @@ def kernel_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.mdpt_flash_staged_sm90_info
     # 0 or 1 (the scale's sign), then seven int32 out values (csrc/flash_staged_sm90.cu), as #10's
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mdpt_flash_variant_sm90_info
+    # mode (csrc/flash_variant_sm90.cu's FvMode), then seven int32 out values, as #10's
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mdpt_head_tail_sm90_info
+    # output rows per unit (8 or 6), then seven int32 out values (csrc/head_tail_sm90.cu): the five of the flash kernel's,
+    # the rows again, the TMA ring's stages
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     for name in ("mdpt_flash_attention_xl", "mdpt_flash_attention_staged", "mdpt_flash_variant"):

@@ -327,6 +327,7 @@ def _counted_entries() -> dict:
         "window_sm90": (window_attention, "sm90_launches"),
         "fused_mlp": (fused_ln_mlp_residual, "launches"),
         "head_tail": (fused_head_tail, "launches"),
+        "head_tail_sm90": (fused_head_tail, "sm90_launches"),
         "int8_qk": (flash_attention_int8_qk, "launches"),
         "int8_qk_fused": (flash_attention_int8_qk_fused, "launches"),
         "xl": (flash_attention_fused_qkv_xl, "launches"),
@@ -345,7 +346,8 @@ def launch_counts() -> dict[str, int]:
     """The launch count of every kernel route of the package: the SwinV2
     window kernels (``ops/kernels/window_attention.py``: ``window`` and the
     sm_90 kernel's ``window_sm90``), the fused MLP
-    (``fused_mlp.py``), the head tail (``head_tail.py``), the int8-QK^T
+    (``fused_mlp.py``), the head tail (``head_tail.py``: ``head_tail`` and
+    the sm_90 kernel's ``head_tail_sm90``), the int8-QK^T
     attention's two entries (``flash_attention_int8.py``) and the attention
     sweep's variants #10-#12 (``flash_attention_xl.py``,
     ``flash_attention_staged.py``, ``tools/attn_variants.py``) included."""

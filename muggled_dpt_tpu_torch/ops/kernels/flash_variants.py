@@ -1,10 +1,11 @@
 """The launcher shared by the measurement variants of flash attention #1
 (TPU kernels #10-#12): three C entries with one argument layout (``enum
-Slot`` of ``csrc/flash_variants.cuh``). bfloat16 launches of #10 and #11
-run their wgmma/TMA kernels (``csrc/flash_xl_sm90.cu``,
-``csrc/flash_staged_sm90.cu``), which need 16-byte aligned bases and
-strides (the C entry refuses anything else); #12's bfloat16 launches and
-every float32 launch run the kernel template of ``flash_variants.cuh``.
+Slot`` of ``csrc/flash_variants.cuh``). bfloat16 launches run their
+wgmma/TMA kernels (#10 ``csrc/flash_xl_sm90.cu``, #11
+``csrc/flash_staged_sm90.cu``, #12 ``csrc/flash_variant_sm90.cu``), which
+need 16-byte aligned bases and strides (the C entry refuses anything else;
+#10 and #11 also take all N keys, #12 the keys its mode needs); every
+float32 launch runs the FMA template of ``flash_variants.cuh``.
 The entries live beside their plain versions: ``flash_attention_xl.py``
 (#10), ``flash_attention_staged.py`` (#11) and
 ``muggled_dpt_tpu_torch/tools/attn_variants.py`` (#12)."""
@@ -23,7 +24,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel template's Mode (csrc/flash_variants.cuh)
 MODES = {"flash": 0, "ablate": 1, "staged": 2, "mask_exp": 3, "mask_exp2": 4, "padfix": 5, "nosm": 6, "maxonly": 7,
          "exponly": 8}
-TILE_KEYS = 64  # the key tile of flash_variants.cuh's bf16 kernel: panels are multiples of it (#11's bf16 kernel: of 128)
+TILE_KEYS = 64  # the C entries' panel unit: panels are multiples of it (#11's bf16 kernel: of 128)
 QP_CHOICES = (1, 2, 4)  # q blocks of 64 rows per CTA the kernel is built for
 
 

@@ -1,7 +1,9 @@
-"""TPU kernel #12, the attention variant shootout's kernels: a hand-written
-Hopper kernel (``csrc/flash_variant.cu``, on the template of
-``csrc/flash_variants.cuh``) with its plain PyTorch version beside it. A
-measurement tool: no serving route calls it.
+"""TPU kernel #12, the attention variant shootout's kernels: hand-written
+Hopper kernels with their plain PyTorch version beside them. The C entry
+is ``csrc/flash_variant.cu``: bfloat16 runs the wgmma/TMA kernel of
+``csrc/flash_variant_sm90.cu`` (#1's pipeline, one instantiation per mode
+and CTA height), float32 the FMA template of ``csrc/flash_variants.cuh``.
+A measurement tool: no serving route calls it.
 
 ``flash_variant(q, k, v, mode, block_q, chunk)`` replaces
 ``tools/attn_variants.py:flash_variant`` (``_onepass_kernel`` and
@@ -23,6 +25,13 @@ JAX wrapper zero-pads to a multiple of 128. Modes:
 
 ``block_q`` is the TPU kernel's q tile: accepted and ignored. The JAX
 tool's ``main`` is part of the attention sweep, ``flash_tune.py``.
+
+The kernel takes the keys the modes need as ``keys`` and reads rows at or
+past N as zeros: the mask modes N keys, masked past N; padfix and the
+ablations the N_pad keys, the pads' logit 0 in the max and the sum;
+``chunk=c`` the (N_pad // c) c keys, with the pad correction once at the
+end, which equals the JAX kernel's per-chunk corrections rescaled through
+the online softmax.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. Launches are counted in ``flash_variant.launches``."""
@@ -113,8 +122,8 @@ def _innerloop_reference(q, kp, vp, n: int, chunk: int, dtype):
 def flash_variant(q, k, v, mode="padfix", block_q=704, chunk=None):
     """The variant kernel on pre-scaled (BH, N, D) q, k and v; returns
     (BH, N, D) in q's dtype. ``block_q``: the TPU kernel's q tile, accepted
-    and ignored (the CUDA grid has 64 q rows per CTA). Counts its launches in
-    ``flash_variant.launches``."""
+    and ignored (the bf16 kernel's CTA height is the C entry's choice, the
+    f32 kernel's 64 rows). Counts its launches in ``flash_variant.launches``."""
     n_pad = _check(q, k, v, mode, chunk)
     if _device_route(q.device, "flash_variant"):
         return flash_variant_reference(q, k, v, mode, chunk)

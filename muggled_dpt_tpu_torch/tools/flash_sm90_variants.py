@@ -5,11 +5,11 @@ unbiased and biased, timed on the card.
     python3 muggled_dpt_tpu_torch/tools/flash_sm90_variants.py
 
 Each variant is the source as committed with one design decision undone by
-a text edit, built by nvcc into a library of its own (under the gitignored
-``build/variants/``, with ``csrc/`` on the include path for its header
-``sm90_attention.cuh``) with a C entry over raw pointers, and timed with CUDA
-events in two turns (forward, then backward, the faster median kept) beside
-one SDPA call, on random inputs from a seed:
+a text edit, built into a library of its own by ``variant_build.py`` (under
+the gitignored ``build/variants/``, with ``csrc/`` on the include path for
+its header ``sm90_attention.cuh``) with a C entry over raw pointers, and
+timed with CUDA events in two turns (forward, then backward, the faster
+median kept) beside one SDPA call, on random inputs from a seed:
   * unbiased (#1): head-major qkv slabs at DA-V2 ViT-L's (8, 1297, 3072) and
     (1, 18497, 3072);
   * biased (#2): BEiT-L-512's (8, 1025, 3072) slab with layer 23 of a
@@ -30,8 +30,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import statistics
-import subprocess
 import sys
 
 import torch
@@ -40,7 +38,9 @@ import torch.nn.functional as F
 if __name__ == "__main__":  # run as a script: the package of this checkout
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 
-from muggled_dpt_tpu_torch.ops.kernels._build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, find_nvcc  # noqa: E402
+from muggled_dpt_tpu_torch.ops.kernels._build import CSRC_DIR  # noqa: E402
+from muggled_dpt_tpu_torch.tools import flash_tune as ft  # noqa: E402
+from muggled_dpt_tpu_torch.tools import variant_build as vb  # noqa: E402
 
 HEADS, HEAD_DIM = 16, 64
 CASES = (  # (label, B, N, bias stack padded rows or None, fill: 0 TMA, 1 copy)
@@ -51,6 +51,7 @@ CASES = (  # (label, B, N, bias stack padded rows or None, fill: 0 TMA, 1 copy)
     ("#2 1024x1024 stack layer 23, TMA fill", 1, 4097, 4104, 0),
 )
 LAYERS, LAYER = 24, 23
+RUN_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 ENTRY = r"""
 extern "C" int run(const void* q, const void* k, const void* v, void* o, const long long* st_in, const long long* st_out,
                    const void* bias, const long long* bias_st, int fill, int batch, int n, int heads, float scale_log2,
@@ -72,49 +73,14 @@ VARIANTS = {  # name: text replacements
 
 
 def variant_source(source: str, replacements) -> str:
-    for old, new in replacements:
-        if old not in source:
-            raise RuntimeError(f"the source no longer holds {old!r}")
-        source = source.replace(old, new)
-    return source + ENTRY
+    return vb.edited(source, replacements, "csrc/flash_attention_sm90.cu") + ENTRY
 
 
 def build() -> dict:
     """Every variant compiled at once, one nvcc each; returns {name: library}."""
-    out_dir = BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
     source = (CSRC_DIR / "flash_attention_sm90.cu").read_text()
-    jobs = {}
-    for i, (name, replacements) in enumerate(VARIANTS.items()):
-        src, lib = out_dir / f"variant{i}.cu", out_dir / f"variant{i}.so"
-        src.write_text(variant_source(source, replacements))
-        cmd = [find_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-I", str(CSRC_DIR), "-shared", "-o", str(lib), str(src)]
-        jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name!r}:\n{log}")
-        used = [line.split(":", 1)[-1].strip() for line in log.splitlines() if "Used" in line or "spill" in line]
-        print(f"variant {name!r}: {'; '.join(used)}", flush=True)
-        libs[name] = ctypes.CDLL(str(lib))
-        libs[name].run.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-        libs[name].run.restype = ctypes.c_int
-    return libs
-
-
-def time_ms(fn, iters: int, warmup: int) -> float:
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    sources = {name: variant_source(source, replacements) for name, replacements in VARIANTS.items()}
+    return vb.build(sources, "variants", dict.fromkeys(sources, RUN_ARGS))
 
 
 def padded_stack(gen, n_pad: int, n: int) -> torch.Tensor:
@@ -128,8 +94,7 @@ def padded_stack(gen, n_pad: int, n: int) -> torch.Tensor:
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("flash_sm90_variants.py runs on a CUDA card")
-    cmd = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
-    smi = subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = vb.card()
     libs = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     scale = HEAD_DIM**-0.5
@@ -167,8 +132,8 @@ def main() -> int:
         readings = {name: [] for name in calls}
         for order in (list(calls), list(calls)[::-1]):
             for name in order:
-                readings[name].append(time_ms(calls[name], iters, warmup))
-        sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters, warmup)
+                readings[name].append(ft.time_ms(calls[name], iters, warmup))
+        sdpa = ft.time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters, warmup)
         flops = 4 * b * HEADS * n * n * HEAD_DIM
         print(f"{label} B={b} N={n} H={HEADS} D={HEAD_DIM} bf16 (median of {iters} after {warmup}, two turns) [{smi}]",
               flush=True)

@@ -21,13 +21,17 @@ launch. Times: median per launch after warm-up, the kernels in two turns
 (forward, then backward) and the faster of the two kept; 30 launches after
 5 up to N=10405, 5 after 1 past it and for every plain version.
 
-In bf16 #10 and #11 run their wgmma/TMA kernels on #1's Hopper pipeline
-(``csrc/flash_xl_sm90.cu``: qp consumer warpgroups per CTA, pipelined = the
-next tile's QK^T in flight under this tile's softmax; ``csrc/flash_staged_sm90.cu``:
-pass 1 the row max, pass 2 exp2 and PV with no rescale), so the sweep's
-questions (two passes against the online softmax, more q blocks per CTA,
-QK^T under the softmax) are asked of the serving kernel's machinery; #12
-stays on the ``mma.sync`` template of ``csrc/flash_variants.cuh``.
+In bf16 #10, #11 and #12 run their wgmma/TMA kernels on #1's Hopper
+pipeline (``csrc/flash_xl_sm90.cu``: qp consumer warpgroups per CTA,
+pipelined = the next tile's QK^T in flight under this tile's softmax;
+``csrc/flash_staged_sm90.cu``: pass 1 the row max, pass 2 exp2 and PV with
+no rescale; ``csrc/flash_variant_sm90.cu``: each mode's own arithmetic), so
+the sweep's questions (two passes against the online softmax, more q blocks
+per CTA, QK^T under the softmax, the shoot-out's modes and ablations) are
+asked of the serving kernel's machinery. At the JAX tool's (16, 1297, 64)
+a #12 call costs the host more than the card (``host_us``), so its
+per-launch times there carry the wrapper's cost; ``device_ms`` times the
+card alone.
 
 ``chip_smoke.py`` drives the same cases, timing and capture through this
 module. Runs only on a CUDA card."""
@@ -39,6 +43,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -160,6 +165,39 @@ def time_ms(fn, iters=30, warmup=5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, iters=20, warmup=3) -> float:
+    """Device time per launch: ``iters`` launches queued behind a spin of
+    the card (``torch.cuda._sleep``), so that they run back to back whatever
+    the host's cost per call; CUDA events around them, divided by ``iters``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # about 50 ms at the H100's clock: the host queues every launch before it ends
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls=200, warmup=3) -> float:
+    """Host microseconds per call: ``calls`` calls back to back, queued
+    behind a spin of the card so that none waits for it; the host clock
+    around them."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def timing_plan(n: int) -> tuple[int, int]:

@@ -3,6 +3,7 @@
 
     python3 muggled_dpt_tpu_torch/tools/measure.py host [--against DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py attention [--against DIR]
+    python3 muggled_dpt_tpu_torch/tools/measure.py head [--against DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py profile [--model beit|swinv2|vitl|giant] [--out DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py profile --int8 [dense] [default] [qkv] [neck] [--out DIR]
 
@@ -11,10 +12,10 @@ the DA-V2 ViT-L, BEiT-L-512 and SwinV2-L-384 bf16 request times at B=1, and
 BEiT-L-512's and SwinV2-L-384's ms per frame at B=8 (24 attention or window
 launches per forward; the sm_90 window kernel encodes six tensor maps per
 launch).
-Per-call cost: each route is called 200 times back to back at a shape
-whose device time (a few us) is far below the host's, and the host clock
-stops at the last call's return, so it reads the host work of a launch
-alone. ``--against DIR`` also loads DIR's ``muggled_dpt_tpu_torch`` (an
+Per-call cost (``flash_tune.host_us``): each route is called 200 times
+back to back, queued behind a spin of the card so that no call waits for
+it, and the host clock stops at the last call's return, so it reads the
+host work of a launch alone. ``--against DIR`` also loads DIR's ``muggled_dpt_tpu_torch`` (an
 earlier commit unpacked with ``git archive``, say) under another module name
 into the same process, and alternates the two packages round by round, so
 both see the same host noise; each line then says in how many rounds this
@@ -37,14 +38,28 @@ of ``flash_tune.XL_CASES``; bf16: csrc/flash_xl_sm90.cu) and #11 (panels
 (1, N, 3072) bf16 slabs from the seed at N = 10405 and 18497 (DA-V2
 ViT-L's 1428x1428 and 1904x1904 token counts, 16 heads x 64), the same
 way, with the bound and #11's design floor (6 B H N^2 D over 989 TFLOP/s:
-its pass 2 recomputes pass 1's QK^T), and #12 (``tools/attn_variants.py``,
-padfix) at (16, 1297, 64). Then the SwinV2 window kernel (#3; bf16:
+its pass 2 recomputes pass 1's QK^T), and #12 (``tools/attn_variants.py``;
+bf16: csrc/flash_variant_sm90.cu) in every ``flash_tune.VARIANT_CASES``
+mode at (16, 1297, 64), each both per launch (CUDA events around each
+call, the host's cost per call included, as the other kernels here) and
+as device time (``flash_tune.device_ms``: 20 launches queued back to back
+behind a spin of the card), beside SDPA timed both ways. Then the SwinV2 window kernel (#3; bf16:
 csrc/window_attention_sm90.cu) at SwinV2-L-384's four stage shapes at B=8
 and stage 1 at B=1, on the inputs of ``tools/window_sm90_variants.py``, the
 same way, beside one SDPA call on the summed bias, the bound (4 B
 nW H A^2 D operations, or q, k, v, out, CPB and mask read once) and the exp
 floor (B nW H A^2 exp2 over the SFU's 16 per clock per SM, 132 SMs at
 1.83 GHz).
+
+``head``: the fused head tail (#9; bf16: csrc/head_tail_sm90.cu) at
+DA ViT-L's head, (B, 128, 504, 504) -> 32 -> 1, B = 1 and 8, ReLU and
+sigmoid, on random inputs from a seed; with ``--against``, the other
+checkout's kernel on the same inputs in turns (other, this, this, other),
+per launch (CUDA events) and as device time (``flash_tune.device_ms``); beside them
+``Head.tail``'s composite (cuDNN conv3x3 -> ReLU -> conv1x1 -> ReLU or
+sigmoid) on the same weights, timed both ways, and the bound (2 B H W 32
+(9 ci + 1) operations over 989 TFLOP/s, or the map read and the output
+written once over 3.35 TB/s).
 
 ``profile``: a torch.profiler breakdown of a bf16 forward (10 forwards at
 B=1, 5 at B=8): device busy share (the union of kernel intervals over the
@@ -179,16 +194,10 @@ def attention_routes(pkg_name: str, heads=16, n=65, d=64) -> dict:
     return routes
 
 
-def per_call_us(fn, calls=200) -> float:
-    import torch
+def per_call_us(fn) -> float:
+    from muggled_dpt_tpu_torch.tools.flash_tune import host_us
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    us = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
-    return us
+    return host_us(fn, warmup=0)  # interleaved() warms every route up
 
 
 def request_ms(fn) -> float:
@@ -386,16 +395,71 @@ def sweep_variants(packages: dict, gen, smi: str, against):
                   f"bound {bound_ms:.4f} ms (ops){floor} [{smi}]", flush=True)
         del qkv, sdpa
         torch.cuda.empty_cache()
-    # #12, whose kernel template lost its #10 and #11 instantiations: padfix at the JAX tool's (16, 1297, 64)
+    # #12 in every mode of the sweep at the JAX tool's (16, 1297, 64), per launch and as device time
+    from muggled_dpt_tpu_torch.tools.flash_tune import VARIANT_CASES, device_ms
+
     q, k, v = (torch.randn(16, 1297, 64, device="cuda", dtype=torch.bfloat16, generator=gen) for _ in range(3))
     variant = {name: importlib.import_module(f"{pkg}.tools.attn_variants").flash_variant for name, pkg in packages.items()}
-    times = {name: [] for name in variant}
-    for name in order:
-        times[name].append(event_ms(lambda: variant[name](q, k, v)))
-    library = event_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=math.log(2.0)))
-    readings = ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
-    print(f"#12 flash_variant padfix (16, 1297, 64), random: {readings} (median of 30 after 5); SDPA {library:.4f} ms [{smi}]",
+    sdpa = lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=math.log(2.0))  # noqa: E731
+    print(f"#12 SDPA (16, 1297, 64): {event_ms(sdpa):.4f} ms per launch, {device_ms(sdpa):.4f} ms device time [{smi}]",
           flush=True)
+    for case, kw in VARIANT_CASES:
+        for how, measure in (("per launch", event_ms), ("device time", device_ms)):
+            times = {name: [] for name in variant}
+            for name in order:
+                times[name].append(measure(lambda: variant[name](q, k, v, **kw)))
+            readings = ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
+            print(f"#12 flash_variant {case} (16, 1297, 64), random, {how}: {readings} [{smi}]", flush=True)
+
+
+HEAD_CASES = ((1, False), (8, False), (1, True), (8, True))  # (B, metric) at ViT-L's head tail, (B, 128, 504, 504)
+
+
+def head(args, smi):
+    """#9 at ``HEAD_CASES`` against the other checkout's kernel (in turns)
+    and ``Head.tail``'s composite, per launch and as device time."""
+    import importlib
+
+    import torch
+
+    from muggled_dpt_tpu_torch.models.dpt_neck import Head
+    from muggled_dpt_tpu_torch.tools.flash_tune import device_ms
+
+    packages = {"this": "muggled_dpt_tpu_torch"}
+    if args.against:
+        load_package(args.against, "against_muggled_dpt_tpu_torch")
+        packages = {"against": "against_muggled_dpt_tpu_torch", **packages}
+    hts = {name: importlib.import_module(pkg + ".ops.kernels.head_tail") for name, pkg in packages.items()}
+    order = ["against", "this", "this", "against"] if args.against else ["this", "this"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ci, hw = 128, (504, 504)
+    for b, metric in HEAD_CASES:
+        x = torch.randn(b, ci, *hw, device="cuda", dtype=torch.bfloat16, generator=gen)
+        head_ = Head(2 * ci, 14 / 8, metric, device="cuda").to(torch.bfloat16)
+        with torch.no_grad():  # the conv scaled by 1/sqrt(9 ci), the projection's bias 2: as chip_smoke.py's head inputs
+            head_.conv_mid.weight.copy_(torch.randn(32, ci, 3, 3, device="cuda", generator=gen) * (9 * ci) ** -0.5)
+            head_.conv_mid.bias.copy_(torch.randn(32, device="cuda", generator=gen) * 0.1)
+            head_.proj.weight.copy_(torch.randn(1, 32, 1, 1, device="cuda", generator=gen) * 0.3)
+            head_.proj.bias.copy_(torch.randn(1, device="cuda", generator=gen) + 2.0)
+        params = (head_.conv_mid.weight, head_.conv_mid.bias, head_.proj.weight, head_.proj.bias)
+        calls = {name: (lambda ht=ht: ht.fused_head_tail(x, *params, metric)) for name, ht in hts.items()}
+
+        def composite():
+            with torch.inference_mode():
+                return head_.tail(x)
+
+        ops_ms = 2 * b * hw[0] * hw[1] * 32 * (9 * ci + 1) / 989e12 * 1e3
+        bytes_ms = (b * ci + b) * hw[0] * hw[1] * 2 / 3.35e12 * 1e3
+        bound = f"bound {max(ops_ms, bytes_ms):.4f} ms ({'ops' if ops_ms >= bytes_ms else 'bytes'})"
+        for how, measure in (("per launch", event_ms), ("device time", device_ms)):
+            times = {name: [] for name in calls}
+            for name in order:
+                times[name].append(measure(calls[name]))
+            readings = ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
+            print(f"#9 fused_head_tail (B={b}, ci={ci}, {hw[0]}x{hw[1]}, {'sigmoid' if metric else 'relu'}), random, {how}: "
+                  f"{readings}; Head.tail {measure(composite):.4f} ms; {bound} [{smi}]", flush=True)
+        del x, head_, params, calls
+        torch.cuda.empty_cache()
 
 
 def window(packages: dict, gen, smi: str, against):
@@ -613,8 +677,8 @@ def profile(args, smi):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=["host", "attention", "profile"])
-    parser.add_argument("--against", default=None, help="another checkout whose package host or attention also measures, "
+    parser.add_argument("what", choices=["host", "attention", "head", "profile"])
+    parser.add_argument("--against", default=None, help="another checkout whose package host, attention or head also measures, "
                         "interleaved")
     parser.add_argument("--model", choices=sorted(PROFILED), default=None, help="the model profile measures (default beit; "
                         "vitl with --int8)")
@@ -630,7 +694,7 @@ def main() -> int:
         print("no CUDA device: this script measures the port on a GPU", file=sys.stderr)
         return 1
     smi = card_line()
-    {"host": host, "attention": attention, "profile": profile}[args.what](args, smi)
+    {"host": host, "attention": attention, "head": head, "profile": profile}[args.what](args, smi)
     return 0
 
 

@@ -6,12 +6,12 @@ the card.
     python3 muggled_dpt_tpu_torch/tools/sweep_sm90_variants.py [--out DIR] [NAME ...]
 
 Each variant is a source as committed with one design decision changed by a
-text edit, built by nvcc with ``-Xptxas=-v`` into a library of its own (under
-the gitignored ``build/sweep_variants/``, with ``csrc/`` on the include path)
-with a C entry over raw pointers, all builds started together. For each
-variant it prints the build's seconds and, per kernel, ptxas's registers
-and spills and any wgmma serialization warning (C75xx); ``--out DIR``
-writes each build's whole output to ``DIR/sweep_variant_<n>.txt``. Then it
+text edit, built by ``variant_build.py`` (nvcc with ``-Xptxas=-v``) into a
+library of its own (under the gitignored ``build/sweep_variants/``, with
+``csrc/`` on the include path) with a C entry over raw pointers, all builds
+started together. For each variant it prints the build's seconds and, per
+kernel, ptxas's registers and spills and any wgmma serialization warning
+(C75xx); ``--out DIR`` writes each build's whole output to ``DIR/sweep_variant_<n>.txt``. Then it
 times each variant's cases with CUDA events (median of 10 launches after 2,
 in two turns, forward then backward, the faster kept) on a random
 (1, 18497, 3072) bf16 slab from the seed, DA-V2 ViT-L's 1904x1904 token
@@ -51,10 +51,7 @@ import argparse
 import ctypes
 import os
 import re
-import statistics
-import subprocess
 import sys
-import time
 
 import torch
 import torch.nn.functional as F
@@ -63,9 +60,11 @@ if __name__ == "__main__":  # run as a script: the package of this checkout
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
-from muggled_dpt_tpu_torch.ops.kernels._build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, find_nvcc  # noqa: E402
+from muggled_dpt_tpu_torch.ops.kernels._build import CSRC_DIR  # noqa: E402
 from muggled_dpt_tpu_torch.ops.kernels.flash_attention_staged import _panel_bounds  # noqa: E402
 from muggled_dpt_tpu_torch.ops.kernels.flash_attention_xl import ablation_reference  # noqa: E402
+from muggled_dpt_tpu_torch.tools import flash_tune as ft  # noqa: E402
+from muggled_dpt_tpu_torch.tools import variant_build as vb  # noqa: E402
 
 HEADS, HEAD_DIM, N = 16, 64, 18497
 XL, STAGED = "flash_xl_sm90.cu", "flash_staged_sm90.cu"
@@ -202,18 +201,12 @@ VARIANTS = {  # name: (source, text replacements, ablation: its output is not co
 
 
 HEADER = "flash_variants_sm90.cuh"
+RUN_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def variant_source(source: str, replacements) -> str:
-    """The source, with its include of flash_variants_sm90.cuh replaced by
-    the header's text, each (old, new) applied in order to every occurrence,
-    and the raw C entry appended."""
-    text = (CSRC_DIR / source).read_text().replace(f'#include "{HEADER}"', (CSRC_DIR / HEADER).read_text(), 1)
-    for old, new in replacements:
-        if old not in text:
-            raise RuntimeError(f"csrc/{source} no longer holds {old!r}")
-        text = text.replace(old, new)
-    return text + ENTRY[source]
+    """The source with flash_variants_sm90.cuh inlined, the edits applied and the raw C entry appended."""
+    return vb.edited(vb.with_header(source, HEADER), replacements, f"csrc/{source}") + ENTRY[source]
 
 
 def kernel_label(mangled: str) -> str:
@@ -225,65 +218,14 @@ def kernel_label(mangled: str) -> str:
 
 
 def ptxas_summary(log: str) -> list[str]:
-    """Per kernel: registers, spill bytes, and each C75xx warning, from nvcc -Xptxas=-v output."""
-    lines, current = [], None
-    for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '(\w+)'", line)
-        if entry:
-            current = kernel_label(entry.group(1))
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if spill and current:
-            lines.append(f"{current}: spill stores {spill.group(1)} B, loads {spill.group(2)} B")
-        used = re.search(r"Used (\d+) registers", line)
-        if used and current:
-            lines.append(f"{current}: {used.group(1)} registers")
-        warn = re.search(r"\((C75\d\d)\)\s*(.*?)\s+in the function\s+'(\w+)'", line)
-        if warn:
-            lines.append(f"{kernel_label(warn.group(3))}: ptxas {warn.group(1)}: {warn.group(2)}")
-    return lines
+    """``variant_build.ptxas_summary`` with this tool's kernel names."""
+    return vb.ptxas_summary(log, kernel_label)
 
 
 def build(names, out_dir) -> dict:
     """Every variant compiled at once, one nvcc each; returns {name: library}."""
-    work = BUILD_DIR / "sweep_variants"
-    work.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for i, name in enumerate(names):
-        source, replacements, _ = VARIANTS[name]
-        src, lib = work / f"variant{i}.cu", work / f"variant{i}.so"
-        src.write_text(variant_source(source, replacements))
-        cmd = [find_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-I", str(CSRC_DIR), "-shared", "-o", str(lib), str(src)]
-        jobs[name] = (i, lib, time.perf_counter(), subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (i, lib, t0, proc) in jobs.items():
-        log = proc.communicate()[0]
-        seconds = time.perf_counter() - t0
-        if out_dir:
-            with open(os.path.join(out_dir, f"sweep_variant_{i}.txt"), "w") as f:
-                f.write(f"{name}\n{log}")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name!r}:\n{log[-4000:]}")
-        print(f"variant {name!r}: built in {seconds:.1f} s", flush=True)
-        for line in ptxas_summary(log):
-            print(f"  {line}", flush=True)
-        libs[name] = ctypes.CDLL(str(lib))
-        libs[name].run.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-        libs[name].run.restype = ctypes.c_int
-    return libs
-
-
-def time_ms(fn, iters=10, warmup=2) -> float:
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    sources = {name: variant_source(*VARIANTS[name][:2]) for name in names}
+    return vb.build(sources, "sweep_variants", dict.fromkeys(names, RUN_ARGS), out_dir, "sweep_variant", kernel_label)
 
 
 def main() -> int:
@@ -296,8 +238,7 @@ def main() -> int:
     names = args.names or list(VARIANTS)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    cmd = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
-    smi = subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = vb.card()
     libs = build(names, args.out)
     gen = torch.Generator(device="cuda").manual_seed(0)
     c3 = 3 * HEADS * HEAD_DIM
@@ -335,8 +276,8 @@ def main() -> int:
                 if not diff <= 2e-2 * max(1.0, float(want.abs().max())):
                     raise RuntimeError(f"{label} disagrees with its plain version: max abs difference {diff:.3e}")
             calls[label] = call
-    first = {label: time_ms(fn) for label, fn in calls.items()}
-    second = {label: time_ms(fn) for label, fn in reversed(calls.items())}
+    first = {label: ft.time_ms(fn, 10, 2) for label, fn in calls.items()}
+    second = {label: ft.time_ms(fn, 10, 2) for label, fn in reversed(calls.items())}
     anchor = min(first["#1 (flash_attention_sm90.cu)"], second["#1 (flash_attention_sm90.cu)"])
     flops = 4 * HEADS * N * N * HEAD_DIM
     print(f"B=1 N={N} H={HEADS} D={HEAD_DIM} bf16 random slab (median of 10 after 2, two turns) [{smi}]", flush=True)

@@ -5,8 +5,9 @@
     python3 muggled_dpt_tpu_torch/tools/window_sm90_variants.py
 
 Each variant is the source as committed with one design decision changed by
-a text edit, built by nvcc into a library of its own (under the gitignored
-``build/variants/``) with a C entry over raw pointers, and timed with CUDA
+a text edit, built into a library of its own by ``variant_build.py`` (under
+the gitignored ``build/variants/``; ptxas's registers, spills and C75xx
+printed per kernel) with a C entry over raw pointers, and timed with CUDA
 events in two turns (forward, then backward, the faster median kept) beside
 one SDPA call on the summed bias, at SwinV2-L-384's four stage shapes at
 B=8 and stage 1 at B=1 (bf16, q and k l2-normalized, q times a logit scale
@@ -40,8 +41,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import statistics
-import subprocess
 import sys
 
 import torch
@@ -51,8 +50,10 @@ if __name__ == "__main__":  # run as a script: the package of this checkout
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 
 from muggled_dpt_tpu_torch.models.swinv2 import shift_mask  # noqa: E402
-from muggled_dpt_tpu_torch.ops.kernels._build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, find_nvcc  # noqa: E402
+from muggled_dpt_tpu_torch.ops.kernels._build import CSRC_DIR  # noqa: E402
 from muggled_dpt_tpu_torch.ops.kernels.window_attention import window_attention_reference  # noqa: E402
+from muggled_dpt_tpu_torch.tools import flash_tune as ft  # noqa: E402
+from muggled_dpt_tpu_torch.tools import variant_build as vb  # noqa: E402
 
 D = 32
 CASES = (  # (label, B, windows per image, window side, heads, shift mask)
@@ -70,6 +71,7 @@ extern "C" int run(const void* q, const long long* q_st, const void* k, const lo
                                       (cudaStream_t)stream);
 }
 """
+RUN_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 CONSUME = "        consume<MASK>(sm, &to, threadIdx.x / 128 - 1, b, q0, w, h, n, tiles);"
 KERNEL = "template <bool MASK>\n__global__"
 DRAIN = r"""template <bool MASK>
@@ -209,49 +211,16 @@ def variants() -> dict:
 
 
 def variant_source(source: str, replacements) -> str:
-    for old, new in replacements:
-        if old not in source:
-            raise RuntimeError(f"the source no longer holds {old!r}")
-        source = source.replace(old, new)
-    return source + ENTRY
+    return vb.edited(source, replacements, "csrc/window_attention_sm90.cu") + ENTRY
 
 
 def build() -> dict:
     """Every variant compiled at once, one nvcc each; returns {name: (library, computes the function)}."""
-    out_dir = BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
     source = (CSRC_DIR / "window_attention_sm90.cu").read_text()
-    jobs = {}
-    for i, (name, (replacements, exact)) in enumerate(variants().items()):
-        src, lib = out_dir / f"window{i}.cu", out_dir / f"window{i}.so"
-        src.write_text(variant_source(source, replacements))
-        cmd = [find_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-shared", "-o", str(lib), str(src)]
-        jobs[name] = (lib, exact, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, exact, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name!r}:\n{log}")
-        used = [line.split(":", 1)[-1].strip() for line in log.splitlines() if "Used" in line or "spill" in line or "C75" in line]
-        print(f"variant {name!r}: {'; '.join(used)}", flush=True)
-        libs[name] = (ctypes.CDLL(str(lib)), exact)
-        libs[name][0].run.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        libs[name][0].run.restype = ctypes.c_int
-    return libs
-
-
-def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    table = variants()
+    sources = {name: variant_source(source, replacements) for name, (replacements, _) in table.items()}
+    libs = vb.build(sources, "variants", dict.fromkeys(sources, RUN_ARGS), prefix="window")
+    return {name: (lib, table[name][1]) for name, lib in libs.items()}
 
 
 def inputs(gen, b, nw, side, h, with_mask):
@@ -285,8 +254,7 @@ def strides(t) -> ctypes.Array:
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("window_sm90_variants.py runs on a CUDA card")
-    cmd = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
-    smi = subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = vb.card()
     libs = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for label, b, nw, side, h, with_mask in CASES:
@@ -316,9 +284,9 @@ def main() -> int:
         readings = {name: [] for name in calls}
         for order in (list(calls), list(calls)[::-1]):
             for name in order:
-                readings[name].append(time_ms(calls[name]))
+                readings[name].append(ft.time_ms(calls[name]))
         q4, k4, v4, m4 = sdpa_inputs(q, k, v, cpb, mask)
-        sdpa = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=1.0))
+        sdpa = ft.time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=1.0))
         pairs = b * nw * h * a * a
         bias_bytes = b * nw * h * ((a + 191) // 192) * 192 * a * 2 * (2 if with_mask else 1)  # what the CTAs read of the tables
         kv_bytes = b * nw * h * ((a + 191) // 192) * (2 * ((a + 63) // 64) * 64 + 192) * D * 2  # K, V and Q tiles

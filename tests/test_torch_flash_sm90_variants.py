@@ -1,5 +1,6 @@
-"""The attention sweep's sm_90 kernels, #10 (``csrc/flash_xl_sm90.cu``) and
-#11 (``csrc/flash_staged_sm90.cu``), without a card:
+"""The attention sweep's sm_90 kernels, #10 (``csrc/flash_xl_sm90.cu``),
+#11 (``csrc/flash_staged_sm90.cu``) and #12 (``csrc/flash_variant_sm90.cu``),
+without a card:
 
 * the plain versions against the JAX package's kernels
   (``experiments/flash_attention_{xl,staged}.py``) in interpret mode at the
@@ -13,8 +14,8 @@
   ``variant_entry`` does (a test pins the stub's choice to the text of the
   C code): bf16 slabs of every sweep shape go to the sm_90 kernels with
   qp, pipelining, the mode and the panel width in their slots, float32 to
-  ``fv_f32``, #12's bf16 to ``fv_bf16``, and a bf16 layout that a tensor map
-  cannot read raises;
+  ``fv_f32``, #12's bf16 in every mode to its sm_90 kernel (keys other than
+  N allowed), and a bf16 layout that a tensor map cannot read raises;
 * the design-variant tools' text edits still apply to the sources
   (``tools/flash_sm90_variants.py`` after the move of kernel #1's helpers to
   ``csrc/sm90_attention.cuh``, ``tools/sweep_sm90_variants.py``), and their
@@ -41,6 +42,7 @@ from muggled_dpt_tpu_torch.tools import attn_variants as av
 from muggled_dpt_tpu_torch.tools import flash_sm90_variants as fsv
 from muggled_dpt_tpu_torch.tools import flash_tune as ft
 from muggled_dpt_tpu_torch.tools import sweep_sm90_variants as ssv
+from muggled_dpt_tpu_torch.tools import variant_build as vb
 
 TOL = dict(rtol=0, atol=1e-5)
 EDGE_N = [63, 64, 65, 127, 128, 129, 191, 192, 193]
@@ -121,11 +123,11 @@ C_ROUTE = (
     "const long long sizes[3] = {args[SLOT_BATCH], args[SLOT_N], args[SLOT_HEADS]}; for (int slot = SLOT_Q; slot <= "
     "SLOT_O; slot += 4) { if (args[slot] % 16 != 0) return false; for (int i = 0; i < 3; ++i) { const long long st = "
     "args[slot + 1 + i]; if (sizes[i] > 1 && (st <= 0 || st % 8 != 0 || st >= (1ll << 39))) return false; } } return true;",
-    "const bool sm90 = sm90_bf16 && dtype == 1; if (sm90 && !(kend == n && tma_readable(args))) return "
+    "const bool sm90 = dtype == 1; if (sm90 && !((any_keys || kend == n) && tma_readable(args))) return "
     "(int)cudaErrorInvalidValue;",
 )
-# variant_entry's sm90_bf16 argument in each C entry: bf16 #10 and #11 run on their sm_90 kernels, #12 does not
-ENTRY_SM90 = {"mdpt_flash_attention_xl": True, "mdpt_flash_attention_staged": True, "mdpt_flash_variant": False}
+# variant_entry's any_keys argument in each C entry: #10 and #11 take all N keys, #12 the keys of its mode
+ENTRY_ANY_KEYS = {"mdpt_flash_attention_xl": False, "mdpt_flash_attention_staged": False, "mdpt_flash_variant": True}
 
 
 def _c_route() -> tuple:
@@ -151,23 +153,22 @@ def _staged_tile_keys() -> int:
 
 def test_stub_transcribes_the_c_entries_route():
     assert _c_route() == C_ROUTE
-    assert _entry_flags() == ENTRY_SM90
+    assert _entry_flags() == ENTRY_ANY_KEYS
     assert "if (panel < BKV || panel % BKV != 0) return cudaErrorInvalidValue;" in (CSRC / "flash_staged_sm90.cu").read_text()
 
 
 def c_entry_route(slots: dict, args: list, entry: str):
     """The kernel a C entry takes for the int64 argument array ``args``, as
-    variant_entry chooses (C_ROUTE): "sm90", "fv_f32" or "fv_bf16", or
-    None where the entry refuses the launch (cudaErrorInvalidValue)."""
+    variant_entry chooses (C_ROUTE): "sm90" or "fv_f32", or None where the
+    entry refuses the launch (cudaErrorInvalidValue)."""
     s = slots
-    dtype = args[s["SLOT_DTYPE"]]
-    if not (ENTRY_SM90[entry] and dtype == 1):
-        return "fv_f32" if dtype == 0 else "fv_bf16"
+    if args[s["SLOT_DTYPE"]] != 1:
+        return "fv_f32"
     sizes = (args[s["SLOT_BATCH"]], args[s["SLOT_N"]], args[s["SLOT_HEADS"]])
     readable = all(args[slot] % 16 == 0 and all(size <= 1 or 0 < args[slot + 1 + i] < 2**39 and args[slot + 1 + i] % 8 == 0
                                                 for i, size in enumerate(sizes))
                    for slot in range(s["SLOT_Q"], s["SLOT_O"] + 1, 4))
-    if not (args[s["SLOT_KEYS"]] == args[s["SLOT_N"]] and readable):
+    if not ((ENTRY_ANY_KEYS[entry] or args[s["SLOT_KEYS"]] == args[s["SLOT_N"]]) and readable):
         return None
     if entry == "mdpt_flash_attention_staged" and args[s["SLOT_PANEL"]] % _staged_tile_keys():
         return None
@@ -234,7 +235,8 @@ def test_bf16_sweep_slabs_take_the_sm90_kernels(stub, n):
 
 
 def test_float32_and_variant_bf16_take_the_template(stub):
-    """float32 #10 and #11 run fv_f32; #12's bf16 modes stay on fv_bf16."""
+    """float32 #10 and #11 run fv_f32; #12's bf16 modes run its sm_90
+    kernel (flash_variant_sm90.cu), with the keys of each mode."""
     slab = torch.zeros((2, 70, 3 * 2 * 64), dtype=torch.float32)
     for _, kw in ft.XL_CASES:
         xl.flash_attention_fused_qkv_xl(slab, 2, **kw)
@@ -244,13 +246,18 @@ def test_float32_and_variant_bf16_take_the_template(stub):
     q = torch.zeros((2, 705, 64), dtype=torch.bfloat16)  # past the sweep's 704-key chunks
     for _, kw in ft.VARIANT_CASES:
         av.flash_variant(q, q, q, **kw)
-    assert [c["route"] for c in stub.calls] == ["fv_bf16"] * len(ft.VARIANT_CASES)
+    assert [c["route"] for c in stub.calls] == ["sm90"] * len(ft.VARIANT_CASES)
+    n_pad = 768
+    assert [c["SLOT_KEYS"] for c in stub.calls] == [{"mask_exp": 705, "mask_exp2": 705}.get(kw.get("mode"), n_pad)
+                                                    if "chunk" not in kw else n_pad // kw["chunk"] * kw["chunk"]
+                                                    for _, kw in ft.VARIANT_CASES]
 
 
 def test_unreadable_bf16_layouts_raise(stub):
     """A bf16 layout that the tensor maps cannot read never launches: the
     wrapper refuses rows off 16 bytes before the C entry, and the C entry
-    refuses a base or stride off 16 bytes, or fewer keys than rows."""
+    refuses a base or stride off 16 bytes, or (#10, #11) fewer keys than
+    rows; #12 takes other key counts, not other layouts."""
     wide = torch.zeros((1, 70, 3 * 2 * 64 + 1), dtype=torch.bfloat16)
     for fn in (lambda x: xl.flash_attention_fused_qkv_xl(x, 2), lambda x: st.flash_attention_fused_qkv_staged(x, 2)):
         with pytest.raises(ValueError):
@@ -272,6 +279,15 @@ def test_unreadable_bf16_layouts_raise(stub):
         fv.launch_variant(entry, (1, 70, 2, 64), torch.bfloat16, torch.device("cpu"), aligned, aligned, aligned, o, keys=70,
                           mode=mode, qk_scale=0.18, panel=panel)
         assert stub.calls.pop()["route"] == "sm90"
+    for q in ((base + 2, 70 * 384, 384, 192), (base, 70 * 384, 388, 192), (base, 70 * 384, 384, 196)):
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            fv.launch_variant("mdpt_flash_variant", (1, 70, 2, 64), torch.bfloat16, torch.device("cpu"), q, aligned, aligned,
+                              o, keys=128, mode="padfix", qk_scale=1.0, chunk=128)
+        assert stub.calls.pop()["route"] is None
+    for keys in (64, 70, 128):
+        fv.launch_variant("mdpt_flash_variant", (1, 70, 2, 64), torch.bfloat16, torch.device("cpu"), aligned, aligned,
+                          aligned, o, keys=keys, mode="padfix", qk_scale=1.0, chunk=keys)
+        assert stub.calls.pop()["route"] == "sm90"
     with pytest.raises(RuntimeError, match="CUDA error 1"):  # #11's sm_90 kernel takes whole 128-key tiles per panel
         fv.launch_variant("mdpt_flash_attention_staged", (1, 70, 2, 64), torch.bfloat16, torch.device("cpu"), aligned,
                           aligned, aligned, o, keys=70, mode="staged", qk_scale=0.18, panel=192)
@@ -287,10 +303,10 @@ def test_flash_sm90_variants_text_edits_apply(monkeypatch, tmp_path):
         assert fsv.variant_source(source, replacements).endswith(fsv.ENTRY)
     cmds = []
     proc = types.SimpleNamespace(returncode=0, communicate=lambda: ("ptxas info    : Used 168 registers", None))
-    monkeypatch.setattr(fsv, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(fsv, "find_nvcc", lambda: "nvcc")
-    monkeypatch.setattr(fsv.subprocess, "Popen", lambda cmd, **kw: cmds.append(cmd) or proc)
-    monkeypatch.setattr(fsv.ctypes, "CDLL", lambda path: types.SimpleNamespace(run=types.SimpleNamespace()))
+    monkeypatch.setattr(vb, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(vb, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(vb.subprocess, "Popen", lambda cmd, **kw: cmds.append(cmd) or proc)
+    monkeypatch.setattr(vb.ctypes, "CDLL", lambda path: types.SimpleNamespace(run=types.SimpleNamespace()))
     assert set(fsv.build()) == set(fsv.VARIANTS)
     assert len(cmds) == len(fsv.VARIANTS) and all(cmd[cmd.index("-I") + 1] == str(CSRC) for cmd in cmds)
     assert all('#include "sm90_attention.cuh"' in Path(cmd[-1]).read_text() for cmd in cmds)
