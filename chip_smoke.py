@@ -52,7 +52,10 @@ one entry per TPU kernel:
      DA-V2 ViT-L's own qkv slabs (blocks 0, 11 and 23, B=8, captured by a
      forward hook on the block's qkv layer), with CUDA-event times against
      their plain versions, kernel #1 and SDPA on block 11's slab;
-  #8 fused LayerNorm -> MLP -> LayerScale residual (csrc/fused_mlp.cu) and
+  #8 fused LayerNorm -> MLP -> LayerScale residual: in bf16 the three
+     kernels of csrc/fused_mlp_sm90.cu (a LayerNorm pass, fc1 + GELU and
+     fc2 + LayerScale residual as wgmma/TMA GEMMs; route ``fused_mlp_sm90``),
+     in f32 mlp_f32 of csrc/fused_mlp.cu (route ``fused_mlp``), and
   #9 fused head tail, 3x3 conv -> ReLU -> 1x1 -> ReLU or sigmoid: in bf16
      at a width a tensor map reads the implicit GEMM on wgmma of
      csrc/head_tail_sm90.cu (route ``head_tail_sm90``), in f32 and at other
@@ -81,9 +84,10 @@ failure raises:
      shared memory, unbiased and biased, the sm_90 window kernel's, with
      and without the mask, and those of each sm_90 instantiation of #10
      (qp, pipelined, mode: also its key tile and consumer registers), #11,
-     #12 (each mode) and #9 (cudaFuncGetAttributes); fails if ptxas
-     serialized the wgmma (C7510-C7520) of any sm_90 source (the attention,
-     window, #9, #10, #11 and #12 kernels) or any of them spilled;
+     #12 (each mode), #9 and #8's three kernels (also their tiles, stages
+     and schedule) (cudaFuncGetAttributes); fails if ptxas serialized the
+     wgmma (C7510-C7520) of any sm_90 source (the attention, window, #8,
+     #9, #10, #11 and #12 kernels) or any of them spilled;
   3. each kernel vs its plain version at the paths' shapes and edge cases,
      float32 and bfloat16 (#1 and #2 also at N = 127-385 around the bf16
      kernel's 128-key and 192-row tiles, #2 there with a padded stack layer
@@ -107,14 +111,23 @@ failure raises:
      CPB and masks;
   10. the (B, N, H, D) op path;
   11. #8 and #9 vs their plain versions (#8 at F = 384, 768, 1024 and
-      100, 1297, 8 x 1297 and 1025 rows; #9 at ci = 32, 64, 128, 192, at
+      100, 1297, 8 x 1297 and 1025 rows, H = 4F, and at 100 rows, F = 384,
+      H = 1568, no multiple of 256; #9 at ci = 32, 64, 128, 192, at
       504x504 with B=1 and 8, 389x512, 37x52 and 392x518, ReLU and
-      sigmoid), float32 and bfloat16, each bf16 #9 launch held to the route
-      its size must take, as the wrapper counted it and by the kernel's
-      name (ht_sm90 at 504x504 and 389x512, head_tail<bf16> at 37x52 and
-      392x518), then CUDA-event times of both, in turns;
+      sigmoid), float32 and bfloat16, each bf16 #8 call held to the
+      fused_mlp_sm90 route as counted and to its three kernels by name
+      (mlp_ln_sm90, mlp_fc1_sm90, mlp_fc2_sm90, each once), each bf16 #9
+      launch held to the route its size must take, as the wrapper counted
+      it and by the kernel's name (ht_sm90 at 504x504 and 389x512,
+      head_tail<bf16> at 37x52 and 392x518), then CUDA-event times of both,
+      in turns, and #8's three kernels' device times from events in one
+      call at B = 1 and 8;
   12. DA-V1 ViT-L bf16 serving and f32 parity as 4-5, then #8 and #9 on its
-      blocks and head (bf16 serving model and f32 kernel model);
+      blocks and head (bf16 serving model and f32 kernel model), each bf16
+      #8 call held to its three sm_90 kernels by name; #8 on block 11 timed
+      per call and as device time beside the composite, and its host cost
+      per call (the JSON's ``device_ms``, ``composite_device_ms`` and
+      ``host_us``);
   13. DA-V2-metric ViT-L bf16 serving (depth in (0, 1)), #9 on its head;
   14. DA-V2 ViT-Giant bf16 serving (40 launches per forward), its int8
       default tier served the same way, and f32 parity;
@@ -247,6 +260,8 @@ SEED = 0
 DEVICE = "cuda"
 MLP_WIDTHS = (384, 768, 1024)  # ViT-S, B and L: F, with the hidden width 4F
 MLP_ROWS = (100, N_TOKENS, 8 * N_TOKENS, N_BEIT)
+MLP_ODD_HIDDEN = ((100, 384, 1568),)  # (rows, F, H): H no multiple of the GEMMs' 256-wide tiles, the bf16 route's edge
+MLP_SM90_KERNELS = ("mlp_ln_sm90", "mlp_fc1_sm90", "mlp_fc2_sm90")  # one bf16 #8 call's kernels, in launch order
 HEAD_CHANNELS = (32, 64, 128, 192)  # the tail's input: half of fusion 64 (ViT-S), 128 (B), 256 (L), 384 (Giant)
 # (B, H, W) and the bf16 route the wrapper must count there: the sm_90 kernel where a tensor map reads the map (the DA
 # serving size; 389 rows, no multiple of either unit height, and 512 columns, a whole last column block whose right
@@ -288,7 +303,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 WINDOW_SM90 = "window_attention_sm90.cu"
 SM90_SOURCES = ("flash_attention_sm90.cu", WINDOW_SM90, "head_tail_sm90.cu", "flash_xl_sm90.cu", "flash_staged_sm90.cu",
-                "flash_variant_sm90.cu")  # ptxas must not serialize their wgmma or spill
+                "flash_variant_sm90.cu", "fused_mlp_sm90.cu")  # ptxas must not serialize their wgmma or spill
 SM90_KERNEL = {9: "ht_sm90", 10: "fxl_sm90", 11: "fst_sm90", 12: "fv_sm90"}  # sm_90 kernels' names, as launches show them
 FV_MODES = ("MASK", "PADFIX", "NOSM", "EXPONLY", "MAXONLY")  # csrc/flash_variant_sm90.cu's FvMode, in order
 
@@ -321,7 +336,7 @@ NAMES = {
     12: "flash_variant (pre-scaled (BH, N, D); mode padfix, the JAX default)",
 }
 SOURCES = {1: "flash_attention_sm90", 2: "flash_attention_sm90", 3: "window_attention_sm90", 4: "flash_attention_sm90",
-           5: "flash_attention_sm90", 6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp",
+           5: "flash_attention_sm90", 6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp_sm90",
            9: "head_tail_sm90", 10: "flash_xl_sm90", 11: "flash_staged_sm90", 12: "flash_variant_sm90"}
 SERVED = {}  # what -> (ms per request at B=1, ms per frame at B=8), filled by serve()
 
@@ -389,6 +404,18 @@ def phase_build():
         print(f"build: csrc/head_tail_sm90.cu ht_sm90<{rows}>: {regs} registers per thread, {spill} B local memory per "
               f"thread, {static_smem} B static + {dynamic_smem} B dynamic shared memory at ci={channels}, {threads} "
               f"threads, {rows} output rows per unit, {stages} TMA stages", flush=True)
+    for kernel, name in enumerate(MLP_SM90_KERNELS):
+        info = (ctypes.c_int * 9)()
+        err = kernel_library().mdpt_fused_mlp_sm90_info(kernel, info)
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes of {name} failed: CUDA error {err}")
+        regs, spill, static_smem, dynamic_smem, threads, tile_m, tile_n, stages, pingpong = info
+        shape = (f"{tile_m} rows per CTA, one warp each, F up to {tile_n}" if kernel == 0 else
+                 f"{tile_m} x {tile_n} tiles, {stages} TMA stages, {'ping-pong' if pingpong else 'cooperative'} consumers "
+                 f"(setmaxnreg: producer 40, consumers 232)")
+        print(f"build: csrc/fused_mlp_sm90.cu {name}: {regs} registers per thread at launch, {spill} B local memory per "
+              f"thread, {static_smem} B static + {dynamic_smem} B dynamic shared memory, {threads} threads, {shape}",
+              flush=True)
     for source in SM90_SOURCES:
         report = logs.get(source) or ptxas_report(source)  # the library may have been built before
         serialized = sorted(set(re.findall(r"C75(?:1\d|20)\)?[^\n]*", report)))
@@ -929,12 +956,14 @@ def phase_bnhd_path(smi: str) -> tuple[int, int]:
     return at_beit, online
 
 
-def mlp_inputs(rng, shape, dtype):
+def mlp_inputs(rng, shape, dtype, hidden=None):
     """Tokens N(0, 1) and a GELU block's norm2, fc1, fc2 and ls2 in torch
-    layout, drawn with numpy; fc1 and fc2 scaled by 1/sqrt(fan-in)."""
+    layout, drawn with numpy; fc1 and fc2 scaled by 1/sqrt(fan-in). The
+    hidden width is 4F unless given."""
     f = shape[-1]
-    params = [((f,), 0.05, 1.0), ((f,), 0.05, 0.0), ((4 * f, f), f**-0.5, 0.0), ((4 * f,), 0.05, 0.0),
-              ((f, 4 * f), (4 * f) ** -0.5, 0.0), ((f,), 0.05, 0.0), ((f,), 0.05, 1.0)]  # (shape, scale, shift)
+    h = 4 * f if hidden is None else hidden
+    params = [((f,), 0.05, 1.0), ((f,), 0.05, 0.0), ((h, f), f**-0.5, 0.0), ((h,), 0.05, 0.0),
+              ((f, h), h**-0.5, 0.0), ((f,), 0.05, 0.0), ((f,), 0.05, 1.0)]  # (shape, scale, shift)
     return make_bias(rng, shape, dtype), [make_bias(rng, s, dtype, scale, shift) for s, scale, shift in params]
 
 
@@ -951,6 +980,24 @@ def mlp_shape(rows: int, f: int) -> tuple:
     return (8, N_TOKENS, f) if rows == 8 * N_TOKENS else (1, rows, f)
 
 
+MLP_ROUTES = {torch.bfloat16: "fused_mlp_sm90", torch.float32: "fused_mlp"}  # the #8 route each dtype must take
+
+
+def mlp_launch(fn, dtype):
+    """fn() (one #8 call) with its route counted (``counted_route``) and, in
+    bf16, its kernel launches traced; returns its output and, for the
+    check's label, the kernels that ran, once the call took its dtype's
+    route (``MLP_ROUTES``) and, in bf16, ran ``MLP_SM90_KERNELS``, each once
+    and in order, and no other kernel of ``KNOWN_KERNELS``."""
+    if dtype == torch.bfloat16:
+        ((out, route),), (label,) = traced_launches(8, [lambda: counted_route(fn, MLP_ROUTES.values())], [MLP_SM90_KERNELS])
+    else:
+        (out, route), label = counted_route(fn, MLP_ROUTES.values()), ""
+    if route != MLP_ROUTES[dtype]:
+        raise RuntimeError(f"kernel #8: a {dtype} call took the route {route}, want {MLP_ROUTES[dtype]}")
+    return out, label
+
+
 def phase_fused_kernels(smi: str) -> dict:
     """#8 and #9 vs their plain versions at the paths' widths and edge cases,
     float32 and bfloat16, then CUDA-event times of both, in turns."""
@@ -958,11 +1005,13 @@ def phase_fused_kernels(smi: str) -> dict:
     check = Checker()
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        for f in MLP_WIDTHS:
-            for rows in MLP_ROWS:
-                x, params = mlp_inputs(rng, mlp_shape(rows, f), dtype)
-                check(8, f"{name} rows={rows} F={f} H={4 * f}", fm.fused_ln_mlp_residual(x, *params),
-                      fm.fused_ln_mlp_residual_reference(x, *params), x.shape, relative=True)
+        shapes = [(mlp_shape(rows, f), 4 * f) for f in MLP_WIDTHS for rows in MLP_ROWS]
+        shapes += [((1, rows, f), hidden) for rows, f, hidden in MLP_ODD_HIDDEN]
+        for shape, hidden in shapes:
+            x, params = mlp_inputs(rng, shape, dtype, hidden)
+            out, kernel = mlp_launch(lambda: fm.fused_ln_mlp_residual(x, *params), dtype)
+            check(8, f"{name} rows={x.numel() // shape[-1]} F={shape[-1]} H={hidden}{kernel}", out,
+                  fm.fused_ln_mlp_residual_reference(x, *params), x.shape, relative=True)
         cases = [(ci, b, h, w, route, metric, *head_inputs(rng, b, ci, h, w, dtype)) for ci in HEAD_CHANNELS
                  for b, h, w, route in HEAD_SIZES for metric in (False, True)]
         calls = [lambda x=x, params=params, metric=metric: ht.fused_head_tail(x, *params, metric)
@@ -990,6 +1039,12 @@ def phase_fused_kernels(smi: str) -> dict:
             times[(8, dtype, b)] = timed_pair(smi, f"#8 {name} B={b} N={N_TOKENS} F={f} H={4 * f}",
                                               lambda: fm.fused_ln_mlp_residual(x, *params),
                                               lambda: fm.fused_ln_mlp_residual_reference(x, *params))
+            if dtype == torch.bfloat16:
+                stages = [fm.sm90_stage_ms(x, *params) for _ in range(5)]
+                ln_ms, fc1_ms, fc2_ms = (statistics.median(t[i] for t in stages) for i in range(3))
+                print(f"kernel stages #8 bfloat16 B={b} N={N_TOKENS} F={f} H={4 * f}: mlp_ln_sm90 {ln_ms:.4f} ms, "
+                      f"mlp_fc1_sm90 {fc1_ms:.4f} ms, mlp_fc2_sm90 {fc2_ms:.4f} ms (CUDA events between the three "
+                      f"launches of one call, median of 5) [{smi}]", flush=True)
             x, params = head_inputs(rng, b, ci, *OUT_HW, dtype)
             times[(9, dtype, b)] = timed_pair(smi, f"#9 {name} B={b} ci={ci} {OUT_HW[0]}x{OUT_HW[1]} relu",
                                               lambda: ht.fused_head_tail(x, *params), lambda: ht.fused_head_tail_reference(x, *params))
@@ -1027,7 +1082,7 @@ def hold_on_model(smi, model, what, stacks, check, blocks=None, times=None) -> d
     kernel vs composite (block 11 and the head), in turns."""
     name, net = str(model.dtype)[6:], model.net
     blocks = TAP_BLOCKS if blocks is None else blocks
-    launches = {"fused_mlp": 0, "head_tail": 0, "head_tail_sm90": 0}
+    launches = {"fused_mlp": 0, "fused_mlp_sm90": 0, "head_tail": 0, "head_tail_sm90": 0}
     with torch.inference_mode(), model._precision():  # f32: no TF32 in the composites' GEMMs and convs
         for frames in stacks:
             b = frames.shape[0]
@@ -1042,20 +1097,24 @@ def hold_on_model(smi, model, what, stacks, check, blocks=None, times=None) -> d
             head_args = (hx, head.conv_mid.weight, head.conv_mid.bias, head.proj.weight, head.proj.bias, head.is_metric)
             torch.cuda.synchronize()
             fa.reset_launch_counts()  # count this path's launches only
-            outs = {i: fm.fused_ln_mlp_residual(*mlp_args[i]) for i in blocks}
-            if model.dtype == torch.bfloat16:  # the serving size: the sm_90 kernel
+            calls = [lambda i=i: fm.fused_ln_mlp_residual(*mlp_args[i]) for i in blocks]
+            if model.dtype == torch.bfloat16:  # the sm_90 kernels: #8's three per call, #9's at the serving size
+                mlp_outs, mlp_kernels = traced_launches(8, calls, [MLP_SM90_KERNELS] * len(blocks))
                 out_head, kernel = sm90_launch(9, lambda: ht.fused_head_tail(*head_args))
             else:
+                mlp_outs, mlp_kernels = [call() for call in calls], [""] * len(blocks)
                 out_head, kernel = ht.fused_head_tail(*head_args), ""
+            outs, mlp_kernels = dict(zip(blocks, mlp_outs)), dict(zip(blocks, mlp_kernels))
             torch.cuda.synchronize()
             counts = fa.launch_counts()
+            mlp_route = MLP_ROUTES[model.dtype]
             route = "head_tail_sm90" if model.dtype == torch.bfloat16 else "head_tail"
-            if counts != {**{r: 0 for r in counts}, "fused_mlp": len(blocks), route: 1}:
-                raise RuntimeError(f"{what} B={b}: launches {counts}, want {len(blocks)} fused_mlp and 1 {route}")
+            if counts != {**{r: 0 for r in counts}, mlp_route: len(blocks), route: 1}:
+                raise RuntimeError(f"{what} B={b}: launches {counts}, want {len(blocks)} {mlp_route} and 1 {route}")
             for r in launches:
                 launches[r] += counts[r]
             for i in blocks:
-                label = f"{name} {what} B={b} block {i} rows={tokens[i].shape[0] * tokens[i].shape[1]}"
+                label = f"{name} {what} B={b} block {i} rows={tokens[i].shape[0] * tokens[i].shape[1]}{mlp_kernels[i]}"
                 check(8, label, outs[i], fm.fused_ln_mlp_residual_reference(*mlp_args[i]), tokens[i].shape, relative=True)
                 check(8, label, outs[i], net.encoder.blocks[i].mlp_residual(tokens[i]), tokens[i].shape, relative=True,
                       composite=True)
@@ -1069,6 +1128,12 @@ def hold_on_model(smi, model, what, stacks, check, blocks=None, times=None) -> d
                 times[(8, model.dtype, b)] = timed_pair(smi, f"#8 {name} {what} B={b} block {i} vs Block.mlp_residual",
                                                         lambda: fm.fused_ln_mlp_residual(*mlp_args[i]),
                                                         lambda: net.encoder.blocks[i].mlp_residual(tokens[i]))
+                times[(8, "device", b)] = device_pair(smi, f"#8 {name} {what} B={b} block {i} vs Block.mlp_residual",
+                                                      lambda: fm.fused_ln_mlp_residual(*mlp_args[i]),
+                                                      lambda: net.encoder.blocks[i].mlp_residual(tokens[i]))
+                # the kernel's host cost alone: the composite's 8 launches a call would fill the launch queue behind the spin
+                times[(8, "host", b)] = host_pair(smi, f"#8 {name} {what} B={b} block {i}",
+                                                  {"#8": lambda: fm.fused_ln_mlp_residual(*mlp_args[i])})
                 times[(9, model.dtype, b)] = timed_pair(smi, f"#9 {name} {what} B={b} head vs Head.tail",
                                                         lambda: ht.fused_head_tail(*head_args), lambda: head.tail(hx))
             del got, tokens, mlp_args, outs, hx, head_args, out_head
@@ -1491,7 +1556,8 @@ def check_variants(check, label, q_s, q_s2, k, v, relative=False):
             check(12, f"{label} {case}{kernel}", got, ref, q.shape, relative=relative)
 
 
-KNOWN_KERNELS = ("fv_f32", "fv_sm90", "fxl_sm90", "fst_sm90", "ht_sm90", "head_tail<")  # the sweep's and #9's, as traced
+KNOWN_KERNELS = ("fv_f32", "fv_sm90", "fxl_sm90", "fst_sm90", "ht_sm90", "head_tail<", "mlp_ln_sm90", "mlp_fc1_sm90",
+                 "mlp_fc2_sm90", "mlp_f32")  # the sweep's, #9's and #8's, as traced
 
 
 CUPTI_API_DOMAIN = 1  # cupti_callbacks.h: the domain of CUDA's C API calls, cuLaunchKernel among them
@@ -1565,13 +1631,20 @@ def traced_launches(kid, calls, kernels):
 
 
 def ran_labels(kid, names, kernels) -> list:
-    """For each check's label, the kernel each launch ran, once the traced
-    ``names`` show that the launches ran ``kernels``, in order, and no other
-    kernel of ``KNOWN_KERNELS``."""
+    """For each check's label, the kernels each launch ran, once the traced
+    ``names`` show that the launches ran ``kernels`` (per launch a kernel, or
+    a tuple of the kernels it runs in order), in order, and no other kernel
+    of ``KNOWN_KERNELS``."""
+    per_launch = [(k,) if isinstance(k, str) else tuple(k) for k in kernels]
+    want = [k for ks in per_launch for k in ks]
     ran = [name for name in names if any(k in name for k in KNOWN_KERNELS)]
-    if len(ran) != len(kernels) or not all(k in name for k, name in zip(kernels, ran)):
-        raise RuntimeError(f"kernel #{kid}: the launches ran {names}, want {list(kernels)}")
-    return [f" [{kernel_label(k, name)}]" for k, name in zip(kernels, ran)]
+    if len(ran) != len(want) or not all(k in name for k, name in zip(want, ran)):
+        raise RuntimeError(f"kernel #{kid}: the launches ran {names}, want {want}")
+    labels, at = [], 0
+    for ks in per_launch:
+        labels.append(" [" + ", ".join(kernel_label(k, name) for k, name in zip(ks, ran[at:at + len(ks)])) + "]")
+        at += len(ks)
+    return labels
 
 
 def counted_route(fn, routes):
@@ -1852,16 +1925,20 @@ def main() -> int:
         launches[kid] = int8_launches[kid]
         numbers[kid] = {"max_abs_err": max(int8_worst[kid], check.worst[kid]),
                         **dict(zip(("ms", "plain_ms", "library_ms"), int8_times[kid]))}
-    launches[8] = fused["fused_mlp"]
+    mlp_routes = {r: fused[r] for r in ("fused_mlp_sm90", "fused_mlp")}
+    launches[8] = sum(mlp_routes.values())
     head_routes = {r: fused[r] + head_launches[r] for r in ("head_tail_sm90", "head_tail")}
     launches[9] = sum(head_routes.values())
-    print(f"flash launches on the DA-V1 and Giant paths: {flash_v1}, {flash_giant}; #9 launches on the DA-V1 and "
-          f"DA-V2-metric paths by route: {head_routes}", flush=True)
-    if head_routes["head_tail_sm90"] == 0:
-        raise RuntimeError(f"#9's sm_90 kernel never launched on its path: {head_routes}")
+    print(f"flash launches on the DA-V1 and Giant paths: {flash_v1}, {flash_giant}; #8 launches on the DA-V1 path by "
+          f"route: {mlp_routes}; #9 launches on the DA-V1 and DA-V2-metric paths by route: {head_routes}", flush=True)
+    if mlp_routes["fused_mlp_sm90"] == 0 or head_routes["head_tail_sm90"] == 0:
+        raise RuntimeError(f"an sm_90 kernel of #8 or #9 never launched on its path: {mlp_routes}, {head_routes}")
     for kid in (8, 9):
         numbers[kid]["max_abs_err"] = max(numbers[kid]["max_abs_err"], check.worst[kid])
         numbers[kid]["composite_ms"] = composite[(kid, torch.bfloat16, 8)][1]  # the model's own unfused layers
+    # #8 on DA-V1 block 11 at B=8: device times (the host's cost per call left out) and host costs, kernel and composite
+    numbers[8].update(zip(("device_ms", "composite_device_ms"), composite[(8, "device", 8)][:2]))
+    numbers[8]["host_us"] = composite[(8, "host", 8)][0]
     numbers.update(sweep_numbers)
     launches.update(sweep_launches)
     numbers[1]["max_abs_err"] = max(numbers[1]["max_abs_err"], ladder_worst)

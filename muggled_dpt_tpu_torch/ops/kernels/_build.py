@@ -130,8 +130,13 @@ def kernel_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_fused_mlp
-    # the int64 argument array (its slots in csrc/fused_mlp.cu), LayerNorm eps, stream
+    # the int64 argument array (its slots in csrc/fused_mlp.cu; the call writes SLOT_ROUTE), LayerNorm eps, stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mdpt_fused_mlp_sm90_info
+    # 0 (the LayerNorm pass), 1 (fc1) or 2 (fc2), then nine int32 out values (csrc/fused_mlp_sm90.cu): the five of the
+    # flash kernel's, the tile's rows and columns, the TMA stages, 1 for the ping-pong schedule
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_head_tail
     # the int64 argument array (its slots in csrc/head_tail.cu; the call writes SLOT_ROUTE), stream

@@ -326,6 +326,7 @@ def _counted_entries() -> dict:
         "window": (window_attention, "launches"),
         "window_sm90": (window_attention, "sm90_launches"),
         "fused_mlp": (fused_ln_mlp_residual, "launches"),
+        "fused_mlp_sm90": (fused_ln_mlp_residual, "sm90_launches"),
         "head_tail": (fused_head_tail, "launches"),
         "head_tail_sm90": (fused_head_tail, "sm90_launches"),
         "int8_qk": (flash_attention_int8_qk, "launches"),
@@ -345,10 +346,11 @@ def reset_launch_counts():
 def launch_counts() -> dict[str, int]:
     """The launch count of every kernel route of the package: the SwinV2
     window kernels (``ops/kernels/window_attention.py``: ``window`` and the
-    sm_90 kernel's ``window_sm90``), the fused MLP
-    (``fused_mlp.py``), the head tail (``head_tail.py``: ``head_tail`` and
-    the sm_90 kernel's ``head_tail_sm90``), the int8-QK^T
-    attention's two entries (``flash_attention_int8.py``) and the attention
-    sweep's variants #10-#12 (``flash_attention_xl.py``,
-    ``flash_attention_staged.py``, ``tools/attn_variants.py``) included."""
+    sm_90 kernel's ``window_sm90``), the fused MLP (``fused_mlp.py``:
+    ``fused_mlp`` and the sm_90 kernels' ``fused_mlp_sm90``), the head tail
+    (``head_tail.py``: ``head_tail`` and the sm_90 kernel's
+    ``head_tail_sm90``), the int8-QK^T attention's two entries
+    (``flash_attention_int8.py``) and the attention sweep's variants #10-#12
+    (``flash_attention_xl.py``, ``flash_attention_staged.py``,
+    ``tools/attn_variants.py``) included."""
     return {route: getattr(entry, attribute) for route, (entry, attribute) in _counted_entries().items()}

@@ -4,6 +4,7 @@
     python3 muggled_dpt_tpu_torch/tools/measure.py host [--against DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py attention [--against DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py head [--against DIR]
+    python3 muggled_dpt_tpu_torch/tools/measure.py mlp [--against DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py profile [--model beit|swinv2|vitl|giant] [--out DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py profile --int8 [dense] [default] [qkv] [neck] [--out DIR]
 
@@ -60,6 +61,18 @@ per launch (CUDA events) and as device time (``flash_tune.device_ms``); beside t
 sigmoid) on the same weights, timed both ways, and the bound (2 B H W 32
 (9 ci + 1) operations over 989 TFLOP/s, or the map read and the output
 written once over 3.35 TB/s).
+
+``mlp``: the fused LayerNorm-MLP-residual (#8; bf16: the three kernels
+of csrc/fused_mlp_sm90.cu) at F = 1024, H = 4096 on (B, N) = (8, 1297)
+and (1, 1297) (DA ViT-L at 504x504) and (1, 1025) (BEiT-L-512 at
+512x512), on random inputs and a random ViT-L block from a seed (fc1 and
+fc2 scaled by 1/sqrt(fan-in)); with ``--against``, the other checkout's
+kernel on the same inputs in turns (other, this, this, other), per call
+(CUDA events) and as device time (``flash_tune.device_ms``); beside them
+``Block.mlp_residual``'s composite (LayerNorm, fc1, GELU, fc2, LayerScale
+and residual as separate bf16 ops) timed both ways, and the bound (4 B N F
+H operations over 989 TFLOP/s, or tokens, weights and output moved once
+over 3.35 TB/s).
 
 ``profile``: a torch.profiler breakdown of a bf16 forward (10 forwards at
 B=1, 5 at B=8): device busy share (the union of kernel intervals over the
@@ -462,6 +475,54 @@ def head(args, smi):
         torch.cuda.empty_cache()
 
 
+MLP_CASES = ((8, 1297), (1, 1297), (1, 1025))  # (B, N) at ViT-L's block, F = 1024, H = 4096
+
+
+def mlp(args, smi):
+    """#8 bf16 at ``MLP_CASES`` against the other checkout's kernel (in
+    turns) and ``Block.mlp_residual``'s composite, per call and as device
+    time."""
+    import importlib
+
+    import torch
+
+    from muggled_dpt_tpu_torch.models.dinov2 import Block
+    from muggled_dpt_tpu_torch.tools.flash_tune import device_ms
+
+    packages = {"this": "muggled_dpt_tpu_torch"}
+    if args.against:
+        load_package(args.against, "against_muggled_dpt_tpu_torch")
+        packages = {"against": "against_muggled_dpt_tpu_torch", **packages}
+    fms = {name: importlib.import_module(pkg + ".ops.kernels.fused_mlp") for name, pkg in packages.items()}
+    order = ["against", "this", "this", "against"] if args.against else ["this", "this"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f = 1024
+    block = Block(f, 16, device="cuda").to(torch.bfloat16)
+    n2, m = block.norm2, block.mlp
+    with torch.no_grad():  # chip_smoke.py's mlp_inputs: (scale, shift) per parameter
+        for p, scale, shift in ((n2.weight, 0.05, 1.0), (n2.bias, 0.05, 0.0), (m.fc1.weight, f**-0.5, 0.0),
+                                (m.fc1.bias, 0.05, 0.0), (m.fc2.weight, (4 * f) ** -0.5, 0.0), (m.fc2.bias, 0.05, 0.0),
+                                (block.ls2, 0.05, 1.0)):
+            p.copy_(torch.randn(p.shape, device="cuda", generator=gen) * scale + shift)
+    params = (n2.weight, n2.bias, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias, block.ls2)
+    with torch.inference_mode():
+        for b, n in MLP_CASES:
+            x = torch.randn(b, n, f, device="cuda", dtype=torch.bfloat16, generator=gen)
+            calls = {name: (lambda fm=fm: fm.fused_ln_mlp_residual(x, *params)) for name, fm in fms.items()}
+            ops_ms = 4 * b * n * f * 4 * f / 989e12 * 1e3
+            bytes_ms = (2 * b * n * f + 2 * 4 * f * f + 4 * f + 4 * f) * 2 / 3.35e12 * 1e3
+            bound = f"bound {max(ops_ms, bytes_ms):.4f} ms ({'ops' if ops_ms >= bytes_ms else 'bytes'})"
+            for how, measure in (("per call", event_ms), ("device time", device_ms)):
+                times = {name: [] for name in calls}
+                for name in order:
+                    times[name].append(measure(calls[name]))
+                readings = ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
+                print(f"#8 fused_ln_mlp_residual bf16 (B={b}, N={n}, F={f}, H={4 * f}), random, {how}: {readings}; "
+                      f"Block.mlp_residual {measure(lambda: block.mlp_residual(x)):.4f} ms; {bound} [{smi}]", flush=True)
+            del x, calls
+            torch.cuda.empty_cache()
+
+
 def window(packages: dict, gen, smi: str, against):
     """#3 at ``WINDOW_CASES``, as ``attention`` times the flash kernel."""
     import importlib
@@ -677,8 +738,8 @@ def profile(args, smi):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=["host", "attention", "head", "profile"])
-    parser.add_argument("--against", default=None, help="another checkout whose package host, attention or head also measures, "
+    parser.add_argument("what", choices=["host", "attention", "head", "mlp", "profile"])
+    parser.add_argument("--against", default=None, help="another checkout whose package host, attention, head or mlp also measures, "
                         "interleaved")
     parser.add_argument("--model", choices=sorted(PROFILED), default=None, help="the model profile measures (default beit; "
                         "vitl with --int8)")
@@ -694,7 +755,7 @@ def main() -> int:
         print("no CUDA device: this script measures the port on a GPU", file=sys.stderr)
         return 1
     smi = card_line()
-    {"host": host, "attention": attention, "head": head, "profile": profile}[args.what](args, smi)
+    {"host": host, "attention": attention, "head": head, "mlp": mlp, "profile": profile}[args.what](args, smi)
     return 0
 
 

@@ -4,7 +4,8 @@ CPU tensors, against the JAX package's Pallas kernel
 (``experiments/pallas_fused_mlp.py``) in interpret mode on the same numpy
 inputs, against the block it stands beside (``Block.mlp_residual``), and the
 wrapper's argument checks and pointer arithmetic through a stub of the
-kernel library.
+kernel library (which reads ``enum Slot`` of csrc/fused_mlp.cu, writes the
+route the C entry takes and counts each call on it).
 
 Tolerances: float32 rtol 1e-4 / atol 1e-5, as tests/test_fused_mlp.py holds
 the Pallas kernel to the unfused ops (its polynomial erf differs from the
@@ -114,8 +115,8 @@ def test_cpu_calls_count_no_launch():
     fa.reset_launch_counts()
     x, params = _inputs((1, 5, 64), 64)
     fm.fused_ln_mlp_residual(_t(x), *(_t(p) for p in params))
-    assert fm.fused_ln_mlp_residual.launches == 0
-    assert fa.launch_counts()["fused_mlp"] == 0
+    assert fm.fused_ln_mlp_residual.launches == fm.fused_ln_mlp_residual.sm90_launches == 0
+    assert fa.launch_counts()["fused_mlp"] == fa.launch_counts()["fused_mlp_sm90"] == 0
 
 
 def test_bad_shapes_raise():
@@ -180,13 +181,16 @@ class StubLibrary:
 
     def mdpt_fused_mlp(self, args_ptr, eps, stream):
         s = self.slots
-        a = list((ctypes.c_longlong * s["NUM_SLOTS"]).from_address(args_ptr))
+        slots = (ctypes.c_longlong * s["NUM_SLOTS"]).from_address(args_ptr)
+        slots[s["SLOT_ROUTE"]] = slots[s["SLOT_DTYPE"]]  # the C entry's route: bfloat16 on the sm_90 kernels (1)
+        a = list(slots)
         rows, f, hidden = a[s["SLOT_ROWS"]], a[s["SLOT_FEATURES"]], a[s["SLOT_HIDDEN"]]
         dtype = [torch.float32, torch.bfloat16][a[s["SLOT_DTYPE"]]]
         shapes = {"SLOT_X": (rows, f), "SLOT_LN_W": (f,), "SLOT_LN_B": (f,), "SLOT_W1": (hidden, f), "SLOT_B1": (hidden,),
                   "SLOT_W2": (f, hidden), "SLOT_B2": (f,), "SLOT_LS": (f,), "SLOT_OUT": (rows, f)}
         t = {k: self._view(a[s[k]], shape, dtype) for k, shape in shapes.items()}
-        self.calls.append({"rows": rows, "f": f, "hidden": hidden, "dtype": dtype, "eps": eps})
+        self.calls.append({"rows": rows, "f": f, "hidden": hidden, "dtype": dtype, "eps": eps,
+                           "scratch": (a[s["SLOT_XN"]], a[s["SLOT_GELU"]])})
         params = [t[k] for k in ("SLOT_LN_W", "SLOT_LN_B", "SLOT_W1", "SLOT_B1", "SLOT_W2", "SLOT_B2", "SLOT_LS")]
         t["SLOT_OUT"].copy_(fm.fused_ln_mlp_residual_reference(t["SLOT_X"], *params, eps=eps))
         return 0
@@ -217,12 +221,15 @@ def test_wrapper_arithmetic_through_stub_library(stub, dtype, shape, hidden):
     version on the original tensors."""
     x, params = _inputs(shape, hidden, seed=4)
     x, params = _t(x, dtype), [_t(p, dtype) for p in params]
-    fm.fused_ln_mlp_residual.launches = 0
+    fa.reset_launch_counts()
     got = fm.fused_ln_mlp_residual(x, *params, eps=1e-5)
-    assert fm.fused_ln_mlp_residual.launches == 1 and len(stub.calls) == 1
+    sm90 = dtype == torch.bfloat16  # the C entry's route: bfloat16 on the sm_90 kernels, with their scratch
+    counted = (fm.fused_ln_mlp_residual.sm90_launches, fm.fused_ln_mlp_residual.launches)
+    assert counted == ((1, 0) if sm90 else (0, 1)) and len(stub.calls) == 1
     assert len(stub.recorded["values"]) == stub.slots["NUM_SLOTS"]
     call = stub.calls[0]
     assert (call["rows"], call["f"], call["hidden"], call["dtype"]) == (x.numel() // shape[-1], shape[-1], hidden, dtype)
+    assert all(call["scratch"]) if sm90 else call["scratch"] == (0, 0)
     assert call["eps"] == pytest.approx(1e-5)
     want = fm.fused_ln_mlp_residual_reference(x, *params, eps=1e-5)
     assert got.shape == want.shape == x.shape and got.dtype == dtype
