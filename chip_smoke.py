@@ -25,7 +25,7 @@ original-format checkpoint and loaded through ``make_dpt_from_state_dict``:
     max side 512 gives 512x512, where the window search picks 32 (A=1024)
     at stages 1-3 and 16 at stage 4.
 
-Twelve CUDA sources port twelve TPU kernels; the ``kernels`` JSON line has
+The CUDA sources port twelve TPU kernels; the ``kernels`` JSON line has
 one entry per TPU kernel:
   #1 fused qkv, unbiased  -- the Depth-Anything path; in bf16 the wgmma/TMA
      kernel of csrc/flash_attention_sm90.cu, which takes every bf16 launch
@@ -46,12 +46,19 @@ one entry per TPU kernel:
      Its path is that op, driven at BEiT-L-512's attention shape (#4) and
      past 32768 keys (#5, the online kernel's regime; bf16 in
      csrc/flash_attention_sm90.cu);
-  #6 / #7 int8-QK^T attention (csrc/flash_attention_int8.cu), the (B H, N,
-     D) entry and the head-major qkv-slab entry: as in the JAX package, no
-     model serves through them. Their path holds them against the int8+qkv
-     DA-V2 ViT-L's own qkv slabs (blocks 0, 11 and 23, B=8, captured by a
-     forward hook on the block's qkv layer), with CUDA-event times against
-     their plain versions, kernel #1 and SDPA on block 11's slab;
+  #6 / #7 int8-QK^T attention, the (B H, N, D) entry and the head-major
+     qkv-slab entry (C entry csrc/flash_attention_int8.cu): every call runs
+     the quantize prologue of csrc/flash_attention_int8_sm90.cu (two
+     kernels, i8_pass_a and i8_pass_b), then in bf16 that source's int8
+     wgmma/TMA attention kernel (fa_i8_sm90; routes ``int8_qk_sm90``,
+     ``int8_qk_fused_sm90``), in f32 fa_int8_f32 (routes ``int8_qk``,
+     ``int8_qk_fused``); as in the JAX package, no model serves through
+     them. Their path holds them against the int8+qkv DA-V2 ViT-L's own qkv
+     slabs (blocks 0, 11 and 23, B=8, captured by a forward hook on the
+     block's qkv layer), the prologue's int8 q, int8 k and alpha equal to
+     the plain prologue's by torch.equal, with CUDA-event and device times
+     of the whole call, the prologue alone and the attention kernel alone
+     against their plain versions, kernel #1 and SDPA on block 11's slab;
   #8 fused LayerNorm -> MLP -> LayerScale residual: in bf16 the three
      kernels of csrc/fused_mlp_sm90.cu (a LayerNorm pass, fc1 + GELU and
      fc2 + LayerScale residual as wgmma/TMA GEMMs; route ``fused_mlp_sm90``),
@@ -84,10 +91,12 @@ failure raises:
      shared memory, unbiased and biased, the sm_90 window kernel's, with
      and without the mask, and those of each sm_90 instantiation of #10
      (qp, pipelined, mode: also its key tile and consumer registers), #11,
-     #12 (each mode), #9 and #8's three kernels (also their tiles, stages
-     and schedule) (cudaFuncGetAttributes); fails if ptxas serialized the
-     wgmma (C7510-C7520) of any sm_90 source (the attention, window, #8,
-     #9, #10, #11 and #12 kernels) or any of them spilled;
+     #12 (each mode), #9, #8's three kernels (also their tiles, stages
+     and schedule) and the int8 attention kernel of #6 and #7 (also its q
+     rows per CTA and stages) (cudaFuncGetAttributes); fails if ptxas
+     serialized the wgmma (C7510-C7520) of any of the eight sm_90 sources
+     (the attention, window, #6/#7, #8, #9, #10, #11 and #12 kernels) or
+     any of them spilled;
   3. each kernel vs its plain version at the paths' shapes and edge cases,
      float32 and bfloat16 (#1 and #2 also at N = 127-385 around the bf16
      kernel's 128-key and 192-row tiles, #2 there with a padded stack layer
@@ -132,13 +141,20 @@ failure raises:
   14. DA-V2 ViT-Giant bf16 serving (40 launches per forward), its int8
       default tier served the same way, and f32 parity;
   15. (between 3 and 4) #6 and #7 vs their plain versions and float32
-      attention, float32 and bfloat16 v: ragged N, all-negative logits, a
-      zero q row, the lossless case, #6 at N=32897;
+      attention, float32 and bfloat16: ragged N, all-negative logits, a
+      zero q row, the lossless case, #6 at N=32897 and on views whose rows
+      a tensor map cannot read (copied by the wrapper); on every case the
+      kernel prologue's int8 q, int8 k and alpha equal to the plain
+      prologue's (torch.equal), each call counted on the route its dtype
+      must take and its three kernels named (the prologue's two and the
+      route's attention kernel);
   16. (after 5) torch._int_mm on the card as the int8 tier calls it, then
       DA-V2 ViT-L's int8 tiers (default, +qkv, +qkv calibrated on 2 frames,
       +qkv+neck) served like 4 beside the dense model, each with its times
       and abs-rel against dense bf16; #6 and #7 on the int8+qkv model's qkv
-      slabs; the f32 int8+qkv kernel model vs its plain-attention twin;
+      slabs (3 + 3 launches on the sm_90 routes, each call's kernels named,
+      the prologue equal to the plain one on each slab); the f32 int8+qkv
+      kernel model vs its plain-attention twin;
   17. (in 6 and 8) BEiT-L-512 int8+qkv+neck and SwinV2-L-384 int8 (MLP
       only): one request and one batch of 8 each, against the bf16 model;
   18. (after 5) DA-V2 ViT-L bf16 on the long-N ladder: one request at each
@@ -168,7 +184,8 @@ Then one JSON line of per-kernel results (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
 for bf16, 1979 TOP/s for int8 (#6 and #7's QK^T); #3's exp floor, one exp2
 per (q, k) pair over the SFU's 3.86e12 per second, is printed beside its
-times; and, where one PyTorch call
+times, and #6's and #7's entries carry theirs and their prologue's byte
+floor; and, where one PyTorch call
 computes the same function, that call's time), the card line, and last the
 ok line.
 
@@ -298,12 +315,12 @@ BF16_REL_MAX, BF16_REL_MEAN = 1.6e-2, 2e-3  # same rounding points: two bf16 ulp
 # fc2's output, the LayerScale product (#8) and the conv output (#9) to bf16
 COMPOSITE_BF16_REL_MAX, COMPOSITE_BF16_REL_MEAN = 5e-2, 1e-2
 
-# H100 SXM peaks for the bound: dense bf16 and int8 tensor cores, f32 FMA, HBM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
+# H100 SXM peaks for the bound: dense bf16 tensor cores, f32 FMA, HBM (int8: flash_attention_int8.int8_bound)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 WINDOW_SM90 = "window_attention_sm90.cu"
 SM90_SOURCES = ("flash_attention_sm90.cu", WINDOW_SM90, "head_tail_sm90.cu", "flash_xl_sm90.cu", "flash_staged_sm90.cu",
-                "flash_variant_sm90.cu", "fused_mlp_sm90.cu")  # ptxas must not serialize their wgmma or spill
+                "flash_variant_sm90.cu", "fused_mlp_sm90.cu", "flash_attention_int8_sm90.cu")  # ptxas: no wgmma serialized, no spill
 SM90_KERNEL = {9: "ht_sm90", 10: "fxl_sm90", 11: "fst_sm90", 12: "fv_sm90"}  # sm_90 kernels' names, as launches show them
 FV_MODES = ("MASK", "PADFIX", "NOSM", "EXPONLY", "MAXONLY")  # csrc/flash_variant_sm90.cu's FvMode, in order
 
@@ -336,7 +353,7 @@ NAMES = {
     12: "flash_variant (pre-scaled (BH, N, D); mode padfix, the JAX default)",
 }
 SOURCES = {1: "flash_attention_sm90", 2: "flash_attention_sm90", 3: "window_attention_sm90", 4: "flash_attention_sm90",
-           5: "flash_attention_sm90", 6: "flash_attention_int8", 7: "flash_attention_int8", 8: "fused_mlp_sm90",
+           5: "flash_attention_sm90", 6: "flash_attention_int8_sm90", 7: "flash_attention_int8_sm90", 8: "fused_mlp_sm90",
            9: "head_tail_sm90", 10: "flash_xl_sm90", 11: "flash_staged_sm90", 12: "flash_variant_sm90"}
 SERVED = {}  # what -> (ms per request at B=1, ms per frame at B=8), filled by serve()
 
@@ -416,6 +433,14 @@ def phase_build():
         print(f"build: csrc/fused_mlp_sm90.cu {name}: {regs} registers per thread at launch, {spill} B local memory per "
               f"thread, {static_smem} B static + {dynamic_smem} B dynamic shared memory, {threads} threads, {shape}",
               flush=True)
+    info = (ctypes.c_int * 8)()
+    err = kernel_library().mdpt_flash_attention_int8_sm90_info(info)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes of fa_i8_sm90 failed: CUDA error {err}")
+    regs, spill, static_smem, dynamic_smem, threads, rows, stages, consumer_regs = info
+    print(f"build: csrc/flash_attention_int8_sm90.cu fa_i8_sm90: {regs} registers per thread at launch (setmaxnreg: "
+          f"consumers {consumer_regs}), {spill} B local memory per thread, {static_smem} B static + {dynamic_smem} B dynamic "
+          f"shared memory, {threads} threads, {rows} q rows per CTA, {stages} K/V stages", flush=True)
     for source in SM90_SOURCES:
         report = logs.get(source) or ptxas_report(source)  # the library may have been built before
         serialized = sorted(set(re.findall(r"C75(?:1\d|20)\)?[^\n]*", report)))
@@ -1238,56 +1263,121 @@ def check_int8(check, kid, label, got, ref, shape, qkv_views=None, gate=TRUE_ATT
             raise RuntimeError(f"kernel #{kid} {label}: int8 attention off true attention by {err:.3e}")
 
 
-def lossless_inputs(rng, g, n, dtype):
-    """(G, N, 64) q, k on a 0.02 grid with every row's max |entry| at 127
-    steps (so they quantize exactly), v N(0, 1)."""
+def lossless_inputs(rng, g, n, dtype, step=0.02):
+    """(G, N, 64) q, k on a grid of ``step`` with every row's max |entry| at
+    127 steps (so they quantize exactly; in bf16 the step is 2^-6, which
+    bf16 holds exactly), v N(0, 1)."""
     qi, ki = (rng.integers(-127, 128, (g, n, HEAD_DIM)).astype(np.float32) for _ in range(2))
     qi[:, :, 0], ki[:, :, 0] = 127, 127
-    return (torch.from_numpy(a).to(DEVICE, dtype) for a in (qi * np.float32(0.02), ki * np.float32(0.02),
+    return (torch.from_numpy(a).to(DEVICE, dtype) for a in (qi * np.float32(step), ki * np.float32(step),
                                                             rng.standard_normal((g, n, HEAD_DIM), dtype=np.float32)))
+
+
+INT8_ROUTES = {(7, torch.bfloat16): "int8_qk_fused_sm90", (7, torch.float32): "int8_qk_fused",
+               (6, torch.bfloat16): "int8_qk_sm90", (6, torch.float32): "int8_qk"}  # the route each call must take
+INT8_KERNELS = {torch.bfloat16: ("i8_pass_a", "i8_pass_b", "fa_i8_sm90"),  # the prologue's two, then the attention's
+                torch.float32: ("i8_pass_a", "i8_pass_b", "fa_int8_f32")}
+
+
+def int8_calls(kid, dtype, calls) -> tuple[list, list]:
+    """Each of ``calls`` (one call of #kid's entry on ``dtype`` each), its
+    launches counted and its kernels named (CUPTI): returns the outputs and,
+    for the checks' labels, the kernels each ran, once every call counted
+    one launch on the route its dtype must take and ran the prologue's two
+    kernels and that route's attention kernel, in order."""
+    route = INT8_ROUTES[(kid, dtype)]
+    routes = [r for (k, _), r in INT8_ROUTES.items() if k == kid]
+    outs, labels = traced_launches(kid, [lambda call=call: counted_route(call, routes) for call in calls],
+                                   [INT8_KERNELS[dtype]] * len(calls))
+    taken = [r for _, r in outs]
+    if taken != [route] * len(calls):
+        raise RuntimeError(f"kernel #{kid} {dtype}: the calls counted on {taken}, want {route}")
+    return [out for out, _ in outs], labels
+
+
+def check_prologue(kid, label, launch, plain):
+    """The kernel prologue (``Int8Launch.run(STAGE_PROLOGUE)``) against the
+    plain prologue's (q_i8, k_i8, alpha) by torch.equal. ``plain``: #7's
+    ``quantize_fused`` ((B, N, H, D), alpha (B, N, H)) or #6's
+    ``quantize_rows`` ((B H, N, D), alpha (B H, N))."""
+    launch.run(fi8.STAGE_PROLOGUE)
+    torch.cuda.synchronize()
+    got = (launch.q_i8, launch.k_i8, launch.alpha.permute(0, 2, 1))
+    if kid == 6:  # one head per (B H) row of the scratch
+        got = tuple(t.squeeze(2) for t in got)
+    differ = [int((a != b).sum()) for a, b in zip(got, plain[:3])]
+    same = all(torch.equal(a, b) for a, b in zip(got, plain[:3]))
+    print(f"prologue check #{kid} {label}: int8 q, int8 k and alpha equal to the plain prologue's: {same} (entries that "
+          f"differ: {differ})", flush=True)
+    if not same:
+        raise RuntimeError(f"kernel #{kid} {label}: the prologue differs from the plain one in {differ} entries")
 
 
 def phase_int8_kernels(smi: str) -> dict:
     """#6 and #7 against their plain versions and true attention, float32 and
     bfloat16: ragged N, all-negative logits, a zero q row, the lossless
-    case, #6 past 32768 keys. Returns each kernel's worst error."""
+    case, #6 past 32768 keys; on every case the kernel prologue equal to the
+    plain one, each call counted on its route and its kernels named.
+    Returns each kernel's worst error."""
     torch.backends.cuda.matmul.allow_tf32 = False  # true attention in true f32
     rng = np.random.default_rng(SEED + 7)
     check = Checker()
+    scale = HEAD_DIM**-0.5
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         for b, n in INT8_FUSED_CASES:
             qkv = make_qkv(rng, b, n, dtype)
-            check_int8(check, 7, f"{name} B={b} N={n} H={HEADS}", fi8.flash_attention_int8_qk_fused(qkv, HEADS),
-                       fi8.flash_attention_int8_qk_fused_reference(qkv, HEADS), (b, n, HEADS * HEAD_DIM), _split(qkv))
+            label = f"{name} B={b} N={n} H={HEADS}"
+            check_prologue(7, label, fi8.prepare_int8_qk_fused(qkv, HEADS), fi8.quantize_fused(qkv, HEADS, scale))
+            (got,), (ran,) = int8_calls(7, dtype, [lambda: fi8.flash_attention_int8_qk_fused(qkv, HEADS)])
+            check_int8(check, 7, label + ran, got, fi8.flash_attention_int8_qk_fused_reference(qkv, HEADS),
+                       (b, n, HEADS * HEAD_DIM), _split(qkv))
         qkv = make_qkv(rng, 2, 200, dtype, all_negative=True)
-        check(7, f"{name} B=2 N=200 all-negative", fi8.flash_attention_int8_qk_fused(qkv, HEADS),
-              fi8.flash_attention_int8_qk_fused_reference(qkv, HEADS), (2, 200, HEADS * HEAD_DIM))
+        check_prologue(7, f"{name} B=2 N=200 all-negative", fi8.prepare_int8_qk_fused(qkv, HEADS),
+                       fi8.quantize_fused(qkv, HEADS, scale))
+        (got,), (ran,) = int8_calls(7, dtype, [lambda: fi8.flash_attention_int8_qk_fused(qkv, HEADS)])
+        check(7, f"{name} B=2 N=200 all-negative{ran}", got, fi8.flash_attention_int8_qk_fused_reference(qkv, HEADS),
+              (2, 200, HEADS * HEAD_DIM))
         for g, n in INT8_ONLINE_CASES:
             q, k, v = (make_bias(rng, (g, n, HEAD_DIM), dtype) for _ in range(3))
+            label = f"{name} BH={g} N={n}"
+            check_prologue(6, label, fi8.prepare_int8_qk(q, k, v), fi8.quantize_rows(q, k, scale))
+            (got,), (ran,) = int8_calls(6, dtype, [lambda: fi8.flash_attention_int8_qk(q, k, v)])
             views = None if n == N_ONLINE else tuple(t[:, :, None] for t in (q, k, v))  # N_ONLINE: plain only (17 GB logits)
-            check_int8(check, 6, f"{name} BH={g} N={n}", fi8.flash_attention_int8_qk(q, k, v),
-                       fi8.flash_attention_int8_qk_reference(q, k, v), (g, n, HEAD_DIM), views)
-            del q, k, v
+            check_int8(check, 6, label + ran, got, fi8.flash_attention_int8_qk_reference(q, k, v), (g, n, HEAD_DIM), views)
+            del q, k, v, got
         q, k, v = (make_bias(rng, (2, 200, HEAD_DIM), dtype) for _ in range(3))
         q, k = -8.0 * q.abs(), k.abs()
         q[:, 7] = 0.0  # a zero row: sq = 1e-12 / 127, q_i8 = 0, the uniform softmax
-        got = fi8.flash_attention_int8_qk(q, k, v)
-        check(6, f"{name} BH=2 N=200 all-negative, zero row 7", got, fi8.flash_attention_int8_qk_reference(q, k, v),
-              (2, 200, HEAD_DIM))
+        label = f"{name} BH=2 N=200 all-negative, zero row 7"
+        check_prologue(6, label, fi8.prepare_int8_qk(q, k, v), fi8.quantize_rows(q, k, scale))
+        (got,), (ran,) = int8_calls(6, dtype, [lambda: fi8.flash_attention_int8_qk(q, k, v)])
+        check(6, label + ran, got, fi8.flash_attention_int8_qk_reference(q, k, v), (2, 200, HEAD_DIM))
         mean_err = float((got[:, 7].float() - v.float().mean(dim=1)).abs().max())
         print(f"kernel check #6 {name} zero q row vs the mean of v: max_abs_err={mean_err:.3e}", flush=True)
         if not mean_err < (F32_MAX_ERR if dtype == torch.float32 else BF16_MAX_ERR):
             raise RuntimeError(f"kernel #6 {name}: a zero q row did not give the mean of v ({mean_err:.3e})")
+        # views whose rows are not 16 bytes apart (and v 4 or 8 bytes off): the wrapper copies them first
+        wide = make_bias(np.random.default_rng(SEED + 12), (3, 2, 200, HEAD_DIM + 2), dtype)
+        q, k, v = wide[0, ..., :HEAD_DIM], wide[1, ..., :HEAD_DIM], wide[2, ..., 2:]
+        label = f"{name} BH=2 N=200 views off 16-byte rows, copied"
+        check_prologue(6, label, fi8.prepare_int8_qk(q, k, v), fi8.quantize_rows(q, k, scale))
+        (got,), (ran,) = int8_calls(6, dtype, [lambda: fi8.flash_attention_int8_qk(q, k, v)])
+        check_int8(check, 6, label + ran, got, fi8.flash_attention_int8_qk_reference(q, k, v), (2, 200, HEAD_DIM),
+                   tuple(t[:, :, None] for t in (q, k, v)))
         torch.cuda.empty_cache()
-    q, k, v = lossless_inputs(rng, 2, 256, torch.float32)
-    check_int8(check, 6, "float32 BH=2 N=256 lossless", fi8.flash_attention_int8_qk(q, k, v),
-               fi8.flash_attention_int8_qk_reference(q, k, v), (2, 256, HEAD_DIM), tuple(t[:, :, None] for t in (q, k, v)),
-               gate=LOSSLESS_MAX_ERR)
-    qkv = torch.stack([q, k, v], dim=2).reshape(2, 256, 3 * HEAD_DIM)  # one head; #7 pre-scales q, still lossless
-    check_int8(check, 7, "float32 B=2 N=256 H=1 lossless", fi8.flash_attention_int8_qk_fused(qkv, 1),
-               fi8.flash_attention_int8_qk_fused_reference(qkv, 1), (2, 256, HEAD_DIM), tuple(t[:, :, None] for t in (q, k, v)),
-               gate=LOSSLESS_MAX_ERR)
+    for dtype, step, gate in ((torch.float32, 0.02, LOSSLESS_MAX_ERR), (torch.bfloat16, 2**-6, BF16_MAX_ERR)):
+        name = str(dtype)[6:]  # bf16: the sm_90 kernel, whose p, v and output round to bf16, so its gate is bf16's
+        q, k, v = lossless_inputs(rng, 2, 256, dtype, step)
+        check_prologue(6, f"{name} BH=2 N=256 lossless", fi8.prepare_int8_qk(q, k, v), fi8.quantize_rows(q, k, scale))
+        (got,), (ran,) = int8_calls(6, dtype, [lambda: fi8.flash_attention_int8_qk(q, k, v)])
+        check_int8(check, 6, f"{name} BH=2 N=256 lossless{ran}", got, fi8.flash_attention_int8_qk_reference(q, k, v),
+                   (2, 256, HEAD_DIM), tuple(t[:, :, None] for t in (q, k, v)), gate=gate)
+        qkv = torch.stack([q, k, v], dim=2).reshape(2, 256, 3 * HEAD_DIM)  # one head; #7 pre-scales q, still lossless
+        check_prologue(7, f"{name} B=2 N=256 H=1 lossless", fi8.prepare_int8_qk_fused(qkv, 1), fi8.quantize_fused(qkv, 1, scale))
+        (got,), (ran,) = int8_calls(7, dtype, [lambda: fi8.flash_attention_int8_qk_fused(qkv, 1)])
+        check_int8(check, 7, f"{name} B=2 N=256 H=1 lossless{ran}", got, fi8.flash_attention_int8_qk_fused_reference(qkv, 1),
+                   (2, 256, HEAD_DIM), tuple(t[:, :, None] for t in (q, k, v)), gate=gate)
     return {kid: check.worst[kid] for kid in (6, 7)}
 
 
@@ -1334,49 +1424,72 @@ def capture_qkv(model, frames, blocks):
 def hold_int8_on_model(smi, model, check) -> tuple[dict, dict]:
     """#7 on the int8+qkv DA-V2 ViT-L's own qkv slabs at blocks 0, 11 and 23
     (B=8) and #6 on their (B H, N, D) copies: the launches counted on their
-    own (every count zeroed first), then each output against its plain
-    version and true attention; CUDA-event times on block 11's slab against
-    the plain versions, kernel #1 and SDPA. Returns (launches, times)."""
+    own (every count zeroed first) and each call's kernels named, then each
+    output against its plain version and true attention and each prologue
+    against the plain one; on block 11's slab, CUDA-event and device times
+    of the whole call, the prologue alone and the attention kernel alone,
+    against the plain version, the plain prologue, kernel #1 and SDPA, and
+    the host's cost per call of the entry and of SDPA. Returns (launches,
+    numbers for the JSON entries)."""
     slabs = capture_qkv(model, frame_stacks()[1], TAP_BLOCKS)
     heads_first = {i: tuple(t.transpose(1, 2).reshape(-1, N_TOKENS, HEAD_DIM).contiguous() for t in _split(slab))
                    for i, slab in slabs.items()}
     torch.cuda.synchronize()
     fa.reset_launch_counts()  # count this path's launches only
-    outs7 = {i: fi8.flash_attention_int8_qk_fused(slab, HEADS) for i, slab in slabs.items()}
-    outs6 = {i: fi8.flash_attention_int8_qk(*heads_first[i]) for i in slabs}
+    outs7, ran7 = int8_calls(7, torch.bfloat16, [lambda slab=slab: fi8.flash_attention_int8_qk_fused(slab, HEADS)
+                                                 for slab in slabs.values()])
+    outs6, ran6 = int8_calls(6, torch.bfloat16, [lambda i=i: fi8.flash_attention_int8_qk(*heads_first[i]) for i in slabs])
     torch.cuda.synchronize()
     counts = fa.launch_counts()
-    want = {**{r: 0 for r in counts}, "int8_qk": len(slabs), "int8_qk_fused": len(slabs)}
+    want = {**{r: 0 for r in counts}, "int8_qk_sm90": len(slabs), "int8_qk_fused_sm90": len(slabs)}
     if counts != want:
         raise RuntimeError(f"int8 attention on the model's slabs: launches {counts}, want {want}")
-    for i, slab in slabs.items():
+    scale = HEAD_DIM**-0.5
+    for at, (i, slab) in enumerate(slabs.items()):
         label = f"bfloat16 DA-V2 ViT-L int8+qkv B=8 block {i} qkv slab"
-        check_int8(check, 7, label, outs7[i], fi8.flash_attention_int8_qk_fused_reference(slab, HEADS),
+        check_prologue(7, label, fi8.prepare_int8_qk_fused(slab, HEADS), fi8.quantize_fused(slab, HEADS, scale))
+        check_int8(check, 7, label + ran7[at], outs7[at], fi8.flash_attention_int8_qk_fused_reference(slab, HEADS),
                    (slab.shape[0], N_TOKENS, HEADS * HEAD_DIM), _split(slab), relative=True)
         q, k, v = heads_first[i]
-        check_int8(check, 6, f"{label}, (B H, N, D) copies", outs6[i], fi8.flash_attention_int8_qk_reference(q, k, v), q.shape,
-                   tuple(t[:, :, None] for t in (q, k, v)), relative=True)
+        check_prologue(6, f"{label}, (B H, N, D) copies", fi8.prepare_int8_qk(q, k, v), fi8.quantize_rows(q, k, scale))
+        check_int8(check, 6, f"{label}, (B H, N, D) copies{ran6[at]}", outs6[at], fi8.flash_attention_int8_qk_reference(q, k, v),
+                   q.shape, tuple(t[:, :, None] for t in (q, k, v)), relative=True)
     mid = TAP_BLOCKS[len(TAP_BLOCKS) // 2]
     slab, (q, k, v) = slabs[mid], heads_first[mid]
     sdpa = [t.transpose(1, 2) for t in _split(slab)]
-    times = {
-        7: timed_pair(smi, f"#7 bf16 B=8 N={N_TOKENS} H={HEADS} model block {mid} slab (prologue + kernel)",
-                      lambda: fi8.flash_attention_int8_qk_fused(slab, HEADS),
-                      lambda: fi8.flash_attention_int8_qk_fused_reference(slab, HEADS),
-                      lambda: F.scaled_dot_product_attention(*sdpa)),
-        6: timed_pair(smi, f"#6 bf16 BH={8 * HEADS} N={N_TOKENS} model block {mid} heads (prologue + kernel)",
-                      lambda: fi8.flash_attention_int8_qk(q, k, v), lambda: fi8.flash_attention_int8_qk_reference(q, k, v),
-                      lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])),
+    entries = {
+        7: (f"#7 bf16 B=8 N={N_TOKENS} H={HEADS} model block {mid} slab", lambda: fi8.flash_attention_int8_qk_fused(slab, HEADS),
+            lambda: fi8.flash_attention_int8_qk_fused_reference(slab, HEADS), lambda: F.scaled_dot_product_attention(*sdpa),
+            fi8.prepare_int8_qk_fused(slab, HEADS), lambda: fi8.quantize_fused(slab, HEADS, scale)),
+        6: (f"#6 bf16 BH={8 * HEADS} N={N_TOKENS} model block {mid} heads", lambda: fi8.flash_attention_int8_qk(q, k, v),
+            lambda: fi8.flash_attention_int8_qk_reference(q, k, v),
+            lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]), fi8.prepare_int8_qk(q, k, v),
+            lambda: fi8.quantize_rows(q, k, scale)),
     }
-    t_flash = time_ms(lambda: fa.flash_attention_fused_qkv(slab, HEADS))
-    t_pro7 = time_ms(lambda: fi8.quantize_fused(slab, HEADS, HEAD_DIM**-0.5))
-    t_pro6 = time_ms(lambda: fi8.quantize_rows(q, k, HEAD_DIM**-0.5))
-    print(f"same slab: kernel #1 (bf16 q, k) {t_flash:.4f} ms; the int8 prologues alone: #7 {t_pro7:.4f} ms, "
-          f"#6 {t_pro6:.4f} ms [{smi}]", flush=True)
-    launches = {6: counts["int8_qk"], 7: counts["int8_qk_fused"]}
+    numbers = {}
+    for kid, (what, entry, plain, library, launch, plain_prologue) in entries.items():
+        ms, plain_ms, library_ms = timed_pair(smi, f"{what} (prologue + kernel)", entry, plain, library)
+        device_ms, plain_device_ms, library_device_ms = device_pair(smi, f"{what} (prologue + kernel)", entry, plain, library)
+        parts = {}
+        for part, fn in (("prologue", lambda: launch.run(fi8.STAGE_PROLOGUE)), ("attention", lambda: launch.run(fi8.STAGE_ATTENTION)),
+                         ("plain_prologue", plain_prologue)):
+            parts[f"{part}_ms"], parts[f"{part}_device_ms"] = time_ms(fn), ft.device_ms(fn)
+        print(f"{what}: the prologue alone {parts['prologue_ms']:.4f} ms per call, {parts['prologue_device_ms']:.4f} device; the "
+              f"attention kernel alone {parts['attention_ms']:.4f} / {parts['attention_device_ms']:.4f}; the plain prologue "
+              f"{parts['plain_prologue_ms']:.4f} / {parts['plain_prologue_device_ms']:.4f} [{smi}]", flush=True)
+        host_us, library_host_us = host_pair(smi, what, {"kernel": entry, "SDPA": library})
+        numbers[kid] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "device_ms": device_ms,
+                        "plain_device_ms": plain_device_ms, "library_device_ms": library_device_ms, **parts,
+                        "host_us": host_us, "library_host_us": library_host_us}
+    flash = fa.flash_attention_fused_qkv
+    t_flash, t_flash_device = time_ms(lambda: flash(slab, HEADS)), ft.device_ms(lambda: flash(slab, HEADS))
+    print(f"same slab: kernel #1 (bf16 q, k) {t_flash:.4f} ms per call, {t_flash_device:.4f} device [{smi}]", flush=True)
+    for kid in numbers:
+        numbers[kid].update(flash_ms=t_flash, flash_device_ms=t_flash_device)
+    launches = {6: counts["int8_qk_sm90"], 7: counts["int8_qk_fused_sm90"]}
     del slabs, heads_first, outs6, outs7
     torch.cuda.empty_cache()
-    return launches, times
+    return launches, numbers
 
 
 def phase_int8_da(smi: str, ckpt: str, check: Checker):
@@ -1557,7 +1670,7 @@ def check_variants(check, label, q_s, q_s2, k, v, relative=False):
 
 
 KNOWN_KERNELS = ("fv_f32", "fv_sm90", "fxl_sm90", "fst_sm90", "ht_sm90", "head_tail<", "mlp_ln_sm90", "mlp_fc1_sm90",
-                 "mlp_fc2_sm90", "mlp_f32")  # the sweep's, #9's and #8's, as traced
+                 "mlp_fc2_sm90", "mlp_f32", "i8_pass_a", "i8_pass_b", "fa_i8_sm90", "fa_int8_f32")  # #6-#12's, as traced
 
 
 CUPTI_API_DOMAIN = 1  # cupti_callbacks.h: the domain of CUDA's C API calls, cuLaunchKernel among them
@@ -1827,11 +1940,10 @@ def write_checkpoint(sd: dict, path: str) -> str:
     return path
 
 
-def bound(ops: float, nbytes: float, int8_ops: float = 0.0) -> dict:
+def bound(ops: float, nbytes: float) -> dict:
     """The least time the card could take: bf16 operations over the dense
-    bf16 peak plus int8 operations over the dense int8 peak, or bytes over
-    HBM's rate, whichever is larger."""
-    t_ops = (ops / PEAK_FLOPS[torch.bfloat16] + int8_ops / PEAK_FLOPS[torch.int8]) * 1e3
+    bf16 peak, or bytes over HBM's rate, whichever is larger."""
+    t_ops = ops / PEAK_FLOPS[torch.bfloat16] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -1852,7 +1964,9 @@ def bounds() -> dict:
     """Each kernel's bound at the shape its JSON entry was timed at, all
     bf16, from shape arithmetic: every input read once, every output written
     once; attention 4 B H N^2 D operations (QK^T and PV); #6 and #7 half
-    of them int8 (QK^T), the entry's bf16 inputs read and output written;
+    of them int8 (QK^T), the entry's bf16 inputs read and output written
+    (``flash_attention_int8.int8_bound``, with the prologue's byte floor
+    and the exp floor beside);
     #8 the two GEMMs, 4 rows F H; #9 the 3x3 conv and the projection,
     2 B H W 32 (9 ci + 1); #10 and #11 at N=18497, #12 at (16, 1297, 64)."""
     e = 2  # bytes per bf16 element
@@ -1861,16 +1975,14 @@ def bounds() -> dict:
     a = wh * ww
     rows, f = 8 * N_TOKENS, VITL["features_per_token"]
     b, ci, (hh, hw) = 8, VITL["fusion_channels"] // 2, OUT_HW
-    # #6 and #7 at DA-V2 ViT-L's slab, B=8: QK^T in int8, PV in bf16; q, k, v read, out written
-    int8_ops, int8_bytes = 2 * 8 * HEADS * N_TOKENS**2 * HEAD_DIM, 4 * 8 * N_TOKENS * HEADS * HEAD_DIM * e
     return {
         1: attention_bound(8, N_TOKENS, HEADS, HEAD_DIM),
         2: attention_bound(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2),
         3: {key: value for key, value in wa.window_bound(8, nw, a, sh, True).items() if key != "exp_floor_ms"},
         4: attention_bound(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2),
         5: attention_bound(1, N_ONLINE, 2, HEAD_DIM),
-        6: bound(int8_ops, int8_bytes, int8_ops),
-        7: bound(int8_ops, int8_bytes, int8_ops),
+        6: fi8.int8_bound(8, N_TOKENS, HEADS),  # with the prologue's byte floor and the exp floor
+        7: fi8.int8_bound(8, N_TOKENS, HEADS),
         8: bound(4 * rows * f * 4 * f, (2 * rows * f + 2 * f * 4 * f + 4 * f + 4 * f) * e),
         9: bound(2 * b * hh * hw * 32 * (9 * ci + 1), (b * ci * hh * hw + b * hh * hw + 32 * (9 * ci + 3) + 1) * e),
         10: attention_bound(1, max(LADDER.values()), HEADS, HEAD_DIM),  # the N=18497 slab, B=1
@@ -1923,8 +2035,7 @@ def main() -> int:
         flash_giant = timed("DA-V2 ViT-Giant model and f32 parity", phase_giant, smi, ckpt)
     for kid in (6, 7):
         launches[kid] = int8_launches[kid]
-        numbers[kid] = {"max_abs_err": max(int8_worst[kid], check.worst[kid]),
-                        **dict(zip(("ms", "plain_ms", "library_ms"), int8_times[kid]))}
+        numbers[kid] = {"max_abs_err": max(int8_worst[kid], check.worst[kid]), **int8_times[kid]}
     mlp_routes = {r: fused[r] for r in ("fused_mlp_sm90", "fused_mlp")}
     launches[8] = sum(mlp_routes.values())
     head_routes = {r: fused[r] + head_launches[r] for r in ("head_tail_sm90", "head_tail")}

@@ -143,8 +143,14 @@ def kernel_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_flash_attention_int8
-    # the int64 argument array (its slots in csrc/flash_attention_int8.cu), stream
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    # the int64 argument array (its slots in csrc/flash_attention_int8.cu; the call writes SLOT_ROUTE), q's factor, #6's
+    # scale, stream
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mdpt_flash_attention_int8_sm90_info
+    # eight int32 out values (csrc/flash_attention_int8_sm90.cu): the five of the flash kernel's, the q rows per CTA, the
+    # K/V stages, the consumers' registers after setmaxnreg
+    fn.argtypes = [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_flash_xl_sm90_info
     # qp, pipelined, ablate, then seven int32 out values (csrc/flash_xl_sm90.cu): the five of the flash kernel's, the key

@@ -330,7 +330,9 @@ def _counted_entries() -> dict:
         "head_tail": (fused_head_tail, "launches"),
         "head_tail_sm90": (fused_head_tail, "sm90_launches"),
         "int8_qk": (flash_attention_int8_qk, "launches"),
+        "int8_qk_sm90": (flash_attention_int8_qk, "sm90_launches"),
         "int8_qk_fused": (flash_attention_int8_qk_fused, "launches"),
+        "int8_qk_fused_sm90": (flash_attention_int8_qk_fused, "sm90_launches"),
         "xl": (flash_attention_fused_qkv_xl, "launches"),
         "staged": (flash_attention_fused_qkv_staged, "launches"),
         "variant": (flash_variant, "launches"),
@@ -350,7 +352,8 @@ def launch_counts() -> dict[str, int]:
     ``fused_mlp`` and the sm_90 kernels' ``fused_mlp_sm90``), the head tail
     (``head_tail.py``: ``head_tail`` and the sm_90 kernel's
     ``head_tail_sm90``), the int8-QK^T attention's two entries
-    (``flash_attention_int8.py``) and the attention sweep's variants #10-#12
-    (``flash_attention_xl.py``, ``flash_attention_staged.py``,
-    ``tools/attn_variants.py``) included."""
+    (``flash_attention_int8.py``: ``int8_qk`` and ``int8_qk_fused``, and
+    the sm_90 kernel's ``int8_qk_sm90`` and ``int8_qk_fused_sm90``) and
+    the attention sweep's variants #10-#12 (``flash_attention_xl.py``,
+    ``flash_attention_staged.py``, ``tools/attn_variants.py``) included."""
     return {route: getattr(entry, attribute) for route, (entry, attribute) in _counted_entries().items()}

@@ -5,6 +5,7 @@
     python3 muggled_dpt_tpu_torch/tools/measure.py attention [--against DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py head [--against DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py mlp [--against DIR]
+    python3 muggled_dpt_tpu_torch/tools/measure.py int8 [--against DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py profile [--model beit|swinv2|vitl|giant] [--out DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py profile --int8 [dense] [default] [qkv] [neck] [--out DIR]
 
@@ -73,6 +74,21 @@ kernel on the same inputs in turns (other, this, this, other), per call
 and residual as separate bf16 ops) timed both ways, and the bound (4 B N F
 H operations over 989 TFLOP/s, or tokens, weights and output moved once
 over 3.35 TB/s).
+
+``int8``: the int8-QK^T attention, #7 on a head-major (B, N, 3072) qkv
+slab (16 heads x 64) at B = 8 and 1 and #6 on (B H, N, 64) q, k and v at
+B H = 128 and 16, N = 1297 (DA-V2 ViT-L at 504x504), bf16, random from a
+seed: each entry per call (CUDA events) and as device time
+(``flash_tune.device_ms``), and its parts, the prologue alone and the
+attention kernel alone (this design: one C call with its stages chosen;
+the design before it, when ``--against`` names one: its torch-op prologue
+and its kernel's launch on that prologue's output); with ``--against``, the
+other checkout's on the same inputs in turns (other, this, this, other).
+Beside them one SDPA call on the same views and kernel #1 on the slab, timed
+both ways, the bound (QK^T's 2 B H N^2 D int8 operations over 1979 TOP/s
+plus PV's over 989 TFLOP/s, or q, k, v and out moved once over 3.35 TB/s),
+the prologue's byte floor and the exp floor (one exp2 per (q, k) pair over
+the SFU's 3.86e12 per second).
 
 ``profile``: a torch.profiler breakdown of a bf16 forward (10 forwards at
 B=1, 5 at B=8): device busy share (the union of kernel intervals over the
@@ -523,6 +539,92 @@ def mlp(args, smi):
             torch.cuda.empty_cache()
 
 
+INT8_CASES = ((7, 8), (7, 1), (6, 8), (6, 1))  # (entry, B) at N = 1297, 16 heads; #6 on (B H, N, 64)
+
+
+def int8_parts(fi8, fa, entry: int, tensors) -> dict:
+    """The calls one package makes for #``entry`` on ``tensors`` (the slab,
+    or q, k, v): the whole entry, the prologue alone and the attention
+    kernel alone, on scratch made once here."""
+    scale = 64**-0.5
+    if entry == 7:
+        (qkv,) = tensors
+        calls = {"entry": lambda: fi8.flash_attention_int8_qk_fused(qkv, 16)}
+    else:
+        q, k, v = tensors
+        calls = {"entry": lambda: fi8.flash_attention_int8_qk(q, k, v)}
+    if hasattr(fi8, "Int8Launch"):  # one C call runs the prologue, the attention or both
+        launch = fi8.prepare_int8_qk_fused(qkv, 16) if entry == 7 else fi8.prepare_int8_qk(q, k, v)
+        launch.run()
+        calls["prologue"] = lambda: launch.run(fi8.STAGE_PROLOGUE)
+        calls["kernel"] = lambda: launch.run(fi8.STAGE_ATTENTION)
+        return calls
+    # the torch-op prologue and a kernel launch on its output
+    if entry == 7:
+        b, n, _ = qkv.shape
+        calls["prologue"] = lambda: fi8.quantize_fused(qkv, 16, scale)
+        q_i8, k_i8, alpha, _ = calls["prologue"]()
+        v_spec, shape = fa._qkv_operands(qkv, 64)[2], (b, n, 16, 64)
+    else:
+        calls["prologue"] = lambda: fi8.quantize_rows(q, k, scale)
+        q_i8, k_i8, alpha = (t[:, :, None] for t in calls["prologue"]())
+        v_spec, shape = fa._operand("v", v[:, :, None], v.device, v.dtype), (*q.shape[:2], 1, 64)
+    calls["kernel"] = lambda: fi8._launch(shape, q_i8, k_i8, v_spec, alpha, tensors[-1].dtype, tensors[-1].device)
+    return calls
+
+
+def int8(args, smi):
+    """#6 and #7 bf16 at ``INT8_CASES``: entry, prologue and kernel against
+    the other checkout's (in turns), SDPA and #1, per call and as device
+    time."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from muggled_dpt_tpu_torch.ops.kernels.flash_attention import flash_attention_fused_qkv
+    from muggled_dpt_tpu_torch.ops.kernels.flash_attention_int8 import int8_bound
+    from muggled_dpt_tpu_torch.tools.flash_tune import device_ms
+
+    packages = {"this": "muggled_dpt_tpu_torch"}
+    if args.against:
+        load_package(args.against, "against_muggled_dpt_tpu_torch")
+        packages = {"against": "against_muggled_dpt_tpu_torch", **packages}
+    modules = {name: (importlib.import_module(pkg + ".ops.kernels.flash_attention_int8"),
+                      importlib.import_module(pkg + ".ops.kernels.flash_attention")) for name, pkg in packages.items()}
+    order = ["against", "this", "this", "against"] if args.against else ["this", "this"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, h, d = 1297, 16, 64
+    with torch.inference_mode():
+        for entry, b in INT8_CASES:
+            if entry == 7:
+                tensors = (torch.randn(b, n, 3 * h * d, device="cuda", generator=gen).bfloat16(),)
+                views = [t.transpose(1, 2) for t in tensors[0].view(b, n, h, 3, d).unbind(3)]
+                yardsticks = {"SDPA": lambda: F.scaled_dot_product_attention(*views),
+                              "#1": lambda: flash_attention_fused_qkv(tensors[0], h)}
+                what = f"#7 flash_attention_int8_qk_fused bf16 (B={b}, N={n}, 3C={3 * h * d})"
+            else:
+                tensors = tuple(torch.randn(b * h, n, d, device="cuda", generator=gen).bfloat16() for _ in range(3))
+                yardsticks = {"SDPA": lambda: F.scaled_dot_product_attention(*(t[None] for t in tensors))}
+                what = f"#6 flash_attention_int8_qk bf16 (BH={b * h}, N={n}, D={d})"
+            parts = {name: int8_parts(fi8, fa, entry, tensors) for name, (fi8, fa) in modules.items()}
+            limit = int8_bound(b, n, h)
+            floors = (f"bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}), prologue byte floor "
+                      f"{limit['prologue_floor_ms']:.4f}, exp floor {limit['exp_floor_ms']:.4f}")
+            for how, measure in (("per call", event_ms), ("device time", device_ms)):
+                readings = []
+                for part in ("entry", "prologue", "kernel"):
+                    times = {name: [] for name in parts}
+                    for name in order:
+                        times[name].append(measure(parts[name][part]))
+                    readings.append(f"{part} " + ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)}"
+                                                           for name, ts in times.items()))
+                yard = ", ".join(f"{label} {measure(fn):.4f}" for label, fn in yardsticks.items())
+                print(f"{what}, random, {how}, ms: {'; '.join(readings)}; {yard}; {floors} [{smi}]", flush=True)
+            del tensors, parts, yardsticks
+            torch.cuda.empty_cache()
+
+
 def window(packages: dict, gen, smi: str, against):
     """#3 at ``WINDOW_CASES``, as ``attention`` times the flash kernel."""
     import importlib
@@ -738,9 +840,9 @@ def profile(args, smi):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=["host", "attention", "head", "mlp", "profile"])
-    parser.add_argument("--against", default=None, help="another checkout whose package host, attention, head or mlp also measures, "
-                        "interleaved")
+    parser.add_argument("what", choices=["host", "attention", "head", "mlp", "int8", "profile"])
+    parser.add_argument("--against", default=None, help="another checkout whose package host, attention, head, mlp or int8 also "
+                        "measures, interleaved")
     parser.add_argument("--model", choices=sorted(PROFILED), default=None, help="the model profile measures (default beit; "
                         "vitl with --int8)")
     parser.add_argument("--int8", nargs="+", choices=list(INT8_TIERS), default=None,
@@ -755,7 +857,7 @@ def main() -> int:
         print("no CUDA device: this script measures the port on a GPU", file=sys.stderr)
         return 1
     smi = card_line()
-    {"host": host, "attention": attention, "head": head, "mlp": mlp, "profile": profile}[args.what](args, smi)
+    {"host": host, "attention": attention, "head": head, "mlp": mlp, "int8": int8, "profile": profile}[args.what](args, smi)
     return 0
 
 

@@ -6,7 +6,8 @@ the gates of tests/test_flash_int8_experiment.py: 5e-5 against the JAX
 kernel and against a float64 softmax over the same dequantized int8 logits,
 0.05 (max) and 5e-3 (mean) against true attention, 2e-4 against true
 attention where quantization is lossless. Then the entries' argument checks
-and pointer and stride arithmetic through a stub of the kernel library.
+and pointer, stride and scratch arithmetic through a stub of the kernel
+library.
 
 Tolerances: both sides compute the same exact integer logits times the same
 float32 alpha; they differ in exp2 and in float32 summation order (the JAX
@@ -164,28 +165,26 @@ def test_cpu_calls_count_no_launch():
     fi8.flash_attention_int8_qk(q, k, v)
     fi8.flash_attention_int8_qk_fused(_t(rng.standard_normal((1, 40, 3 * D))), 1)
     counts = fa.launch_counts()
-    assert counts["int8_qk"] == 0 and counts["int8_qk_fused"] == 0
+    assert all(counts[r] == 0 for r in ("int8_qk", "int8_qk_sm90", "int8_qk_fused", "int8_qk_fused_sm90"))
 
 
 def test_kernel_launcher_refuses_what_it_cannot_take():
-    """What the CUDA kernel cannot take raises before any launch: a head
-    width other than 64, v in another dtype, int8 rows that are not 16-byte
-    aligned, alpha of the wrong shape or dtype."""
-    cpu = torch.device("cpu")
-
-    def refused(q_i8, v, alpha=None):
-        b, n, h, d = q_i8.shape
-        alpha = torch.ones(b, n, h) if alpha is None else alpha
-        with pytest.raises(ValueError):
-            fi8._launch((b, n, h, d), q_i8, q_i8, fa._operand("v", v, cpu, v.dtype), alpha, v.dtype, cpu)
-
-    i8 = torch.zeros(1, 16, 2, D, dtype=torch.int8)
-    v = torch.zeros(1, 16, 2, D, dtype=torch.bfloat16)
-    refused(torch.zeros(1, 16, 2, 32, dtype=torch.int8), torch.zeros(1, 16, 2, 32, dtype=torch.bfloat16))
-    refused(i8, torch.zeros(1, 16, 2, D, dtype=torch.float16))
-    refused(torch.zeros(1, 16, 2, D + 8, dtype=torch.int8)[..., :D], v)  # rows 8 B off 16 B alignment
-    refused(i8, v, alpha=torch.ones(1, 16, 2, dtype=torch.float64))
-    refused(i8, v, alpha=torch.ones(1, 2, 16))
+    """What the CUDA kernels cannot take raises before any launch: a head
+    width other than 64, another dtype, a slab whose rows are not 16-byte
+    aligned, q, k and v of different dtypes or shapes."""
+    with pytest.raises(ValueError):  # D = 32
+        fi8.prepare_int8_qk_fused(torch.zeros(1, 16, 3 * 2 * 32, dtype=torch.bfloat16), 2)
+    with pytest.raises(ValueError):
+        fi8.prepare_int8_qk_fused(torch.zeros(1, 16, 3 * D, dtype=torch.float16), 1)
+    with pytest.raises(ValueError):  # rows 392 bytes apart: 8 B off 16 B alignment
+        fi8.prepare_int8_qk_fused(torch.zeros(1, 16, 3 * D + 4, dtype=torch.bfloat16)[..., : 3 * D], 1)
+    q = torch.zeros(2, 16, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fi8.prepare_int8_qk(q, q.float(), q)
+    with pytest.raises(ValueError):
+        fi8.prepare_int8_qk(q, q[:, :8], q[:, :8])
+    with pytest.raises(ValueError):
+        fi8.prepare_int8_qk(q.half(), q.half(), q.half())
 
 
 def _slots() -> dict:
@@ -201,7 +200,9 @@ def _slots() -> dict:
 class StubLibrary:
     """Stands in for the kernel library: reads the int64 argument array as
     the C entry does, views the memory at each address with the strides it
-    was given, and runs the plain version into ``out``."""
+    was given, runs the plain prologue (its float arguments rounded to
+    float32, as ctypes passes them) into the scratch slots and the plain
+    attention from them into ``out``, and writes the route to SLOT_ROUTE."""
 
     def __init__(self, slots):
         self.slots, self.calls = slots, 0
@@ -212,17 +213,27 @@ class StubLibrary:
         buf = (ctypes.c_byte * (extent * torch.empty((), dtype=dtype).element_size())).from_address(addr)
         return torch.frombuffer(buf, dtype=dtype).as_strided(sizes, strides)
 
-    def mdpt_flash_attention_int8(self, args_ptr, stream):
+    def mdpt_flash_attention_int8(self, args_ptr, q_mul, scale, stream):
         s = self.slots
-        a = list((ctypes.c_longlong * s["NUM_SLOTS"]).from_address(args_ptr))
+        a = (ctypes.c_longlong * s["NUM_SLOTS"]).from_address(args_ptr)
         b, n, h, d = (a[s[k]] for k in ("SLOT_BATCH", "SLOT_N", "SLOT_HEADS", "SLOT_HEAD_DIM"))
         dtype = [torch.float32, torch.bfloat16][a[s["SLOT_DTYPE"]]]
-        q, k = (self._view(a[s[k]], (b, n, h, d), [*a[s[k] + 1 : s[k] + 4], 1], torch.int8) for k in ("SLOT_Q", "SLOT_K"))
-        v, o = (self._view(a[s[k]], (b, n, h, d), [*a[s[k] + 1 : s[k] + 4], 1], dtype) for k in ("SLOT_V", "SLOT_O"))
-        al = s["SLOT_ALPHA"]
-        sb, sh, sn = a[al + 1 : al + 4]
-        alpha = self._view(a[al], (b, n, h), (sb, sn, sh), torch.float32)
-        o.copy_(fi8.int8_attention_reference(q, k, v, alpha))
+        q, k, v, o = (self._view(a[s[k]], (b, n, h, d), [*a[s[k] + 1 : s[k] + 4], 1], dtype)
+                      for k in ("SLOT_Q", "SLOT_K", "SLOT_V", "SLOT_O"))
+        dense = (n * h * d, h * d, d, 1)
+        q_i8, k_i8 = (self._view(a[s[k]], (b, n, h, d), dense, torch.int8) for k in ("SLOT_Q_I8", "SLOT_K_I8"))
+        alpha = self._view(a[s["SLOT_ALPHA"]], (b, n, h), (h * n, 1, n), torch.float32)  # (B, H, N) in memory
+        if a[s["SLOT_STAGES"]] & fi8.STAGE_PROLOGUE:
+            qf, kf = q.float() * float(np.float32(q_mul)), k.float()
+            sq = fi8._per_127(qf.abs().amax(dim=3).clamp_min(1e-12))
+            sk = fi8._per_127(kf.abs().amax(dim=(1, 3)).clamp_min(1e-12))
+            q_i8.copy_(torch.round(qf / sq[..., None]))
+            k_i8.copy_(torch.round(kf / sk[:, None, :, None]))
+            al = sq * sk[:, None, :]
+            alpha.copy_(al if a[s["SLOT_MODE"]] == fi8.MODE_SQSK else al * float(np.float32(scale)) * LOG2E)
+        if a[s["SLOT_STAGES"]] & fi8.STAGE_ATTENTION:
+            o.copy_(fi8.int8_attention_reference(q_i8, k_i8, v, alpha))
+        a[s["SLOT_ROUTE"]] = int(dtype == torch.bfloat16)
         self.calls += 1
         return 0
 
@@ -246,15 +257,17 @@ def stub(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_entry_arithmetic_through_stub_library(stub, dtype):
-    """#7's addresses and strides (v read in place in the slab, alpha as a
-    (B, N, H) tensor given by (batch, head, row) strides), read back by a
-    stub library that runs the plain version: the result equals the plain
-    entry."""
+    """#7's addresses and strides (q, k and v read in place in the slab, the
+    scratch and alpha as the C entry's slots name them), read back by a stub
+    library that runs the plain version: the result equals the plain entry,
+    and the call counts on its dtype's route."""
     rng = np.random.default_rng(8)
     qkv = _t(rng.standard_normal((2, 70, 3 * 3 * D)), dtype)
-    fi8.flash_attention_int8_qk_fused.launches = 0
+    fa.reset_launch_counts()
     got = fi8.flash_attention_int8_qk_fused(qkv, 3)
-    assert fi8.flash_attention_int8_qk_fused.launches == 1 and stub.calls == 1
+    routes = fa.launch_counts()
+    assert (routes["int8_qk_fused_sm90"], routes["int8_qk_fused"]) == ((1, 0) if dtype == torch.bfloat16 else (0, 1))
+    assert stub.calls == 1
     assert len(stub.recorded["values"]) == stub.slots["NUM_SLOTS"]
     want = fi8.flash_attention_int8_qk_fused_reference(qkv, 3)
     assert got.shape == want.shape == (2, 70, 3 * D) and got.dtype == dtype
@@ -265,9 +278,11 @@ def test_fused_entry_arithmetic_through_stub_library(stub, dtype):
 def test_online_entry_arithmetic_through_stub_library(stub, dtype):
     rng = np.random.default_rng(9)
     q, k, v = (_t(rng.standard_normal((3, 90, D)), dtype) for _ in range(3))
-    fi8.flash_attention_int8_qk.launches = 0
+    fa.reset_launch_counts()
     got = fi8.flash_attention_int8_qk(q, k, v, scale=0.2)
-    assert fi8.flash_attention_int8_qk.launches == 1 and stub.calls == 1
+    routes = fa.launch_counts()
+    assert (routes["int8_qk_sm90"], routes["int8_qk"]) == ((1, 0) if dtype == torch.bfloat16 else (0, 1))
+    assert stub.calls == 1
     want = fi8.flash_attention_int8_qk_reference(q, k, v, scale=0.2)
     assert got.shape == want.shape == (3, 90, D) and got.dtype == dtype
     torch.testing.assert_close(got, want, rtol=0, atol=0)
