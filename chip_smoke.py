@@ -179,7 +179,23 @@ failure raises:
       cost per call of its bf16 and f32 routes (the same wrapper, with and
       without the sm_90 route's tensor-map encodes) and of SDPA; the JSON
       line carries the per-launch times as ``ms``, ``plain_ms`` and
-      ``library_ms``, and the device times and host costs beside them.
+      ``library_ms``, and the device times and host costs beside them;
+  20. (after 5, 7 and 9) introspection on each f32 kernel model, one
+      request: DA-V2 ViT-L at 504x504, BEiT-L-512 at 512x512 and
+      SwinV2-L-384 at 384x384, the last two with the aux cached and built
+      inline. ``forward_with_internals`` (the plain attention with explicit
+      float32 softmax weights, launching no kernel) against the same model's
+      kernel forward (mean abs-rel, the repo's 1e-3); every block run by its
+      kernel (#1, #2 or #3, 24 launches counted on the f32 route) on the
+      capture's tokens before it against the capture's tokens after it
+      (abs-rel per block, 1e-3; the worst printed); each block's softmax map
+      of its shape, rows summing to 1 within 1e-4; unit-scale fusion and the
+      head on the capture's reassembly maps against the capture's depth (max
+      abs 1e-6); the bf16 capture against the bf16 kernel forward (reported);
+      B=1 ms of the f32 capture forward and the kernel forward. Then the four
+      analysis experiments' ``main`` on the DA-V2 ViT-L checkpoint on the
+      card (fusion_scaling's default sweep, both visualizers --headless,
+      depth_masking --remove_plane), each file they must write read back.
 Then one JSON line of per-kernel results (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
 for bf16, 1979 TOP/s for int8 (#6 and #7's QK^T); #3's exp floor, one exp2
@@ -198,12 +214,14 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 
+import cv2
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -211,8 +229,13 @@ import torch.nn.functional as F
 from muggled_dpt_tpu_torch.checkpoints.beit import random_original_state_dict as random_beit_state_dict
 from muggled_dpt_tpu_torch.checkpoints.random_init import random_original_depth_anything_state_dict
 from muggled_dpt_tpu_torch.checkpoints.swinv2 import random_original_state_dict as random_swinv2_state_dict
+from muggled_dpt_tpu_torch.experiments import attention_visualization, block_norm_visualization, depth_masking, fusion_scaling
 from muggled_dpt_tpu_torch.make_dpt import make_dpt_from_state_dict
+from muggled_dpt_tpu_torch.models.beit_family import BEiTDPT
+from muggled_dpt_tpu_torch.models.dpt_neck import fusion_forward
 from muggled_dpt_tpu_torch.models.swinv2 import shift_mask, stage_grids, window_plan
+from muggled_dpt_tpu_torch.models.swinv2_family import SwinV2DPT
+from muggled_dpt_tpu_torch.ops.nn import patchify_embed
 from muggled_dpt_tpu_torch.ops import quant as tq
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_int8 as fi8
@@ -307,6 +330,8 @@ EXPECTED_FAILURE = 0.5  # padfix and chunk must miss true attention by more than
 F32_MAX_ERR = 1e-4  # f32 FMAs in another summation order
 BF16_MAX_ERR, BF16_MEAN_ERR = 2e-2, 2e-3  # p rounded to bf16 before PV, bf16 output
 ABS_REL_BUDGET = 1e-3  # whole-model f32 budget of the repo
+ROW_SUM_TOL = 1e-4  # a captured f32 softmax row against 1
+UNIT_FUSION_MAX_ABS = 1e-6  # fusion at unit scales + head against the capture's own depth: the same ops
 # #8 and #9, whose outputs are not bounded as attention's are: relative to the
 # reference's largest magnitude (max) and mean magnitude (mean)
 F32_REL_ERR = 1e-4  # f32 sums in another order
@@ -356,6 +381,12 @@ SOURCES = {1: "flash_attention_sm90", 2: "flash_attention_sm90", 3: "window_atte
            5: "flash_attention_sm90", 6: "flash_attention_int8_sm90", 7: "flash_attention_int8_sm90", 8: "fused_mlp_sm90",
            9: "head_tail_sm90", 10: "flash_xl_sm90", 11: "flash_staged_sm90", 12: "flash_variant_sm90"}
 SERVED = {}  # what -> (ms per request at B=1, ms per frame at B=8), filled by serve()
+# the kernel route (as launch_counts names it) of each (dtype, enable_cache): SwinV2's inline CPB is float32, and bf16
+# q, k, v with a float32 bias take the route "window"
+DA_ROUTES = {(dtype, True): "fused" for dtype in (torch.float32, torch.bfloat16)}
+BEIT_ROUTES = {(dtype, cache): "fused_biased" for dtype in (torch.float32, torch.bfloat16) for cache in (True, False)}
+SWIN_ROUTES = {(torch.float32, True): "window", (torch.float32, False): "window", (torch.bfloat16, True): "window_sm90",
+               (torch.bfloat16, False): "window"}
 
 
 def card_line() -> str:
@@ -960,6 +991,158 @@ def phase_swin_model(smi: str, ckpt: str):
     serve_int8_once(smi, model, {}, SWIN_SIDE, SWIN_HW, "window_sm90", SWIN_BLOCKS, "SwinV2-L-384 int8 (MLP only)", depth,
                     frame)
     return launches, depth, frame
+
+
+def kernel_block_outputs(net, x, internals, aux) -> list:
+    """Every encoder block of ``net`` run on its kernel path on the capture's
+    tokens before it: block 0 on the net's own embedding of ``x``, block i on
+    the capture's block i-1 tokens (SwinV2: a stage's first block on the
+    patch merge of them, with its stage's window plan, CPB and mask; BEiT:
+    each block's bias from the cached stack ``aux`` or built inline). The
+    outputs come in block order, in the capture's layout."""
+    before = internals["block_tokens"]
+    outs = []
+    if isinstance(net, SwinV2DPT):
+        prev, i = net.embed(x), 0
+        for s in range(len(net.encoder.stages)):
+            prev = net.encoder.stage_input(s, prev)
+            b, gh, gw, c = prev.shape
+            for block, args in net.encoder.block_plans(s, (gh, gw), aux, x.device):
+                outs.append(block(prev, *args).reshape(b, gh * gw, c))
+                prev, i = before[i].reshape(b, gh, gw, c), i + 1
+        return outs
+    enc = net.encoder
+    tokens, grid = patchify_embed(x, net.patch_embed.weight, net.patch_embed.bias)
+    if isinstance(net, BEiTDPT):
+        prev, biases = enc.embed(tokens), enc.block_biases(grid, aux, x.dtype)
+    else:
+        prev, biases = enc.embed(tokens, grid), [None] * len(enc.blocks)
+    for i, (block, bias) in enumerate(zip(enc.blocks, biases)):
+        outs.append(block(prev, bias))
+        prev = before[i]
+    return outs
+
+
+def attention_shapes(model, hw) -> list:
+    """The (B=1) shape of each block's captured softmax weights at an input
+    of ``hw``: (1, H, N, N) for the ViTs, (1, nW, H, A, A) per SwinV2 block."""
+    if isinstance(model.net, SwinV2DPT):
+        grids = stage_grids((hw[0] // model.patch_size_px, hw[1] // model.patch_size_px))
+        shapes = []
+        for s, grid in enumerate(grids):
+            (wh, ww), _ = window_plan(grid, SWIN_L384["window_size_hw"])
+            area = wh * ww
+            nw = (grid[0] // wh) * (grid[1] // ww)
+            shapes += [(1, nw, SWIN_L384["heads_per_stage"][s], area, area)] * SWIN_L384["layers_per_stage"][s]
+        return shapes
+    n = (hw[0] // model.patch_size_px) * (hw[1] // model.patch_size_px) + 1
+    return [(1, model.config["num_heads"], n, n)] * model.config["num_blocks"]
+
+
+def phase_capture(smi: str, model, frame, side, out_hw, what, routes, cache_modes=(True,)) -> dict:
+    """Introspection on the f32 kernel model at full width, one request
+    (B=1) from ``frame`` at ``side``, per aux mode: (a) the capture's depth
+    against the same model's kernel forward (mean abs-rel, the repo's
+    budget), the capture forward launching no kernel; (b) every block run on
+    its kernel path on the capture's tokens before it against the capture's
+    tokens after it (abs-rel per block, the same budget), its launches
+    counted on the f32 route; (c) each block's softmax weights of their
+    expected shape, every row summing to 1 within ``ROW_SUM_TOL``; (d)
+    ``fusion_forward`` at unit scales and the head on the capture's
+    reassembly maps against the capture's depth (max abs
+    ``UNIT_FUSION_MAX_ABS``); (e) the bf16 capture against the bf16 kernel
+    forward, reported; (f) host-clock ms of the f32 capture forward and the
+    kernel forward. ``routes``: the kernel route of each (dtype,
+    enable_cache). Returns per mode {"capture_ms", "forward_ms",
+    "worst_block", "abs_rel"}."""
+    x = model.prepare_image_bgr(frame, side)
+    n_blocks = len(attention_shapes(model, out_hw))
+    results = {}
+    for enable_cache in cache_modes:
+        route = routes[(torch.float32, enable_cache)]
+        model.config["enable_cache"] = enable_cache
+        model.clear_cache()
+        label = f"{what} (enable_cache={enable_cache})" if len(cache_modes) > 1 else what
+        d_kernel = _counted(lambda: model.forward(x), route, n_blocks, f"{label} f32 kernel forward")
+        d_cap, internals = _counted(lambda: model.forward_with_internals(x), route, 0, f"{label} f32 capture")
+        _check_depth(d_cap, (1, *out_hw), f"{label} capture")
+        rel = _abs_rel(d_cap, d_kernel)
+        if not rel <= ABS_REL_BUDGET:  # (a)
+            raise RuntimeError(f"{label}: capture depth vs the kernel forward: abs-rel {rel:.3e}")
+        grid = (x.shape[-2] // model.patch_size_px, x.shape[-1] // model.patch_size_px)
+        with torch.inference_mode(), model._precision():
+            outs = _counted(lambda: kernel_block_outputs(model.net, x, internals, model._get_aux(grid)), route, n_blocks,
+                            f"{label} kernel blocks")  # (b)
+            block_rel = [_abs_rel(o, t) for o, t in zip(outs, internals["block_tokens"])]
+            del outs
+            maps = internals["reassembly_maps"]
+            d_unit = model.net.head(fusion_forward(maps, model.net.fusion, input_scales=(1.0, 1.0, 1.0, 1.0)))  # (d)
+        worst = max(range(n_blocks), key=lambda i: block_rel[i])
+        if len(block_rel) != n_blocks or not block_rel[worst] <= ABS_REL_BUDGET:
+            raise RuntimeError(f"{label}: kernel block vs capture: abs-rel per block {block_rel}")
+        shapes = [tuple(a.shape) for a in internals["attention"]]  # (c)
+        if shapes != attention_shapes(model, out_hw) or any(a.dtype != torch.float32 for a in internals["attention"]):
+            raise RuntimeError(f"{label}: attention maps {shapes}, want {attention_shapes(model, out_hw)} float32")
+        row_err = max(float((a.sum(-1) - 1).abs().max()) for a in internals["attention"])
+        if not row_err <= ROW_SUM_TOL:
+            raise RuntimeError(f"{label}: a softmax row sums to 1 +- {row_err:.3e}")
+        unit_err = float((d_unit - d_cap).abs().max())
+        if not unit_err <= UNIT_FUSION_MAX_ABS:
+            raise RuntimeError(f"{label}: unit-scale fusion + head vs the capture's depth: max abs {unit_err:.3e}")
+        del internals, maps, d_unit
+        torch.cuda.empty_cache()
+
+        def capture_once():
+            model.forward_with_internals(x)
+            torch.cuda.synchronize()
+
+        def forward_once():
+            model.forward(x)
+            torch.cuda.synchronize()
+
+        capture_ms, forward_ms = _host_ms(capture_once, iters=5, warmup=1), _host_ms(forward_once, iters=5, warmup=1)
+        m16 = model.to(torch.bfloat16)  # (e)
+        d16 = _counted(lambda: m16.forward(x), routes[(torch.bfloat16, enable_cache)], n_blocks,
+                       f"{label} bf16 kernel forward")
+        rel16 = _abs_rel(m16.forward_with_internals(x)[0], d16)
+        del m16
+        torch.cuda.empty_cache()
+        print(f"{label} capture, f32: depth vs the kernel forward abs-rel {rel:.3e} (budget {ABS_REL_BUDGET:g}); "
+              f"{n_blocks} kernel blocks ({route}) on the capture's tokens, worst abs-rel {block_rel[worst]:.3e} at block "
+              f"{worst} (budget {ABS_REL_BUDGET:g}); {n_blocks} softmax maps {shapes[0]}..{shapes[-1]}, rows sum to 1 "
+              f"within {row_err:.2e}; unit-scale fusion + head vs capture depth max abs {unit_err:.2e}; bf16 capture vs "
+              f"bf16 kernel forward abs-rel {rel16:.3e} (not gated); B=1 f32 capture forward {capture_ms:.3f} ms, kernel "
+              f"forward {forward_ms:.3f} ms [{smi}]", flush=True)
+        results[label] = {"capture_ms": capture_ms, "forward_ms": forward_ms, "worst_block": block_rel[worst],
+                          "abs_rel": rel}
+    return results
+
+
+EXPERIMENTS = {  # module -> (arguments, files written into its folder for a 24-block ViT)
+    fusion_scaling: ([], ["f" + "_".join(f"{s:g}" for s in scales) + ".png" for scales in fusion_scaling.default_sweep()]),
+    attention_visualization: (["--headless"], [f"layer_{i:02d}.png" for i in range(24)]),
+    block_norm_visualization: (["--headless"], ["all_blocks.png"] + [f"block_{i:02d}.png" for i in range(24)]),
+    depth_masking: (["--remove_plane"], ["mask.png", "masked.png", "masked_rgba.png"]),
+}
+
+
+def phase_experiments(smi: str, ckpt: str, tmp: str):
+    """The four analysis experiments' ``main`` on the checkpoint, on the
+    card, each into its own folder of ``tmp``; every file each must write is
+    there and reads back as an image."""
+    for module, (args, files) in EXPERIMENTS.items():
+        name = module.__name__.rsplit(".", 1)[1]
+        out = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        module.main(["-m", ckpt, "-d", DEVICE, "-o", out, *args])
+        got = sorted(os.listdir(out))
+        unread = [f for f in got if cv2.imread(os.path.join(out, f), cv2.IMREAD_UNCHANGED) is None]
+        if got != sorted(files) or unread:
+            raise RuntimeError(f"experiment {name}: wrote {got} (want {sorted(files)}), unreadable {unread}")
+        shutil.rmtree(out)
+        print(f"experiment {name} {' '.join(args)}: {len(files)} images in {time.perf_counter() - t0:.1f} s [{smi}]",
+              flush=True)
+    torch.cuda.empty_cache()
 
 
 def phase_bnhd_path(smi: str) -> tuple[int, int]:
@@ -2003,7 +2186,11 @@ def main() -> int:
         ckpt = write_checkpoint(random_original_depth_anything_state_dict(VITL, seed=SEED),
                                 os.path.join(tmp, "depth_anything_v2_vitl_random.pth"))
         launches[1], depth, frame = timed("DA-V2 model", phase_da_model, smi, ckpt)
-        timed("DA-V2 f32 parity", parity, ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V2 ViT-L", depth)
+        m32 = timed("DA-V2 f32 parity", parity, ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V2 ViT-L",
+                    depth)
+        captured = timed("DA-V2 capture", phase_capture, smi, m32, frame, MAX_SIDE, OUT_HW, "DA-V2 ViT-L", DA_ROUTES)
+        del m32
+        timed("experiments on DA-V2 ViT-L", phase_experiments, smi, ckpt, tmp)
         slabs, ladder_ms = timed("DA-V2 ViT-L long-N ladder, f32 parity at 1428x1428", phase_ladder, smi, ckpt)
         sweep_numbers, sweep_launches, ladder_worst = timed("attention sweep on the ladder's slabs: #1, #10, #11, #12",
                                                             phase_sweep, smi, slabs)
@@ -2017,13 +2204,20 @@ def main() -> int:
         ckpt = write_checkpoint(random_beit_state_dict(BEIT_L512, seed=SEED), os.path.join(tmp, "dpt_beit_large_512_random.pt"))
         launches[2], depth, frame, err = timed("BEiT model", phase_beit_model, smi, ckpt)
         numbers[2]["max_abs_err"] = max(numbers[2]["max_abs_err"], err)
-        timed("BEiT f32 parity", parity, ckpt, frame, BEIT_SIDE, BEIT_HW, "fused_biased", BEIT_L512["num_blocks"],
-              "BEiT-L-512", depth, (True, False))
+        m32 = timed("BEiT f32 parity", parity, ckpt, frame, BEIT_SIDE, BEIT_HW, "fused_biased", BEIT_L512["num_blocks"],
+                    "BEiT-L-512", depth, (True, False))
+        captured.update(timed("BEiT capture", phase_capture, smi, m32, frame, BEIT_SIDE, BEIT_HW, "BEiT-L-512",
+                              BEIT_ROUTES, (True, False)))
+        del m32
         os.remove(ckpt)
         ckpt = write_checkpoint(random_swinv2_state_dict(SWIN_L384, seed=SEED), os.path.join(tmp, "dpt_swin2_large_384_random.pt"))
         launches[3], depth, frame = timed("SwinV2 model", phase_swin_model, smi, ckpt)
-        timed("SwinV2 f32 parity", parity, ckpt, frame, SWIN_SIDE, SWIN_HW, "window", SWIN_BLOCKS, "SwinV2-L-384", depth,
-              (True, False))
+        m32 = timed("SwinV2 f32 parity", parity, ckpt, frame, SWIN_SIDE, SWIN_HW, "window", SWIN_BLOCKS, "SwinV2-L-384",
+                    depth, (True, False))
+        captured.update(timed("SwinV2 capture", phase_capture, smi, m32, frame, SWIN_SIDE, SWIN_HW, "SwinV2-L-384",
+                              SWIN_ROUTES, (True, False)))
+        del m32
+        torch.cuda.empty_cache()
         os.remove(ckpt)
         launches[4], launches[5] = timed("(B, N, H, D) op path", phase_bnhd_path, smi)
         ckpt = write_checkpoint(random_original_depth_anything_state_dict(VITL, seed=SEED + 1),
@@ -2055,6 +2249,10 @@ def main() -> int:
     numbers[1]["max_abs_err"] = max(numbers[1]["max_abs_err"], ladder_worst)
     print("DA-V2 ViT-L bf16 ms per request at B=1 on the ladder: "
           + ", ".join(f"{side}x{side} (N={LADDER[side]}) {ms:.3f}" for side, ms in ladder_ms.items()) + f" [{smi}]", flush=True)
+    worst = max(captured, key=lambda k: captured[k]["worst_block"])
+    print("capture, f32 B=1 ms (capture forward / kernel forward): "
+          + ", ".join(f"{k} {v['capture_ms']:.3f} / {v['forward_ms']:.3f}" for k, v in captured.items())
+          + f"; worst kernel block against the capture: {captured[worst]['worst_block']:.3e} ({worst}) [{smi}]", flush=True)
     limits = bounds()
     kernels = [
         {

@@ -109,7 +109,9 @@ class DPTModel:
 
     family_spec: dict with keys mean_rgb, std_rgb (floats 0..1),
     patch_size_px, tiling_size, default_size_px; optionally make_aux(net,
-    grid_hw, dtype) and aux_bytes_estimate(config, grid_hw, dtype)."""
+    grid_hw, dtype), aux_bytes_estimate(config, grid_hw, dtype),
+    forward_capture(net, image_nchw, aux) -> (depth, internals) and
+    head_upsample (the head's upsample factor)."""
 
     def __init__(self, net: torch.nn.Module, config_dict: dict, family_spec: dict, dtype=torch.float32):
         self.config = dict(config_dict)
@@ -212,6 +214,24 @@ class DPTModel:
             return self._run(x)
 
     __call__ = forward
+
+    def forward_with_internals(self, image_rgb_normalized_bchw):
+        """Introspection: ``forward`` on the plain attention path (a flash
+        kernel never holds the softmax weights), keeping what the net made
+        on the way. Returns (depth (B, H, W), internals): "block_tokens",
+        one per block ((B, 1+N, F) for the ViTs, (B, gh*gw, C) for SwinV2);
+        "attention", one per block, float32 softmax weights ((B, H, N, N);
+        SwinV2 (B, nW, H, A, A) in the rolled window frame); the 4
+        "reassembly_maps" and the "fused_map", NCHW (the JAX package's are
+        NHWC). Raises NotImplementedError for a family without capture."""
+        capture = self.spec.get("forward_capture")
+        if capture is None:
+            raise NotImplementedError("no capture mode for this model family")
+        self.verify_input(image_rgb_normalized_bchw)
+        x = torch.as_tensor(image_rgb_normalized_bchw).to(self.device, self.dtype)
+        p = self.patch_size_px
+        with torch.inference_mode(), self._precision():
+            return capture(self.net, x, self._get_aux((x.shape[-2] // p, x.shape[-1] // p)))
 
     def inference(self, image_bgr: np.ndarray, max_side_length: int | None = None, use_square_sizing: bool = True):
         """Full preprocessing + forward on a BGR uint8 (H, W, 3) image -> (1, H, W)."""

@@ -19,6 +19,8 @@ def family_spec(config_dict: dict) -> dict:
         "patch_size_px": patch_px,
         "tiling_size": 2 * patch_px,
         "default_size_px": config_dict["base_patch_grid_hw"][0] * patch_px,
+        "forward_capture": DepthAnything.forward_capture,
+        "head_upsample": patch_px / 8,  # the head's upsample factor, P/8
     }
 
 

@@ -114,22 +114,50 @@ class BEiTEncoder(nn.Module):
         self.relpos_lut = nn.Parameter(torch.empty(num_blocks, lut_rows, num_heads, device=device))
         self.blocks = nn.ModuleList(Block(features, num_heads, use_kernel, device=device) for _ in range(num_blocks))
 
+    def embed(self, patch_tokens):
+        """(B, N, F) patch tokens -> (B, 1+N, F) with the cls token
+        prepended: the first block's input."""
+        cls_tok = self.cls_token.to(patch_tokens.dtype).expand(patch_tokens.shape[0], 1, self.features)
+        return torch.cat([cls_tok, patch_tokens], dim=1)
+
+    def block_biases(self, grid_hw, bias_stack=None, dtype=torch.float32):
+        """Each block's bias argument, in block order: ``(bias_stack, i)``
+        for the cached stack, or else block i's own (1, H, Np, Np) bias in
+        ``dtype``, padded like the stack and built only when the loop asks
+        for it, so memory holds one layer's bias at a time."""
+        if bias_stack is not None:
+            yield from ((bias_stack, i) for i in range(len(self.blocks)))
+            return
+        index = relative_position_tensor(grid_hw, self.relpos_lut.device)
+        for i in range(len(self.blocks)):
+            yield compute_bias_stack(self.relpos_lut[i : i + 1], self.base_grid_hw, grid_hw, padded_tokens(grid_hw),
+                                     dtype, index)
+
     def forward(self, patch_tokens, grid_hw, bias_stack=None):
         """patch_tokens: (B, gh*gw, F). bias_stack: the cached (L, H, Np, Np)
         stack for this grid, or None to build each block's bias inline.
         Returns the 4 tapped (B, 1+gh*gw, F) token tensors."""
-        b = patch_tokens.shape[0]
-        index = None if bias_stack is not None else relative_position_tensor(grid_hw, patch_tokens.device)
-        cls_tok = self.cls_token.to(patch_tokens.dtype).expand(b, 1, self.features)
-        tokens = torch.cat([cls_tok, patch_tokens], dim=1)
+        tokens = self.embed(patch_tokens)
         outputs = []
-        for i, block in enumerate(self.blocks):
-            if bias_stack is not None:
-                bias = (bias_stack, i)
-            else:
-                lut = self.relpos_lut[i : i + 1]  # this block's (1, H, Np, Np) bias, padded like the stack
-                bias = compute_bias_stack(lut, self.base_grid_hw, grid_hw, padded_tokens(grid_hw), tokens.dtype, index)
+        for i, (block, bias) in enumerate(zip(self.blocks, self.block_biases(grid_hw, bias_stack, tokens.dtype))):
             tokens = block(tokens, bias)
             if i in self.taps:
                 outputs.append(tokens)
         return tuple(outputs)
+
+    def forward_capture(self, patch_tokens, grid_hw, bias_stack=None):
+        """``forward`` on the plain attention path, keeping what each block
+        made: (the 4 tapped stages, {"block_tokens": [(B, 1+N, F)] * L,
+        "attention": [(B, H, N, N) float32] * L}). Each block's bias comes
+        from the cached stack (its padded rows sliced off) or is built
+        inline, as in ``forward``."""
+        tokens = self.embed(patch_tokens)
+        internals = {"block_tokens": [], "attention": []}
+        outputs = []
+        for i, (block, bias) in enumerate(zip(self.blocks, self.block_biases(grid_hw, bias_stack, tokens.dtype))):
+            tokens, weights = block.forward_capture(tokens, bias)
+            internals["block_tokens"].append(tokens)
+            internals["attention"].append(weights)
+            if i in self.taps:
+                outputs.append(tokens)
+        return tuple(outputs), internals

@@ -56,6 +56,17 @@ class BEiTDPT(nn.Module):
         maps = [stage(t, grid) for stage, t in zip(self.reassemble, stages)]
         return self.head(fusion_forward(maps, self.fusion))
 
+    def forward_capture(self, image_nchw, aux=None):
+        """``forward`` on the plain attention path -> (depth, internals):
+        the encoder's ``block_tokens`` and ``attention`` plus
+        ``reassembly_maps`` (4 maps) and ``fused_map``, both NCHW (the JAX
+        package's maps are NHWC)."""
+        tokens, grid = patchify_embed(image_nchw, self.patch_embed.weight, self.patch_embed.bias)
+        stages, internals = self.encoder.forward_capture(tokens, grid, aux)
+        internals["reassembly_maps"] = [stage(t, grid) for stage, t in zip(self.reassemble, stages)]
+        internals["fused_map"] = fusion_forward(internals["reassembly_maps"], self.fusion)
+        return self.head(internals["fused_map"]), internals
+
 
 def make_aux(net: BEiTDPT, grid_hw, dtype) -> torch.Tensor:
     """The grid's (L, H, Np, Np) bias stack in the model's dtype, Np = N
@@ -81,4 +92,6 @@ def family_spec(config_dict: dict) -> dict:
         "default_size_px": config_dict["base_patch_grid_hw"][0] * patch_px,
         "make_aux": make_aux,
         "aux_bytes_estimate": aux_bytes_estimate,
+        "forward_capture": BEiTDPT.forward_capture,
+        "head_upsample": HEAD_UPSAMPLE,
     }

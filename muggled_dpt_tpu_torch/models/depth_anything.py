@@ -66,3 +66,14 @@ class DepthAnything(nn.Module):
         stages = self.encoder(tokens, grid)
         maps = [stage(t, grid) for stage, t in zip(self.reassemble, stages)]
         return self.head(fusion_forward(maps, self.fusion))
+
+    def forward_capture(self, image_nchw, aux=None):
+        """``forward`` on the plain attention path -> (depth, internals):
+        the encoder's ``block_tokens`` and ``attention`` plus
+        ``reassembly_maps`` (4 maps) and ``fused_map``, both NCHW (the JAX
+        package's maps are NHWC)."""
+        tokens, grid = patchify_embed(image_nchw, self.patch_embed.weight, self.patch_embed.bias)
+        stages, internals = self.encoder.forward_capture(tokens, grid)
+        internals["reassembly_maps"] = [stage(t, grid) for stage, t in zip(self.reassemble, stages)]
+        internals["fused_map"] = fusion_forward(internals["reassembly_maps"], self.fusion)
+        return self.head(internals["fused_map"]), internals

@@ -91,6 +91,14 @@ class Block(nn.Module):
     def forward(self, tokens, bias=None):
         return self.mlp_residual(self.attention_residual(tokens, bias))
 
+    def forward_capture(self, tokens, bias=None):
+        """The block on the plain attention path that keeps the softmax
+        weights: (tokens, (B, H, N, N) float32 weights)."""
+        a = self.attn
+        h = layer_norm(tokens, self.norm1.weight, self.norm1.bias)
+        h, weights = self_attention(h, a.qkv, a.proj, self.num_heads, bias=bias, capture=True)
+        return self.mlp_residual(tokens + self.ls1 * h), weights
+
 
 class DinoV2Encoder(nn.Module):
     def __init__(self, features: int, num_heads: int, num_blocks: int, base_grid_hw, use_kernel: bool = True,
@@ -113,16 +121,39 @@ class DinoV2Encoder(nn.Module):
         grid = resize_bicubic_hwc(self.pos_embed.reshape(bh, bw, -1), (th, tw))  # float32 inside
         return grid.reshape(1, th * tw, -1)
 
-    def forward(self, patch_tokens, grid_hw):
-        """patch_tokens: (B, N, F). Returns the 4 tapped (B, 1+N, F) token
-        tensors, each through the shared output norm."""
+    def embed(self, patch_tokens, grid_hw):
+        """(B, N, F) patch tokens -> (B, 1+N, F): the grid's position
+        embedding added, the cls token prepended. The first block's input."""
         b = patch_tokens.shape[0]
         patch_tokens = patch_tokens + self.resized_pos_embed(grid_hw).to(patch_tokens.dtype)
         cls_tok = (self.cls_token + self.cls_embed).to(patch_tokens.dtype).expand(b, 1, self.features)
-        tokens = torch.cat([cls_tok, patch_tokens], dim=1)
+        return torch.cat([cls_tok, patch_tokens], dim=1)
+
+    def outnorm_taps(self, outputs):
+        return tuple(layer_norm(o, self.outnorm.weight, self.outnorm.bias) for o in outputs)
+
+    def forward(self, patch_tokens, grid_hw):
+        """patch_tokens: (B, N, F). Returns the 4 tapped (B, 1+N, F) token
+        tensors, each through the shared output norm."""
+        tokens = self.embed(patch_tokens, grid_hw)
         outputs = []
         for i, block in enumerate(self.blocks):
             tokens = block(tokens)
             if i in self.taps:
                 outputs.append(tokens)
-        return tuple(layer_norm(o, self.outnorm.weight, self.outnorm.bias) for o in outputs)
+        return self.outnorm_taps(outputs)
+
+    def forward_capture(self, patch_tokens, grid_hw):
+        """``forward`` on the plain attention path, keeping what each block
+        made: (the 4 tapped, out-normed stages, {"block_tokens": [(B, 1+N,
+        F)] * L, "attention": [(B, H, N, N) float32] * L})."""
+        tokens = self.embed(patch_tokens, grid_hw)
+        internals = {"block_tokens": [], "attention": []}
+        outputs = []
+        for i, block in enumerate(self.blocks):
+            tokens, weights = block.forward_capture(tokens)
+            internals["block_tokens"].append(tokens)
+            internals["attention"].append(weights)
+            if i in self.taps:
+                outputs.append(tokens)
+        return self.outnorm_taps(outputs), internals

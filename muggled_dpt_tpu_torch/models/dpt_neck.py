@@ -114,12 +114,21 @@ class FusionBlock(nn.Module):
         return conv1x1_p(x, self.out)
 
 
-def fusion_forward(reassembly_maps, blocks):
-    """Top-down fusion of the 4 reassembly maps; returns a map at 8x the patch grid."""
+def fusion_forward(reassembly_maps, blocks, input_scales=None):
+    """Top-down fusion of the 4 reassembly maps; returns a map at 8x the patch grid.
+
+    input_scales: optional (f1, f2, f3, f4), the fusion-scaling experiment's
+    hook: the top block's input is multiplied by f4, and for blocks 2, 1
+    and 0 the prior fusion map (not the reassembly map) by f3, f2 and f1
+    before the residual add."""
+    def scaled(x, f):
+        return x if input_scales is None else x * f
+
+    f1, f2, f3, f4 = (None,) * 4 if input_scales is None else input_scales
     upx4, upx2, noscale, downx2 = reassembly_maps
-    x = blocks[3](downx2)
-    for fmap, block in ((noscale, blocks[2]), (upx2, blocks[1]), (upx4, blocks[0])):
-        x = block(fmap, x)
+    x = blocks[3](scaled(downx2, f4))
+    for fmap, block, f in ((noscale, blocks[2], f3), (upx2, blocks[1], f2), (upx4, blocks[0], f1)):
+        x = block(fmap, scaled(x, f))
     return x
 
 

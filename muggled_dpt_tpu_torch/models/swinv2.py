@@ -197,10 +197,12 @@ class SwinBlock(nn.Module):
         self.fc2 = nn.Linear(4 * features, features, device=device)
         self.norm2 = nn.LayerNorm(features, eps=SWIN_LN_EPS, device=device)
 
-    def attention(self, x, window_hw, shift_hw, cpb, mask):
+    def attention(self, x, window_hw, shift_hw, cpb, mask, capture: bool = False):
         """Windowed attention on (B, H, W, C) tokens. shift_hw: the roll, (0,
         0) for none; cpb (H, A, A) and mask (nW, A, A) or None, float32 or
-        the model's dtype."""
+        the model's dtype. capture=True takes the plain path whatever
+        ``use_kernel`` says and returns (out, weights): the (B, nW, H, A, A)
+        float32 softmax weights, in the rolled window frame."""
         b, gh, gw, c = x.shape
         heads = self.num_heads
         shifting = shift_hw != (0, 0)
@@ -212,7 +214,8 @@ class SwinBlock(nn.Module):
         q, k, v = qkv.unbind(3)
         qf, kf = cosine_normalize(q), cosine_normalize(k)
         scale = self.logit_scale.float()
-        if self.use_kernel:
+        weights = None
+        if self.use_kernel and not capture:
             # the logit scale folded into q: the kernel adds the biases to q . k
             q_scaled = (qf * scale.reshape(heads, 1)).to(x.dtype)
             out = window_attention_kernel(q_scaled, kf.to(x.dtype), v, cpb, mask)
@@ -227,13 +230,21 @@ class SwinBlock(nn.Module):
         out = merge_windows(out, window_hw, (gh, gw))
         if shifting:
             out = torch.roll(out, shifts=shift_hw, dims=(1, 2))
-        return out
+        return (out, weights) if capture else out
 
-    def forward(self, x, window_hw, shift_hw, cpb, mask=None):
-        h = self.attention(x, window_hw, shift_hw, cpb, mask)
+    def _after_attention(self, x, h):
+        """The rest of the block on its attention output h: the norm1 residual, then the MLP's norm2 residual."""
         x = x + layer_norm(h, self.norm1.weight, self.norm1.bias, eps=SWIN_LN_EPS)
         h = mlp_gelu(x, self.fc1, self.fc2)  # int8 tier: fc1 and fc2 only, qkv and proj stay dense
         return x + layer_norm(h, self.norm2.weight, self.norm2.bias, eps=SWIN_LN_EPS)
+
+    def forward(self, x, window_hw, shift_hw, cpb, mask=None):
+        return self._after_attention(x, self.attention(x, window_hw, shift_hw, cpb, mask))
+
+    def forward_capture(self, x, window_hw, shift_hw, cpb, mask=None):
+        """The block on the plain attention path: (tokens, (B, nW, H, A, A) float32 weights)."""
+        h, weights = self.attention(x, window_hw, shift_hw, cpb, mask, capture=True)
+        return self._after_attention(x, h), weights
 
 
 class PatchMerge(nn.Module):
@@ -265,26 +276,55 @@ class SwinV2Encoder(nn.Module):
         )
         self.merges = nn.ModuleList(PatchMerge(feats[s], feats[s + 1], device=device) for s in range(3))
 
+    def block_plans(self, s: int, grid_hw, aux=None, device=None):
+        """Each block of stage ``s`` on a (gh, gw) grid with its arguments
+        after the tokens: (block, (window_hw, shift_hw, cpb, mask)); odd
+        blocks shift where the grid exceeds the window. aux: the grid's
+        ``compute_cpb_stack``, or None to build the constants on ``device``
+        in float32: the stage's mask, coordinate table and index once, each
+        block's CPB only when the loop asks for it, all dropped after use."""
+        window_hw, shift_hw = window_plan(grid_hw, self.window_size_hw)
+        if aux is None:
+            pws = self.pretrained_window_sizes[s]
+            table, index = cpb_coords_table(window_hw, pws, device), cpb_index(window_hw, device)
+            mask = shift_mask(grid_hw, window_hw, shift_hw, device)
+        else:
+            mask = aux[s]["mask"]
+        for i, block in enumerate(self.stages[s]):
+            cpb = cpb_bias(block, window_hw, pws, table, index) if aux is None else aux[s]["cpb"][i]
+            shifting = i % 2 == 1 and mask is not None
+            yield block, (window_hw, shift_hw if shifting else (0, 0), cpb, mask if shifting else None)
+
+    def stage_input(self, s: int, x):
+        """Stage ``s``'s input from the (B, H, W, C) tokens before it: the
+        patch merge of the last stage's output, the tokens themselves at stage 0."""
+        return x if s == 0 else self.merges[s - 1](x)
+
     def forward(self, x, aux=None):
         """x: (B, gh, gw, F) patch tokens. aux: the grid's
-        ``compute_cpb_stack``, or None to build the constants here in
-        float32: each stage's mask, coordinate table and index once, each
-        block's CPB right before the block, all dropped after use."""
+        ``compute_cpb_stack``, or None to build the constants inside the
+        forward (``block_plans``). Returns the (B, H, W, C) tokens after
+        each stage."""
         outputs = []
-        for s, blocks in enumerate(self.stages):
-            if s > 0:
-                x = self.merges[s - 1](x)
-            grid = (x.shape[1], x.shape[2])
-            window_hw, shift_hw = window_plan(grid, self.window_size_hw)
-            if aux is None:
-                pws = self.pretrained_window_sizes[s]
-                table, index = cpb_coords_table(window_hw, pws, x.device), cpb_index(window_hw, x.device)
-                mask = shift_mask(grid, window_hw, shift_hw, x.device)
-            else:
-                mask = aux[s]["mask"]
-            for i, block in enumerate(blocks):
-                cpb = cpb_bias(block, window_hw, pws, table, index) if aux is None else aux[s]["cpb"][i]
-                shifting = i % 2 == 1 and mask is not None  # odd blocks shift where the grid exceeds the window
-                x = block(x, window_hw, shift_hw if shifting else (0, 0), cpb, mask if shifting else None)
+        for s in range(len(self.stages)):
+            x = self.stage_input(s, x)
+            for block, args in self.block_plans(s, (x.shape[1], x.shape[2]), aux, x.device):
+                x = block(x, *args)
             outputs.append(x)
         return tuple(outputs)
+
+    def forward_capture(self, x, aux=None):
+        """``forward`` on the plain attention path, keeping what each block
+        made: (the 4 stage outputs, {"block_tokens": [(B, gh*gw, C)] per
+        block, "attention": [(B, nW, H, A, A) float32] per block}), the
+        grid, channels and windows those of the block's stage."""
+        internals = {"block_tokens": [], "attention": []}
+        outputs = []
+        for s in range(len(self.stages)):
+            x = self.stage_input(s, x)
+            for block, args in self.block_plans(s, (x.shape[1], x.shape[2]), aux, x.device):
+                x, weights = block.forward_capture(x, *args)
+                internals["block_tokens"].append(x.reshape(x.shape[0], -1, x.shape[-1]))
+                internals["attention"].append(weights)
+            outputs.append(x)
+        return tuple(outputs), internals

@@ -41,11 +41,26 @@ class SwinV2DPT(nn.Module):
         """Normalized (B, 3, H, W) image, H and W multiples of 8 patches ->
         (B, H, W) depth. aux: the grid's cached ``compute_cpb_stack``, or
         None to build the CPB and masks inside the forward."""
-        tokens, (gh, gw) = patchify_embed(image_nchw, self.patch_embed.weight, self.patch_embed.bias)
-        tokens = layer_norm(tokens, self.patch_norm.weight, self.patch_norm.bias, eps=SWIN_LN_EPS)
-        stages = self.encoder(tokens.reshape(tokens.shape[0], gh, gw, -1), aux)
+        stages = self.encoder(self.embed(image_nchw), aux)
         maps = [stage(t.permute(0, 3, 1, 2)) for stage, t in zip(self.reassemble, stages)]  # NCHW from here on
         return self.head(fusion_forward(maps, self.fusion))
+
+    def embed(self, image_nchw):
+        """Patch embed and its LayerNorm: the (B, gh, gw, C) tokens of the first block."""
+        tokens, (gh, gw) = patchify_embed(image_nchw, self.patch_embed.weight, self.patch_embed.bias)
+        tokens = layer_norm(tokens, self.patch_norm.weight, self.patch_norm.bias, eps=SWIN_LN_EPS)
+        return tokens.reshape(tokens.shape[0], gh, gw, -1)
+
+    def forward_capture(self, image_nchw, aux=None):
+        """``forward`` on the plain attention path -> (depth, internals):
+        the encoder's ``block_tokens`` ((B, gh*gw, C) per block) and
+        ``attention`` ((B, nW, H, A, A) per block) plus ``reassembly_maps``
+        (4 maps) and ``fused_map``, both NCHW (the JAX package's maps are
+        NHWC)."""
+        stages, internals = self.encoder.forward_capture(self.embed(image_nchw), aux)
+        internals["reassembly_maps"] = [stage(t.permute(0, 3, 1, 2)) for stage, t in zip(self.reassemble, stages)]
+        internals["fused_map"] = fusion_forward(internals["reassembly_maps"], self.fusion)
+        return self.head(internals["fused_map"]), internals
 
 
 def make_aux(net: SwinV2DPT, grid_hw, dtype):
@@ -69,4 +84,6 @@ def family_spec(config_dict: dict) -> dict:
         "default_size_px": config_dict["base_patch_grid_hw"][0] * patch_px,
         "make_aux": make_aux,
         "aux_bytes_estimate": aux_bytes_estimate,
+        "forward_capture": SwinV2DPT.forward_capture,
+        "head_upsample": HEAD_UPSAMPLE,
     }

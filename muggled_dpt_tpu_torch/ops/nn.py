@@ -44,7 +44,21 @@ def mlp_swiglu(x, w12, w3):
     return linear_p(F.silu(a) * b, w3, "w3")
 
 
-def self_attention(tokens, qkv, proj, num_heads: int, use_kernel: bool = True, bias=None):
+def sdpa_capture(q, k, v, bias=None):
+    """Attention with explicit weights, for capture: (B, N, H, D) q, k, v ->
+    ((B, N, H, D) output in q's dtype, (B, H, N, N) float32 weights). The
+    logits are float32 products of q * D**-0.5 and k, whatever the dtype; a
+    bias pre-padded past N (BEiT's stack rows) is sliced back to (.., N,
+    N). The counterpart of JAX ``sdpa(impl="naive")``."""
+    n = q.shape[1]
+    logits = torch.einsum("bnhd,bmhd->bhnm", (q * q.shape[-1] ** -0.5).float(), k.float())
+    if bias is not None:
+        logits = logits + bias[..., :n, :n].float()
+    weights = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhnm,bmhd->bnhd", weights.to(q.dtype), v), weights
+
+
+def self_attention(tokens, qkv, proj, num_heads: int, use_kernel: bool = True, bias=None, capture: bool = False):
     """Fused-qkv multi-head self-attention. ``qkv`` and ``proj`` are linear
     layers or ``QuantLinear``s (``ops/quant.py:linear_p``); the qkv weight
     (3C, C) has its rows in head-major [head][q|k|v][dim] order, so the
@@ -56,20 +70,31 @@ def self_attention(tokens, qkv, proj, num_heads: int, use_kernel: bool = True, b
 
     use_kernel=True sends the attention through ``flash_attention_fused_qkv``
     (on CUDA tensors, the hand-written kernel); False is the plain path,
-    which materializes the layer's slice of a stack."""
+    which materializes the layer's slice of a stack.
+
+    capture=True returns (out, weights) with the (B, H, N, N) float32
+    softmax weights of ``sdpa_capture``, whatever ``use_kernel`` says: a
+    flash kernel never holds them."""
     b, n, c = tokens.shape
     x = linear_p(tokens, qkv, "qkv")  # (B, N, [h][3][d])
     bias_stack = layer = None
     if isinstance(bias, tuple):
         (bias_stack, layer), bias = bias, None
-    if use_kernel:
+    weights = None
+    if use_kernel and not capture:
         out = flash_attention_fused_qkv(x, num_heads, bias=bias, bias_stack=bias_stack, layer=layer)
     else:
         if bias_stack is not None:
             bias = bias_stack[layer][None]
         x = x.reshape(b, n, num_heads, 3, c // num_heads)
-        out = sdpa(x[..., 0, :], x[..., 1, :], x[..., 2, :], bias=bias).reshape(b, n, c)
-    return linear_p(out, proj, "proj")
+        q, k, v = x[..., 0, :], x[..., 1, :], x[..., 2, :]
+        if capture:
+            out, weights = sdpa_capture(q, k, v, bias)
+        else:
+            out = sdpa(q, k, v, bias=bias)
+        out = out.reshape(b, n, c)
+    out = linear_p(out, proj, "proj")
+    return (out, weights) if capture else out
 
 
 def conv2d(x, weight, bias=None, stride: int = 1, padding: int = 0):

@@ -27,7 +27,10 @@ ported = ("checkpoints.beit", "models.beit", "models.beit_family", "make_beit_dp
           "make_depthanythingv1_dpt", "ops.kernels.fused_mlp", "ops.kernels.head_tail", "ops.quant",
           "ops.kernels.flash_attention_int8", "ops.kernels.flash_attention_xl", "ops.kernels.flash_attention_staged",
           "ops.kernels.flash_variants", "tools.attn_variants", "tools.flash_tune", "tools.flash_sm90_variants",
-          "tools.sweep_sm90_variants", "tools.shootout_head_variants", "tools.variant_build", "tools.mlp_sm90_variants")
+          "tools.sweep_sm90_variants", "tools.shootout_head_variants", "tools.variant_build", "tools.mlp_sm90_variants",
+          "demo_helpers.model_capture", "demo_helpers.postprocess", "demo_helpers.saving", "demo_helpers.plane_fit",
+          "experiments.fusion_scaling", "experiments.depth_masking", "experiments.attention_visualization",
+          "experiments.block_norm_visualization", "simple_examples.internal_features")
 missing = [m for m in ported if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print("OK", len(names))
