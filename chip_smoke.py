@@ -195,7 +195,28 @@ failure raises:
       B=1 ms of the f32 capture forward and the kernel forward. Then the four
       analysis experiments' ``main`` on the DA-V2 ViT-L checkpoint on the
       card (fusion_scaling's default sweep, both visualizers --headless,
-      depth_masking --remove_plane), each file they must write read back.
+      depth_masking --remove_plane), each file they must write read back;
+  21. (after 20 on DA-V2 ViT-L, and after 7 and 9) the apps, each through
+      its ``main`` with no -d, so on the card in bfloat16, with the counts
+      set to 0 before and their launches required on their route:
+      run_image --headless on a 720x1280 PNG (24 launches on ``fused``; its
+      ``_raw.npy`` against the facade's normalized depth of the same frame,
+      max abs 1e-3; ms per request of its ``compute_depth_display``);
+      run_video --headless over a synthetic 48-frame 720x1280 mp4, -sync
+      with -r (frames recorded) and dispatch-ahead (frames per second,
+      median inference ms, the host ms inside each dispatch, results shown;
+      24 launches per dispatch); run_3dviewer's handler on 127.0.0.1 in a
+      thread (/frame/0 serially and 4 at once, all equal; its lossless
+      24-bit depth against the facade's, max abs 1e-5; /get-source-info,
+      /export/obj, POST /upload; ms per /frame beside the inference and
+      read-back alone); depth_prediction --no_display (float32); a float16
+      DA-V2 model, which the attention kernel must refuse, and run_image
+      -u, which must exit up front; run_video's ``AsyncResult`` gate on 6
+      clip frames (alone and in back-to-back pairs) against the facade's
+      forward on the default stream, max abs 0; the conversion cache
+      (seconds of a plain build, a miss and a hit, the miss's and hit's
+      depth equal to the plain build's); run_image on BEiT-L-512 (24
+      ``fused_biased`` launches) and SwinV2-L-384 (24 ``window_sm90``).
 Then one JSON line of per-kernel results (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
 for bf16, 1979 TOP/s for int8 (#6 and #7's QK^T); #3's exp floor, one exp2
@@ -209,6 +230,7 @@ Imports only torch, numpy and the port: never jax or the JAX package."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -219,16 +241,23 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+from http.server import ThreadingHTTPServer
 
 import cv2
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from muggled_dpt_tpu_torch import run_3dviewer, run_image, run_video
 from muggled_dpt_tpu_torch.checkpoints.beit import random_original_state_dict as random_beit_state_dict
 from muggled_dpt_tpu_torch.checkpoints.random_init import random_original_depth_anything_state_dict
 from muggled_dpt_tpu_torch.checkpoints.swinv2 import random_original_state_dict as random_swinv2_state_dict
+from muggled_dpt_tpu_torch.checkpoints.cache import cache_path_for
+from muggled_dpt_tpu_torch.demo_helpers.misc import AsyncResult, depth_to_numpy
+from muggled_dpt_tpu_torch.demo_helpers.postprocess import normalize_01, remove_infinities, scale_prediction
 from muggled_dpt_tpu_torch.experiments import attention_visualization, block_norm_visualization, depth_masking, fusion_scaling
 from muggled_dpt_tpu_torch.make_dpt import make_dpt_from_state_dict
 from muggled_dpt_tpu_torch.models.beit_family import BEiTDPT
@@ -236,6 +265,7 @@ from muggled_dpt_tpu_torch.models.dpt_neck import fusion_forward
 from muggled_dpt_tpu_torch.models.swinv2 import shift_mask, stage_grids, window_plan
 from muggled_dpt_tpu_torch.models.swinv2_family import SwinV2DPT
 from muggled_dpt_tpu_torch.ops.nn import patchify_embed
+from muggled_dpt_tpu_torch.simple_examples import depth_prediction
 from muggled_dpt_tpu_torch.ops import quant as tq
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_int8 as fi8
@@ -1143,6 +1173,330 @@ def phase_experiments(smi: str, ckpt: str, tmp: str):
         print(f"experiment {name} {' '.join(args)}: {len(files)} images in {time.perf_counter() - t0:.1f} s [{smi}]",
               flush=True)
     torch.cuda.empty_cache()
+
+
+APP_VIDEO_FRAMES = 48  # the synthetic 720x1280 clip run_video plays, each mode once over all of it
+ASYNC_FRAMES = 6  # clip frames through run_video's AsyncResult against the default-stream forward: 2 alone, 2 pairs
+APP_REPEATS = 5  # run_image's per-request time: median of these, after one
+VIEWER_SERIAL, VIEWER_CONCURRENT = 8, 4  # /frame requests one after another, then at once
+APP_MAX_ABS = 1e-3  # run_image's _raw.npy against the facade's depth, normalized 0..1, the same bf16 ops
+VIEWER_MAX_ABS = 1e-5  # the viewer's lossless 24-bit depth against the facade's (quantization 6e-8)
+
+
+def app_device_args() -> list:
+    """The apps run with no -d, so on the card by default (in bfloat16); a
+    CPU rehearsal (``DEVICE = "cpu"``) passes -d cpu (float32)."""
+    return [] if DEVICE == "cuda" else ["-d", DEVICE]
+
+
+def app_dtype():
+    return torch.bfloat16 if DEVICE == "cuda" else torch.float32
+
+
+def app_frame(tmp: str, name: str) -> tuple[str, np.ndarray]:
+    """A smooth 720x1280 BGR test image (gradients and a disc, so depth and
+    edges have structure), written losslessly as PNG."""
+    hw = FRAME_HW
+    yy, xx = np.mgrid[0 : hw[0], 0 : hw[1]].astype(np.float32)
+    img = np.stack([xx / hw[1] * 255, yy / hw[0] * 255, 128 + 64 * np.sin(xx / 40) * np.cos(yy / 30)], -1)
+    cv2.circle(img, (hw[1] // 2, hw[0] // 2), hw[0] // 4, (30, 200, 90), -1)
+    img = img.clip(0, 255).astype(np.uint8)
+    path = os.path.join(tmp, name)
+    cv2.imwrite(path, img)
+    return path, img
+
+
+def run_image_once(smi, ckpt, tmp, route, blocks, what) -> tuple:
+    """run_image --headless on a 720x1280 PNG through its ``main``, with no
+    -d: ``blocks`` launches on ``route`` and none elsewhere, three files
+    written. Returns (the saved paths, the image's path, the image)."""
+    path, img = app_frame(tmp, "app_frame.png")
+    with contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        saved = _counted(lambda: run_image.main(["-m", ckpt, "-i", path, "--headless", *app_device_args()]), route,
+                         blocks, f"run_image {what}")
+        seconds = time.perf_counter() - t0
+    missing = [p for p in saved if not os.path.exists(p)]
+    raw = np.load(saved[1])
+    if missing or raw.shape != FRAME_HW or not np.isfinite(raw).all():
+        raise RuntimeError(f"run_image {what}: missing {missing}, raw {raw.shape} finite={bool(np.isfinite(raw).all())}")
+    print(f"run_image {what} --headless: 3 files, {blocks} {route} launches, {seconds:.1f} s with the model's load "
+          f"[{smi}]", flush=True)
+    return saved, path, img
+
+
+def run_video_once(smi, ckpt, video, extra, blocks, what) -> dict:
+    """run_video --headless over the clip through its ``main``; every
+    dispatch launched ``blocks`` times on route fused and nothing else."""
+    before = fa.launch_counts()
+    stats = run_video.main(["-m", ckpt, "-i", video, "--headless", "--max_frames", str(APP_VIDEO_FRAMES), *extra,
+                            *app_device_args()])
+    torch.cuda.synchronize()
+    moved = {r: n - before[r] for r, n in fa.launch_counts().items() if n != before[r]}
+    dispatched = len(stats["host_ms"])
+    if moved != {"fused": blocks * dispatched} or stats["frames"] != APP_VIDEO_FRAMES or stats["shown"] < 1:
+        raise RuntimeError(f"run_video {what}: launches {moved} for {dispatched} dispatches, {stats['frames']} frames, "
+                           f"{stats['shown']} shown")
+    infer = f"{statistics.median(stats['infer_ms']):.3f} ms median inference (dispatch to depth on the host), " \
+        if stats["infer_ms"] else ""
+    print(f"run_video {what}: {stats['fps']:.2f} frames/s over {stats['frames']} frames, {stats['shown']} results shown "
+          f"of {dispatched} dispatched, {infer}{statistics.median(stats['host_ms']):.3f} ms median host time inside the "
+          f"dispatch (max {max(stats['host_ms']):.3f}) [{smi}]", flush=True)
+    return stats
+
+
+def viewer_get(base: str, path: str) -> tuple[dict, bytes]:
+    with urllib.request.urlopen(base + path, timeout=300) as r:
+        if r.status != 200:
+            raise RuntimeError(f"3D viewer {path}: HTTP {r.status}")
+        return dict(r.headers), r.read()
+
+
+def viewer_depth(headers: dict, body: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """(rgb, the normalized depth) of a /frame body: the lossless PNG's 24
+    bits in R, G, B (run_3dviewer's wire format)."""
+    n = int(headers["X-rgb-size"])
+    rgb = cv2.imdecode(np.frombuffer(body[:n], np.uint8), cv2.IMREAD_COLOR)
+    packed = cv2.imdecode(np.frombuffer(body[n:], np.uint8), cv2.IMREAD_UNCHANGED).astype(np.uint32)
+    return rgb, ((packed[..., 2] << 16) | (packed[..., 1] << 8) | packed[..., 0]) / (2**24 - 1)
+
+
+def check_async_result(smi, model, frames) -> int:
+    """run_video's dispatch-ahead gate on the card (``AsyncResult``: its own
+    stream, the pinned staging upload, the forward, the pinned read-back and
+    the event) against the facade's forward on the default stream on the
+    same frames, max abs 0 (the same bfloat16 ops on the same inputs). The
+    first frames go through dispatch then collect one by one; the rest in
+    pairs dispatched back to back, so the second upload rewrites the staging
+    buffer while the first frame's forward may still run (only the second
+    result is collected). Each frame's depth differs from the one before, so
+    a stale result would show. Returns the gate's dispatches."""
+    side = model.default_size_px
+    hw = model.compute_scaled_hw(frames[0].shape[:2], side, True)
+
+    def want(frame):
+        rgb = torch.from_numpy(np.ascontiguousarray(frame[..., ::-1])).to(DEVICE)
+        return depth_to_numpy(model.inference_rgb_device(rgb, hw))
+
+    gate, dispatched, checked, prev = AsyncResult(DEVICE), 0, [], None
+    steps = [[f] for f in frames[:2]] + [frames[i : i + 2] for i in range(2, len(frames), 2)]
+    for step in steps:
+        for frame in step:
+            gate.dispatch(model, frame, side, True)
+            dispatched += 1
+        got, ref = gate.collect(), want(step[-1])
+        if prev is not None and np.array_equal(ref, prev):
+            raise RuntimeError("AsyncResult check: two clip frames gave the same depth, so a stale result cannot show")
+        err = float(np.abs(got - ref).max())
+        if got.shape != ref.shape or err != 0.0 or not gate.is_ready() or gate.collect() is not None:
+            raise RuntimeError(f"AsyncResult on the card: depth {got.shape} max abs {err:.3e} from the default-stream "
+                               f"forward (gate 0) after {len(step)} back-to-back dispatches")
+        checked.append(len(step))
+        prev = ref
+    print(f"AsyncResult on the card: {len(checked)} collected depths ({checked.count(2)} after two back-to-back "
+          f"dispatches) equal to the default-stream forward (max abs 0) [{smi}]", flush=True)
+    return dispatched
+
+
+def phase_conversion_cache(smi: str, ckpt: str, tmp: str):
+    """``make_dpt_from_state_dict`` of the DA-V2 ViT-L checkpoint in bfloat16
+    on the card: a plain build, a cache miss (convert, write the cache,
+    build), a cache hit, then a plain build and a hit again; seconds of each
+    to the model on the card, and the hit's depth against the plain model's,
+    max abs 0 (the same float32 values cast the same way)."""
+    frame = app_frame(tmp, "cache.png")[1]
+    times, depths = {}, {}
+    for name, cached in (("plain", False), ("miss", True), ("hit", True), ("plain", False), ("hit", True)):
+        t0 = time.perf_counter()
+        _, model = make_dpt_from_state_dict(ckpt, dtype=app_dtype(), device=DEVICE, conversion_cache=cached)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(time.perf_counter() - t0)
+        if name not in depths:
+            depths[name] = depth_to_numpy(model.inference(frame))
+        del model
+    cache_file = cache_path_for(ckpt)
+    size = os.path.getsize(cache_file)
+    os.remove(cache_file)
+    torch.cuda.empty_cache()
+    errs = {k: float(np.abs(depths[k] - depths["plain"]).max()) for k in ("miss", "hit")}
+    if any(errs.values()):
+        raise RuntimeError(f"conversion cache: depth max abs {errs} from the plain build's (gate 0)")
+    print("conversion cache, DA-V2 ViT-L bf16 build to the card, s: plain " + " / ".join(f"{t:.3f}" for t in times["plain"])
+          + f", miss {times['miss'][0]:.3f} (writes {size / 2**30:.3f} GiB), hit "
+          + " / ".join(f"{t:.3f}" for t in times["hit"]) + f"; miss and hit depth equal to the plain build's [{smi}]",
+          flush=True)
+    return {k: min(v) for k, v in times.items()}
+
+
+def phase_viewer(smi, model, image_path, img, blocks) -> tuple[float, int]:
+    """run_3dviewer's handler on 127.0.0.1 in a thread, as a user's browser
+    drives it: /frame/0 serially and 4 at once (equal bodies), its depth
+    against the facade's, /get-source-info, /export/obj, POST /upload.
+    Every inference launches ``blocks`` times on route fused. Returns the
+    median ms per serial /frame and the handler's launches; prints beside
+    it the inference and read-back alone (``predict_depth``), the rest of a
+    request being the handler's encoding and HTTP."""
+    side = model.default_size_px
+    want = normalize_01(remove_infinities(depth_to_numpy(model.inference(img, side)).squeeze()))
+    predict = []
+    for _ in range(VIEWER_SERIAL):
+        t0 = time.perf_counter()
+        run_3dviewer.predict_depth(model, img, side, True)  # numpy out: the card is done
+        predict.append((time.perf_counter() - t0) * 1e3)
+    source = run_3dviewer.InputSource(image_path)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), run_3dviewer.make_handler(model, source, side, is_metric=False))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        before = fa.launch_counts()
+        headers, first = viewer_get(base, "/frame/0")
+        times = []
+        for _ in range(VIEWER_SERIAL):
+            t0 = time.perf_counter()
+            _, body = viewer_get(base, "/frame/0")
+            times.append((time.perf_counter() - t0) * 1e3)
+            if body != first:
+                raise RuntimeError("3D viewer: a repeated /frame/0 gave other bytes")
+        bodies = [None] * VIEWER_CONCURRENT
+
+        def fetch(i):
+            bodies[i] = viewer_get(base, "/frame/0")[1]
+
+        threads = [threading.Thread(target=fetch, args=(i,)) for i in range(VIEWER_CONCURRENT)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads) or any(b != first for b in bodies):
+            raise RuntimeError("3D viewer: concurrent /frame/0 requests did not all equal the serial one")
+        rgb, depth = viewer_depth(headers, first)
+        err = float(np.abs(depth - want).max())
+        if rgb.shape != img.shape or depth.shape != want.shape or not err <= VIEWER_MAX_ABS:
+            raise RuntimeError(f"3D viewer /frame/0: rgb {rgb.shape}, depth {depth.shape} vs {want.shape}, err {err:.3e}")
+        info = json.loads(viewer_get(base, "/get-source-info")[1])
+        obj = viewer_get(base, "/export/obj?grid=8")[1].decode()
+        vertices = sum(line.startswith("v ") for line in obj.splitlines())
+        if info != {"type": "image", "frame_count": 1, "fps": 0.0, "is_metric": False} or vertices != 81:
+            raise RuntimeError(f"3D viewer: source info {info}, {vertices} OBJ vertices (want 81)")
+        small = cv2.imencode(".png", cv2.resize(img, (320, 180)))[1].tobytes()
+        with urllib.request.urlopen(urllib.request.Request(base + "/upload", data=small, method="POST"), timeout=300) as r:
+            if r.status != 200:
+                raise RuntimeError(f"3D viewer /upload: HTTP {r.status}")
+        rgb_up, depth_up = viewer_depth(*viewer_get(base, "/frame/0"))
+        if rgb_up.shape != (180, 320, 3) or not np.isfinite(depth_up).all():
+            raise RuntimeError(f"3D viewer after /upload: rgb {rgb_up.shape}")
+        torch.cuda.synchronize()
+        moved = {r: n - before[r] for r, n in fa.launch_counts().items() if n != before[r]}
+        inferences = 1 + VIEWER_SERIAL + VIEWER_CONCURRENT + 1 + 1  # the frames, the export, the uploaded frame
+        if moved != {"fused": blocks * inferences}:
+            raise RuntimeError(f"3D viewer: launches {moved}, want {blocks * inferences} on fused only")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    ms = statistics.median(times)
+    print(f"run_3dviewer handler: {ms:.3f} ms median per /frame (JPEG + 24-bit PNG, {VIEWER_SERIAL} serial requests; "
+          f"{min(times):.3f}-{max(times):.3f}), of which inference and read-back alone {statistics.median(predict):.3f} "
+          f"ms; {VIEWER_CONCURRENT} concurrent equal to serial, depth max abs "
+          f"{err:.3e} from the facade's (gate {VIEWER_MAX_ABS:g}), /get-source-info, /export/obj (81 vertices), "
+          f"/upload; {inferences} inferences, {moved['fused']} fused launches [{smi}]", flush=True)
+    return ms, moved["fused"]
+
+
+def phase_apps(smi: str, ckpt: str, tmp: str) -> dict:
+    """The apps on the DA-V2 ViT-L checkpoint, each through its ``main`` with
+    no -d, so on the card in bfloat16 (depth_prediction: float32): run_image
+    --headless, its ``_raw.npy`` against the facade's depth on the same
+    frame and its per-request time; run_video --headless over a synthetic
+    720x1280 clip, -sync (with -r: frames recorded) and dispatch-ahead;
+    run_3dviewer's handler; depth_prediction --no_display; float16 refused.
+    Returns the apps' launches by route, the checks' own inferences left out."""
+    blocks = VITL["num_blocks"]
+    fa.reset_launch_counts()  # count the path's run only; the apps' launches are summed below, call by call
+    saved, image_path, img = run_image_once(smi, ckpt, tmp, "fused", blocks, "DA-V2 ViT-L")
+    _, model = make_dpt_from_state_dict(ckpt, dtype=app_dtype(), device=DEVICE)
+    h, w = img.shape[:2]
+    want = normalize_01(remove_infinities(scale_prediction(depth_to_numpy(model.inference(img)), (w, h)).squeeze()))
+    err = float(np.abs(np.load(saved[1]) - want).max())
+    if not err <= APP_MAX_ABS:
+        raise RuntimeError(f"run_image _raw.npy: max abs {err:.3e} from the facade's depth (gate {APP_MAX_ABS:g})")
+    side = model.default_size_px
+    run_image.compute_depth_display(model, img, side, True)
+    times = []
+    for _ in range(APP_REPEATS):
+        t0 = time.perf_counter()
+        run_image.compute_depth_display(model, img, side, True)  # numpy out: the card is done
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"run_image DA-V2 ViT-L: _raw.npy max abs {err:.3e} from the facade's normalized depth (gate "
+          f"{APP_MAX_ABS:g}); {statistics.median(times):.3f} ms median per request (inference, read-back, resize to "
+          f"720x1280, plane fit; {min(times):.3f}-{max(times):.3f}) [{smi}]", flush=True)
+
+    video = os.path.join(tmp, "app_clip.mp4")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 30, FRAME_HW[::-1])
+    if not writer.isOpened():
+        raise RuntimeError("cv2 cannot write the mp4 test clip")
+    for t in range(APP_VIDEO_FRAMES):
+        writer.write(np.roll(img, 16 * t, axis=1))
+    writer.release()
+    stats = {}
+    with contextlib.chdir(tmp):
+        stats["sync"] = run_video_once(smi, ckpt, video, ["-sync", "-r"], blocks, "-sync -r")
+        recorded = sorted(os.listdir(stats["sync"]["record_folder"]))
+        if stats["sync"]["recorded"] < 1 or not recorded:
+            raise RuntimeError(f"run_video -r wrote no frames: {stats['sync']['record_folder']}")
+        print(f"run_video -r: {stats['sync']['recorded']} frames recorded into {len(recorded)} files", flush=True)
+        stats["ahead"] = run_video_once(smi, ckpt, video, [], blocks, "dispatch-ahead")
+    check_async_result(smi, model, [np.roll(img, 16 * t, axis=1) for t in range(ASYNC_FRAMES)])
+
+    ms, viewer_launches = phase_viewer(smi, model, image_path, img, blocks)
+    del model
+
+    depth = _counted(lambda: depth_prediction.main(["-m", ckpt, "--no_display", *app_device_args()]), "fused", blocks,
+                     "depth_prediction")
+    if depth.shape != OUT_HW or not (np.isfinite(depth).all() and depth.min() == 0 and depth.max() == 1):
+        raise RuntimeError(f"depth_prediction: depth {depth.shape}, range {depth.min()}..{depth.max()}")
+    print(f"depth_prediction --no_display: {depth.shape}, normalized, {blocks} fused launches (float32) [{smi}]",
+          flush=True)
+    phase_f16(smi, ckpt, tmp)
+    dispatched = sum(len(v["host_ms"]) for v in stats.values())
+    launches = {"fused": blocks * (1 + dispatched + 1) + viewer_launches}  # run_image, run_video, depth_prediction
+    print(f"apps on DA-V2 ViT-L, launches from inside the apps: {launches} (run_image {blocks}, run_video "
+          f"{blocks * dispatched}, run_3dviewer {viewer_launches}, depth_prediction {blocks}) [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+    return {"run_image_ms": statistics.median(times), "video": stats, "viewer_ms": ms, "launches": launches}
+
+
+def phase_app_family(smi: str, ckpt: str, tmp: str, route: str, blocks: int, what: str) -> int:
+    """run_image --headless on another family's checkpoint; its launches on ``route``."""
+    fa.reset_launch_counts()  # count the path's run only
+    run_image_once(smi, ckpt, tmp, route, blocks, what)
+    return fa.launch_counts()[route]
+
+
+def phase_f16(smi: str, ckpt: str, tmp: str):
+    """What a float16 DA-V2 model does on the card (the apps' -u), and the
+    apps' refusal of -u up front: the attention kernel takes float32 and
+    bfloat16 only."""
+    _, model = make_dpt_from_state_dict(ckpt, dtype=torch.float16, device=DEVICE)
+    try:
+        model.inference(np.zeros((*FRAME_HW, 3), np.uint8))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise RuntimeError("a float16 DA-V2 model served on the card: the apps' -u refusal (ROADMAP A16) is stale")
+    del model
+    torch.cuda.empty_cache()
+    try:
+        with contextlib.chdir(tmp):
+            run_image.main(["-m", ckpt, "-i", app_frame(tmp, "f16.png")[0], "--headless", "-u", *app_device_args()])
+    except SystemExit as e:
+        if "A16" not in str(e.code):
+            raise
+    else:
+        raise RuntimeError("run_image -u ran on the card")
+    print(f"float16 DA-V2 ViT-L on the card: the kernel refuses it ({refused}); run_image -u exits up front [{smi}]",
+          flush=True)
 
 
 def phase_bnhd_path(smi: str) -> tuple[int, int]:
@@ -2191,6 +2545,9 @@ def main() -> int:
         captured = timed("DA-V2 capture", phase_capture, smi, m32, frame, MAX_SIDE, OUT_HW, "DA-V2 ViT-L", DA_ROUTES)
         del m32
         timed("experiments on DA-V2 ViT-L", phase_experiments, smi, ckpt, tmp)
+        apps = timed("apps on DA-V2 ViT-L: run_image, run_video, run_3dviewer, depth_prediction", phase_apps, smi, ckpt,
+                     tmp)
+        apps["cache_s"] = timed("conversion cache on DA-V2 ViT-L", phase_conversion_cache, smi, ckpt, tmp)
         slabs, ladder_ms = timed("DA-V2 ViT-L long-N ladder, f32 parity at 1428x1428", phase_ladder, smi, ckpt)
         sweep_numbers, sweep_launches, ladder_worst = timed("attention sweep on the ladder's slabs: #1, #10, #11, #12",
                                                             phase_sweep, smi, slabs)
@@ -2209,6 +2566,8 @@ def main() -> int:
         captured.update(timed("BEiT capture", phase_capture, smi, m32, frame, BEIT_SIDE, BEIT_HW, "BEiT-L-512",
                               BEIT_ROUTES, (True, False)))
         del m32
+        apps["launches"]["fused_biased"] = timed("run_image on BEiT-L-512", phase_app_family, smi, ckpt, tmp,
+                                                 "fused_biased", BEIT_L512["num_blocks"], "BEiT-L-512")
         os.remove(ckpt)
         ckpt = write_checkpoint(random_swinv2_state_dict(SWIN_L384, seed=SEED), os.path.join(tmp, "dpt_swin2_large_384_random.pt"))
         launches[3], depth, frame = timed("SwinV2 model", phase_swin_model, smi, ckpt)
@@ -2217,6 +2576,8 @@ def main() -> int:
         captured.update(timed("SwinV2 capture", phase_capture, smi, m32, frame, SWIN_SIDE, SWIN_HW, "SwinV2-L-384",
                               SWIN_ROUTES, (True, False)))
         del m32
+        apps["launches"]["window_sm90"] = timed("run_image on SwinV2-L-384", phase_app_family, smi, ckpt, tmp,
+                                                "window_sm90", SWIN_BLOCKS, "SwinV2-L-384")
         torch.cuda.empty_cache()
         os.remove(ckpt)
         launches[4], launches[5] = timed("(B, N, H, D) op path", phase_bnhd_path, smi)
@@ -2253,6 +2614,16 @@ def main() -> int:
     print("capture, f32 B=1 ms (capture forward / kernel forward): "
           + ", ".join(f"{k} {v['capture_ms']:.3f} / {v['forward_ms']:.3f}" for k, v in captured.items())
           + f"; worst kernel block against the capture: {captured[worst]['worst_block']:.3e} ({worst}) [{smi}]", flush=True)
+    video = apps["video"]
+    print(f"apps: run_image {apps['run_image_ms']:.3f} ms per request; run_video -sync "
+          f"{video['sync']['fps']:.2f} frames/s (recording on), dispatch-ahead {video['ahead']['fps']:.2f} frames/s, "
+          f"host ms per dispatch {statistics.median(video['ahead']['host_ms']):.3f}; run_3dviewer "
+          f"{apps['viewer_ms']:.3f} ms per /frame; DA-V2 ViT-L build {apps['cache_s']['plain']:.3f} s plain, "
+          f"{apps['cache_s']['hit']:.3f} s from the conversion cache; launches from inside the apps by route "
+          f"{apps['launches']} [{smi}]",
+          flush=True)
+    if not all(apps["launches"].get(r, 0) > 0 for r in ("fused", "fused_biased", "window_sm90")):
+        raise RuntimeError(f"an app never launched a serving kernel: {apps['launches']}")
     limits = bounds()
     kernels = [
         {

@@ -11,8 +11,10 @@ shift mask). Two more kernels stand beside the models' own layers:
 ``csrc/fused_mlp.cu`` (LayerNorm -> MLP -> LayerScale residual, the second half
 of a GELU block) and ``csrc/head_tail.cu`` (the depth head's last 3x3 conv,
 ReLU, 1x1 projection and activation). Entry points build on the CUDA card
-unless given ``device="cpu"``. The package imports neither jax nor
-``muggled_dpt_tpu``."""
+unless given ``device="cpu"``. The apps run as modules of the package
+(``python -m muggled_dpt_tpu_torch.run_image``, ``run_video``,
+``run_3dviewer``), as do the examples and analysis experiments. The package
+imports neither jax nor ``muggled_dpt_tpu``."""
 
 from .dpt import DPTModel
 from .make_beit_dpt import make_beit_dpt, make_beit_dpt_from_midas_v31_state_dict

@@ -40,10 +40,3 @@ def load_image(args) -> np.ndarray:
         return image_bgr
     return np.random.default_rng(0).integers(0, 256, (480, 640, 3), dtype=np.uint8)
 
-
-def need_headless(args, name: str):
-    """The visualizers' interactive explorers need the cv2 widgets of
-    ``demo_helpers/ui.py``, which the port does not have yet: only --headless runs."""
-    if not args.headless:
-        raise SystemExit(f"{name}: the interactive explorer needs demo_helpers/ui.py, not ported yet (ROADMAP A12); "
-                         "run with --headless to save every map")

@@ -7,11 +7,12 @@ and the metric head included), MiDaS v3.1 BEiT and MiDaS v3.1 SwinV2."""
 
 from __future__ import annotations
 
+import functools
 import os.path as osp
 
 import torch
 
-from .dpt import resolve_device
+from .dpt import DPTModel, assemble_model, resolve_device
 
 KNOWN_MODEL_TYPES = ("swinv2", "beit", "depthanythingv1", "depthanythingv2")
 
@@ -24,12 +25,40 @@ def make_dpt_from_state_dict(
     model_type: str | None = None,
     dtype=torch.float32,
     device=None,
+    conversion_cache: bool = False,
 ):
     """Load an original .pt/.pth or .safetensors checkpoint (unchanged, as
     downloaded; see ``load_state_dict``) and build the matching DPT model on
     ``device`` in ``dtype``. ``device=None`` means the CUDA card and raises
-    without one; pass ``device="cpu"`` for the CPU. Returns (config_dict, model)."""
+    without one; pass ``device="cpu"`` for the CPU. Returns (config_dict, model).
+
+    conversion_cache=True keeps the converted float32 state dict beside the
+    checkpoint (``<name>.dpt_torch_cache.npz``, ``checkpoints/cache.py``) and
+    builds from it while the checkpoint's size and mtime are unchanged. A
+    miss converts once, writes the cache and builds from the same converted
+    tensors; the cache holds them in float32, which every checkpoint dtype
+    widens to exactly, so a hit and a miss give the same model."""
     device = resolve_device(device)
+    cached = None
+    if conversion_cache:
+        from .checkpoints.cache import load_converted, save_converted
+
+        cached = load_converted(path_to_state_dict)
+    if cached is None:
+        model_type, config_dict, converted = _convert_original(path_to_state_dict, enable_cache, enable_optimizations,
+                                                               model_type)
+        if conversion_cache:
+            save_converted(path_to_state_dict, model_type, config_dict, converted)
+    else:
+        model_type, config_dict, converted = cached
+        config_dict = dict(config_dict, enable_cache=enable_cache, enable_optimizations=enable_optimizations)
+    return config_dict, _assemble_converted(model_type, config_dict, converted, dtype, device)
+
+
+def _convert_original(path_to_state_dict, enable_cache, enable_optimizations, model_type):
+    """(model_type, config_dict, converted state dict) from the original
+    checkpoint: the family sniffed from its keys unless given, then the
+    family's config and key conversion (no model is built)."""
     state_dict = load_state_dict(path_to_state_dict)
 
     if model_type is None:
@@ -39,42 +68,43 @@ def make_dpt_from_state_dict(
         raise NotImplementedError(f"Bad model type: {model_type}, no support for this yet!")
 
     if model_type == "swinv2":
-        from .make_swinv2_dpt import make_swinv2_dpt_from_midas_v31_state_dict
+        from .checkpoints import swinv2 as family
+    elif model_type == "beit":
+        from .checkpoints import beit as family
+    else:
+        from .checkpoints import depth_anything as family
 
-        return make_swinv2_dpt_from_midas_v31_state_dict(
-            state_dict, enable_cache, enable_optimizations, strict_load, dtype=dtype, device=device
-        )
-    if model_type == "beit":
-        from .make_beit_dpt import make_beit_dpt_from_midas_v31_state_dict
+        # Metric-model hack: metric DA-V2 weights are indistinguishable from
+        # relative ones, so the file name flags them.
+        if model_type == "depthanythingv2" and "metric" in path_to_state_dict:
+            state_dict["is_metric"] = torch.zeros(())
+            print(
+                "",
+                "Warning: Metric Depth-Anything V2 model detected!",
+                "  These models are not officially supported,",
+                "  model outputs may be incorrect...",
+                sep="\n",
+                flush=True,
+            )
+    config_dict = family.get_config_from_state_dict(state_dict, enable_cache, enable_optimizations)
+    if model_type == "depthanythingv1":  # no ViT-Giant (SwiGLU) or metric V1
+        config_dict.update(is_giant=False, is_metric=False)
+    return model_type, config_dict, family.convert_state_dict(state_dict, config_dict)
 
-        return make_beit_dpt_from_midas_v31_state_dict(
-            state_dict, enable_cache, enable_optimizations, strict_load, dtype=dtype, device=device
-        )
-    if model_type == "depthanythingv1":
-        from .make_depthanythingv1_dpt import make_depthanythingv1_dpt_from_original_state_dict
 
-        return make_depthanythingv1_dpt_from_original_state_dict(
-            state_dict, enable_cache, enable_optimizations, strict_load, dtype=dtype, device=device
-        )
+def _assemble_converted(model_type: str, config_dict: dict, state_dict: dict, dtype, device) -> DPTModel:
+    """A model of ``model_type`` from a converted state dict (the
+    counterpart of JAX ``make_dpt.py:_build_from_converted``)."""
+    if model_type in ("depthanythingv1", "depthanythingv2"):
+        from .make_depthanythingv2_dpt import family_spec
+        from .models.depth_anything import DepthAnything
 
-    # Metric-model hack: metric DA-V2 weights are indistinguishable from
-    # relative ones, so the file name flags them.
-    if "metric" in path_to_state_dict:
-        state_dict["is_metric"] = torch.zeros(())
-        print(
-            "",
-            "Warning: Metric Depth-Anything V2 model detected!",
-            "  These models are not officially supported,",
-            "  model outputs may be incorrect...",
-            sep="\n",
-            flush=True,
-        )
-
-    from .make_depthanythingv2_dpt import make_depthanythingv2_dpt_from_original_state_dict
-
-    return make_depthanythingv2_dpt_from_original_state_dict(
-        state_dict, enable_cache, enable_optimizations, strict_load, dtype=dtype, device=device
-    )
+        net_cls = functools.partial(DepthAnything, version=1 if model_type == "depthanythingv1" else 2)
+    elif model_type == "beit":
+        from .models.beit_family import BEiTDPT as net_cls, family_spec
+    else:
+        from .models.swinv2_family import SwinV2DPT as net_cls, family_spec
+    return assemble_model(net_cls, config_dict, state_dict, family_spec(config_dict), dtype, device)
 
 
 def load_state_dict(path: str) -> dict:

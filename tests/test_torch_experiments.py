@@ -1,16 +1,22 @@
 """The port's analysis experiments and example on the CPU (``-d cpu``), on
 tiny original-format checkpoints, as tests/test_apps_headless.py:85-110
 runs the JAX ones: the two visualizers' --headless batch modes with the JAX
-stdout markers, their interactive mode refused with a non-zero exit,
+stdout markers, their interactive explorers driven through a scripted
+``DisplayWindow`` (clicks, slider moves, keys, then q) beside the JAX
+explorers under the same script (equal frames at every step, equal saved
+files; the JAX explorer renders the port's capture, which is held against
+the JAX capture within ATTN_MAX_ABS / NORM_RTOL), the panels checked against
+the maps captured once before the loop, which no event recomputes,
 depth_masking with plane removal, internal_features for every family, and
 every entry point refusing to fall back to the CPU without a card. Then the
 port's copies of the demo helpers against the JAX package's on the same
 arrays: postprocess (scale_prediction within float32 round-off, the rest
 exact), plane_fit (same rng: equal) and saving (equal files)."""
 
+import functools
+import importlib.util
 import os
 import os.path as osp
-import subprocess
 import sys
 
 import cv2
@@ -18,17 +24,21 @@ import numpy as np
 import pytest
 import torch
 
+from conftest import REPO_ROOT
+from test_torch_ui import scripted_window
+
 from muggled_dpt_tpu.demo_helpers import plane_fit as jax_plane_fit
 from muggled_dpt_tpu.demo_helpers import postprocess as jax_postprocess
 from muggled_dpt_tpu.demo_helpers import saving as jax_saving
+from muggled_dpt_tpu.demo_helpers import ui as jax_ui
 from muggled_dpt_tpu_torch.checkpoints.beit import random_original_state_dict as random_beit
 from muggled_dpt_tpu_torch.checkpoints.random_init import random_original_depth_anything_state_dict
 from muggled_dpt_tpu_torch.checkpoints.swinv2 import random_original_state_dict as random_swinv2
-from muggled_dpt_tpu_torch.demo_helpers import plane_fit, postprocess, saving
+from muggled_dpt_tpu_torch.demo_helpers import plane_fit, postprocess, saving, ui
+from muggled_dpt_tpu_torch.make_dpt import make_dpt_from_state_dict
 from muggled_dpt_tpu_torch.experiments import attention_visualization, block_norm_visualization, depth_masking, fusion_scaling
 from muggled_dpt_tpu_torch.simple_examples import internal_features
 
-REPO_ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 DA_TINY = {"features_per_token": 64, "num_blocks": 4, "reassembly_features_list": [8, 16, 32, 64], "fusion_channels": 16,
            "patch_size_px": 14, "base_patch_grid_hw": (8, 8)}  # tests/test_apps_headless.py:18-25
 BEIT_TINY = {"features_per_token": 64, "num_blocks": 4, "num_heads": 4, "reassembly_features_list": [8, 16, 32, 64],
@@ -74,18 +84,202 @@ def test_visualizer_headless(fixtures, tmp_path, capsys, name):
     assert all(cv2.imread(str(out / f)) is not None for f in files)
 
 
+JAX_SCRIPTS = {name: osp.join(REPO_ROOT, "experiments", f"{name}.py") for name in VISUALIZERS}
+CAPTURES = {"attention_visualization": "capture_attention", "block_norm_visualization": "capture_block_norms"}
+ATTN_MAX_ABS = 1e-3  # float16 attention maps: one float16 ulp below 2 (2^-10) plus float32 round-off
+NORM_RTOL = 1e-4  # float32 token norms
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_visualizer(name):
+    """The JAX package's visualizer script as a module (its ``main`` reads ``sys.argv``)."""
+    spec = importlib.util.spec_from_file_location(f"jax_{name}", JAX_SCRIPTS[name])
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _check_capture(name, theirs, ours):
+    """The JAX script's own capture against the port's, on the same checkpoint and image."""
+    if name == "attention_visualization":
+        (attn, *grid, disp), (jattn, *jgrid, jdisp) = ours, theirs
+        assert grid == jgrid and len(attn) == len(jattn)
+        for i, (a, b) in enumerate(zip(attn, jattn)):
+            assert a.dtype == b.dtype == np.float16 and a.shape == b.shape, i
+            assert float(np.abs(a.astype(np.float32) - b.astype(np.float32)).max()) <= ATTN_MAX_ABS, i
+    else:
+        (norms, disp), (jnorms, jdisp) = ours, theirs
+        np.testing.assert_allclose(norms, jnorms, rtol=NORM_RTOL, atol=0)
+    assert np.array_equal(disp, jdisp)
+
+
+def _saved(folder) -> dict:
+    return {f: (folder / f).read_bytes() for f in sorted(os.listdir(folder))} if osp.exists(folder) else {}
+
+
+@pytest.fixture
+def scripted(monkeypatch, fixtures):
+    """Run a visualizer's explorer under ``script`` twice: the port's (its
+    ``main``) and the JAX script's (in-process, ``sys.argv`` patched), each
+    through its own package's ``DisplayWindow`` class from ``scripted_window``
+    with the same script. The JAX explorer is handed the maps the port
+    captured, after its own capture is held against them (ATTN_MAX_ABS,
+    NORM_RTOL), so the two explorers must render equal frames at every step
+    and save the same files with equal bytes (the JAX one into
+    ``<out_dir>_jax``). Returns (the port's last view, its window, the number
+    of the port's capture forwards)."""
+    ours_cls, theirs_cls = scripted_window(ui), scripted_window(jax_ui)
+    monkeypatch.setattr(ui, "DisplayWindow", ours_cls)
+    monkeypatch.setattr(jax_ui, "DisplayWindow", theirs_cls)
+
+    def run(name, script, out_dir, width=400, family="da"):
+        module, capture_name = MODULES[name], CAPTURES[name]
+        load, capture = module.load_model, getattr(module, capture_name)
+        forwards, captured = [], []
+
+        def counted_load(args):
+            model = load(args)
+            forward = model.forward_with_internals
+            model.forward_with_internals = lambda x: forwards.append(1) or forward(x)
+            return model
+
+        for cls in (ours_cls, theirs_cls):
+            monkeypatch.setattr(cls, "script", script)
+        monkeypatch.setattr(module, "load_model", counted_load)
+        monkeypatch.setattr(module, capture_name, lambda *a: captured.append(capture(*a)) or captured[-1])
+        view = module.main(["-m", fixtures[family], "-i", fixtures["img"], "-d", "cpu", "-o", str(out_dir),
+                            "--display_size", str(width)])
+
+        jax_module = _jax_visualizer(name)
+        jax_capture = getattr(jax_module, capture_name)
+
+        def handed_over(*a):
+            _check_capture(name, jax_capture(*a), captured[0])
+            return captured[0]
+
+        jax_out = out_dir.parent / f"{out_dir.name}_jax"
+        monkeypatch.setattr(jax_module, capture_name, handed_over)
+        monkeypatch.setattr(sys, "argv", [JAX_SCRIPTS[name], "-m", fixtures[family], "-i", fixtures["img"],
+                                          "-o", str(jax_out), "--display_size", str(width)])
+        jax_module.main()
+
+        ours, theirs = ours_cls.last, theirs_cls.last
+        assert len(captured) == 1 and len(ours.frames) == len(theirs.frames)
+        for i, (a, b) in enumerate(zip(ours.frames, theirs.frames)):
+            assert a.shape == b.shape and np.array_equal(a, b), f"{name}: frame {i} differs from the JAX explorer's"
+        assert _saved(out_dir) == _saved(jax_out), f"{name}: saved files differ from the JAX explorer's"
+        return view, ours, len(forwards)
+
+    return run
+
+
+def _cmap(steps):
+    bar = ui.ColormapsBar()
+    for _ in range(steps):
+        bar.next()
+    return bar
+
+
+def _captured_model(fixtures):
+    return make_dpt_from_state_dict(fixtures["da"], device="cpu")[1]
+
+
+def test_attention_explorer_clicks_slides_and_saves(scripted, fixtures, tmp_path):
+    """Click the token (1, 2) on the input image, slide to layer 0 and the
+    last head (the tiny ViT has one head of 64: head 0, not the mean), next
+    colormap, hover the maps, save the view and all layers, quit."""
+    width, gh = 400, 8  # 120x160 at max side 112 -> 112x112, an 8x8 grid
+
+    def pick_token(w):
+        top, height = w.row(0)
+        w.click((1 + 0.5) / gh * width / 2, top + (2 + 0.5) / gh * height)  # left half: the input image
+
+    def slide(row, x):
+        def step(w):
+            top, height = w.row(row)
+            w.click(x, top + height // 2)
+        return step
+
+    def hover(w):
+        top, height = w.row(0)
+        w._on_mouse(cv2.EVENT_MOUSEMOVE, width * 3 // 4, top + height // 2, 0, None)
+        return "c"
+
+    out = tmp_path / "attn"
+    view, window, captures = scripted("attention_visualization",
+                                      [pick_token, slide(1, 0), slide(2, width - 1), hover, "s", "a"], out)
+    assert captures == 1  # maps captured once before the loop; no event runs the model
+    assert view["token"] == (1, 2) and view["layer"] == 0 and view["head"] == 0
+    attn, g_h, g_w, cls, _ = attention_visualization.capture_attention(_captured_model(fixtures), fixtures["image"], None)
+    want, _, _ = attention_visualization.render_view(attn, (1, 2), g_h, g_w, cls, 0, 0, _cmap(1))
+    assert np.array_equal(view["panel"], want)
+    assert len(window.frames) == 7 and all(f.shape[1] == width for f in window.frames)
+    assert not np.array_equal(window.frames[0], window.frames[-1])
+    saved = sorted(os.listdir(out))
+    assert saved == sorted(["token_1_2_layer_00_head_0.png"] + [f"layer_{i:02d}.png" for i in range(4)])
+    assert np.array_equal(cv2.imread(str(out / "token_1_2_layer_00_head_0.png")), view["panel"])
+
+
+def test_attention_explorer_picks_a_head_of_four(scripted, fixtures, tmp_path):
+    """The tiny BEiT (4 heads, a cls token, a 6x6 grid): slide to head 2,
+    pick the token (4, 1), next colormap, save the view and all layers."""
+    width, gh = 400, 6
+
+    def head_2(w):
+        top, height = w.row(2)
+        w.click(10 + (width - 20) * 3 / 4, top + height // 2)  # heads -1..3 over the track
+
+    def pick_token(w):
+        top, height = w.row(0)
+        w.click((4 + 0.5) / gh * width / 2, top + (1 + 0.5) / gh * height)
+        return "c"
+
+    out = tmp_path / "beit"
+    view, window, captures = scripted("attention_visualization", [head_2, pick_token, "s", "a"], out, family="beit")
+    assert captures == 1 and view["token"] == (4, 1) and view["head"] == 2 and view["layer"] == 3
+    assert "token_4_1_layer_03_head_2.png" in os.listdir(out) and len(window.frames) == 5
+
+
+def test_block_norm_explorer_slides_and_saves(scripted, fixtures, tmp_path):
+    """Slide to block 1, hover the norm map, next colormap twice, save all blocks, then the view, quit."""
+    width = 400
+
+    def slide_to_block_1(w):
+        top, height = w.row(1)
+        w.click(10 + (width - 20) / 3, top + height // 2)  # blocks 0..3 over the track
+
+    def hover(w):
+        top, height = w.row(0)
+        w._on_mouse(cv2.EVENT_MOUSEMOVE, width * 3 // 4, top + height // 2, 0, None)
+        return "c"
+
+    out = tmp_path / "norms"
+    view, window, captures = scripted("block_norm_visualization", [slide_to_block_1, hover, "c", "a", "s"], out)
+    assert captures == 1 and view["layer"] == 1
+    norms, _ = block_norm_visualization.capture_block_norms(_captured_model(fixtures), fixtures["image"], None)
+    assert np.array_equal(view["panel"], block_norm_visualization.render_view(norms, 1, _cmap(2)))
+    assert len(window.frames) == 6
+    saved = sorted(os.listdir(out))
+    assert saved == sorted(["all_blocks.png"] + [f"block_{i:02d}.png" for i in range(4)])
+    assert np.array_equal(cv2.imread(str(out / "block_01.png")), view["panel"])
+
+
 @pytest.mark.parametrize("name", list(VISUALIZERS))
-def test_visualizer_without_headless_exits_nonzero(fixtures, name):
-    """The interactive explorer needs demo_helpers/ui.py (ROADMAP A12)."""
-    with pytest.raises(SystemExit) as exc:
-        MODULES[name].main(["-m", fixtures["da"], "-d", "cpu"])
-    assert exc.value.code not in (0, None) and "A12" in str(exc.value.code)
-
-
-def test_visualizer_without_headless_exit_code(fixtures):
-    r = subprocess.run([sys.executable, "-m", "muggled_dpt_tpu_torch.experiments.attention_visualization",
-                        "-m", fixtures["da"], "-d", "cpu"], cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0 and "ROADMAP A12" in r.stderr, (r.returncode, r.stderr[-500:])
+def test_explorer_opens_on_the_default_view(scripted, fixtures, tmp_path, name):
+    """q at once: one frame, the default view (last block; the attention explorer: the centre token, head mean)."""
+    view, window, captures = scripted(name, ["q"], tmp_path / "none")
+    assert captures == 1 and len(window.frames) == 1 and not osp.exists(tmp_path / "none")
+    module = MODULES[name]
+    model, image = _captured_model(fixtures), fixtures["image"]
+    if name == "attention_visualization":
+        attn, gh, gw, cls, disp = module.capture_attention(model, image, None)
+        want, _, _ = module.render_view(attn, (gw // 2, gh // 2), gh, gw, cls, len(attn) - 1, -1, _cmap(0))
+        assert view["token"] == (gw // 2, gh // 2) and view["head"] == -1
+    else:
+        norms, disp = module.capture_block_norms(model, image, None)
+        want = module.render_view(norms, norms.shape[0] - 1, _cmap(0))
+    assert view["layer"] == 3 and np.array_equal(view["panel"], want)
+    assert window.frames[0].shape[1] == 400 and disp.shape == (112, 112, 3)
 
 
 def test_depth_masking_remove_plane(fixtures, tmp_path, capsys):

@@ -1,8 +1,8 @@
 """The PyTorch port must run where jax is not installed: importing every
 module of ``muggled_dpt_tpu_torch`` (the attention sweep's
-``tools/flash_tune.py`` and ``tools/attn_variants.py`` included), and
-``chip_smoke.py``, with jax blocked must succeed, and must not import jax,
-the JAX package, ``experiments`` or the root ``tools``."""
+``tools/flash_tune.py`` and ``tools/attn_variants.py`` and the apps
+included), and ``chip_smoke.py``, with jax blocked must succeed, and must
+not import jax, the JAX package, ``experiments`` or the root ``tools``."""
 
 import os
 import subprocess
@@ -30,7 +30,10 @@ ported = ("checkpoints.beit", "models.beit", "models.beit_family", "make_beit_dp
           "tools.sweep_sm90_variants", "tools.shootout_head_variants", "tools.variant_build", "tools.mlp_sm90_variants",
           "demo_helpers.model_capture", "demo_helpers.postprocess", "demo_helpers.saving", "demo_helpers.plane_fit",
           "experiments.fusion_scaling", "experiments.depth_masking", "experiments.attention_visualization",
-          "experiments.block_norm_visualization", "simple_examples.internal_features")
+          "experiments.block_norm_visualization", "simple_examples.internal_features", "checkpoints.cache",
+          "demo_helpers.ui", "demo_helpers.misc", "demo_helpers.loading", "demo_helpers.video", "demo_helpers.crop_ui",
+          "demo_helpers.history_keeper", "demo_helpers.mesh_export", "simple_examples.depth_prediction", "run_image",
+          "run_video", "run_3dviewer")
 missing = [m for m in ported if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print("OK", len(names))
