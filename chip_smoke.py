@@ -217,6 +217,26 @@ failure raises:
       (seconds of a plain build, a miss and a hit, the miss's and hit's
       depth equal to the plain build's); run_image on BEiT-L-512 (24
       ``fused_biased`` launches) and SwinV2-L-384 (24 ``window_sm90``).
+  22. (after 21's DA-V2 apps and the conversion cache) batch extraction
+      and training on DA-V2 ViT-L: run_batch's ``main`` with no -d over 20
+      720x1280 PNG frames at -dp 1 --per-chip-batch 8, bf16 (exactly 3 x 24
+      ``fused`` launches from inside the app, every u16 PNG and .npy read
+      back; frames/s steady-state beside the facade's ms per frame at B=8;
+      the .npy against the bf16 facade, reported); -f32 on 4 frames, each
+      .npy against the f32 facade's inference (1e-3 mean abs-rel), and
+      --eval_gt on its own outputs x 2 (abs_rel 0.0000 and delta1 1.0000;
+      --eval_no_align abs_rel 0.5000 and rmse_log 0.6931); make_train_step:
+      the narrow DA-V2's first step against the CPU port's (the loss and
+      every gradient within 1e-3), then the f32 ViT-L at B=2, 504x504, for
+      3 steps on the plain attention (no kernel launch, finite losses,
+      gradients on the parameters the CPU gives them, finite, every block's
+      qkv and proj non-zero; ms per step and ``device_memory_report``'s
+      peak); the gradient guard (a CUDA slab that requires grad refused
+      under autograd, launched under no_grad); a spawned rank in an NCCL
+      group of one (BatchParallelRunner through an all-gather against the
+      facade, the narrow step through the all-reduce against the
+      in-process one); finetune_demo (30 steps with checkpoints,
+      CONVERGED; --resume, RESUMED OK). run_batch's 72 launches join #1's.
 Then one JSON line of per-kernel results (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
 for bf16, 1979 TOP/s for int8 (#6 and #7's QK^T); #3's exp floor, one exp2
@@ -232,6 +252,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import io
 import json
 import math
 import os
@@ -251,7 +272,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from muggled_dpt_tpu_torch import run_3dviewer, run_image, run_video
+from muggled_dpt_tpu_torch import make_depthanythingv2_dpt, run_3dviewer, run_batch, run_image, run_video
 from muggled_dpt_tpu_torch.checkpoints.beit import random_original_state_dict as random_beit_state_dict
 from muggled_dpt_tpu_torch.checkpoints.random_init import random_original_depth_anything_state_dict
 from muggled_dpt_tpu_torch.checkpoints.swinv2 import random_original_state_dict as random_swinv2_state_dict
@@ -265,6 +286,9 @@ from muggled_dpt_tpu_torch.models.dpt_neck import fusion_forward
 from muggled_dpt_tpu_torch.models.swinv2 import shift_mask, stage_grids, window_plan
 from muggled_dpt_tpu_torch.models.swinv2_family import SwinV2DPT
 from muggled_dpt_tpu_torch.ops.nn import patchify_embed
+from muggled_dpt_tpu_torch.parallel.inference import BatchParallelRunner
+from muggled_dpt_tpu_torch.parallel.mesh import rank_device, spawn
+from muggled_dpt_tpu_torch.parallel.train import adamw, make_train_step
 from muggled_dpt_tpu_torch.simple_examples import depth_prediction
 from muggled_dpt_tpu_torch.ops import quant as tq
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
@@ -275,8 +299,10 @@ from muggled_dpt_tpu_torch.ops.kernels import fused_mlp as fm
 from muggled_dpt_tpu_torch.ops.kernels import head_tail as ht
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 from muggled_dpt_tpu_torch.tools import attn_variants as fav
+from muggled_dpt_tpu_torch.tools import finetune_demo
 from muggled_dpt_tpu_torch.tools import flash_tune as ft
 from muggled_dpt_tpu_torch.tools import measure
+from muggled_dpt_tpu_torch.utils.observability import device_memory_report
 
 VITL = {
     "features_per_token": 1024,
@@ -1467,6 +1493,303 @@ def phase_apps(smi: str, ckpt: str, tmp: str) -> dict:
     return {"run_image_ms": statistics.median(times), "video": stats, "viewer_ms": ms, "launches": launches}
 
 
+BATCH_FRAMES = 20  # run_batch's folder: two full steps of BATCH_STEP frames and one padded
+BATCH_STEP = 8  # -dp 1 --per-chip-batch 8
+BATCH_F32_FRAMES = 4  # the -f32 runs: one step, padded
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 2, 3, 1e-5  # make_train_step on the f32 ViT-L at 504x504 (N = 1297)
+NARROW_DA = (64, 1, 4, (8, 16, 32, 64), (8, 8), 16)  # F, heads, blocks, reassembly, base grid, fusion: the CPU tests' DA-V2
+NARROW_SIDE = 56
+GRAD_SEED = 0  # the narrow step's images: tests/test_torch_parallel.py:GRAD_SEED, a well-conditioned input
+CARD_CPU_GRAD_RTOL = 1e-3  # the narrow first step's loss and each gradient, card against the CPU port
+ZERO_FLOOR = 1e-4  # of the largest gradient norm: below it a gradient is float noise (head.proj.bias: SSI ignores a shift)
+FINETUNE_STEPS = 30
+
+
+def batch_folder(tmp: str, n: int) -> tuple[str, list]:
+    """A folder of n 720x1280 BGR frames (app_frame rolled 16 px a frame), as PNG."""
+    _, img = app_frame(tmp, "batch_base.png")
+    folder = os.path.join(tmp, "batch_frames")
+    os.makedirs(folder, exist_ok=True)
+    frames = [np.roll(img, 16 * t, axis=1) for t in range(n)]
+    for t, f in enumerate(frames):
+        cv2.imwrite(os.path.join(folder, f"f_{t:03d}.png"), f)
+    return folder, frames
+
+
+def run_batch_once(ckpt, tmp, frames_dir, out, extra, want, what) -> dict:
+    """run_batch's ``main`` with no -d, so on the card; exactly ``want``
+    launches on route fused and none elsewhere, counted from inside the app."""
+    before = fa.launch_counts()
+    with contextlib.chdir(tmp):
+        stats = run_batch.main(["-m", ckpt, "-i", frames_dir, "-o", out, "-dp", "1", *extra, *app_device_args()])
+    torch.cuda.synchronize()
+    moved = {r: n - before[r] for r, n in fa.launch_counts().items() if n != before[r]}
+    if moved != {"fused": want}:
+        raise RuntimeError(f"run_batch {what}: launches {moved}, want {want} on fused only")
+    return stats
+
+
+def grad_errors(ours: dict, ref: dict) -> dict:
+    """Per tensor ||ours - ref|| / ||ref||; a reference gradient below
+    ZERO_FLOOR of the largest is float noise, and ours must be too (its
+    norm over the largest reference norm)."""
+    top = max(float(v.norm()) for v in ref.values())
+    out = {}
+    for k, g in ours.items():
+        n = float(ref[k].norm())
+        out[k] = float(g.norm()) / top if n < ZERO_FLOOR * top else float((g - ref[k]).norm()) / n
+    return out
+
+
+def grads_of(net) -> dict:
+    """Each parameter's gradient on the CPU (None: no gradient reached it)."""
+    return {k: None if p.grad is None else p.grad.detach().float().cpu() for k, p in net.named_parameters()}
+
+
+def block_pattern(name: str) -> str:
+    return re.sub(r"blocks\.\d+\.", "blocks.*.", name)
+
+
+def narrow_step(device):
+    """One train step of the narrow DA-V2 on ``device``: (loss, gradients)."""
+    model = make_depthanythingv2_dpt(*NARROW_DA, device=device, seed=SEED)
+    rng = np.random.default_rng(GRAD_SEED)
+    images = rng.standard_normal((TRAIN_BATCH, NARROW_SIDE, NARROW_SIDE, 3)).astype(np.float32)
+    targets = rng.uniform(0.1, 1.0, (TRAIN_BATCH, NARROW_SIDE, NARROW_SIDE)).astype(np.float32)
+    loss = float(make_train_step(model, adamw(model.net.parameters(), TRAIN_LR))(images, targets))
+    return loss, grads_of(model.net)
+
+
+def hold_step(what, loss, grads, ref_loss, ref_grads) -> tuple[float, str]:
+    """The narrow step's loss and every gradient against a reference run, at
+    CARD_CPU_GRAD_RTOL. Returns the worst error and what it was on."""
+    missing = sorted(k for k in ref_grads if (ref_grads[k] is None) != (grads[k] is None))
+    if missing:
+        raise RuntimeError(f"{what}: gradients present on one side only: {missing}")
+    errors = grad_errors({k: g for k, g in grads.items() if g is not None},
+                         {k: g for k, g in ref_grads.items() if g is not None})
+    worst = max(errors, key=errors.get)
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    if not (loss_err <= CARD_CPU_GRAD_RTOL and errors[worst] <= CARD_CPU_GRAD_RTOL):
+        raise RuntimeError(f"{what}: loss {loss} vs {ref_loss} ({loss_err:.3e}), worst gradient {worst} "
+                           f"{errors[worst]:.3e} (gate {CARD_CPU_GRAD_RTOL:g})")
+    return (loss_err, "the loss") if loss_err > errors[worst] else (errors[worst], worst)
+
+
+def check_grad_guard(smi: str):
+    """A CUDA qkv slab that requires grad: the kernel refuses it under
+    autograd, and launches under no_grad."""
+    qkv = make_qkv(np.random.default_rng(SEED + 7), 1, N_TOKENS, torch.bfloat16).requires_grad_()
+    try:
+        fa.flash_attention_fused_qkv(qkv, HEADS)
+    except RuntimeError as e:
+        if "no backward kernel" not in str(e):
+            raise
+        refusal = str(e)
+    else:
+        raise RuntimeError("flash_attention_fused_qkv ran on a slab that requires grad with grad mode on")
+    with torch.no_grad():
+        out = _counted(lambda: fa.flash_attention_fused_qkv(qkv, HEADS), "fused", 1, "the guard's no_grad launch")
+    err = _abs_rel(out, fa.flash_attention_fused_qkv_reference(qkv.detach(), HEADS))
+    if not err <= 1e-2:
+        raise RuntimeError(f"the guard's no_grad launch: abs-rel {err:.3e} from the plain version")
+    print(f"gradient guard: under autograd the kernel refuses ({refusal.split(';')[0]}); under no_grad it launches "
+          f"once (abs-rel {err:.3e} from its plain version) [{smi}]", flush=True)
+
+
+def _nccl_rank(rank, world_size, ckpt, frames_dir, out_path, device_type, n_frames, out_hw):
+    """One rank of an NCCL group: BatchParallelRunner on a batch of
+    ``n_frames`` (its gather an all-gather), against the facade on the same
+    frames, then the narrow train step (its gradients all-reduced). Writes
+    its numbers to ``out_path``."""
+    device = rank_device(device_type, rank)
+    _, model = make_dpt_from_state_dict(ckpt, dtype=app_dtype(), device=device)
+    names = sorted(os.listdir(frames_dir))[:n_frames]
+    frames = [cv2.imread(os.path.join(frames_dir, n)) for n in names]
+    x = torch.cat([model.prepare_image_bgr_nhwc(f) for f in frames])
+    fa.reset_launch_counts()
+    depth = BatchParallelRunner(model)(x)
+    torch.cuda.synchronize()
+    launches = fa.launch_counts()["fused"]
+    stack = torch.from_numpy(np.stack([f[..., ::-1] for f in frames])).to(device)
+    want = model.inference_rgb_device(stack, out_hw)
+    loss, grads = narrow_step(device)
+    torch.save({"launches": launches, "err": _abs_rel(depth, want), "shape": tuple(depth.shape), "loss": loss,
+                "grads": grads, "backend": torch.distributed.get_backend()}, out_path)
+
+
+def phase_nccl_rank(smi: str, ckpt: str, frames_dir: str, tmp: str, loss: float, grads: dict):
+    """A spawned rank in an NCCL group of world size 1: the runner's gather
+    and the train step's all-reduce run on the card."""
+    out = os.path.join(tmp, "nccl_rank.pt")
+    spawn(_nccl_rank, 1, ckpt, frames_dir, out, DEVICE, BATCH_STEP, OUT_HW, device_type=DEVICE)
+    got = torch.load(out, weights_only=True)
+    blocks = VITL["num_blocks"]
+    if got["backend"] != ("nccl" if DEVICE == "cuda" else "gloo") or got["launches"] != blocks or got["shape"] != (BATCH_STEP, *OUT_HW) or \
+            not got["err"] <= ABS_REL_BUDGET:
+        raise RuntimeError(f"NCCL rank: backend {got['backend']}, {got['launches']} fused launches (want {blocks}), "
+                           f"depth {got['shape']}, abs-rel {got['err']:.3e} from the facade")
+    worst, name = hold_step("NCCL rank's train step against the card's", got["loss"], got["grads"], loss, grads)
+    print(f"NCCL world of 1: BatchParallelRunner B={BATCH_STEP} through an all-gather, {got['launches']} fused "
+          f"launches, abs-rel {got['err']:.3e} from the facade; the narrow train step through the all-reduce within "
+          f"{worst:.3e} ({name}) of the in-process step [{smi}]", flush=True)
+
+
+def phase_training(smi: str, ckpt: str) -> dict:
+    """make_train_step: the narrow DA-V2's first step on the card against
+    the CPU port's, then the f32 DA-V2 ViT-L at B=2, 504x504, for
+    TRAIN_STEPS steps on the plain attention (no kernel launches)."""
+    cpu_loss, cpu_grads = narrow_step("cpu")
+    card_loss, card_grads = narrow_step(DEVICE)
+    worst, name = hold_step("narrow DA-V2 train step, card against CPU", card_loss, card_grads, cpu_loss, cpu_grads)
+    with_grad = {block_pattern(k) for k, g in cpu_grads.items() if g is not None}
+    print(f"narrow DA-V2 train step (F={NARROW_DA[0]}, {NARROW_DA[2]} blocks, B={TRAIN_BATCH}, {NARROW_SIDE}x{NARROW_SIDE}): "
+          f"loss {card_loss:.6f} on the card, {cpu_loss:.6f} on the CPU; loss and every gradient within {worst:.3e} "
+          f"(worst: {name}; gate {CARD_CPU_GRAD_RTOL:g}, TF32 off) [{smi}]", flush=True)
+
+    _, model = make_dpt_from_state_dict(ckpt, dtype=torch.float32, device=DEVICE)
+    step = make_train_step(model, adamw(model.net.parameters(), TRAIN_LR))
+    images, targets = finetune_demo.synthetic_scene(np.random.default_rng(SEED), TRAIN_BATCH, OUT_HW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses, ms = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(images, targets)))  # float(): the card is done
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grads = grads_of(model.net)
+            got = {block_pattern(k) for k, g in grads.items() if g is not None}
+            bad = sorted(k for k, g in grads.items() if g is not None and not bool(torch.isfinite(g).all()))
+            flat = [k for b in range(VITL["num_blocks"]) for k in (f"encoder.blocks.{b}.attn.qkv.weight",
+                                                                    f"encoder.blocks.{b}.attn.proj.weight")
+                    if grads[k] is None or float(grads[k].abs().max()) == 0.0]
+            if got != with_grad or bad or flat:
+                raise RuntimeError(f"ViT-L train step: gradients on {sorted(got ^ with_grad)} differ from the CPU's, "
+                                   f"non-finite {bad}, zero qkv/proj {flat}")
+            del grads
+    moved = {r: n for r, n in fa.launch_counts().items() if n}
+    memory = device_memory_report()
+    peak = memory[f"cuda:{torch.cuda.current_device()}"]["peak_bytes_in_use"]
+    if not all(math.isfinite(v) for v in losses) or moved or not peak:
+        raise RuntimeError(f"ViT-L train step: losses {losses}, kernel launches {moved}, peak {peak}")
+    print(f"DA-V2 ViT-L f32 train step, B={TRAIN_BATCH} at {OUT_HW[0]}x{OUT_HW[1]} (N={N_TOKENS}), plain attention, "
+          f"no kernel launched: losses {', '.join(f'{v:.6f}' for v in losses)}; {len(with_grad)} parameter patterns "
+          f"with a gradient, as on the CPU, every one finite, every block's qkv and proj non-zero; ms per step "
+          f"{', '.join(f'{v:.1f}' for v in ms)}; peak {peak / 2**30:.2f} GiB allocated (device_memory_report) "
+          f"[{smi}]", flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return {"train_ms": statistics.median(ms[1:]), "train_first_ms": ms[0], "train_peak_gib": peak / 2**30,
+            "losses": losses, "narrow": (card_loss, card_grads)}
+
+
+def phase_finetune(smi: str, tmp: str):
+    """tools/finetune_demo on the tiny model: FINETUNE_STEPS steps with
+    checkpoints, CONVERGED, then --resume for 10 more, RESUMED OK."""
+    ck = os.path.join(tmp, "finetune_ckpt")
+    texts = []
+    for extra, want in (([f"--steps", str(FINETUNE_STEPS), "--save_every", "10"], "CONVERGED"),
+                        ([f"--steps", str(FINETUNE_STEPS + 10), "--resume"], "RESUMED OK")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = finetune_demo.main(["--ckpt_dir", ck, *extra, *app_device_args()])
+        text = buf.getvalue()
+        texts.append(text)
+        if code != 0 or want not in text.splitlines():
+            raise RuntimeError(f"finetune_demo {' '.join(extra)}: exit {code}, want {want}:\n{text}")
+    first = texts[0].splitlines()
+    print(f"finetune_demo on the card: {first[-2]}; {first[-1]}; after --resume: "
+          f"{texts[1].splitlines()[-2]}; {texts[1].splitlines()[-1]} [{smi}]", flush=True)
+
+
+def phase_batch_training(smi: str, ckpt: str, tmp: str) -> dict:
+    """Batch extraction and training on DA-V2 ViT-L: run_batch in bf16 over
+    BATCH_FRAMES 720x1280 frames at -dp 1 --per-chip-batch 8 (exactly 3 x 24
+    fused launches, frames/s beside the facade's B=8 ms per frame); -f32 on
+    4 frames against the f32 facade and --eval_gt's self-consistency; the
+    train step; the gradient guard; an NCCL world of 1; finetune_demo.
+    Returns run_batch's numbers and its bf16 launches."""
+    blocks = VITL["num_blocks"]
+    frames_dir, frames = batch_folder(tmp, BATCH_FRAMES)
+    steps = -(-BATCH_FRAMES // BATCH_STEP)
+    fa.reset_launch_counts()  # count the path's run only
+    out16 = os.path.join(tmp, "batch_bf16")
+    stats = run_batch_once(ckpt, tmp, frames_dir, out16, ["--per-chip-batch", str(BATCH_STEP), "--save", "u16,npy"],
+                           steps * blocks, "bf16")
+    launches = fa.launch_counts()["fused"]
+    names = [f"f_{t:03d}" for t in range(BATCH_FRAMES)]
+    saved = sorted(os.listdir(out16))
+    depths = [np.load(os.path.join(out16, f"{n}.npy")) for n in names]
+    if stats["frames"] != BATCH_FRAMES or saved != sorted(f"{n}{e}" for n in names for e in (".npy", ".png")) or \
+            any(d.shape != OUT_HW or not np.isfinite(d).all() for d in depths):
+        raise RuntimeError(f"run_batch bf16: {stats['frames']} frames, files {saved[:4]}..., shapes "
+                           f"{sorted({d.shape for d in depths})}")
+    _, model = make_dpt_from_state_dict(ckpt, dtype=app_dtype(), device=DEVICE)
+    agree = max(_abs_rel(torch.from_numpy(depths[t]), model.inference(frames[t])[0].float().cpu())
+                for t in range(BATCH_F32_FRAMES))
+    stack = torch.from_numpy(np.stack([f[..., ::-1] for f in frames[:BATCH_STEP]])).to(DEVICE)
+
+    def per_batch():
+        model.inference_rgb_device(stack, OUT_HW)
+        torch.cuda.synchronize()
+
+    facade_ms = _host_ms(per_batch) / BATCH_STEP
+    del model, stack
+    torch.cuda.empty_cache()
+    # the app's host work per frame, timed alone: the PNG decode, then the u16 PNG and .npy writes
+    t0 = time.perf_counter()
+    for n in names:
+        cv2.imread(os.path.join(frames_dir, f"{n}.png"))
+    decode_ms = (time.perf_counter() - t0) * 1e3 / BATCH_FRAMES
+    t0 = time.perf_counter()
+    for n, d in zip(names, depths):
+        cv2.imwrite(os.path.join(tmp, "host_u16.png"), np.round(normalize_01(d) * 65535).astype(np.uint16))
+        np.save(os.path.join(tmp, "host.npy"), d)
+    write_ms = (time.perf_counter() - t0) * 1e3 / BATCH_FRAMES
+    print(f"run_batch bf16 -dp 1 --per-chip-batch {BATCH_STEP}: {BATCH_FRAMES} frames of {FRAME_HW[0]}x{FRAME_HW[1]} in {steps} steps (the "
+          f"last padded), {launches} fused launches from inside the app; {stats['fps']:.2f} frames/s steady-state "
+          f"(decode, prep, forward, u16 PNG and .npy writes) beside the facade's {facade_ms:.3f} ms per frame at "
+          f"B={BATCH_STEP} ({1e3 / facade_ms:.2f} frames/s); worst .npy against the bf16 facade's B=1 inference "
+          f"{agree:.3e} mean abs-rel (not gated); the host alone per frame: PNG decode {decode_ms:.3f} ms, u16 PNG "
+          f"and .npy writes {write_ms:.3f} ms, of {1e3 / stats['fps']:.3f} ms per frame [{smi}]", flush=True)
+
+    out32 = os.path.join(tmp, "batch_f32")
+    f32 = ["-f32", "--max_frames", str(BATCH_F32_FRAMES), "--per-chip-batch", str(BATCH_STEP), "--save", "npy"]
+    run_batch_once(ckpt, tmp, frames_dir, out32, f32, blocks, "-f32")
+    _, m32 = make_dpt_from_state_dict(ckpt, dtype=torch.float32, device=DEVICE)
+    errs = [_abs_rel(torch.from_numpy(np.load(os.path.join(out32, f"{names[t]}.npy"))),
+                     m32.inference(frames[t])[0].cpu()) for t in range(BATCH_F32_FRAMES)]
+    del m32
+    torch.cuda.empty_cache()
+    if not max(errs) <= ABS_REL_BUDGET:
+        raise RuntimeError(f"run_batch -f32 against the f32 facade: abs-rel {errs} (budget {ABS_REL_BUDGET:g})")
+    gt = os.path.join(tmp, "batch_gt")
+    os.makedirs(gt, exist_ok=True)
+    for t in range(BATCH_F32_FRAMES):
+        np.save(os.path.join(gt, f"{names[t]}.npy"), np.load(os.path.join(out32, f"{names[t]}.npy")) * 2.0)
+    evals = {}
+    for mode, extra in (("aligned", []), ("no-align", ["--eval_no_align"])):
+        got = run_batch_once(ckpt, tmp, frames_dir, os.path.join(tmp, f"batch_eval_{mode}"), [*f32, "--eval_gt", gt, *extra],
+                             blocks, f"--eval_gt {mode}")
+        evals[mode] = {k: f"{v:.4f}" for k, v in got["eval"].items()}
+    if evals["aligned"]["abs_rel"] != "0.0000" or evals["aligned"]["delta1"] != "1.0000" or \
+            evals["no-align"]["abs_rel"] != "0.5000" or evals["no-align"]["rmse_log"] != "0.6931":
+        raise RuntimeError(f"run_batch --eval_gt on its own outputs x 2: {evals}")
+    print(f"run_batch -f32 on {BATCH_F32_FRAMES} frames: each .npy within {max(errs):.3e} mean abs-rel of the f32 facade's "
+          f"inference (budget {ABS_REL_BUDGET:g}); --eval_gt with its outputs x 2: SSI-aligned abs_rel="
+          f"{evals['aligned']['abs_rel']} delta1={evals['aligned']['delta1']}, --eval_no_align abs_rel="
+          f"{evals['no-align']['abs_rel']} rmse_log={evals['no-align']['rmse_log']} [{smi}]", flush=True)
+
+    train = phase_training(smi, ckpt)
+    check_grad_guard(smi)
+    phase_nccl_rank(smi, ckpt, frames_dir, tmp, *train.pop("narrow"))
+    phase_finetune(smi, tmp)
+    return {"launches": launches, "fps": stats["fps"], "facade_ms": facade_ms, "decode_ms": decode_ms,
+            "write_ms": write_ms, **train}
+
+
 def phase_app_family(smi: str, ckpt: str, tmp: str, route: str, blocks: int, what: str) -> int:
     """run_image --headless on another family's checkpoint; its launches on ``route``."""
     fa.reset_launch_counts()  # count the path's run only
@@ -2548,6 +2871,8 @@ def main() -> int:
         apps = timed("apps on DA-V2 ViT-L: run_image, run_video, run_3dviewer, depth_prediction", phase_apps, smi, ckpt,
                      tmp)
         apps["cache_s"] = timed("conversion cache on DA-V2 ViT-L", phase_conversion_cache, smi, ckpt, tmp)
+        batch = timed("batch extraction and training on DA-V2 ViT-L", phase_batch_training, smi, ckpt, tmp)
+        launches[1] += batch["launches"]  # #1's path: DA-V2 serving and run_batch
         slabs, ladder_ms = timed("DA-V2 ViT-L long-N ladder, f32 parity at 1428x1428", phase_ladder, smi, ckpt)
         sweep_numbers, sweep_launches, ladder_worst = timed("attention sweep on the ladder's slabs: #1, #10, #11, #12",
                                                             phase_sweep, smi, slabs)
@@ -2622,6 +2947,10 @@ def main() -> int:
           f"{apps['cache_s']['hit']:.3f} s from the conversion cache; launches from inside the apps by route "
           f"{apps['launches']} [{smi}]",
           flush=True)
+    print(f"batch extraction: run_batch bf16 {batch['fps']:.2f} frames/s steady-state at B={BATCH_STEP} beside the "
+          f"facade's {batch['facade_ms']:.3f} ms per frame, {batch['launches']} fused launches; DA-V2 ViT-L f32 train "
+          f"step B={TRAIN_BATCH} at {OUT_HW[0]}x{OUT_HW[1]}: {batch['train_ms']:.1f} ms per step after the first "
+          f"({batch['train_first_ms']:.1f}), peak {batch['train_peak_gib']:.2f} GiB [{smi}]", flush=True)
     if not all(apps["launches"].get(r, 0) > 0 for r in ("fused", "fused_biased", "window_sm90")):
         raise RuntimeError(f"an app never launched a serving kernel: {apps['launches']}")
     limits = bounds()

@@ -261,6 +261,14 @@ class DPTModel:
         with torch.inference_mode():
             return self._prep(self._to_device_nchw(image_rgb), scaled_hw)
 
+    def prepare_image_bgr_nhwc(self, image_bgr: np.ndarray, max_side_length=None, use_square_sizing=True):
+        """``prepare_image_bgr`` as a (1, h, w, 3) tensor on the model's
+        device, in its dtype, with no host sync: the batching entry of
+        ``parallel.BatchParallelRunner`` callers, the JAX package's NHWC
+        contract. A channels-last view of the BCHW preprocessing, which the
+        runner turns back into BCHW as a permuted view."""
+        return self.prepare_image_bgr(image_bgr, max_side_length, use_square_sizing).permute(0, 2, 3, 1)
+
     def compute_scaled_hw(self, img_hw, max_side_length=None, use_square_sizing=True):
         """Round the target size to the model's tiling (twice the patch size)."""
         if max_side_length is None:

@@ -26,6 +26,7 @@ def make_dpt_from_state_dict(
     dtype=torch.float32,
     device=None,
     conversion_cache: bool = False,
+    unroll_blocks: bool | int = False,
 ):
     """Load an original .pt/.pth or .safetensors checkpoint (unchanged, as
     downloaded; see ``load_state_dict``) and build the matching DPT model on
@@ -37,7 +38,11 @@ def make_dpt_from_state_dict(
     builds from it while the checkpoint's size and mtime are unchanged. A
     miss converts once, writes the cache and builds from the same converted
     tensors; the cache holds them in float32, which every checkpoint dtype
-    widens to exactly, so a hit and a miss give the same model."""
+    widens to exactly, so a hit and a miss give the same model.
+
+    unroll_blocks is the JAX package's compile-time switch (``lax.scan`` or
+    an unrolled encoder); the port runs its blocks eagerly, so it is
+    accepted and ignored."""
     device = resolve_device(device)
     cached = None
     if conversion_cache:

@@ -114,6 +114,12 @@ class BEiTEncoder(nn.Module):
         self.relpos_lut = nn.Parameter(torch.empty(num_blocks, lut_rows, num_heads, device=device))
         self.blocks = nn.ModuleList(Block(features, num_heads, use_kernel, device=device) for _ in range(num_blocks))
 
+    def fixed_zero_grads(self) -> list:
+        """(parameter, boolean mask) pairs of entries the original model does
+        not have: BEiT has no key bias, so the k third of every qkv bias is a
+        fixed zero. Training discards their gradients, so they stay zero."""
+        return [(b.attn.qkv.bias, b.attn.key_bias_mask(b.num_heads)) for b in self.blocks]
+
     def embed(self, patch_tokens):
         """(B, N, F) patch tokens -> (B, 1+N, F) with the cls token
         prepended: the first block's input."""

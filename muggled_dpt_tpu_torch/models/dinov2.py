@@ -34,6 +34,13 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(features, 3 * features, device=device)  # rows head-major
         self.proj = nn.Linear(features, features, device=device)
 
+    def key_bias_mask(self, num_heads: int) -> torch.Tensor:
+        """The k entries of the head-major qkv bias ([head][q|k|v][dim]), as a boolean mask."""
+        mask = torch.zeros(num_heads, 3, self.qkv.out_features // (3 * num_heads), dtype=torch.bool,
+                           device=self.qkv.bias.device)
+        mask[:, 1] = True
+        return mask.reshape(-1)
+
 
 class Mlp(nn.Module):
     def __init__(self, features: int, hidden: int, device=None):

@@ -197,6 +197,15 @@ class SwinBlock(nn.Module):
         self.fc2 = nn.Linear(4 * features, features, device=device)
         self.norm2 = nn.LayerNorm(features, eps=SWIN_LN_EPS, device=device)
 
+    def fixed_zero_grads(self) -> list:
+        """(parameter, boolean mask) pairs of entries the original model does
+        not have: SwinV2 has no key bias, so the k third of the qkv bias
+        ([q|k|v][head][dim]) is a fixed zero. Training discards their
+        gradients, so they stay zero."""
+        mask = torch.zeros(3, self.qkv.out_features // 3, dtype=torch.bool, device=self.qkv.bias.device)
+        mask[1] = True
+        return [(self.qkv.bias, mask.reshape(-1))]
+
     def attention(self, x, window_hw, shift_hw, cpb, mask, capture: bool = False):
         """Windowed attention on (B, H, W, C) tokens. shift_hw: the roll, (0,
         0) for none; cpb (H, A, A) and mask (nW, A, A) or None, float32 or

@@ -258,6 +258,19 @@ def _device_route(device: torch.device, name: str) -> bool:
     return False
 
 
+def _refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a kernel launch. A kernel writes
+    through raw pointers into an output with no ``grad_fn``, and no kernel
+    has a backward, so the gradient into its operands would be dropped
+    without a word. Under ``torch.no_grad`` or ``torch.inference_mode``
+    (every serving path) nothing is recorded and this passes. Never falls
+    back to the plain version: training runs the plain attention itself
+    (``parallel/train.py:plain_attention``)."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an operand requires grad, and there is no backward kernel; "
+                           "differentiate the plain attention (use_kernel=False) or call it under torch.no_grad()")
+
+
 def flash_attention_fused_qkv(qkv, num_heads, bias=None, scale=None, bias_stack=None, layer=None):
     """softmax(q k^T * scale + bias) v per head, read straight from the
     head-major qkv slab. ``scale`` defaults to D ** -0.5. ``bias`` is
@@ -272,6 +285,7 @@ def flash_attention_fused_qkv(qkv, num_heads, bias=None, scale=None, bias_stack=
     device = qkv.device
     if _device_route(device, "flash_attention_fused_qkv"):
         return flash_attention_fused_qkv_reference(qkv, num_heads, bias, scale, bias_stack, layer)
+    _refuse_grad("flash_attention_fused_qkv", qkv, bias, bias_stack)
     bias_arg = _bias_operand(bias, bias_stack, layer, b, num_heads, n, device)
     q, k, v = _qkv_operands(qkv, d)
     out = torch.empty((b, n, num_heads * d), dtype=qkv.dtype, device=device)
@@ -295,6 +309,7 @@ def flash_attention(q, k, v, bias=None, scale=None):
     device = q.device
     if _device_route(device, "flash_attention"):
         return flash_attention_reference(q, k, v, bias, scale)
+    _refuse_grad("flash_attention", q, k, v, bias)
     bias_arg = _bias_operand(bias, None, None, b, h, n, device)
     specs = [_operand(name, t, device, q.dtype) for name, t in (("q", q), ("k", k), ("v", v))]
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=device)

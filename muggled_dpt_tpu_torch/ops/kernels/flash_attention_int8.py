@@ -44,7 +44,8 @@ import array
 import torch
 
 from ._build import kernel_library
-from .flash_attention import HEAD_DIM, LOG2E, MAX_GRID_YZ, _DTYPE_CODES, _device_route, _operand, _qkv_operands
+from .flash_attention import (HEAD_DIM, LOG2E, MAX_GRID_YZ, _DTYPE_CODES, _device_route, _operand, _qkv_operands,
+                              _refuse_grad)
 from .window_attention import BF16_FLOPS_PER_S, EX2_PER_S, HBM_BYTES_PER_S
 
 PROLOGUE_ROWS = 64  # rows per chunk of the kernel prologue (PRO_ROWS in csrc/flash_attention_int8_sm90.cu)
@@ -243,6 +244,7 @@ def flash_attention_int8_qk(q, k, v, scale=None):
         raise ValueError(f"q, k, v must share one (BH, N, D) shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if _device_route(q.device, "flash_attention_int8_qk"):
         return flash_attention_int8_qk_reference(q, k, v, scale)
+    _refuse_grad("flash_attention_int8_qk", q, k, v)
     launch = prepare_int8_qk(q, k, v, scale)
     if launch.run():
         flash_attention_int8_qk.sm90_launches += 1
@@ -259,6 +261,7 @@ def flash_attention_int8_qk_fused(qkv, num_heads, scale=None):
         raise ValueError(f"qkv must be (B, N, 3 * num_heads * D), got {tuple(qkv.shape)} for {num_heads} heads")
     if _device_route(qkv.device, "flash_attention_int8_qk_fused"):
         return flash_attention_int8_qk_fused_reference(qkv, num_heads, scale)
+    _refuse_grad("flash_attention_int8_qk_fused", qkv)
     b, n, c3 = qkv.shape
     launch = prepare_int8_qk_fused(qkv, num_heads, scale)
     if launch.run():

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from ._build import NEG_INF, round_up
-from .flash_attention import LOG2E, _device_route, _qkv_operands, reference_row_step
+from .flash_attention import LOG2E, _device_route, _qkv_operands, _refuse_grad, reference_row_step
 from .flash_variants import launch_variant, qkv_dims
 
 
@@ -95,6 +95,7 @@ def flash_attention_fused_qkv_staged(qkv, num_heads, scale=None, block_q=None, h
     device = qkv.device
     if _device_route(device, "flash_attention_fused_qkv_staged"):
         return flash_attention_fused_qkv_staged_reference(qkv, num_heads, scale, panels)
+    _refuse_grad("flash_attention_fused_qkv_staged", qkv)
     bounds = _panel_bounds(round_up(n, 128), panels)
     q, k, v = _qkv_operands(qkv, d)
     out = torch.empty((b, n, num_heads * d), dtype=qkv.dtype, device=device)

@@ -29,6 +29,7 @@ from .flash_attention import (
     LOG2E,
     _device_route,
     _qkv_operands,
+    _refuse_grad,
     flash_attention_fused_qkv_reference,
     reference_row_step,
 )
@@ -79,6 +80,7 @@ def flash_attention_fused_qkv_xl(qkv, num_heads, scale=None, block_q=None, hpp=N
     device = qkv.device
     if _device_route(device, "flash_attention_fused_qkv_xl"):
         return flash_attention_fused_qkv_xl_reference(qkv, num_heads, scale, ablate_softmax)
+    _refuse_grad("flash_attention_fused_qkv_xl", qkv)
     q, k, v = _qkv_operands(qkv, d)
     out = torch.empty((b, n, num_heads * d), dtype=qkv.dtype, device=device)
     o = (out.data_ptr(), n * num_heads * d, num_heads * d, d)

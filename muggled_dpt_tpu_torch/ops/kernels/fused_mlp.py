@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import kernel_library
-from .flash_attention import _DTYPE_CODES, _contiguous_pointer, _device_route
+from .flash_attention import _DTYPE_CODES, _contiguous_pointer, _device_route, _refuse_grad
 
 MAX_FEATURES = 1024  # the f32 kernel's register accumulator and the bf16 LayerNorm pass's row hold F up to ViT-L's width
 FEATURE_STEP = 64  # F must be a multiple: the f32 kernel's column split, the bf16 GEMMs' 64-wide K slabs of fc1
@@ -107,6 +107,7 @@ def fused_ln_mlp_residual(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, ls, eps: fl
     _check_shapes(x, *params)
     if _device_route(x.device, "fused_ln_mlp_residual"):
         return fused_ln_mlp_residual_reference(x, *params, eps=eps)
+    _refuse_grad("fused_ln_mlp_residual", x, *params)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     if _launch(x, params, out, eps):
         fused_ln_mlp_residual.sm90_launches += 1

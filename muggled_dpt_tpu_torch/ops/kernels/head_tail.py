@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import kernel_library
-from .flash_attention import _DTYPE_CODES, MAX_GRID_YZ, _contiguous_pointer, _device_route
+from .flash_attention import _DTYPE_CODES, MAX_GRID_YZ, _contiguous_pointer, _device_route, _refuse_grad
 
 OUT_CHANNELS = 32  # every DPT head's last 3x3 conv
 TILE = 16  # output tile side: the grid's y extent is ceil(H / 16)
@@ -105,6 +105,7 @@ def fused_head_tail(x, conv_w, conv_b, proj_w, proj_b, is_metric: bool = False):
     _check_shapes(x, *params)
     if _device_route(x.device, "fused_head_tail"):
         return fused_head_tail_reference(x, *params, is_metric=is_metric)
+    _refuse_grad("fused_head_tail", x, *params)
     out = torch.empty((x.shape[0], x.shape[2], x.shape[3]), dtype=x.dtype, device=x.device)
     if _launch(x, params, out, is_metric):
         fused_head_tail.sm90_launches += 1

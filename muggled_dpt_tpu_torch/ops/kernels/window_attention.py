@@ -43,7 +43,7 @@ import array
 import torch
 
 from ._build import kernel_library
-from .flash_attention import _DTYPE_CODES, MAX_GRID_YZ, _device_route, _operand
+from .flash_attention import _DTYPE_CODES, MAX_GRID_YZ, _device_route, _operand, _refuse_grad
 
 HEAD_DIM = 32  # the only head width the kernel is built for (every SwinV2 config: F / H = 32)
 # H100 SXM rates of the yardsticks below: dense bf16 tensor cores, HBM, and
@@ -159,6 +159,7 @@ def window_attention(q, k, v, cpb, mask=None):
     device = q.device
     if _device_route(device, "window_attention"):
         return window_attention_reference(q, k, v, cpb, mask)
+    _refuse_grad("window_attention", q, k, v, cpb, mask)
     specs = [_operand(name, t, device, q.dtype) for name, t in (("q", q), ("k", k), ("v", v))]
     bias_code, cpb, mask = _bias_operands(cpb, mask, device, q.dtype)
     b, nw, a, h, d = q.shape

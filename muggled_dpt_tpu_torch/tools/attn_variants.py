@@ -41,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.kernels._build import NEG_INF, round_up
-from ..ops.kernels.flash_attention import _device_route, _operand, reference_row_step
+from ..ops.kernels.flash_attention import _device_route, _operand, _refuse_grad, reference_row_step
 from ..ops.kernels.flash_variants import launch_variant
 
 MODES = ("mask_exp", "mask_exp2", "padfix", "nosm", "maxonly", "exponly")
@@ -127,6 +127,7 @@ def flash_variant(q, k, v, mode="padfix", block_q=704, chunk=None):
     n_pad = _check(q, k, v, mode, chunk)
     if _device_route(q.device, "flash_variant"):
         return flash_variant_reference(q, k, v, mode, chunk)
+    _refuse_grad("flash_variant", q, k, v)
     g, n, d = q.shape
     device = q.device
     specs = [_operand(name, t[:, :, None], device, q.dtype) for name, t in (("q", q), ("k", k), ("v", v))]
