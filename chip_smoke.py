@@ -237,6 +237,24 @@ failure raises:
       facade, the narrow step through the all-reduce against the
       in-process one); finetune_demo (30 steps with checkpoints,
       CONVERGED; --resume, RESUMED OK). run_batch's 72 launches join #1's.
+  23. (after 22 on DA-V2 ViT-L, and after 21's BEiT and SwinV2 run_image)
+      export (``experiments/export_model.py``, ``experiments/export_onnx.py``):
+      ``export_forward`` of the bf16 DA-V2 ViT-L at 504x504, its graph
+      holding 24 ``mdpt::flash_attention_fused_qkv`` nodes, saved and
+      reloaded: one call (24 ``fused`` launches) against the live forward
+      (1e-3 mean abs-rel, bit-equality printed), B=1 ms of both (host
+      clock, median of 10, two turns each); the artifact loaded and run in
+      a fresh process that imports only ``ops.kernels.library`` (24
+      launches, against this process's call); ``export_model.main`` in
+      float32 (its own check against the live f32 kernel model and its
+      timing loop), the reloaded f32 program against the f32 plain model
+      (1e-3); ``export_onnx.main`` (the numpy evaluator against the live
+      f32 kernel model on the card, 1e-3; the artifact's MB and the
+      evaluator's seconds); BEiT-L-512 at 512x512 with the bias stack
+      lifted as constants and built in-graph (24 ``fused_biased`` each,
+      the artifacts' MB) and SwinV2-L-384 at 384x384 (24 ``window_sm90``),
+      one reloaded request each against the live forward (1e-3). The
+      export launches join #1's, #2's and #3's.
 Then one JSON line of per-kernel results (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
 for bf16, 1979 TOP/s for int8 (#6 and #7's QK^T); #3's exp floor, one exp2
@@ -280,6 +298,7 @@ from muggled_dpt_tpu_torch.checkpoints.cache import cache_path_for
 from muggled_dpt_tpu_torch.demo_helpers.misc import AsyncResult, depth_to_numpy
 from muggled_dpt_tpu_torch.demo_helpers.postprocess import normalize_01, remove_infinities, scale_prediction
 from muggled_dpt_tpu_torch.experiments import attention_visualization, block_norm_visualization, depth_masking, fusion_scaling
+from muggled_dpt_tpu_torch.experiments import export_model, export_onnx
 from muggled_dpt_tpu_torch.make_dpt import make_dpt_from_state_dict
 from muggled_dpt_tpu_torch.models.beit_family import BEiTDPT
 from muggled_dpt_tpu_torch.models.dpt_neck import fusion_forward
@@ -1822,6 +1841,175 @@ def phase_f16(smi: str, ckpt: str, tmp: str):
           flush=True)
 
 
+EXPORT_TIMING_ITERS = 10  # B=1 host-clock ms of a reloaded program and the live forward: the median of these
+EXPORT_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+import muggled_dpt_tpu_torch.ops.kernels.library  # the mdpt ops the program holds: the one import a load needs
+from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
+program = torch.export.load(sys.argv[1])
+x = torch.from_numpy(np.load(sys.argv[2])).to(sys.argv[4], torch.bfloat16)
+fa.reset_launch_counts()
+out = program.module()(x)
+if x.is_cuda:
+    torch.cuda.synchronize()
+np.save(sys.argv[3], out.float().cpu().numpy())
+print(json.dumps(fa.launch_counts()))
+"""
+
+
+def export_reloaded(model, hw, path: str):
+    """``export_model.export_forward`` of ``model`` at ``hw``, saved to
+    ``path`` and loaded back: (the reloaded program, export seconds, load
+    seconds, artifact bytes). Requires one ``mdpt`` node per attention block."""
+    t0 = time.perf_counter()
+    program = export_model.export_forward(model, hw)
+    export_s = time.perf_counter() - t0
+    torch.export.save(program, path)
+    del program
+    t0 = time.perf_counter()
+    reloaded = torch.export.load(path)
+    return reloaded, export_s, time.perf_counter() - t0, os.path.getsize(path)
+
+
+def check_nodes(program, op: str, blocks: int, what: str):
+    nodes = export_model.kernel_nodes(program)
+    if nodes != {op: blocks}:
+        raise RuntimeError(f"{what}: the exported program's kernel nodes are {nodes}, want {{{op!r}: {blocks}}}")
+
+
+def export_input(model, hw, seed) -> torch.Tensor:
+    x = np.random.default_rng(seed).standard_normal((1, 3, *hw)).astype(np.float32) * 0.5
+    return torch.from_numpy(x).to(DEVICE, model.dtype)
+
+
+def reloaded_request(model, call, x, route, blocks, what) -> tuple[torch.Tensor, float, bool]:
+    """One call of a reloaded program, exactly ``blocks`` launches on
+    ``route``, against the live model's forward on the same input: (its
+    depth, mean abs-rel, bit-equal), gated at the repo's 1e-3."""
+    with model._precision():
+        got = _counted(lambda: call(x), route, blocks, f"{what} reloaded program")
+        live = _counted(lambda: model.forward(x), route, blocks, f"{what} live forward")
+    _check_depth(got, tuple(live.shape), f"{what} reloaded program")
+    rel, equal = _abs_rel(got, live), torch.equal(got, live)
+    if not rel <= ABS_REL_BUDGET:
+        raise RuntimeError(f"{what}: the reloaded program disagrees with the live forward: abs-rel {rel:.3e}")
+    return got, rel, equal
+
+
+def phase_export(smi: str, ckpt: str, tmp: str) -> dict:
+    """DA-V2 ViT-L: the bf16 program at 504x504 (``export_forward``), saved,
+    reloaded in this process and in a fresh one; the f32 program through
+    ``export_model.main``, held against the f32 plain model; the ONNX
+    artifact through ``export_onnx.main``. Returns the numbers and the
+    ``fused`` launches."""
+    fa.reset_launch_counts()  # count the path's run only
+    blocks, out = VITL["num_blocks"], {}
+    _, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE)
+    path = os.path.join(tmp, "dav2_vitl_bf16.pt2")
+    program, export_s, load_s, nbytes = export_reloaded(model, OUT_HW, path)
+    check_nodes(program, "flash_attention_fused_qkv", blocks, "DA-V2 ViT-L bf16")
+    call, x = program.module(), export_input(model, OUT_HW, SEED + 5)
+    got, rel, equal = reloaded_request(model, call, x, "fused", blocks, "DA-V2 ViT-L bf16")
+
+    def timed_call(fn):
+        def run():
+            fn(x)
+            torch.cuda.synchronize()
+        return run
+
+    turns = [("program", timed_call(call)), ("live", timed_call(model.forward))]
+    readings = {name: [] for name, _ in turns}
+    for name, fn in turns + turns[::-1]:  # program, live, live, program
+        readings[name].append(_host_ms(fn, iters=EXPORT_TIMING_ITERS))
+    out["program_ms"], out["live_ms"] = min(readings["program"]), min(readings["live"])
+    print(f"export DA-V2 ViT-L bf16 {OUT_HW[0]}x{OUT_HW[1]}: torch.export {export_s:.1f} s, artifact "
+          f"{nbytes / 1e6:.1f} MB, load {load_s:.1f} s; reloaded program vs live forward: abs-rel {rel:.3e} (budget "
+          f"{ABS_REL_BUDGET:g}), bit-equal {equal}, {blocks} fused launches per call; B=1 ms, host clock, median of "
+          f"{EXPORT_TIMING_ITERS} (two turns, the lower kept): program {out['program_ms']:.3f}, live forward "
+          f"{out['live_ms']:.3f} [{smi}]", flush=True)
+    launches = fa.launch_counts()["fused"]
+    x_path, child_out = os.path.join(tmp, "export_x.npy"), os.path.join(tmp, "export_child.npy")
+    np.save(x_path, x.float().cpu().numpy())
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, path, x_path, child_out, DEVICE], capture_output=True,
+                          text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise RuntimeError(f"export: loading the program in a fresh process failed:\n{proc.stderr[-4000:]}")
+    child_launches = json.loads(proc.stdout.strip().splitlines()[-1])
+    child_rel = _abs_rel(torch.from_numpy(np.load(child_out)), got.float().cpu())
+    if child_launches["fused"] != blocks or sum(child_launches.values()) != blocks or not child_rel <= ABS_REL_BUDGET:
+        raise RuntimeError(f"export: the fresh process launched {child_launches}, abs-rel {child_rel:.3e}")
+    launches += child_launches["fused"]
+    print(f"export: the program loaded and ran in a fresh process ({time.perf_counter() - t0:.1f} s, importing only "
+          f"ops.kernels.library): {blocks} fused launches, abs-rel {child_rel:.3e} against this process's call", flush=True)
+    del program, call, model, got
+    os.remove(path)
+    torch.cuda.empty_cache()
+
+    fa.reset_launch_counts()
+    main_out = export_model.main(["-m", ckpt, "-b", str(MAX_SIDE), "-o", tmp, "--timing_iters", str(EXPORT_TIMING_ITERS),
+                                  *app_device_args()])
+    if main_out["nodes"] != {"flash_attention_fused_qkv": blocks}:
+        raise RuntimeError(f"export_model.main: kernel nodes {main_out['nodes']}")
+    program = torch.export.load(main_out["path"])
+    _, plain = make_dpt_from_state_dict(ckpt, dtype=torch.float32, device=DEVICE, enable_optimizations=False)
+    x = export_input(plain, OUT_HW, SEED + 5)
+    with plain._precision():
+        got = _counted(lambda: program.module()(x), "fused", blocks, "DA-V2 ViT-L f32 reloaded program")
+        ref = _counted(lambda: plain.forward(x), "fused", 0, "DA-V2 ViT-L f32 plain model")
+    rel32 = _abs_rel(got, ref)
+    if not rel32 <= ABS_REL_BUDGET:
+        raise RuntimeError(f"export: the f32 reloaded program disagrees with the f32 plain model: abs-rel {rel32:.3e}")
+    launches += fa.launch_counts()["fused"]
+    print(f"export DA-V2 ViT-L f32 through export_model.main: artifact {main_out['bytes'] / 1e6:.1f} MB, reloaded vs "
+          f"live f32 kernel model {main_out['abs_rel']:.3e}, reloaded vs f32 plain model {rel32:.3e} (budget "
+          f"{ABS_REL_BUDGET:g}), {main_out['ms']:.3f} ms per frame (main's timing loop, host clock, mean of "
+          f"{EXPORT_TIMING_ITERS}) [{smi}]", flush=True)
+    del program, plain, got, ref
+    os.remove(main_out["path"])
+    torch.cuda.empty_cache()
+
+    onnx_out = export_onnx.main(["-m", ckpt, "-b", str(MAX_SIDE), "-o", tmp, *app_device_args()])
+    os.remove(onnx_out["path"])
+    out.update(onnx_mb=onnx_out["bytes"] / 1e6, onnx_s=onnx_out["evaluator_s"], onnx_rel=onnx_out["abs_rel"],
+               f32_rel=rel32, bf16_rel=rel, bf16_equal=equal, bf16_mb=nbytes / 1e6, export_s=export_s)
+    print(f"export DA-V2 ViT-L ONNX through export_onnx.main: artifact {out['onnx_mb']:.1f} MB, numpy evaluator "
+          f"{out['onnx_s']:.1f} s on the host, abs-rel {out['onnx_rel']:.3e} against the live f32 kernel model on the "
+          f"card (budget {ABS_REL_BUDGET:g}) [{smi}]", flush=True)
+    out["launches"] = launches
+    return out
+
+
+def phase_export_family(smi: str, ckpt: str, tmp: str, hw, route: str, blocks: int, what: str,
+                        cache_modes=(True,)) -> tuple[int, dict]:
+    """Another family's bf16 program at ``hw``, for each aux mode: exported,
+    saved, reloaded, one request against the live forward, ``blocks``
+    launches on ``route``. Returns the launches and the artifact MB by mode."""
+    fa.reset_launch_counts()  # count the path's run only
+    _, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE)
+    op = "window_attention" if route.startswith("window") else "flash_attention_fused_qkv"
+    sizes = {}
+    for enable_cache in cache_modes:
+        model.config["enable_cache"] = enable_cache
+        model.clear_cache()
+        mode = "aux cached, lifted as constants" if enable_cache else "aux built in-graph"
+        path = os.path.join(tmp, f"export_{route}_{int(enable_cache)}.pt2")
+        program, export_s, load_s, nbytes = export_reloaded(model, hw, path)
+        check_nodes(program, op, blocks, what)
+        _, rel, equal = reloaded_request(model, program.module(), export_input(model, hw, SEED + 6), route, blocks, what)
+        sizes[enable_cache] = nbytes / 1e6
+        print(f"export {what} bf16 {hw[0]}x{hw[1]} ({mode}): torch.export {export_s:.1f} s, artifact {nbytes / 1e6:.1f} "
+              f"MB, load {load_s:.1f} s, {len(program.constants)} constants; reloaded vs live: abs-rel {rel:.3e}, "
+              f"bit-equal {equal}, {blocks} {route} launches [{smi}]", flush=True)
+        del program
+        os.remove(path)
+    del model
+    torch.cuda.empty_cache()
+    return fa.launch_counts()[route], sizes
+
+
 def phase_bnhd_path(smi: str) -> tuple[int, int]:
     """The (B, N, H, D) op: BEiT-L-512's attention shape (B=8, q, k, v as
     strided views of one qkv, a padded (1, H, Np, Np) bias as the JAX BEiT
@@ -2872,7 +3060,8 @@ def main() -> int:
                      tmp)
         apps["cache_s"] = timed("conversion cache on DA-V2 ViT-L", phase_conversion_cache, smi, ckpt, tmp)
         batch = timed("batch extraction and training on DA-V2 ViT-L", phase_batch_training, smi, ckpt, tmp)
-        launches[1] += batch["launches"]  # #1's path: DA-V2 serving and run_batch
+        exported = timed("export on DA-V2 ViT-L: torch.export bf16 and f32, ONNX", phase_export, smi, ckpt, tmp)
+        launches[1] += batch["launches"] + exported["launches"]  # #1's path: DA-V2 serving, run_batch and export
         slabs, ladder_ms = timed("DA-V2 ViT-L long-N ladder, f32 parity at 1428x1428", phase_ladder, smi, ckpt)
         sweep_numbers, sweep_launches, ladder_worst = timed("attention sweep on the ladder's slabs: #1, #10, #11, #12",
                                                             phase_sweep, smi, slabs)
@@ -2893,6 +3082,10 @@ def main() -> int:
         del m32
         apps["launches"]["fused_biased"] = timed("run_image on BEiT-L-512", phase_app_family, smi, ckpt, tmp,
                                                  "fused_biased", BEIT_L512["num_blocks"], "BEiT-L-512")
+        export_launches, exported["BEiT-L-512 MB"] = timed("export on BEiT-L-512", phase_export_family, smi, ckpt, tmp,
+                                                           BEIT_HW, "fused_biased", BEIT_L512["num_blocks"], "BEiT-L-512",
+                                                           (True, False))
+        launches[2] += export_launches
         os.remove(ckpt)
         ckpt = write_checkpoint(random_swinv2_state_dict(SWIN_L384, seed=SEED), os.path.join(tmp, "dpt_swin2_large_384_random.pt"))
         launches[3], depth, frame = timed("SwinV2 model", phase_swin_model, smi, ckpt)
@@ -2903,6 +3096,9 @@ def main() -> int:
         del m32
         apps["launches"]["window_sm90"] = timed("run_image on SwinV2-L-384", phase_app_family, smi, ckpt, tmp,
                                                 "window_sm90", SWIN_BLOCKS, "SwinV2-L-384")
+        export_launches, exported["SwinV2-L-384 MB"] = timed("export on SwinV2-L-384", phase_export_family, smi, ckpt,
+                                                             tmp, SWIN_HW, "window_sm90", SWIN_BLOCKS, "SwinV2-L-384")
+        launches[3] += export_launches
         torch.cuda.empty_cache()
         os.remove(ckpt)
         launches[4], launches[5] = timed("(B, N, H, D) op path", phase_bnhd_path, smi)
@@ -2951,6 +3147,12 @@ def main() -> int:
           f"facade's {batch['facade_ms']:.3f} ms per frame, {batch['launches']} fused launches; DA-V2 ViT-L f32 train "
           f"step B={TRAIN_BATCH} at {OUT_HW[0]}x{OUT_HW[1]}: {batch['train_ms']:.1f} ms per step after the first "
           f"({batch['train_first_ms']:.1f}), peak {batch['train_peak_gib']:.2f} GiB [{smi}]", flush=True)
+    print(f"export: DA-V2 ViT-L bf16 reloaded program {exported['program_ms']:.3f} ms per request at B=1 against the "
+          f"live forward's {exported['live_ms']:.3f} (abs-rel {exported['bf16_rel']:.3e}, bit-equal "
+          f"{exported['bf16_equal']}), artifact {exported['bf16_mb']:.1f} MB; f32 program vs plain {exported['f32_rel']:.3e}; "
+          f"ONNX {exported['onnx_mb']:.1f} MB, evaluator {exported['onnx_s']:.1f} s, abs-rel {exported['onnx_rel']:.3e}; "
+          f"BEiT-L-512 artifact MB by aux cached {exported['BEiT-L-512 MB']}, SwinV2-L-384 "
+          f"{exported['SwinV2-L-384 MB']} [{smi}]", flush=True)
     if not all(apps["launches"].get(r, 0) > 0 for r in ("fused", "fused_biased", "window_sm90")):
         raise RuntimeError(f"an app never launched a serving kernel: {apps['launches']}")
     limits = bounds()

@@ -27,6 +27,7 @@ import math
 import torch
 from torch import nn
 
+from ..ops.kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
 from ..ops.kernels.window_attention import window_attention as window_attention_kernel
 from ..ops.nn import layer_norm, linear, mlp_gelu
 
@@ -227,7 +228,9 @@ class SwinBlock(nn.Module):
         if self.use_kernel and not capture:
             # the logit scale folded into q: the kernel adds the biases to q . k
             q_scaled = (qf * scale.reshape(heads, 1)).to(x.dtype)
-            out = window_attention_kernel(q_scaled, kf.to(x.dtype), v, cpb, mask)
+            # while torch.export traces, the kernel is an operator node (ops/kernels/library.py)
+            attend = torch.ops.mdpt.window_attention if torch.compiler.is_exporting() else window_attention_kernel
+            out = attend(q_scaled, kf.to(x.dtype), v, cpb, mask)
         else:
             logits = torch.einsum("bwnhd,bwmhd->bwhnm", qf, kf) * scale.reshape(1, 1, heads, 1, 1)
             logits = logits + cpb.float()[None, None]

@@ -1,0 +1,94 @@
+"""The serving kernels as PyTorch operators, for ``torch.export``.
+
+The kernels reach CUDA through ctypes on raw ``data_ptr()`` addresses
+(``flash_attention._launch``, ``window_attention._launch``), which
+``torch.export`` cannot follow: it traces with fake tensors, which have no
+storage. Here each serving entry gets an operator identity of its own, a
+``torch.library.custom_op``, so that an exported program holds one node per
+call and runs the kernel when it is called:
+
+=================================  ==========================================
+``mdpt::flash_attention_fused_qkv``  ``flash_attention.flash_attention_fused_qkv``:
+                                   TPU kernels #1 (unbiased) and #2 (``bias``,
+                                   or ``bias_stack`` + ``layer``)
+``mdpt::window_attention``         ``window_attention.window_attention``: TPU
+                                   kernel #3
+=================================  ==========================================
+
+The real implementation of each is the wrapper itself, called on real
+tensors when the op runs: on a CPU tensor the plain version, on a CUDA
+tensor the kernel or an exception, never a fallback. Every ``data_ptr()``,
+operand layout check, bias fill choice and launch count happens there, so a
+reloaded exported program counts its launches when it is called, not when it
+is traced. The fake implementation only says the output's shape and dtype.
+
+The ops have no backward (the kernels have none): the wrapper's
+``_refuse_grad`` raises when an operand requires grad under autograd, as it
+does when the wrapper is called directly.
+
+Importing this module registers both ops; ``torch.export.load`` of a
+program that holds them needs that import first. Only the serving call
+sites use them, and only while a model is being exported
+(``torch.compiler.is_exporting()``): eager serving calls the wrappers
+directly, since the dispatcher adds a host cost to every call
+(``tools/measure.py host``)."""
+
+from __future__ import annotations
+
+import torch
+
+from . import flash_attention as fa
+from . import window_attention as wa
+
+
+@torch.library.custom_op("mdpt::flash_attention_fused_qkv", mutates_args=())
+def flash_attention_fused_qkv(qkv: torch.Tensor, num_heads: int, bias: torch.Tensor | None = None,
+                              scale: float | None = None, bias_stack: torch.Tensor | None = None,
+                              layer: int | None = None) -> torch.Tensor:
+    """``flash_attention.flash_attention_fused_qkv`` as an operator: (B, N, 3C) head-major qkv -> (B, N, C)."""
+    return fa.flash_attention_fused_qkv(qkv, num_heads, bias, scale, bias_stack, layer)
+
+
+@flash_attention_fused_qkv.register_fake
+def _(qkv, num_heads, bias=None, scale=None, bias_stack=None, layer=None):
+    b, n, c3 = qkv.shape
+    return qkv.new_empty((b, n, c3 // 3))
+
+
+def _register_refusal(op, name: str):
+    """The op's autograd registration: the wrappers' ``_refuse_grad`` where
+    the dispatcher records the call. Autograd runs an op whose operand
+    requires grad inside an ``autograd.Function``, with grad mode off, so
+    the wrapper cannot see that the call is recorded; the op raises from its
+    context setup instead, after the call and before the caller gets the
+    output."""
+
+    def setup_context(ctx, inputs, output):
+        with torch.enable_grad():
+            fa._refuse_grad(name, *inputs)
+
+    def backward(ctx, grad):  # never reached: setup_context raised
+        raise RuntimeError(f"{name} has no backward")
+
+    op.register_autograd(backward, setup_context=setup_context)
+
+
+_register_refusal(flash_attention_fused_qkv, "mdpt::flash_attention_fused_qkv")
+
+
+@torch.library.custom_op("mdpt::window_attention", mutates_args=())
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cpb: torch.Tensor,
+                     mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``window_attention.window_attention`` as an operator: (B, nW, A, H, D)
+    q, k, v -> a new contiguous (B, nW, A, H, D) tensor (the kernel writes
+    one; the plain version's einsum leaves its dims permuted, so it is
+    copied: an operator's output has one layout)."""
+    return wa.window_attention(q, k, v, cpb, mask).contiguous()
+
+
+@window_attention.register_fake
+def _(q, k, v, cpb, mask=None):
+    return q.new_empty(q.shape)
+
+
+_register_refusal(window_attention, "mdpt::window_attention")

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
 from .kernels.flash_attention import flash_attention_fused_qkv
 from .kernels.flash_attention import flash_attention_reference as sdpa  # the plain attention path, JAX's name
 from .quant import linear_p
@@ -82,7 +83,9 @@ def self_attention(tokens, qkv, proj, num_heads: int, use_kernel: bool = True, b
         (bias_stack, layer), bias = bias, None
     weights = None
     if use_kernel and not capture:
-        out = flash_attention_fused_qkv(x, num_heads, bias=bias, bias_stack=bias_stack, layer=layer)
+        # while torch.export traces, the kernel is an operator node (ops/kernels/library.py)
+        attend = torch.ops.mdpt.flash_attention_fused_qkv if torch.compiler.is_exporting() else flash_attention_fused_qkv
+        out = attend(x, num_heads, bias=bias, bias_stack=bias_stack, layer=layer)
     else:
         if bias_stack is not None:
             bias = bias_stack[layer][None]

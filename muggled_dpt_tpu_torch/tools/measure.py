@@ -10,6 +10,10 @@
     python3 muggled_dpt_tpu_torch/tools/measure.py profile --int8 [dense] [default] [qkv] [neck] [--out DIR]
 
 ``host``: the attention and window attention wrappers' host cost per call,
+then the same calls of #1 (unbiased), #2 (a stack layer) and #3 through
+their ``torch.ops.mdpt`` operators (``ops/kernels/library.py``, what an
+exported program calls) against the wrappers called directly, paired round
+by round under ``inference_mode`` (this checkout only),
 the DA-V2 ViT-L, BEiT-L-512 and SwinV2-L-384 bf16 request times at B=1, and
 BEiT-L-512's and SwinV2-L-384's ms per frame at B=8 (24 attention or window
 launches per forward; the sm_90 window kernel encodes six tensor maps per
@@ -223,6 +227,32 @@ def attention_routes(pkg_name: str, heads=16, n=65, d=64) -> dict:
     return routes
 
 
+def dispatch_routes(heads=16, n=65, d=64) -> dict:
+    """The serving kernels at a shape too small to keep the card busy, each
+    as (the wrapper called directly, the same call through its
+    ``torch.ops.mdpt`` operator, ops/kernels/library.py)."""
+    import torch
+
+    from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
+    from muggled_dpt_tpu_torch.ops.kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
+    from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
+
+    qkv = torch.randn(1, n, 3 * heads * d, device="cuda", dtype=torch.bfloat16)
+    stack = torch.zeros(24, heads, 72, 72, device="cuda", dtype=torch.bfloat16)
+    wq, wk, wv = torch.randn(1, 4, 16, 3, 2, 32, device="cuda", dtype=torch.bfloat16).unbind(3)
+    cpb, mask = torch.zeros(2, 16, 16, device="cuda", dtype=torch.bfloat16), torch.zeros(4, 16, 16, device="cuda", dtype=torch.bfloat16)
+    op = torch.ops.mdpt
+    return {
+        "#1 fused, unbiased (B=1, N=65, H=16)": (lambda: fa.flash_attention_fused_qkv(qkv, heads),
+                                                lambda: op.flash_attention_fused_qkv(qkv, heads)),
+        "#2 fused, stack layer 23 (B=1, N=65, H=16)": (
+            lambda: fa.flash_attention_fused_qkv(qkv, heads, bias_stack=stack, layer=23),
+            lambda: op.flash_attention_fused_qkv(qkv, heads, bias_stack=stack, layer=23)),
+        "#3 window, bf16 CPB and mask (B=1, nW=4, A=16, H=2)": (lambda: wa.window_attention(wq, wk, wv, cpb, mask),
+                                                                lambda: op.window_attention(wq, wk, wv, cpb, mask)),
+    }
+
+
 def per_call_us(fn) -> float:
     from muggled_dpt_tpu_torch.tools.flash_tune import host_us
 
@@ -277,6 +307,13 @@ def host(args, smi):
     for route in routes[REPO_ROOT]:
         fns = {root: r[route] for root, r in routes.items() if route in r}
         report(f"host us per attention call, {route} (B=1, N=65, H=16)", interleaved(fns, per_call_us, 20), "us", smi)
+    with torch.inference_mode():  # as the facade serves
+        for route, (direct, through_op) in dispatch_routes().items():
+            readings = interleaved({"wrapper": direct, "torch.ops.mdpt": through_op}, per_call_us, 20)
+            report(f"host us per call, {route}", readings, "us", smi)
+            extra = statistics.median(b - a for a, b in zip(readings["wrapper"], readings["torch.ops.mdpt"]))
+            print(f"dispatch: the operator costs {extra:.2f} us more per call than the wrapper, {route}, median of "
+                  f"{len(readings['wrapper'])} paired rounds [{smi}]", flush=True)
 
     frame = np.random.default_rng(1).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,7 +1,8 @@
 """The PyTorch port must run where jax is not installed: importing every
 module of ``muggled_dpt_tpu_torch`` (the attention sweep's
 ``tools/flash_tune.py`` and ``tools/attn_variants.py``, the apps, run_batch,
-``parallel``, ``utils`` and the fine-tune and int8 tools included), and
+``parallel``, ``utils``, the fine-tune and int8 tools, the kernels'
+operators and the export modules included), and
 ``chip_smoke.py``, with jax blocked must succeed, and must
 not import jax, the JAX package, ``experiments`` or the root ``tools``."""
 
@@ -36,7 +37,9 @@ ported = ("checkpoints.beit", "models.beit", "models.beit_family", "make_beit_dp
           "demo_helpers.history_keeper", "demo_helpers.mesh_export", "simple_examples.depth_prediction", "run_image",
           "run_video", "run_3dviewer", "run_batch", "parallel.mesh", "parallel.inference", "parallel.train",
           "parallel.checkpoint", "utils.metrics", "utils.observability", "tools.finetune_demo",
-          "tools.int8_trained_weights")
+          "tools.int8_trained_weights", "ops.kernels.library", "onnx_export", "onnx_export.proto",
+          "onnx_export.builder", "onnx_export.evaluate", "onnx_export.emit_dpt", "experiments.export_model",
+          "experiments.export_onnx")
 missing = [m for m in ported if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 print("OK", len(names))
