@@ -255,6 +255,24 @@ failure raises:
       the artifacts' MB) and SwinV2-L-384 at 384x384 (24 ``window_sm90``),
       one reloaded request each against the live forward (1e-3). The
       export launches join #1's, #2's and #3's.
+  24. (last) tensor parallelism: two gloo ranks sharing the card
+      (``spawn(share_card=True)``; NCCL refuses two ranks on one device),
+      mesh data 1 x model 2; on each rank DA-V2 ViT-L (B=8), BEiT-L-512
+      (B=1, cached stack and inline) and SwinV2-L-384 (B=1), bf16 and
+      f32, each built from its checkpoint and split by
+      ``BatchParallelRunner(shard_model=True)``: one forward per dtype and
+      aux mode with exactly 24 launches per rank on the family's route,
+      the head counts each launch saw (8 of 16; BEiT's stack 8 heads;
+      SwinV2 3/6/12/24), against the same rank's whole model (the
+      single-process kernel forward; f32 within 1e-3 mean abs-rel, bf16
+      within twice the whole bf16 model's own mean abs-rel to the whole f32
+      model on the same frames); each rank's BEiT stack half the whole one's bytes; B=1
+      and B=8 times of the split model beside the whole model's (gloo
+      through the host: not a tensor-parallel speed); the narrow DA-V2 (2
+      heads) train step split over the ranks, its pieces joined, against
+      the in-process step (1e-3). Its bf16 launches join #1's, #2's and
+      #3's, printed as those at the split head counts and those of the
+      whole model's reference and timing forwards.
 Then one JSON line of per-kernel results (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
 for bf16, 1979 TOP/s for int8 (#6 and #7's QK^T); #3's exp floor, one exp2
@@ -307,6 +325,7 @@ from muggled_dpt_tpu_torch.models.swinv2_family import SwinV2DPT
 from muggled_dpt_tpu_torch.ops.nn import patchify_embed
 from muggled_dpt_tpu_torch.parallel.inference import BatchParallelRunner
 from muggled_dpt_tpu_torch.parallel.mesh import rank_device, spawn
+from muggled_dpt_tpu_torch.parallel.tensor import shard_model, spec_for_param
 from muggled_dpt_tpu_torch.parallel.train import adamw, make_train_step
 from muggled_dpt_tpu_torch.simple_examples import depth_prediction
 from muggled_dpt_tpu_torch.ops import quant as tq
@@ -1569,9 +1588,13 @@ def block_pattern(name: str) -> str:
     return re.sub(r"blocks\.\d+\.", "blocks.*.", name)
 
 
-def narrow_step(device):
-    """One train step of the narrow DA-V2 on ``device``: (loss, gradients)."""
-    model = make_depthanythingv2_dpt(*NARROW_DA, device=device, seed=SEED)
+def narrow_step(device, cfg=NARROW_DA, mesh=None):
+    """One train step of the narrow DA-V2 (``cfg``) on ``device``, split over
+    the model axis of ``mesh`` if given: (loss, gradients; a split
+    parameter's gradient is this rank's piece)."""
+    model = make_depthanythingv2_dpt(*cfg, device=device, seed=SEED)
+    if mesh is not None:
+        model = shard_model(model, mesh)
     rng = np.random.default_rng(GRAD_SEED)
     images = rng.standard_normal((TRAIN_BATCH, NARROW_SIDE, NARROW_SIDE, 3)).astype(np.float32)
     targets = rng.uniform(0.1, 1.0, (TRAIN_BATCH, NARROW_SIDE, NARROW_SIDE)).astype(np.float32)
@@ -2008,6 +2031,225 @@ def phase_export_family(smi: str, ckpt: str, tmp: str, hw, route: str, blocks: i
     del model
     torch.cuda.empty_cache()
     return fa.launch_counts()[route], sizes
+
+TP_MESH = {"data": 1, "model": 2}  # the tensor-parallel phase: two gloo ranks sharing the one card
+TP_TIMING_ITERS = 3  # B=1 and B=8 host-clock times through gloo: the median of 3 after 1
+NARROW_TP = (64, 2, 4, (8, 16, 32, 64), (8, 8), 16)  # the narrow DA-V2 with 2 heads of 32, so its attention splits too
+# each family of the phase: its checkpoint, size, launches per forward, route by dtype, the batch of its checks, and by
+# aux mode (enable_cache) the heads each launch must see: (heads,), or (heads, the bias stack's heads)
+TP_FAMILIES = {
+    "DA-V2 ViT-L": {"ckpt": "da", "side": MAX_SIDE, "out_hw": OUT_HW, "blocks": VITL["num_blocks"], "batch": 8,
+                    "routes": {torch.bfloat16: "fused", torch.float32: "fused"}, "heads": {True: [(8,)]}},
+    "BEiT-L-512": {"ckpt": "beit", "side": BEIT_SIDE, "out_hw": BEIT_HW, "blocks": BEIT_L512["num_blocks"], "batch": 1,
+                   "routes": {torch.bfloat16: "fused_biased", torch.float32: "fused_biased"},
+                   "heads": {True: [(8, 8)], False: [(8,)]}},
+    "SwinV2-L-384": {"ckpt": "swin", "side": SWIN_SIDE, "out_hw": SWIN_HW, "blocks": SWIN_BLOCKS, "batch": 1,
+                     "routes": {torch.bfloat16: "window_sm90", torch.float32: "window"},
+                     "heads": {True: [(3,), (6,), (12,), (24,)]}},
+}
+TP_LABEL = "gloo through the host on one card; not a tensor-parallel speed"
+# the bf16 split forward and the bf16 whole one each sit about the whole bf16 model's gap from the f32 one, so they
+# differ by at most about twice that gap; a kernel broken at the split shapes gives a mean abs-rel near 1
+TP_BF16_GAP_FACTOR = 2.0
+
+
+def launch_delta(fn, into: dict):
+    """fn(), its launches added to ``into`` by route."""
+    before = fa.launch_counts()
+    result = fn()
+    for r, n in fa.launch_counts().items():
+        if n != before[r]:
+            into[r] = into.get(r, 0) + n - before[r]
+    return result
+
+
+def record_heads(seen: set, fills: set):
+    """Route the blocks' two attention entries through wrappers that record
+    each call's heads ((heads,) or, with a bias stack, (heads, stack heads))
+    in ``seen`` and, for a bf16 bias on the card, how the kernel fills its
+    bias tiles (``fa.bias_fill``: "tma" or "copy") in ``fills``, and call
+    the kernel's wrapper, which launches and counts."""
+    from muggled_dpt_tpu_torch.models import swinv2 as swin_module
+    from muggled_dpt_tpu_torch.ops import nn as nn_ops
+
+    def fused(qkv, num_heads, **kw):
+        stack, bias = kw.get("bias_stack"), kw.get("bias")
+        seen.add((num_heads,) if stack is None else (num_heads, stack.shape[1]))
+        given = bias if stack is None else stack
+        if qkv.is_cuda and given is not None and given.dtype == torch.bfloat16:
+            operand = fa._bias_operand(bias, stack, kw.get("layer"), qkv.shape[0], num_heads, qkv.shape[1], qkv.device)
+            fills.add("tma" if fa.bias_fill(operand) == fa.BIAS_FILL_TMA else "copy")
+        return fa.flash_attention_fused_qkv(qkv, num_heads, **kw)
+
+    def window(q, k, v, cpb, mask=None):
+        seen.add((q.shape[3],))
+        return wa.window_attention(q, k, v, cpb, mask)
+
+    nn_ops.flash_attention_fused_qkv = fused
+    swin_module.window_attention_kernel = window
+
+
+def tp_times(rank: int, runner, model, x, whole_launches: dict) -> dict:
+    """B=1 ms per request and B=8 ms per frame of the split model (both
+    ranks) and, on rank 0 alone while rank 1 waits, of the whole model,
+    whose launches are added to ``whole_launches``."""
+    def timed_fn(fn, xb):
+        def run():
+            fn(xb)
+            torch.cuda.synchronize()
+        return run
+
+    whole = lambda xb: model.forward(xb.permute(0, 3, 1, 2))  # noqa: E731
+    out = {"tp2": (_host_ms(timed_fn(runner, x[:1]), TP_TIMING_ITERS, 1),
+                   _host_ms(timed_fn(runner, x), TP_TIMING_ITERS, 1) / len(x))}
+    if rank == 0:
+        out["tp1"] = launch_delta(lambda: (_host_ms(timed_fn(whole, x[:1]), TP_TIMING_ITERS, 1),
+                                           _host_ms(timed_fn(whole, x), TP_TIMING_ITERS, 1) / len(x)), whole_launches)
+    torch.distributed.barrier()
+    return out
+
+
+def _tp_rank(rank, world_size, device_type, ckpts, out_dir):
+    """One of two gloo ranks on the one card (mesh data 1 x model 2): each
+    family's full-width model from its checkpoint, split by
+    ``BatchParallelRunner(shard_model=True)``, one counted forward per dtype
+    and aux mode against the same rank's whole model (the single-process
+    kernel forward; in f32 also the whole bf16 model's gap to the whole f32
+    one), BEiT's per-rank stack against the whole one, B=1 and B=8 times;
+    then the narrow DA-V2's split train step. Writes its numbers to
+    ``out_dir/tp_rank<r>.pt``."""
+    device = rank_device(device_type, rank, share_card=True)
+    seen, fills = set(), set()
+    record_heads(seen, fills)
+    rng = np.random.default_rng(SEED + 1)
+    frames = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(8)]
+    out = {"families": {}, "bf16_launches": {}, "bf16_whole_launches": {}, "device": str(device)}
+    fa.reset_launch_counts()
+    for what, f in TP_FAMILIES.items():
+        fam = out["families"][what] = {}
+        b, route = f["batch"], f["routes"]
+        bf16_whole = {}  # by aux mode: the whole bf16 model's depth, for its gap to the whole f32 one
+        for dtype in (torch.bfloat16, torch.float32):
+            before = fa.launch_counts()
+            _, model = make_dpt_from_state_dict(ckpts[f["ckpt"]], dtype=dtype, device=device)
+            runner = BatchParallelRunner(model, mesh=TP_MESH)
+            x = torch.cat([model.prepare_image_bgr_nhwc(frame, f["side"]) for frame in frames])
+            for cache in f["heads"]:
+                model.config["enable_cache"] = runner.local.config["enable_cache"] = cache
+                seen.clear()
+                fills.clear()
+                label = f"{what} tp=2 {str(dtype)[6:]} (enable_cache={cache})"
+                depth = _counted(lambda: runner(x[:b]), route[dtype], f["blocks"], label)
+                heads, fill = sorted(seen), sorted(fills)
+                ref = launch_delta(lambda: _counted(lambda: model.forward(x[:b].permute(0, 3, 1, 2)), route[dtype],
+                                                    f["blocks"], f"{label}, the whole model"),
+                                   out["bf16_whole_launches"] if dtype is torch.bfloat16 else {})
+                _check_depth(depth, (b, *f["out_hw"]), label)
+                fam[(str(dtype)[6:], cache)] = {"rel": _abs_rel(depth, ref), "heads": heads, "fills": fill}
+                if dtype is torch.bfloat16:
+                    bf16_whole[cache] = ref.float().cpu()
+                else:
+                    fam[(str(dtype)[6:], cache)]["bf16_gap"] = _abs_rel(bf16_whole.pop(cache).to(ref.device), ref)
+                if f["ckpt"] == "beit" and cache:
+                    grid = (f["side"] // model.patch_size_px,) * 2
+                    local, whole = runner.local._aux_cache[grid], model._aux_cache[grid]
+                    h = local.shape[1]
+                    fam[("stack", str(dtype)[6:])] = (tuple(local.shape), local.numel() * local.element_size(),
+                                                      whole.numel() * whole.element_size(),
+                                                      torch.equal(local, whole[:, h * rank:h * (rank + 1)]))
+            if dtype is torch.bfloat16:
+                model.config["enable_cache"] = runner.local.config["enable_cache"] = True
+                fam["ms"] = tp_times(rank, runner, model, x, out["bf16_whole_launches"])
+                moved = {r: n - before[r] for r, n in fa.launch_counts().items() if n != before[r]}
+                for r, n in moved.items():
+                    out["bf16_launches"][r] = out["bf16_launches"].get(r, 0) + n
+            del model, runner, x
+            torch.cuda.empty_cache()
+    out["train"] = narrow_step(device, NARROW_TP, TP_MESH)
+    out["launches"] = fa.launch_counts()
+    torch.save(out, os.path.join(out_dir, f"tp_rank{rank}.pt"))
+
+
+def phase_tensor_parallel(smi: str, ckpts: dict, tmp: str) -> dict:
+    """Tensor parallelism on the card: two gloo ranks sharing it
+    (``spawn(share_card=True)``), each family's full-width model split over
+    a model axis of 2 by ``BatchParallelRunner(shard_model=True)``: 24
+    launches per rank per forward on the family's route at the rank's head
+    counts (DA-V2 ViT-L B=8 at 8 of 16 heads; BEiT-L-512 B=1 at 8 of 16,
+    cached and inline, each rank's stack half the whole one's bytes;
+    SwinV2-L-384 B=1 at 3/6/12/24 of 6/12/24/48), the f32 depth within the
+    repo's 1e-3 mean abs-rel of the single-process f32 kernel forward, the
+    bf16 depth within ``TP_BF16_GAP_FACTOR`` times the whole bf16 model's
+    mean abs-rel to the whole f32 model of the single-process bf16 kernel
+    forward; B=1 and B=8 times beside the whole model's; the narrow
+    DA-V2's split train step, its pieces joined, against the in-process
+    step. Returns the bf16 launches of #1, #2 and #3 over both ranks."""
+    spawn(_tp_rank, 2, DEVICE, ckpts, tmp, device_type=DEVICE, share_card=True)
+    got = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt"), weights_only=False) for r in range(2)]
+    if {g["device"] for g in got} != {str(rank_device(DEVICE, 0, share_card=True))}:
+        raise RuntimeError(f"tensor parallel ranks ran on {[g['device'] for g in got]}, want one shared card")
+    for what, f in TP_FAMILIES.items():
+        parts = []
+        for dtype in ("bfloat16", "float32"):
+            for cache, want in f["heads"].items():
+                rels = [g["families"][what][(dtype, cache)]["rel"] for g in got]
+                heads = [g["families"][what][(dtype, cache)]["heads"] for g in got]
+                if any(h != want for h in heads):
+                    raise RuntimeError(f"{what} tp=2 {dtype} (enable_cache={cache}): heads per launch {heads}, want {want}")
+                fills = {tuple(g["families"][what][(dtype, cache)]["fills"]) for g in got}
+                if dtype == "bfloat16" and "BEiT" in what and DEVICE == "cuda" and fills != {("tma",)}:
+                    raise RuntimeError(f"{what} tp=2 bf16 (enable_cache={cache}): bias tiles filled by {fills}, want TMA")
+                if dtype == "float32" and not max(rels) <= ABS_REL_BUDGET:
+                    raise RuntimeError(f"{what} tp=2 float32 (enable_cache={cache}): abs-rel {rels} from the "
+                                       f"single-process kernel forward (budget {ABS_REL_BUDGET:g})")
+                gate = ""
+                if dtype == "bfloat16":
+                    gap = max(g["families"][what][("float32", cache)]["bf16_gap"] for g in got)
+                    limit = TP_BF16_GAP_FACTOR * gap
+                    if not max(rels) <= limit:
+                        raise RuntimeError(f"{what} tp=2 bfloat16 (enable_cache={cache}): abs-rel {rels} from the "
+                                           f"single-process bf16 kernel forward, above {TP_BF16_GAP_FACTOR:g} x its "
+                                           f"{gap:.3e} from the f32 one ({limit:.3e})")
+                    gate = f" (gate {limit:.3e}: {TP_BF16_GAP_FACTOR:g} x the whole bf16 model's {gap:.3e} from f32)"
+                mode = f", enable_cache={cache}" if len(f["heads"]) > 1 else ""
+                fill = f", bias fill {'/'.join(sorted({x for f in fills for x in f}))}" if any(fills) else ""
+                parts.append(f"{dtype}{mode} {max(rels):.3e}{gate} at heads {want}{fill}")
+        print(f"{what} tp=2 (2 gloo ranks on one card, B={f['batch']}, {f['blocks']} launches per rank per forward on "
+              f"{sorted(set(f['routes'].values()))}): mean abs-rel to the single-process kernel forward, worst rank: "
+              f"{'; '.join(parts)} (f32 gated at {ABS_REL_BUDGET:g}) [{smi}]", flush=True)
+        if "BEiT" in what:
+            for dtype in ("bfloat16", "float32"):
+                stacks = [g["families"][what][("stack", dtype)] for g in got]
+                heads = f["heads"][True][0][1]
+                if any(2 * local != whole or shape[1] != heads for shape, local, whole, _ in stacks):
+                    raise RuntimeError(f"{what} tp=2 {dtype}: rank stacks {stacks}, want {heads} heads and half the bytes")
+                shape, local, whole, _ = stacks[0]
+                print(f"{what} tp=2 {dtype} bias stack per rank {shape}, {local / 1e6:.1f} MB against the whole "
+                      f"stack's {whole / 1e6:.1f} MB; equal to its heads of the whole stack: "
+                      f"{[s[3] for s in stacks]} [{smi}]", flush=True)
+        ms = [g["families"][what]["ms"] for g in got]
+        print(f"{what} bf16 ms per request at B=1 / per frame at B=8: tp=2 {ms[0]['tp2'][0]:.3f} / {ms[0]['tp2'][1]:.3f} "
+              f"(rank 1: {ms[1]['tp2'][0]:.3f} / {ms[1]['tp2'][1]:.3f}) beside the whole model's "
+              f"{ms[0]['tp1'][0]:.3f} / {ms[0]['tp1'][1]:.3f} on rank 0 alone ({TP_LABEL}) [{smi}]", flush=True)
+    ref_loss, ref_grads = narrow_step(DEVICE, NARROW_TP)
+    (loss0, g0), (loss1, g1) = (g["train"] for g in got)
+    grads = {k: g0[k] if g0[k] is None or g0[k].shape == ref_grads[k].shape else spec_for_param(k).join([g0[k], g1[k]])
+             for k in g0}
+    joined = sum(1 for k in g0 if g0[k] is not None and g0[k].shape != ref_grads[k].shape)
+    worst, name = hold_step("narrow DA-V2 tp=2 train step against the in-process one", loss0, grads, ref_loss, ref_grads)
+    if loss0 != loss1 or not joined:
+        raise RuntimeError(f"narrow tp=2 train step: losses {loss0} and {loss1} on the ranks, {joined} split gradients")
+    print(f"narrow DA-V2 train step (F={NARROW_TP[0]}, {NARROW_TP[1]} heads, B={TRAIN_BATCH}) split over 2 gloo ranks on "
+          f"the card: loss {loss0:.6f} on both ranks, {joined} split gradients joined; within {worst:.3e} of the "
+          f"in-process step ({name}; gate {CARD_CPU_GRAD_RTOL:g}) [{smi}]", flush=True)
+    routes = ("fused", "fused_biased", "window_sm90")
+    totals = {r: sum(g["bf16_launches"].get(r, 0) for g in got) for r in routes}
+    whole = {r: sum(g["bf16_whole_launches"].get(r, 0) for g in got) for r in routes}
+    print(f"tensor parallel phase: bf16 launches over both ranks by route {totals}: "
+          f"{ {r: totals[r] - whole[r] for r in routes} } at the split head counts, {whole} in the whole model's "
+          f"reference and timing forwards; all launches by rank "
+          f"{[{r: n for r, n in g['launches'].items() if n} for g in got]} [{smi}]", flush=True)
+    return {1: totals["fused"], 2: totals["fused_biased"], 3: totals["window_sm90"]}
 
 
 def phase_bnhd_path(smi: str) -> tuple[int, int]:
@@ -3071,7 +3313,8 @@ def main() -> int:
         metric = os.path.join(tmp, "depth_anything_v2_metric_hypersim_vitl_random.pth")
         os.replace(ckpt, metric)  # the same weights: only the file name makes the metric head
         head_launches = timed("DA-V2-metric model and #9 on its head", phase_metric, smi, metric, check)
-        os.remove(metric)
+        tp_ckpts = {"da": ckpt}  # the tensor-parallel phase's, kept until it has run
+        os.replace(metric, ckpt)
         ckpt = write_checkpoint(random_beit_state_dict(BEIT_L512, seed=SEED), os.path.join(tmp, "dpt_beit_large_512_random.pt"))
         launches[2], depth, frame, err = timed("BEiT model", phase_beit_model, smi, ckpt)
         numbers[2]["max_abs_err"] = max(numbers[2]["max_abs_err"], err)
@@ -3086,7 +3329,7 @@ def main() -> int:
                                                            BEIT_HW, "fused_biased", BEIT_L512["num_blocks"], "BEiT-L-512",
                                                            (True, False))
         launches[2] += export_launches
-        os.remove(ckpt)
+        tp_ckpts["beit"] = ckpt
         ckpt = write_checkpoint(random_swinv2_state_dict(SWIN_L384, seed=SEED), os.path.join(tmp, "dpt_swin2_large_384_random.pt"))
         launches[3], depth, frame = timed("SwinV2 model", phase_swin_model, smi, ckpt)
         m32 = timed("SwinV2 f32 parity", parity, ckpt, frame, SWIN_SIDE, SWIN_HW, "window", SWIN_BLOCKS, "SwinV2-L-384",
@@ -3100,7 +3343,7 @@ def main() -> int:
                                                              tmp, SWIN_HW, "window_sm90", SWIN_BLOCKS, "SwinV2-L-384")
         launches[3] += export_launches
         torch.cuda.empty_cache()
-        os.remove(ckpt)
+        tp_ckpts["swin"] = ckpt
         launches[4], launches[5] = timed("(B, N, H, D) op path", phase_bnhd_path, smi)
         ckpt = write_checkpoint(random_original_depth_anything_state_dict(VITL, seed=SEED + 1),
                                 os.path.join(tmp, "depth_anything_vitl14.pth"))
@@ -3109,6 +3352,11 @@ def main() -> int:
         ckpt = write_checkpoint(random_original_depth_anything_state_dict(VITG, seed=SEED),
                                 os.path.join(tmp, "depth_anything_v2_vitg_random.pth"))
         flash_giant = timed("DA-V2 ViT-Giant model and f32 parity", phase_giant, smi, ckpt)
+        os.remove(ckpt)
+        tp = timed("tensor parallel: DA-V2 ViT-L, BEiT-L-512, SwinV2-L-384 over 2 gloo ranks on the card",
+                   phase_tensor_parallel, smi, tp_ckpts, tmp)
+        for kid in (1, 2, 3):
+            launches[kid] += tp[kid]
     for kid in (6, 7):
         launches[kid] = int8_launches[kid]
         numbers[kid] = {"max_abs_err": max(int8_worst[kid], check.worst[kid]), **int8_times[kid]}

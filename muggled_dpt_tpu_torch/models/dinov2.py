@@ -29,6 +29,8 @@ def last4_taps(num_blocks: int) -> tuple[int, ...]:
 
 
 class Attention(nn.Module):
+    model_group = None  # tensor parallelism: the model group of a split qkv/proj pair (parallel/tensor.py)
+
     def __init__(self, features: int, device=None):
         super().__init__()
         self.qkv = nn.Linear(features, 3 * features, device=device)  # rows head-major
@@ -43,17 +45,21 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
+    model_group = None  # tensor parallelism: the model group of a split fc1/fc2 pair
+
     def __init__(self, features: int, hidden: int, device=None):
         super().__init__()
         self.fc1 = nn.Linear(features, hidden, device=device)
         self.fc2 = nn.Linear(hidden, features, device=device)
 
     def forward(self, x):
-        return mlp_gelu(x, self.fc1, self.fc2)
+        return mlp_gelu(x, self.fc1, self.fc2, self.model_group)
 
 
 class SwiGLUMlp(nn.Module):
     """ViT-Giant's MLP: ``w12`` (2 * hidden, F) holds both gate halves."""
+
+    model_group = None  # tensor parallelism: the model group of a split w12/w3 pair
 
     def __init__(self, features: int, hidden: int, device=None):
         super().__init__()
@@ -61,7 +67,7 @@ class SwiGLUMlp(nn.Module):
         self.w3 = nn.Linear(hidden, features, device=device)
 
     def forward(self, x):
-        return mlp_swiglu(x, self.w12, self.w3)
+        return mlp_swiglu(x, self.w12, self.w3, self.model_group)
 
 
 class Block(nn.Module):
@@ -87,7 +93,7 @@ class Block(nn.Module):
         """The first half: tokens + ls1 * attention(norm1(tokens))."""
         a = self.attn
         h = layer_norm(tokens, self.norm1.weight, self.norm1.bias)
-        h = self_attention(h, a.qkv, a.proj, self.num_heads, self.use_kernel, bias)
+        h = self_attention(h, a.qkv, a.proj, self.num_heads, self.use_kernel, bias, group=a.model_group)
         return tokens + self.ls1 * h
 
     def mlp_residual(self, tokens):
@@ -103,7 +109,7 @@ class Block(nn.Module):
         weights: (tokens, (B, H, N, N) float32 weights)."""
         a = self.attn
         h = layer_norm(tokens, self.norm1.weight, self.norm1.bias)
-        h, weights = self_attention(h, a.qkv, a.proj, self.num_heads, bias=bias, capture=True)
+        h, weights = self_attention(h, a.qkv, a.proj, self.num_heads, bias=bias, capture=True, group=a.model_group)
         return self.mlp_residual(tokens + self.ls1 * h), weights
 
 

@@ -30,6 +30,7 @@ from torch import nn
 from ..ops.kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
 from ..ops.kernels.window_attention import window_attention as window_attention_kernel
 from ..ops.nn import layer_norm, linear, mlp_gelu
+from ..ops.collectives import copy_to_model, row_linear
 
 SWIN_LN_EPS = 1e-5
 CPB_HIDDEN = 512  # width of the CPB MLP's hidden layer
@@ -184,6 +185,10 @@ class SwinBlock(nn.Module):
     """Post-norm SwinV2 block: windowed cosine attention with the CPB bias,
     then an MLP, each followed by its LayerNorm before the residual add."""
 
+    # tensor parallelism: the model groups of a split qkv/proj pair and fc1/fc2 pair (parallel/tensor.py)
+    attn_group = None
+    mlp_group = None
+
     def __init__(self, features: int, num_heads: int, use_kernel: bool = True, device=None):
         super().__init__()
         self.num_heads = num_heads
@@ -212,15 +217,21 @@ class SwinBlock(nn.Module):
         0) for none; cpb (H, A, A) and mask (nW, A, A) or None, float32 or
         the model's dtype. capture=True takes the plain path whatever
         ``use_kernel`` says and returns (out, weights): the (B, nW, H, A, A)
-        float32 softmax weights, in the rolled window frame."""
-        b, gh, gw, c = x.shape
+        float32 softmax weights, in the rolled window frame. Under tensor
+        parallelism (``attn_group``) the block holds its rank's
+        ``num_heads`` heads: their qkv rows of each third, logit scales and
+        CPB rows, and proj's matching columns."""
+        b, gh, gw, _ = x.shape
         heads = self.num_heads
         shifting = shift_hw != (0, 0)
         if shifting:
             x = torch.roll(x, shifts=(-shift_hw[0], -shift_hw[1]), dims=(1, 2))
         x = partition_windows(x, window_hw)
         nw, area = x.shape[1], x.shape[2]
-        qkv = linear(x, self.qkv.weight, self.qkv.bias).reshape(b, nw, area, 3, heads, c // heads)
+        group = self.attn_group
+        if group is not None:
+            x = copy_to_model(x, group)
+        qkv = linear(x, self.qkv.weight, self.qkv.bias).reshape(b, nw, area, 3, heads, -1)
         q, k, v = qkv.unbind(3)
         qf, kf = cosine_normalize(q), cosine_normalize(k)
         scale = self.logit_scale.float()
@@ -238,7 +249,8 @@ class SwinBlock(nn.Module):
                 logits = logits + mask.float()[None, :, None]
             weights = torch.softmax(logits, dim=-1)
             out = torch.einsum("bwhnm,bwmhd->bwnhd", weights.to(v.dtype), v)
-        out = linear(out.reshape(b, nw, area, c), self.proj.weight, self.proj.bias)
+        out = out.reshape(b, nw, area, -1)
+        out = linear(out, self.proj.weight, self.proj.bias) if group is None else row_linear(out, self.proj, group)
         out = merge_windows(out, window_hw, (gh, gw))
         if shifting:
             out = torch.roll(out, shifts=shift_hw, dims=(1, 2))
@@ -247,7 +259,7 @@ class SwinBlock(nn.Module):
     def _after_attention(self, x, h):
         """The rest of the block on its attention output h: the norm1 residual, then the MLP's norm2 residual."""
         x = x + layer_norm(h, self.norm1.weight, self.norm1.bias, eps=SWIN_LN_EPS)
-        h = mlp_gelu(x, self.fc1, self.fc2)  # int8 tier: fc1 and fc2 only, qkv and proj stay dense
+        h = mlp_gelu(x, self.fc1, self.fc2, self.mlp_group)  # int8 tier: fc1 and fc2 only, qkv and proj stay dense
         return x + layer_norm(h, self.norm2.weight, self.norm2.bias, eps=SWIN_LN_EPS)
 
     def forward(self, x, window_hw, shift_hw, cpb, mask=None):

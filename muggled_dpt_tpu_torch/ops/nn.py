@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .collectives import copy_to_model, row_linear
 from .kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
 from .kernels.flash_attention import flash_attention_fused_qkv
 from .kernels.flash_attention import flash_attention_reference as sdpa  # the plain attention path, JAX's name
@@ -32,17 +33,25 @@ def gelu(x):
     return F.gelu(x)
 
 
-def mlp_gelu(x, fc1, fc2):
+def mlp_gelu(x, fc1, fc2, group=None):
     """Linear -> GELU -> Linear. ``fc1`` and ``fc2`` are linear layers
-    (``weight``, ``bias``) or ``QuantLinear``s (``ops/quant.py:linear_p``)."""
-    return linear_p(gelu(linear_p(x, fc1, "fc1")), fc2, "fc2")
+    (``weight``, ``bias``) or ``QuantLinear``s (``ops/quant.py:linear_p``).
+    ``group``: the model group of a tensor-parallel pair (``parallel/tensor.py``),
+    fc1 holding this rank's hidden rows and fc2 its hidden columns."""
+    if group is None:
+        return linear_p(gelu(linear_p(x, fc1, "fc1")), fc2, "fc2")
+    return row_linear(gelu(F.linear(copy_to_model(x, group), fc1.weight, fc1.bias)), fc2, group)
 
 
-def mlp_swiglu(x, w12, w3):
+def mlp_swiglu(x, w12, w3, group=None):
     """SwiGLU (ViT-Giant): Linear(silu(a) * b) with a and b the two halves
-    of one fused Linear ``w12`` (2 * hidden, F)."""
-    a, b = linear_p(x, w12, "w12").chunk(2, dim=-1)
-    return linear_p(F.silu(a) * b, w3, "w3")
+    of one fused Linear ``w12`` (2 * hidden, F). ``group``: as ``mlp_gelu``'s,
+    w12 holding this rank's rows of each half."""
+    if group is None:
+        a, b = linear_p(x, w12, "w12").chunk(2, dim=-1)
+        return linear_p(F.silu(a) * b, w3, "w3")
+    a, b = F.linear(copy_to_model(x, group), w12.weight, w12.bias).chunk(2, dim=-1)
+    return row_linear(F.silu(a) * b, w3, group)
 
 
 def sdpa_capture(q, k, v, bias=None):
@@ -59,7 +68,8 @@ def sdpa_capture(q, k, v, bias=None):
     return torch.einsum("bhnm,bmhd->bnhd", weights.to(q.dtype), v), weights
 
 
-def self_attention(tokens, qkv, proj, num_heads: int, use_kernel: bool = True, bias=None, capture: bool = False):
+def self_attention(tokens, qkv, proj, num_heads: int, use_kernel: bool = True, bias=None, capture: bool = False,
+                   group=None):
     """Fused-qkv multi-head self-attention. ``qkv`` and ``proj`` are linear
     layers or ``QuantLinear``s (``ops/quant.py:linear_p``); the qkv weight
     (3C, C) has its rows in head-major [head][q|k|v][dim] order, so the
@@ -75,9 +85,13 @@ def self_attention(tokens, qkv, proj, num_heads: int, use_kernel: bool = True, b
 
     capture=True returns (out, weights) with the (B, H, N, N) float32
     softmax weights of ``sdpa_capture``, whatever ``use_kernel`` says: a
-    flash kernel never holds them."""
-    b, n, c = tokens.shape
-    x = linear_p(tokens, qkv, "qkv")  # (B, N, [h][3][d])
+    flash kernel never holds them.
+
+    ``group``: the model group of a tensor-parallel pair (``parallel/tensor.py``):
+    qkv holds this rank's ``num_heads`` heads' rows and proj their columns,
+    whose partial products are summed over the group before proj's bias."""
+    b, n, _ = tokens.shape
+    x = linear_p(tokens if group is None else copy_to_model(tokens, group), qkv, "qkv")  # (B, N, [h][3][d])
     bias_stack = layer = None
     if isinstance(bias, tuple):
         (bias_stack, layer), bias = bias, None
@@ -89,14 +103,14 @@ def self_attention(tokens, qkv, proj, num_heads: int, use_kernel: bool = True, b
     else:
         if bias_stack is not None:
             bias = bias_stack[layer][None]
-        x = x.reshape(b, n, num_heads, 3, c // num_heads)
+        x = x.reshape(b, n, num_heads, 3, -1)
         q, k, v = x[..., 0, :], x[..., 1, :], x[..., 2, :]
         if capture:
             out, weights = sdpa_capture(q, k, v, bias)
         else:
             out = sdpa(q, k, v, bias=bias)
-        out = out.reshape(b, n, c)
-    out = linear_p(out, proj, "proj")
+        out = out.reshape(b, n, -1)
+    out = linear_p(out, proj, "proj") if group is None else row_linear(out, proj, group)
     return (out, weights) if capture else out
 
 

@@ -1,3 +1,4 @@
-"""Data-parallel execution on ``torch.distributed``: the process group and
-mesh shape (``mesh``), batch extraction over ranks (``inference``), the SSI
-train step (``train``) and train-state checkpoints (``checkpoint``)."""
+"""Data and tensor parallelism on ``torch.distributed``: the process groups
+and the (data, model) mesh (``mesh``), the Megatron split of the blocks over
+the model axis (``tensor``), batch extraction over ranks (``inference``),
+the SSI train step (``train``) and train-state checkpoints (``checkpoint``)."""

@@ -1,4 +1,4 @@
-"""Fine-tuning: the scale-and-shift-invariant depth loss and a data-parallel
+"""Fine-tuning: the scale-and-shift-invariant depth loss and a dp x tp
 AdamW train step, the counterpart of JAX ``parallel/train.py``.
 
 The differentiated forward runs the plain attention (``plain_attention``):
@@ -6,8 +6,11 @@ the hand-written kernels have no backward, and a kernel launch under
 autograd raises (``ops/kernels/flash_attention.py:_refuse_grad``). The JAX
 package has no backward kernel either: its ``value_and_grad`` never reaches
 a Pallas kernel. Under data parallelism each rank differentiates its slice
-of the batch and the gradients are averaged across ranks, which for equal
-slices is the gradient of the full batch's mean loss."""
+of the batch and the gradients are averaged over the data axis, which for
+equal slices is the gradient of the full batch's mean loss. A net sharded
+over a model axis (``parallel/tensor.py``) gets its split parameters' own
+gradients and every replicated parameter's whole gradient from the
+Megatron pair in its blocks, so only the data group averages."""
 
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 import torch.distributed as dist
 
 from ..utils.metrics import align_scale_shift
-from .mesh import grouped, make_mesh, shard_batch, world
+from .mesh import check_world, grouped, make_mesh, mesh_coords, shard_batch, world
+from .tensor import shard_model
 
 # optax.adamw's defaults; torch's AdamW decays by 1e-2 unless told otherwise
 ADAMW_BETAS = (0.9, 0.999)
@@ -88,14 +92,18 @@ def make_train_step(model, optimizer):
     outside autograd as in JAX ``make_train_step``: with it, BEiT's
     relative-position tables and SwinV2's CPB MLP get no gradient; None
     builds them inside the differentiated forward. In a process group the
-    gradients and the returned loss are averaged across ranks. float32
-    models are differentiated with TF32 off, as the parity mode runs."""
+    gradients and the returned loss are averaged across ranks: across the
+    data group for a model sharded by ``parallel/tensor.py:shard_model``
+    (whose fixed-zero masks are its own slices), else across the world.
+    float32 models are differentiated with TF32 off, as the parity mode runs."""
     net = model.net
     zeros = fixed_zero_grads(net)
     params = [p for p in net.parameters() if p.requires_grad]
+    sharded = getattr(net, "tensor_parallel", None)
+    group = None if sharded is None else sharded.data_group
 
     def step(images_nhwc, targets_bhw, aux=None):
-        size = world()[1]
+        size = world()[1] if sharded is None else sharded.mesh["data"]
         x = torch.as_tensor(images_nhwc).to(model.device, model.dtype).permute(0, 3, 1, 2)
         t = torch.as_tensor(targets_bhw).to(model.device)
         optimizer.zero_grad(set_to_none=True)
@@ -106,13 +114,13 @@ def make_train_step(model, optimizer):
             for p, mask in zeros:
                 if p.grad is not None:
                     p.grad[mask] = 0
-            if grouped():
+            if grouped() and (sharded is None or size > 1):
                 for p in params:
                     if p.grad is not None:
-                        dist.all_reduce(p.grad)
+                        dist.all_reduce(p.grad, group=group)
                         p.grad /= size
                 loss = loss.detach().clone()
-                dist.all_reduce(loss)
+                dist.all_reduce(loss, group=group)
                 loss /= size
         optimizer.step()
         return loss.detach()
@@ -121,19 +129,25 @@ def make_train_step(model, optimizer):
 
 
 def sharded_train_demo(model, mesh=None, batch: int = 2, image_hw=(56, 56), lr: float = 1e-4) -> float:
-    """One data-parallel training step on random images at tiny shapes, the
-    grid's cached aux threaded in. Returns the loss (every rank the same).
-    The model trains in float32; another dtype trains a float32 copy."""
+    """One dp x tp training step on random images at tiny shapes over the
+    mesh (default: ``make_mesh()`` of the world), the model split over its
+    model axis, the grid's cached aux threaded in. Returns the loss (every
+    rank the same). A float32 model trains in place at a model axis of 1;
+    another dtype trains a float32 copy, and a model axis above 1 a split
+    copy of its own (``shard_model(share=False)``), so ``model`` keeps its
+    state. Every rank of the world calls it."""
     mesh = make_mesh() if mesh is None else mesh
     rank, size = world()
-    if mesh["data"] != size:
-        raise ValueError(f"mesh data axis {mesh['data']} != world size {size}")
+    check_world(mesh, size)
     if model.dtype != torch.float32:
         model = model.to(torch.float32)
+    if mesh["model"] > 1:
+        model = shard_model(model, mesh, rank, share=False)
     rng = np.random.default_rng(0)
     images = rng.standard_normal((batch, image_hw[0], image_hw[1], 3)).astype(np.float32)
     targets = rng.uniform(0.1, 1.0, (batch, image_hw[0], image_hw[1])).astype(np.float32)
-    images, targets = shard_batch((torch.from_numpy(images), torch.from_numpy(targets)), rank, size)
+    images, targets = shard_batch((torch.from_numpy(images), torch.from_numpy(targets)), mesh_coords(rank, mesh)[0],
+                                  mesh["data"])
     p = model.patch_size_px
     aux = model._get_aux((image_hw[0] // p, image_hw[1] // p))
     step = make_train_step(model, adamw(model.net.parameters(), lr))

@@ -4,16 +4,19 @@ through ``parallel.BatchParallelRunner``, in batches of ``-dp`` ranks times
 ``--per-chip-batch`` frames, writing per-frame uint16 PNG, ``.npy`` and
 colormapped PNG results, with an optional ground-truth evaluation.
 
-    python -m muggled_dpt_tpu_torch.run_batch -i FRAMES_OR_VIDEO -m CKPT [-dp N] [--per-chip-batch B] [-d cpu]
+    python -m muggled_dpt_tpu_torch.run_batch -i FRAMES_OR_VIDEO -m CKPT [-dp N] [-tp M] [--per-chip-batch B] [-d cpu]
 
 Runs on the CUDA card in bfloat16 unless ``-d cpu`` (float32) is given, and
-exits with an error where there is no card. ``-dp N`` starts N ranks: on the
-card one process per GPU over NCCL (N must not exceed the visible cards), on
-the CPU N gloo processes. Every rank holds the whole model and takes its
-slice of each batch: it decodes those frames of a folder itself (a video's
-are decoded by rank 0 and scattered), runs them through the kernel forward
-and writes their outputs. The last batch is padded by repeating its last
-frame, and the padded outputs are dropped."""
+exits with an error where there is no card. ``-dp N -tp M`` starts N x M
+ranks on a (data N, model M) mesh: on the card one process per GPU over
+NCCL (N x M must not exceed the visible cards), on the CPU gloo processes.
+The M ranks of a model group hold one Megatron split of the model
+(``parallel/tensor.py``) and take one data slot of each batch: its frames
+of a folder are decoded by the group's first rank and broadcast to the
+others (a video's are decoded by rank 0 and scattered), run through the
+kernel forward, and written, with their eval sums, by the group's first
+rank. The last batch is padded by repeating its last frame, and the padded
+outputs are dropped."""
 
 import argparse
 import itertools
@@ -51,11 +54,12 @@ def parse_args(argv=None):
     parser.add_argument("--int8-full", dest="int8_full", action="store_true",
                         help="int8 tier incl. the full neck: reassembly GEMMs + fusion/head convs (implies --int8)")
     parser.add_argument("-dp", "--data-parallel", dest="data_parallel", default=None, type=int,
-                        help="Ranks on the data axis: one process per card (gloo processes on the CPU); "
-                             "frames per step = this x --per-chip-batch (default: every visible card; 1 on the CPU)")
-    parser.add_argument("--per-chip-batch", default=1, type=int, help="Frames per rank per step")
+                        help="Width of the mesh's data axis: frames per step = this x --per-chip-batch "
+                             "(default: the visible cards / -tp; 1 on the CPU)")
+    parser.add_argument("--per-chip-batch", default=1, type=int, help="Frames per data slot per step")
     parser.add_argument("-tp", "--tensor-parallel", dest="tensor_parallel", default=1, type=int,
-                        help="Tensor parallelism over a model axis: not ported yet, only 1 is accepted")
+                        help="Also shard the weights Megatron-style over a model axis of this width "
+                             "(needs data_parallel x tensor_parallel cards; gloo processes on the CPU)")
     parser.add_argument("--unroll", default=None, const="6", nargs="?", metavar="K",
                         help="The JAX package's encoder unrolling switch: accepted and ignored")
     parser.add_argument("--save", default="u16", help="Comma list of outputs: u16, npy, color (default: u16)")
@@ -108,10 +112,11 @@ def iter_frames(input_path: str):
 
 
 def folder_steps(paths: list[str], first: np.ndarray, rank: int, world_size: int, per_rank: int):
-    """This rank's slice of an image list, one per step: ``per_rank``
-    (name, bgr_frame) pairs, decoded here and on no other rank. Slots past
-    the end repeat the last image with name None (padding: no output). A file
-    that does not decode keeps its slot, runs ``first`` and has no output."""
+    """Data slot ``rank``'s slice of an image list (of ``world_size``
+    slots), one per step: ``per_rank`` (name, bgr_frame) pairs, decoded here
+    and on no other slot. Slots past the end repeat the last image with name
+    None (padding: no output). A file that does not decode keeps its slot,
+    runs ``first`` and has no output."""
     n = len(paths)
     last = (None, None)  # (index, frame) decoded last: a padded slot reuses it
     for start in range(0, n, world_size * per_rank):
@@ -127,11 +132,13 @@ def folder_steps(paths: list[str], first: np.ndarray, rank: int, world_size: int
         yield mine
 
 
-def video_steps(input_path: str, rank: int, world_size: int, per_rank: int, max_frames: int | None):
+def video_steps(input_path: str, rank: int, world_size: int, per_rank: int, max_frames: int | None,
+                tensor_parallel: int = 1):
     """This rank's slice of a video, one per step: rank 0 decodes each step's
-    frames and scatters the slices; the last step is padded by repeating its
-    last frame with name None (no output)."""
-    batch = world_size * per_rank
+    frames and scatters the slices, every rank of a model group (of
+    ``tensor_parallel`` consecutive ranks) getting its data slot's; the last
+    step is padded by repeating its last frame with name None (no output)."""
+    batch = world_size // tensor_parallel * per_rank
     frames = iter_frames(input_path) if rank == 0 else None
     n_read = 0
     while True:
@@ -142,7 +149,7 @@ def video_steps(input_path: str, rank: int, world_size: int, per_rank: int, max_
             n_read += len(step)
             if step:
                 step += [(None, step[-1][1])] * (batch - len(step))
-            slices = [step[r * per_rank:(r + 1) * per_rank] for r in range(world_size)]
+            slices = [step[r // tensor_parallel * per_rank:(r // tensor_parallel + 1) * per_rank] for r in range(world_size)]
         if world_size > 1:
             received = [None]
             dist.scatter_object_list(received, slices, src=0)
@@ -155,22 +162,26 @@ def video_steps(input_path: str, rank: int, world_size: int, per_rank: int, max_
 
 
 def extract(args, input_path: str, model_path: str, device_config: dict, rank: int = 0, world_size: int = 1) -> dict:
-    """The extraction on this rank: each rank decodes the frames of its own
-    slice of every step (a video's are decoded by rank 0 and scattered), runs
-    them and writes their outputs; the ranks' counts and eval sums meet once,
-    at the end. Returns the run's numbers (rank 0's are the run's)."""
+    """The extraction on this rank: the first rank of each model group
+    decodes the frames of its data slot of every step and broadcasts them to
+    the group (a video's are decoded by rank 0 and scattered), the group
+    runs them, and its first rank writes their outputs; the ranks' counts
+    and eval sums meet once, at the end. Returns the run's numbers (rank
+    0's are the run's)."""
     from .parallel.inference import BatchParallelRunner
     from .parallel.mesh import make_mesh
     from .utils.metrics import depth_metrics
 
     lead = rank == 0
+    tp = max(1, args.tensor_parallel)
     say = print if lead else (lambda *a, **k: None)
     say("", "Loading model weights...", f"  @ {model_path}", sep="\n", flush=True)
     _, model = make_dpt_from_state_dict(model_path, dtype=device_config["dtype"], device=device_config["device"])
     model = maybe_quantize_int8(model, args.int8, args.int8_full)
 
-    mesh = make_mesh(world_size, data_parallel=world_size)
+    mesh = make_mesh(world_size, data_parallel=world_size // tp)
     runner = BatchParallelRunner(model, mesh=mesh)
+    slot, slots, writer = runner.data_index, runner.data_parallelism, runner.model_index == 0
     per_rank = max(1, args.per_chip_batch)
     batch = runner.data_parallelism * per_rank
     say(f"Mesh: {mesh} | batch per step: {batch}", flush=True)
@@ -188,7 +199,7 @@ def extract(args, input_path: str, model_path: str, device_config: dict, rank: i
 
     if str(input_path).lower().endswith(VIDEO_EXTS):
         target_hw = None  # a video's frames share one size: its first frame's
-        steps = video_steps(str(input_path), rank, world_size, per_rank, args.max_frames)
+        steps = video_steps(str(input_path), rank, world_size, per_rank, args.max_frames, tp)
     else:
         paths = PathCarousel(input_path).paths[: args.max_frames]
         # every rank decodes the first readable image: -ar's target size, and the filler of an unreadable slot
@@ -196,7 +207,9 @@ def extract(args, input_path: str, model_path: str, device_config: dict, rank: i
         if first is None:
             raise FileNotFoundError(f"No image files at: {input_path}")
         target_hw = model.compute_scaled_hw(first.shape[:2], base_size, use_square)
-        steps = folder_steps(paths, first, rank, world_size, per_rank)
+        steps = folder_steps(paths, first, slot, slots, per_rank) if writer else itertools.repeat(None)
+        if tp > 1:
+            steps = _broadcast_steps(steps, runner.model_group, rank - runner.model_index)
 
     n_done = n_at_start = 0
     t_start = None
@@ -225,7 +238,7 @@ def extract(args, input_path: str, model_path: str, device_config: dict, rank: i
         # device-resident NHWC prep of this rank's slice: no per-frame host sync
         x = torch.cat([model.prepare_image_bgr_nhwc(f, base_size, use_square) for _, f in mine])
         for (name, _), depth in zip(mine, depth_to_numpy(runner.run_shard(x))):
-            if name is None:
+            if name is None or not writer:
                 continue
             save_one(name, depth)
             n_done += 1
@@ -272,6 +285,19 @@ def extract(args, input_path: str, model_path: str, device_config: dict, rank: i
     return stats
 
 
+def _broadcast_steps(steps, group, src: int):
+    """The steps of a model group's first rank (global rank ``src``), each
+    broadcast to the group's other ranks, whose own ``steps`` are ignored."""
+    for mine in steps:
+        box = [mine]
+        dist.broadcast_object_list(box, src=src, group=group)
+        if box[0] is None:
+            return
+        yield box[0]
+    box = [None]
+    dist.broadcast_object_list(box, src=src, group=group)
+
+
 def _rank_main(rank, world_size, args, input_path, model_path, device_type, dtype, results):
     from .parallel.mesh import rank_device
 
@@ -285,16 +311,16 @@ def main(argv=None):
     """Returns the run's numbers: frames, out_dir, batch, steady-state fps
     (None for a single step) and the eval means (None without --eval_gt)."""
     args = parse_args(argv)
-    if args.tensor_parallel > 1:
-        from .parallel.mesh import TP_REFUSAL
-
-        raise NotImplementedError(TP_REFUSAL)
     if args.unroll is not None:
         print(UNROLL_NOTE)
     reduce_overthreading()
     device_config = make_device_config(args.device, args.use_float32)
     device_type = device_config["device"].type
-    dp = args.data_parallel or (torch.cuda.device_count() if device_type == "cuda" else 1)
+    tp = max(1, args.tensor_parallel)
+    cards = torch.cuda.device_count() if device_type == "cuda" else None
+    dp = args.data_parallel or (max(1, cards // tp) if cards else 1)
+    if cards is not None and dp * tp > cards:
+        raise ValueError(f"-dp {dp} x -tp {tp} needs {dp * tp} CUDA cards, have {cards} (on the CPU: -d cpu)")
 
     history = HistoryKeeper()
     _, hist_input = history.read("batch_input_path")
@@ -303,14 +329,14 @@ def main(argv=None):
     model_path = args.model_path or ask_for_model_path(default_path=hist_model)
     history.store(batch_input_path=str(input_path), model_path=model_path)
 
-    if dp == 1:
+    if dp * tp == 1:
         return extract(args, input_path, model_path, device_config)
     import torch.multiprocessing as mp
 
     from .parallel.mesh import spawn
 
     results = mp.get_context("spawn").SimpleQueue()
-    spawn(_rank_main, dp, args, input_path, model_path, device_type, device_config["dtype"], results,
+    spawn(_rank_main, dp * tp, args, input_path, model_path, device_type, device_config["dtype"], results,
           device_type=device_type)  # raises, before any rank loads, where the card count is short
     return results.get()
 

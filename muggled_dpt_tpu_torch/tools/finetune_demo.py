@@ -6,13 +6,17 @@ loss must fall below half its start within a few dozen steps when
 overfitting a fixed batch, with gradients through the full patch embed ->
 encoder -> reassembly -> fusion -> head stack.
 
-    python -m muggled_dpt_tpu_torch.tools.finetune_demo --steps 30 [-d cpu] [-dp 2]
+    python -m muggled_dpt_tpu_torch.tools.finetune_demo --steps 30 [-d cpu] [-dp 2] [-tp 2]
     python -m muggled_dpt_tpu_torch.tools.finetune_demo --ckpt_dir CKPTS --save_every 10 --steps 30
     python -m muggled_dpt_tpu_torch.tools.finetune_demo --ckpt_dir CKPTS --resume --steps 40
 
 Runs on the CUDA card unless ``-d cpu`` is given, and exits with an error
-where there is no card. ``-dp N`` trains over N ranks (one per card over
-NCCL; gloo processes on the CPU), the batch cut along its leading axis.
+where there is no card. ``-dp D -tp T`` trains over D x T ranks (one per
+card over NCCL; gloo processes on the CPU) on the mesh data D x model T, as
+``run_batch``'s pair sets it: the batch cut along its leading axis over the
+data axis, the blocks split Megatron-style over the model axis
+(``parallel/tensor.py``). The JAX demo trains on ``make_mesh()`` of every
+device (a model axis up to 4): its mesh of 8 is ``-dp 2 -tp 4`` here.
 Loading a real checkpoint instead of the random tiny model:
 ``-m depth_anything_v2_vits.pth --size 238``. Prints CONVERGED (or, after
 ``--resume``, RESUMED OK) and exits 0 when the gate holds."""
@@ -62,7 +66,9 @@ def parse_args(argv=None):
     ap.add_argument("--resume", action="store_true", help="Resume from the latest step in --ckpt_dir")
     ap.add_argument("-d", "--device", default=None, help=DEVICE_HELP)
     ap.add_argument("-dp", "--data-parallel", dest="data_parallel", type=int, default=1,
-                    help="Ranks on the data axis (one per card; gloo processes on the CPU)")
+                    help="Width of the mesh's data axis (ranks: one per card; gloo processes on the CPU)")
+    ap.add_argument("-tp", "--tensor-parallel", dest="tensor_parallel", type=int, default=1,
+                    help="Width of the mesh's model axis: the blocks split Megatron-style over it")
     return ap.parse_args(argv)
 
 
@@ -81,15 +87,26 @@ def build_model(model_path, seed: int, device):
     )
 
 
-def train(args, device, rank: int = 0, world_size: int = 1) -> int:
+def demo_mesh(args) -> dict:
+    """The (data, model) mesh of -dp and -tp."""
+    from ..parallel.mesh import make_mesh
+
+    if min(args.data_parallel, args.tensor_parallel) < 1:
+        raise ValueError(f"-dp {args.data_parallel} -tp {args.tensor_parallel}: each must be at least 1")
+    return make_mesh(args.data_parallel * args.tensor_parallel, data_parallel=args.data_parallel)
+
+
+def train(args, device, rank: int = 0) -> int:
     """The demo on this rank; returns the exit code (0 when the gate holds)."""
-    from ..parallel.mesh import make_mesh, shard_batch
+    from ..parallel.mesh import mesh_coords, shard_batch
+    from ..parallel.tensor import shard_model
     from ..parallel.train import adamw, make_train_step, plain_attention
     from ..utils.metrics import depth_metrics
 
     say = print if rank == 0 else (lambda *a, **k: None)
-    model = build_model(args.model_path, args.seed, device)
-    mesh = make_mesh(world_size, data_parallel=world_size)
+    full = build_model(args.model_path, args.seed, device)
+    mesh = demo_mesh(args)
+    model = shard_model(full, mesh, rank, share=False) if mesh["model"] > 1 else full
     dp = mesh["data"]
     batch = args.batch or dp
     if batch % dp:
@@ -114,7 +131,7 @@ def train(args, device, rank: int = 0, world_size: int = 1) -> int:
             return 0
 
     step = make_train_step(model, optimizer)
-    my_images, my_targets = shard_batch((images, targets), rank, world_size)
+    my_images, my_targets = shard_batch((images, targets), mesh_coords(rank, mesh)[0], dp)
     losses = []
     for i in range(start, args.steps):
         losses.append(float(step(my_images, my_targets)))
@@ -127,7 +144,8 @@ def train(args, device, rank: int = 0, world_size: int = 1) -> int:
     # final validation readout: the standard monocular-depth eval protocol
     # (SSI-aligned, matching the relative-depth output convention), on the
     # plain attention as the training forward: the tiny model's 32-wide heads
-    # are narrower than the attention kernel's 64
+    # are narrower than the attention kernel's 64; every rank of a model group
+    # runs it, since the split blocks meet in their collectives
     with plain_attention(model.net):
         pred = model.forward(images.permute(0, 3, 1, 2))
     m = {k: float(v) for k, v in depth_metrics(pred, targets.to(pred.device)).items()}
@@ -149,7 +167,7 @@ def train(args, device, rank: int = 0, world_size: int = 1) -> int:
 def _rank_main(rank, world_size, args, device_type, results):
     from ..parallel.mesh import rank_device
 
-    code = train(args, rank_device(device_type, rank), rank, world_size)
+    code = train(args, rank_device(device_type, rank), rank)
     if rank == 0:
         results.put(code)
 
@@ -159,14 +177,16 @@ def main(argv=None) -> int:
 
     args = parse_args(argv)
     device = resolve_device(args.device)
-    if args.data_parallel == 1:
+    mesh = demo_mesh(args)
+    n = mesh["data"] * mesh["model"]
+    if n == 1:
         return train(args, device)
     import torch.multiprocessing as mp
 
     from ..parallel.mesh import spawn
 
     results = mp.get_context("spawn").SimpleQueue()
-    spawn(_rank_main, args.data_parallel, args, device.type, results, device_type=device.type)
+    spawn(_rank_main, n, args, device.type, results, device_type=device.type)
     return results.get()
 
 

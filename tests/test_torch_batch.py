@@ -9,8 +9,10 @@ JAX app's. Then the app's own contracts, mirroring
 tests/test_apps_headless.py:136-201: a folder over two gloo ranks with a
 padded last batch, equal to one rank's outputs; ``--eval_gt`` (0.0000 /
 0.5000 / ln 2); video with ``--max_frames``; ``--per-chip-batch``; the
-``-ar`` mixed-size refusal; ``-tp`` and ``--unroll``; no ``-d`` without a
-card exits non-zero."""
+``-ar`` mixed-size refusal; ``-dp 1 -tp 2`` (two gloo ranks, one model
+group) against the JAX app's ``-dp 1 -tp 2`` and against one rank, and
+``-dp x -tp`` beyond the cards refused before any rank loads;
+``--unroll``; no ``-d`` without a card exits non-zero."""
 
 import os
 import os.path as osp
@@ -180,6 +182,34 @@ def test_run_batch_data_parallel_two_ranks(fixtures, tmp_path, capsys):
         np.testing.assert_array_equal(np.load(tmp_path / "vid1" / n), np.load(tmp_path / "vid2" / n))
 
 
+def test_run_batch_tensor_parallel_matches_jax(fixtures, tmp_path, monkeypatch, capsys):
+    """-dp 1 -tp 2: two gloo ranks split one BEiT model (its 4 heads, 2
+    each, and each rank's bias stack), 3 frames in batches of 2, the group's
+    first rank decoding each step and writing every output; each .npy within
+    RAW_TOL of the JAX app's ``-dp 1 -tp 2`` on the same folder and within
+    1e-5 of one rank's run, and --eval_gt counted once per frame, not once
+    per rank."""
+    monkeypatch.chdir(tmp_path)
+    flags = ["-m", fixtures["beit"], "-i", fixtures["frames"], "--save", "u16,npy", "--per-chip-batch", "2"]
+    one = run_batch.main([*flags, "-o", "one", "-d", DEVICE])
+    gt = tmp_path / "gt"
+    gt.mkdir()
+    for i in range(3):
+        np.save(gt / f"in_{i}.npy", np.load(tmp_path / "one" / f"in_{i}.npy") * 2.0)
+    two = run_batch.main([*flags, "-o", "ours", "-d", DEVICE, "-dp", "1", "-tp", "2", "--eval_gt", str(gt)])
+    assert two["frames"] == one["frames"] == 3 and two["batch"] == 2
+    assert two["eval"]["abs_rel"] < 5e-5 and two["eval"]["delta1"] == 1.0
+    assert sorted(os.listdir(tmp_path / "ours")) == sorted(f"in_{i}{e}" for i in range(3) for e in (".npy", ".png"))
+    capsys.readouterr()
+    _run_jax_batch([*flags, "-o", "theirs", "-dp", "1", "-tp", "2", "-f32"], monkeypatch)
+    assert "'model': 2" in capsys.readouterr().out
+    for i in range(3):
+        ours, theirs, single = (np.load(tmp_path / d / f"in_{i}.npy") for d in ("ours", "theirs", "one"))
+        err = float(np.abs(normalize_01(ours) - normalize_01(theirs)).max())
+        assert err < RAW_TOL, f"in_{i}: normalized depth differs from the JAX app's -tp 2 by {err:.3e}"
+        np.testing.assert_allclose(ours, single, rtol=1e-5, atol=1e-5)
+
+
 def test_run_batch_eval_gt(fixtures, tmp_path, capsys):
     """--eval_gt: the model's own outputs x 2 as ground truth score perfect
     once SSI-aligned, and --eval_no_align exposes the 2x (rmse_log = ln 2)."""
@@ -224,7 +254,7 @@ def test_run_batch_skips_unreadable_files(fixtures, tmp_path, capsys):
         np.testing.assert_array_equal(np.load(tmp_path / "o" / f"in_{i}.npy"), np.load(ref / f"in_{i}.npy"))
 
 
-def test_run_batch_refusals_and_notes(fixtures, tmp_path, capsys):
+def test_run_batch_refusals_and_notes(fixtures, tmp_path, capsys, monkeypatch):
     mixed = tmp_path / "mixed"
     mixed.mkdir()
     rng = np.random.default_rng(2)
@@ -232,8 +262,14 @@ def test_run_batch_refusals_and_notes(fixtures, tmp_path, capsys):
     cv2.imwrite(str(mixed / "b.png"), rng.integers(0, 256, (160, 120, 3), dtype=np.uint8))
     with pytest.raises(ValueError, match="Mixed input sizes in aspect-ratio mode"):
         run_batch.main(["-m", fixtures["da"], "-i", str(mixed), "-o", str(tmp_path / "o"), "-d", DEVICE, "-ar"])
-    with pytest.raises(NotImplementedError, match="tensor parallel is not ported yet"):
-        _ours(fixtures, tmp_path / "tp", "-tp", "2")
+    # -dp x -tp beyond the visible cards: refused before any rank loads (here a card of one, faked)
+    monkeypatch.setattr(run_batch, "make_device_config", lambda *a: {"device": torch.device("cuda", 0),
+                                                                      "dtype": torch.bfloat16})
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="-dp 1 x -tp 2 needs 2 CUDA cards, have 1"):
+        run_batch.main(["-m", fixtures["da"], "-i", fixtures["frames"], "-o", str(tmp_path / "tp"), "-tp", "2"])
+    assert not (tmp_path / "tp").exists()
+    monkeypatch.undo()
     stats = _ours(fixtures, tmp_path / "unroll", "--unroll", "2", "--max_frames", "1")
     assert run_batch.UNROLL_NOTE in capsys.readouterr().out and stats["frames"] == 1
     with pytest.raises(ValueError, match="Unknown --save kinds"):

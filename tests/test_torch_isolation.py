@@ -27,7 +27,7 @@ assert len(names) >= 40, names
 ported = ("checkpoints.beit", "models.beit", "models.beit_family", "make_beit_dpt", "ops.kernels.flash_attention",
           "checkpoints.swinv2", "models.swinv2", "models.swinv2_family", "make_swinv2_dpt", "ops.kernels.window_attention",
           "make_depthanythingv1_dpt", "ops.kernels.fused_mlp", "ops.kernels.head_tail", "ops.quant",
-          "ops.kernels.flash_attention_int8", "ops.kernels.flash_attention_xl", "ops.kernels.flash_attention_staged",
+          "ops.kernels.flash_attention_int8", "ops.collectives", "ops.kernels.flash_attention_xl", "ops.kernels.flash_attention_staged",
           "ops.kernels.flash_variants", "tools.attn_variants", "tools.flash_tune", "tools.flash_sm90_variants",
           "tools.sweep_sm90_variants", "tools.shootout_head_variants", "tools.variant_build", "tools.mlp_sm90_variants",
           "demo_helpers.model_capture", "demo_helpers.postprocess", "demo_helpers.saving", "demo_helpers.plane_fit",
@@ -35,7 +35,7 @@ ported = ("checkpoints.beit", "models.beit", "models.beit_family", "make_beit_dp
           "experiments.block_norm_visualization", "simple_examples.internal_features", "checkpoints.cache",
           "demo_helpers.ui", "demo_helpers.misc", "demo_helpers.loading", "demo_helpers.video", "demo_helpers.crop_ui",
           "demo_helpers.history_keeper", "demo_helpers.mesh_export", "simple_examples.depth_prediction", "run_image",
-          "run_video", "run_3dviewer", "run_batch", "parallel.mesh", "parallel.inference", "parallel.train",
+          "run_video", "run_3dviewer", "run_batch", "parallel.mesh", "parallel.inference", "parallel.train", "parallel.tensor",
           "parallel.checkpoint", "utils.metrics", "utils.observability", "tools.finetune_demo",
           "tools.int8_trained_weights", "ops.kernels.library", "onnx_export", "onnx_export.proto",
           "onnx_export.builder", "onnx_export.evaluate", "onnx_export.emit_dpt", "experiments.export_model",

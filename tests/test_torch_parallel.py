@@ -18,7 +18,8 @@ through ``checkpoints/from_jax.py``):
   full-batch step, the runner against a single one, and restores across
   world sizes 1 -> 2 and 2 -> 1;
 * checkpoint resume against uninterrupted training, ``keep`` pruning;
-* the mesh shape and its refusal of a model axis, ``shard_batch``;
+* the mesh shape (JAX's default model axis; tests/test_torch_tensor_parallel*.py
+  hold the factorization and the model axis), ``shard_batch``;
 * ``tools/finetune_demo.py`` CONVERGED in 30 steps and RESUMED OK."""
 
 import os
@@ -127,8 +128,8 @@ def test_ssi_loss_matches_jax_and_is_invariant():
 def test_mesh_shape_and_shards():
     assert make_mesh() == {"data": 1, "model": 1}
     assert make_mesh(4, data_parallel=4) == {"data": 4, "model": 1}
-    with pytest.raises(NotImplementedError, match="tensor parallel is not ported yet"):
-        make_mesh(4, data_parallel=2)
+    assert make_mesh(4, data_parallel=2) == {"data": 2, "model": 2}
+    assert make_mesh(4) == {"data": 1, "model": 4} and make_mesh(8) == {"data": 2, "model": 4}
     x = torch.arange(12).reshape(6, 2)
     a, b = shard_batch((x, x.numpy()), rank=2, world_size=3)
     assert torch.equal(a, x[4:6]) and np.array_equal(b, x.numpy()[4:6])
@@ -256,7 +257,7 @@ def test_runner_threads_the_cached_aux(family, monkeypatch):
     assert torch.equal(out, runner(x)) and calls["n"] == (1 if family == "beit" else 0)
     assert torch.equal(out, model.forward(x.permute(0, 3, 1, 2)))
     with pytest.raises(ValueError, match="mesh data axis 2 != world size 1"):
-        BatchParallelRunner(model, mesh=make_mesh(2))
+        BatchParallelRunner(model, mesh=make_mesh(2, data_parallel=2))
 
 
 # -- checkpoints --------------------------------------------------------------
@@ -315,7 +316,7 @@ def _dp_rank(rank, world_size, workdir):
     torch.manual_seed(0)
     d = np.load(os.path.join(workdir, "inputs.npz"))
     model, optimizer = _fresh(torch.load(os.path.join(workdir, "init.pt")))
-    depth = BatchParallelRunner(model)(torch.from_numpy(d["frames"]))
+    depth = BatchParallelRunner(model, mesh=make_mesh(2, data_parallel=2))(torch.from_numpy(d["frames"]))
     _, _, step = ck.restore_train_state(os.path.join(workdir, "ck1"), model.net, optimizer)
     saved = torch.load(os.path.join(workdir, "ck1", f"step_{step}", ck.STATE_FILE), weights_only=True)
     for k, v in model.net.state_dict().items():
