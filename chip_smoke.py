@@ -26,13 +26,18 @@ original-format checkpoint and loaded through ``make_dpt_from_state_dict``:
     at stages 1-3 and 16 at stage 4.
 
 The CUDA sources port twelve TPU kernels; the ``kernels`` JSON line has
-one entry per TPU kernel:
+one entry per TPU kernel. #1-#5 and #3 also serve float16 (the apps' -u):
+their sm_90 sources and the mma.sync instances for float32 biases are
+templates over the element type, each float16 launch counted on a route
+of its own (``fused_f16``, ``fused_biased_f16``, ``bnhd_f16``,
+``window_sm90_f16``, ``window_f16``); their entries carry the float16
+numbers beside the bf16 ones (``f16_*`` keys):
   #1 fused qkv, unbiased  -- the Depth-Anything path; in bf16 the wgmma/TMA
      kernel of csrc/flash_attention_sm90.cu, which takes every bf16 launch
      without a bias or with a bf16 one (#2's and #4's too), in f32
      csrc/flash_attention.cu;
   #2 fused qkv, biased    -- the BEiT path (cached bias stack or inline bias;
-     in bf16 the same kernel's BIAS_BF16 instantiation, its bias tiles
+     in bf16 the same kernel's BIAS_ELEM instantiation, its bias tiles
      filled by TMA or, for layouts TMA cannot read, by the producer's warps);
   #3 window attention     -- the SwinV2 path, the CPB bias and shift mask
      read factored, by head and by window: in bf16 with bf16 biases (the
@@ -87,9 +92,10 @@ Phases, in order; each prints its lines and the seconds it took, and any
 failure raises:
   1. device: a CUDA card, or fail; the nvidia-smi name and power limit;
   2. build: nvcc builds the kernel library from csrc/, one nvcc per source,
-     all started together; the bf16 attention kernel's registers, spills and
-     shared memory, unbiased and biased, the sm_90 window kernel's, with
-     and without the mask, and those of each sm_90 instantiation of #10
+     all started together; the sm_90 attention kernel's registers, spills
+     and shared memory, unbiased and biased, the sm_90 window kernel's, with
+     and without the mask, each in bf16 and f16, and those of each sm_90
+     instantiation of #10
      (qp, pipelined, mode: also its key tile and consumer registers), #11,
      #12 (each mode), #9, #8's three kernels (also their tiles, stages
      and schedule) and the int8 attention kernel of #6 and #7 (also its q
@@ -107,6 +113,17 @@ failure raises:
      SwinV2-L-384 stage shape, B=1 and B=8, beside its bound and its exp
      floor); each window check requires the kernel it expects (bf16 with
      bf16 biases: sm_90; f32 and the mixed bias: window_attention.cu);
+  3b. (after 3) float16: every f16 instance of #1-#5 and #3 against its
+     f16 plain version at the same shapes and edges (#2 every bias source
+     and both fills, its pads inf in f16; f32 biases on the mma.sync
+     instances; #3 every SwinV2-L-384 stage at B=1 and 8 with f16 and f32
+     biases, A = 1024, 2209, odd areas), gated at 4e-3 max abs and 2.5e-4
+     mean, each launch counted on its f16 route and held to its instance
+     by CUPTI's kernel name (``fa_sm90<__half, 0|1>``, ``fa_mma<__half``,
+     ``wa_sm90<__half``, ``wa_mma<__half, float``); then CUDA-event times
+     at the JSON's shapes beside the bf16 kernel on the same inputs in
+     bf16, in turns, the f16 plain version and one SDPA call in f16 (#2
+     also the copy fill, #3 also its f32 biases);
   4. DA-V2 bf16 serves 3 requests and a batch of 8 (24 launches per forward);
   5. DA-V2 float32 kernel model vs float32 plain model;
   6. BEiT-L-512 bf16 serves 3 requests and a batch of 8 at 512x512 (24
@@ -118,7 +135,7 @@ failure raises:
      512x512 request, its CPB stack build included;
   9. SwinV2-L-384 float32 kernel model vs plain model, cached and inline
      CPB and masks;
-  10. the (B, N, H, D) op path;
+  10. the (B, N, H, D) op path, bf16 then float16 (``bnhd_f16``);
   11. #8 and #9 vs their plain versions (#8 at F = 384, 768, 1024 and
       100, 1297, 8 x 1297 and 1025 rows, H = 4F, and at 100 rows, F = 384,
       H = 1568, no multiple of 256; #9 at ci = 32, 64, 128, 192, at
@@ -209,14 +226,27 @@ failure raises:
       thread (/frame/0 serially and 4 at once, all equal; its lossless
       24-bit depth against the facade's, max abs 1e-5; /get-source-info,
       /export/obj, POST /upload; ms per /frame beside the inference and
-      read-back alone); depth_prediction --no_display (float32); a float16
-      DA-V2 model, which the attention kernel must refuse, and run_image
-      -u, which must exit up front; run_video's ``AsyncResult`` gate on 6
-      clip frames (alone and in back-to-back pairs) against the facade's
+      read-back alone); depth_prediction --no_display (float32); -u
+      (float16): run_image -u (24 ``fused_f16`` launches, its ``_raw.npy``
+      against the f16 facade's, 1e-3), run_image -u --int8 (within the
+      int8 tier's own error, 3e-2, of -u) and run_video -u, -sync and
+      dispatch-ahead (24 ``fused_f16`` per dispatch); run_video's
+      ``AsyncResult`` gate on 6 clip frames (alone and in back-to-back
+      pairs) against the facade's
       forward on the default stream, max abs 0; the conversion cache
       (seconds of a plain build, a miss and a hit, the miss's and hit's
       depth equal to the plain build's); run_image on BEiT-L-512 (24
-      ``fused_biased`` launches) and SwinV2-L-384 (24 ``window_sm90``).
+      ``fused_biased`` launches) and SwinV2-L-384 (24 ``window_sm90``),
+      and run_image -u on each (24 ``fused_biased_f16``, 24
+      ``window_sm90_f16``).
+  21b. (after 5, 7 and 9) each family's float16 kernel model: served as 4
+      (3 requests and a batch of 8; B=1 and B=8 times beside bf16), then on
+      the parity frame in each aux mode against the f16 plain model (mean
+      abs-rel, gated at half PR 18's bf16 distance from the f32 plain
+      model: 2e-3 DA-V2, 3e-2 BEiT, 3e-3 SwinV2) and against the f32 plain
+      model, gated below the same run's bf16 kernel model's distance from
+      it (BEiT both aux modes on ``fused_biased_f16``; SwinV2 cached on
+      ``window_sm90_f16``, inline, with its f32 tables, on ``window_f16``).
   22. (after 21's DA-V2 apps and the conversion cache) batch extraction
       and training on DA-V2 ViT-L: run_batch's ``main`` with no -d over 20
       720x1280 PNG frames at -dp 1 --per-chip-batch 8, bf16 (exactly 3 x 24
@@ -423,6 +453,9 @@ EXPECTED_FAILURE = 0.5  # padfix and chunk must miss true attention by more than
 # tolerances of the kernel against its plain version on the same inputs
 F32_MAX_ERR = 1e-4  # f32 FMAs in another summation order
 BF16_MAX_ERR, BF16_MEAN_ERR = 2e-2, 2e-3  # p rounded to bf16 before PV, bf16 output
+# f16: two f16 ulps at outputs in [2, 4) (p rounded to f16 before PV, one rounding of the output); the mean is bf16's
+# over the 3 more mantissa bits of f16
+F16_MAX_ERR, F16_MEAN_ERR = 4e-3, 2.5e-4
 ABS_REL_BUDGET = 1e-3  # whole-model f32 budget of the repo
 ROW_SUM_TOL = 1e-4  # a captured f32 softmax row against 1
 UNIT_FUSION_MAX_ABS = 1e-6  # fusion at unit scales + head against the capture's own depth: the same ops
@@ -435,7 +468,7 @@ BF16_REL_MAX, BF16_REL_MEAN = 1.6e-2, 2e-3  # same rounding points: two bf16 ulp
 COMPOSITE_BF16_REL_MAX, COMPOSITE_BF16_REL_MEAN = 5e-2, 1e-2
 
 # H100 SXM peaks for the bound: dense bf16 tensor cores, f32 FMA, HBM (int8: flash_attention_int8.int8_bound)
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 WINDOW_SM90 = "window_attention_sm90.cu"
 SM90_SOURCES = ("flash_attention_sm90.cu", WINDOW_SM90, "head_tail_sm90.cu", "flash_xl_sm90.cu", "flash_staged_sm90.cu",
@@ -502,24 +535,21 @@ def phase_build():
 
     logs = {}
     path = build_library(verbose=True, logs=logs)
-    for bias, what in ((0, "BIAS_NONE"), (1, "BIAS_BF16")):
-        info = (ctypes.c_int * 5)()
-        err = kernel_library().mdpt_flash_attention_sm90_info(bias, info)
-        if err != 0:
-            raise RuntimeError(f"cudaFuncGetAttributes of the bf16 attention kernel ({what}) failed: CUDA error {err}")
-        regs, spill, static_smem, dynamic_smem, threads = info
-        print(f"build: {path.name}; csrc/flash_attention_sm90.cu fa_sm90_bf16<{what}>: {regs} registers per thread at "
-              f"launch (setmaxnreg: producer 32, consumers 160), {spill} B local memory per thread, {static_smem} B static + "
-              f"{dynamic_smem} B dynamic shared memory, {threads} threads", flush=True)
-    for mask, what in ((0, "no mask"), (1, "MASK")):
-        info = (ctypes.c_int * 5)()
-        err = kernel_library().mdpt_window_attention_sm90_info(mask, info)
-        if err != 0:
-            raise RuntimeError(f"cudaFuncGetAttributes of the sm_90 window kernel ({what}) failed: CUDA error {err}")
-        regs, spill, static_smem, dynamic_smem, threads = info
-        print(f"build: csrc/{WINDOW_SM90} wa_sm90_bf16<{what}>: {regs} registers per thread at launch (setmaxnreg: "
-              f"producer 32, consumers 160), {spill} B local memory per thread, {static_smem} B static + {dynamic_smem} B "
-              f"dynamic shared memory, {threads} threads", flush=True)
+    print(f"build: {path.name}", flush=True)
+    for half, elem in ((0, "__nv_bfloat16"), (1, "__half")):  # every instantiation of the two serving sm_90 sources
+        for query, source, kernel, args in (
+                (kernel_library().mdpt_flash_attention_sm90_info, "flash_attention_sm90.cu", "fa_sm90",
+                 ((0, "BIAS_NONE"), (1, "BIAS_ELEM"))),
+                (kernel_library().mdpt_window_attention_sm90_info, WINDOW_SM90, "wa_sm90", ((0, "false"), (1, "true")))):
+            for arg, what in args:
+                info = (ctypes.c_int * 5)()
+                err = query(arg, half, info)
+                if err != 0:
+                    raise RuntimeError(f"cudaFuncGetAttributes of {kernel}<{elem}, {what}> failed: CUDA error {err}")
+                regs, spill, static_smem, dynamic_smem, threads = info
+                print(f"build: csrc/{source} {kernel}<{elem}, {what}>: {regs} registers per thread at launch (setmaxnreg: "
+                      f"producer 32, consumers 160), {spill} B local memory per thread, {static_smem} B static + "
+                      f"{dynamic_smem} B dynamic shared memory, {threads} threads", flush=True)
     sm90_variants = [(f"fxl_sm90<qp={qp}, pipelined={pipelined}, {'ablate' if ablate else 'flash'}>",
                       lambda info, qp=qp, pipelined=pipelined, ablate=ablate:
                       kernel_library().mdpt_flash_xl_sm90_info(qp, pipelined, ablate, info))
@@ -572,7 +602,9 @@ def phase_build():
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", report)]
         if serialized or any(spills):
             raise RuntimeError(f"ptxas on csrc/{source}: wgmma serialization {serialized}, spill bytes {spills}")
-        print(f"build: ptxas reports no wgmma serialization (C7510-C7520) and no spills for csrc/{source}", flush=True)
+        entries = len(re.findall(r"Compiling entry function", report))
+        print(f"build: ptxas reports no wgmma serialization (C7510-C7520) and no spills for csrc/{source} ({entries} "
+              "kernels, every instantiation)", flush=True)
 
 
 def make_qkv(rng, b, n, dtype, all_negative=False):
@@ -602,10 +634,10 @@ def padded_stack(rng, layers, n, dtype):
 
 
 def fill_name(bias=None, bias_stack=None, layer=None, b=1, n=1) -> str:
-    """" [tma]" or " [copy]": how the bf16 kernel fills its bias tiles for a
-    bf16 bias given so; "" for a float32 one."""
+    """" [tma]" or " [copy]": how the sm_90 kernel fills its bias tiles for a
+    bf16 or f16 bias given so; "" for a float32 one."""
     t = bias if bias_stack is None else bias_stack
-    if t.dtype != torch.bfloat16:
+    if t.dtype not in fa.HALF_TYPES:
         return ""
     operand = fa._bias_operand(bias, bias_stack, layer, b, HEADS, n, t.device)
     return " [tma]" if fa.bias_fill(operand) == fa.BIAS_FILL_TMA else " [copy]"
@@ -686,7 +718,7 @@ class Checker:
         err = (got - ref).abs()
         max_err, mean_err = float(err.max()), float(err.mean())
         ok = bool(torch.isfinite(got).all()) and tuple(got.shape) == tuple(shape)
-        f32 = label.startswith("float32")
+        f32, f16 = label.startswith("float32"), label.startswith("float16")
         if relative:
             top, mean_ref = float(ref.abs().max()), float(ref.abs().mean())
             tol_max, tol_mean = ((F32_REL_ERR, F32_REL_ERR) if f32 else
@@ -694,7 +726,8 @@ class Checker:
             ok = ok and max_err <= tol_max * top and mean_err <= tol_mean * mean_ref
             scale = f" (max|ref|={top:.3e}, mean|ref|={mean_ref:.3e})"
         else:
-            ok = ok and (max_err <= F32_MAX_ERR if f32 else max_err <= BF16_MAX_ERR and mean_err <= BF16_MEAN_ERR)
+            ok = ok and (max_err <= F32_MAX_ERR if f32 else max_err <= F16_MAX_ERR and mean_err <= F16_MEAN_ERR if f16
+                         else max_err <= BF16_MAX_ERR and mean_err <= BF16_MEAN_ERR)
             scale = ""
         what = versus or ("the model's composite" if composite else "its plain version")
         vs = f" vs {versus}" if versus else " vs composite" if composite else ""
@@ -962,9 +995,9 @@ def _counted(fn, route, want, what):
 
 
 def serve(smi, model, side, out_hw, route, blocks, what) -> torch.Tensor:
-    """bf16 serving through the public entry points: 3 requests through
-    ``inference`` and one batch of 8 frames through ``inference_rgb_device``.
-    Returns the first request's depth."""
+    """Serving in the model's dtype (bf16, f16) through the public entry
+    points: 3 requests through ``inference`` and one batch of 8 frames
+    through ``inference_rgb_device``. Returns the first request's depth."""
     rng = np.random.default_rng(SEED + 1)
     frames = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(6)]
     first = None
@@ -978,7 +1011,8 @@ def serve(smi, model, side, out_hw, route, blocks, what) -> torch.Tensor:
     _check_depth(batch, (8, *out_hw), f"{what} batch of 8")
     if not (torch.equal(batch[6], batch[0]) and torch.equal(batch[7], batch[3])):
         raise RuntimeError(f"{what} batch: duplicate frames gave different depth")
-    print(f"{what} bf16: 3 requests -> {(1, *out_hw)}, batch -> {(8, *out_hw)}, {blocks} {route} launches per forward, "
+    name = str(model.dtype)[6:]
+    print(f"{what} {name}: 3 requests -> {(1, *out_hw)}, batch -> {(8, *out_hw)}, {blocks} {route} launches per forward, "
           "duplicates bit-equal", flush=True)
 
     def per_request():
@@ -991,7 +1025,8 @@ def serve(smi, model, side, out_hw, route, blocks, what) -> torch.Tensor:
 
     ms_b1, ms_b8 = _host_ms(per_request), _host_ms(per_batch) / 8
     SERVED[what] = (ms_b1, ms_b8)
-    print(f"{what} bf16 steady state: {ms_b1:.3f} ms per request at B=1, {ms_b8:.3f} ms per frame at B=8 [{smi}]", flush=True)
+    print(f"{what} {name} steady state: {ms_b1:.3f} ms per request at B=1, {ms_b8:.3f} ms per frame at B=8 [{smi}]",
+          flush=True)
     return first, frames[0]
 
 
@@ -1004,10 +1039,11 @@ def phase_da_model(smi: str, ckpt: str):
 
 def parity(ckpt, frame, side, out_hw, route, blocks, what, bf16_depth, cache_modes=(True,)):
     """f32 kernel model vs f32 plain model on the same checkpoint and frame.
-    Returns the f32 kernel model."""
+    Returns the f32 kernel model and the f32 plain model's depth by cache mode."""
     _, m_kernel = make_dpt_from_state_dict(ckpt, dtype=torch.float32, device=DEVICE, enable_optimizations=True)
     _, m_plain = make_dpt_from_state_dict(ckpt, dtype=torch.float32, device=DEVICE, enable_optimizations=False)
     _, m_plain_bf16 = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE, enable_optimizations=False)
+    plain_depths = {}
     for enable_cache in cache_modes:
         for m in (m_kernel, m_plain, m_plain_bf16):
             m.config["enable_cache"] = enable_cache
@@ -1015,6 +1051,7 @@ def parity(ckpt, frame, side, out_hw, route, blocks, what, bf16_depth, cache_mod
         d_plain = _counted(lambda: m_plain.inference(frame, side), route, 0, f"{what} f32 plain model")
         _check_depth(d_kernel, (1, *out_hw), f"{what} f32 kernel model")
         _check_depth(d_plain, (1, *out_hw), f"{what} f32 plain model")
+        plain_depths[enable_cache] = d_plain
         rel, rel_bf16 = _abs_rel(d_kernel, d_plain), _abs_rel(bf16_depth, d_plain)
         rel_plain_bf16 = _abs_rel(m_plain_bf16.inference(frame, side), d_plain)
         mode = f" (enable_cache={enable_cache})" if len(cache_modes) > 1 else ""
@@ -1022,7 +1059,7 @@ def parity(ckpt, frame, side, out_hw, route, blocks, what, bf16_depth, cache_mod
               f"vs f32 plain, not gated: bf16 kernel model {rel_bf16:.3e}, bf16 plain model {rel_plain_bf16:.3e}", flush=True)
         if not rel <= ABS_REL_BUDGET:
             raise RuntimeError(f"{what}: f32 kernel model disagrees with the plain model: abs-rel {rel:.3e}")
-    return m_kernel
+    return m_kernel, plain_depths
 
 
 def phase_beit_model(smi: str, ckpt: str):
@@ -1270,35 +1307,36 @@ def app_frame(tmp: str, name: str) -> tuple[str, np.ndarray]:
     return path, img
 
 
-def run_image_once(smi, ckpt, tmp, route, blocks, what) -> tuple:
-    """run_image --headless on a 720x1280 PNG through its ``main``, with no
-    -d: ``blocks`` launches on ``route`` and none elsewhere, three files
-    written. Returns (the saved paths, the image's path, the image)."""
+def run_image_once(smi, ckpt, tmp, route, blocks, what, extra=()) -> tuple:
+    """run_image --headless (and ``extra``: -u, --int8) on a 720x1280 PNG
+    through its ``main``, with no -d: ``blocks`` launches on ``route`` and
+    none elsewhere, three files written. Returns (the saved paths, the
+    image's path, the image)."""
     path, img = app_frame(tmp, "app_frame.png")
     with contextlib.chdir(tmp):
         t0 = time.perf_counter()
-        saved = _counted(lambda: run_image.main(["-m", ckpt, "-i", path, "--headless", *app_device_args()]), route,
+        saved = _counted(lambda: run_image.main(["-m", ckpt, "-i", path, "--headless", *extra, *app_device_args()]), route,
                          blocks, f"run_image {what}")
         seconds = time.perf_counter() - t0
     missing = [p for p in saved if not os.path.exists(p)]
     raw = np.load(saved[1])
     if missing or raw.shape != FRAME_HW or not np.isfinite(raw).all():
         raise RuntimeError(f"run_image {what}: missing {missing}, raw {raw.shape} finite={bool(np.isfinite(raw).all())}")
-    print(f"run_image {what} --headless: 3 files, {blocks} {route} launches, {seconds:.1f} s with the model's load "
-          f"[{smi}]", flush=True)
+    print(f"run_image {what} --headless {' '.join(extra)}: 3 files, {blocks} {route} launches, {seconds:.1f} s with the "
+          f"model's load [{smi}]", flush=True)
     return saved, path, img
 
 
-def run_video_once(smi, ckpt, video, extra, blocks, what) -> dict:
+def run_video_once(smi, ckpt, video, extra, blocks, what, route="fused") -> dict:
     """run_video --headless over the clip through its ``main``; every
-    dispatch launched ``blocks`` times on route fused and nothing else."""
+    dispatch launched ``blocks`` times on ``route`` and nothing else."""
     before = fa.launch_counts()
     stats = run_video.main(["-m", ckpt, "-i", video, "--headless", "--max_frames", str(APP_VIDEO_FRAMES), *extra,
                             *app_device_args()])
     torch.cuda.synchronize()
     moved = {r: n - before[r] for r, n in fa.launch_counts().items() if n != before[r]}
     dispatched = len(stats["host_ms"])
-    if moved != {"fused": blocks * dispatched} or stats["frames"] != APP_VIDEO_FRAMES or stats["shown"] < 1:
+    if moved != {route: blocks * dispatched} or stats["frames"] != APP_VIDEO_FRAMES or stats["shown"] < 1:
         raise RuntimeError(f"run_video {what}: launches {moved} for {dispatched} dispatches, {stats['frames']} frames, "
                            f"{stats['shown']} shown")
     infer = f"{statistics.median(stats['infer_ms']):.3f} ms median inference (dispatch to depth on the host), " \
@@ -1474,8 +1512,9 @@ def phase_apps(smi: str, ckpt: str, tmp: str) -> dict:
     --headless, its ``_raw.npy`` against the facade's depth on the same
     frame and its per-request time; run_video --headless over a synthetic
     720x1280 clip, -sync (with -r: frames recorded) and dispatch-ahead;
-    run_3dviewer's handler; depth_prediction --no_display; float16 refused.
-    Returns the apps' launches by route, the checks' own inferences left out."""
+    run_3dviewer's handler; depth_prediction --no_display; then -u (float16,
+    ``phase_f16_apps``). Returns the apps' launches by route, the checks' own
+    inferences left out."""
     blocks = VITL["num_blocks"]
     fa.reset_launch_counts()  # count the path's run only; the apps' launches are summed below, call by call
     saved, image_path, img = run_image_once(smi, ckpt, tmp, "fused", blocks, "DA-V2 ViT-L")
@@ -1522,9 +1561,9 @@ def phase_apps(smi: str, ckpt: str, tmp: str) -> dict:
         raise RuntimeError(f"depth_prediction: depth {depth.shape}, range {depth.min()}..{depth.max()}")
     print(f"depth_prediction --no_display: {depth.shape}, normalized, {blocks} fused launches (float32) [{smi}]",
           flush=True)
-    phase_f16(smi, ckpt, tmp)
     dispatched = sum(len(v["host_ms"]) for v in stats.values())
     launches = {"fused": blocks * (1 + dispatched + 1) + viewer_launches}  # run_image, run_video, depth_prediction
+    launches.update(phase_f16_apps(smi, ckpt, tmp, video))
     print(f"apps on DA-V2 ViT-L, launches from inside the apps: {launches} (run_image {blocks}, run_video "
           f"{blocks * dispatched}, run_3dviewer {viewer_launches}, depth_prediction {blocks}) [{smi}]", flush=True)
     torch.cuda.empty_cache()
@@ -1832,36 +1871,260 @@ def phase_batch_training(smi: str, ckpt: str, tmp: str) -> dict:
             "write_ms": write_ms, **train}
 
 
-def phase_app_family(smi: str, ckpt: str, tmp: str, route: str, blocks: int, what: str) -> int:
-    """run_image --headless on another family's checkpoint; its launches on ``route``."""
+def phase_app_family(smi: str, ckpt: str, tmp: str, route: str, blocks: int, what: str, extra=()) -> int:
+    """run_image --headless (``extra``: -u) on another family's checkpoint; its launches on ``route``."""
     fa.reset_launch_counts()  # count the path's run only
-    run_image_once(smi, ckpt, tmp, route, blocks, what)
+    run_image_once(smi, ckpt, tmp, route, blocks, what, extra)
     return fa.launch_counts()[route]
 
 
-def phase_f16(smi: str, ckpt: str, tmp: str):
-    """What a float16 DA-V2 model does on the card (the apps' -u), and the
-    apps' refusal of -u up front: the attention kernel takes float32 and
-    bfloat16 only."""
-    _, model = make_dpt_from_state_dict(ckpt, dtype=torch.float16, device=DEVICE)
-    try:
-        model.inference(np.zeros((*FRAME_HW, 3), np.uint8))
-    except ValueError as e:
-        refused = str(e)
-    else:
-        raise RuntimeError("a float16 DA-V2 model served on the card: the apps' -u refusal (ROADMAP A16) is stale")
-    del model
+F16_ROUTES = ("fused_f16", "fused_biased_f16", "bnhd_f16", "window_f16", "window_sm90_f16")  # launch_counts' f16 routes
+# a float16 launch's kernel, as its demangled name (CUPTI) shows it: the C entries' choice by dtype and layout
+F16_SM90 = {"unbiased": "fa_sm90<__half, 0>", "biased": "fa_sm90<__half, 1>", "window": "wa_sm90<__half, "}
+F16_MMA = {"biased": "fa_mma<__half, ", "window": "wa_mma<__half, float, "}  # f16 q, k, v with float32 biases
+# mean abs-rel of the f16 kernel model from the f16 plain model: half the bf16 kernel model's distance from the f32
+# plain model in PR 18's final run (3.986e-03, 6.008e-02, 5.934e-03), since f16 rounds 8x finer than bf16
+F16_KERNEL_VS_PLAIN = {"DA-V2 ViT-L": 2e-3, "BEiT-L-512": 3e-2, "SwinV2-L-384": 3e-3}
+INT8_TIER_REL = 3e-2  # an int8 tier's own error against its dense model (tests/test_torch_quant_int8.py, bf16)
+
+
+def f16_launch(kid, label, fn, route, kernel):
+    """fn(), one float16 launch of kernel #kid, counted on ``route`` and
+    traced (CUPTI): it must run the float16 instance whose demangled name
+    holds ``kernel``, and no other attention kernel. Returns fn()'s output
+    and, for the check's label, the instance that ran."""
+    out, names = device_kernels(lambda: _counted(fn, route, 1, f"#{kid} {label}"))
+    ran = [m.group(0) for m in (re.search(r"\b[fw]a_\w+<[^>]*>", name) for name in names) if m]
+    if len(ran) != 1 or kernel not in ran[0]:
+        raise RuntimeError(f"#{kid} {label}: the launch ran {names}, want the float16 instance {kernel}")
+    return out, f" [{ran[0]}]"
+
+
+def timed_f16(smi, what, f16, bf16, plain, library, iters=30, warmup=5) -> dict:
+    """CUDA-event times of a float16 kernel beside its bf16 sibling on the
+    same inputs in bf16 and its float16 plain version, in turns (plain, f16,
+    bf16, bf16, f16, plain), then of one PyTorch call in float16; printed,
+    and the faster of each pair returned."""
+    p1, h1, b1, b2, h2, p2 = (time_ms(f, iters, warmup) for f in (plain, f16, bf16, bf16, f16, plain))
+    lib = time_ms(library, iters, warmup)
+    print(f"kernel time {what}: float16 kernel {h1:.4f}/{h2:.4f} ms, bf16 kernel {b1:.4f}/{b2:.4f} ms, float16 plain "
+          f"{p1:.4f}/{p2:.4f} ms, library call in float16 {lib:.4f} ms [{smi}]", flush=True)
+    return {"f16_ms": min(h1, h2), "f16_bf16_ms": min(b1, b2), "f16_plain_ms": min(p1, p2), "f16_library_ms": lib}
+
+
+def check_f16_windows(check, rng, b, nw, window_hw, h, with_mask, bias_dtype):
+    """#3 in float16 against its plain version: float16 biases on the sm_90
+    instance (route window_sm90_f16), float32 ones (SwinV2's inline tables)
+    on the mma.sync instance of window_attention.cu (route window_f16)."""
+    args = make_windows(rng, b, nw, window_hw, h, torch.float16, bias_dtype, with_mask)
+    a = window_hw[0] * window_hw[1]
+    route, kernel = (("window_sm90_f16", F16_SM90["window"]) if bias_dtype == torch.float16 else
+                     ("window_f16", F16_MMA["window"]))
+    label = f"float16 B={b} nW={nw} A={a} H={h}{' mask' if with_mask else ''} bias {str(bias_dtype)[6:]}"
+    got, ran = f16_launch(3, label, lambda: wa.window_attention(*args), route, kernel)
+    check(3, label + ran, got, wa.window_attention_reference(*args), (b, nw, a, h, SWIN_D))
+
+
+def phase_f16_kernels(smi: str) -> dict:
+    """Every float16 instance of #1-#5 and #3 against its float16 plain
+    version at the models' shapes and edges (ragged N around the 128-key
+    and 192-row tiles, all-negative logits, both scale signs, every bias
+    source and both fills, float32 biases on the mma.sync instances), each
+    launch counted on its f16 route and traced to its instance; then CUDA-
+    event times at the JSON's shapes beside the bf16 kernel on the same
+    inputs in bf16, the plain version and one SDPA call in float16.
+    Returns {kernel id: its f16 numbers}."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in true f32
+    rng, check, f16, bf16 = np.random.default_rng(SEED + 5), Checker(), torch.float16, torch.bfloat16
+    layers, n = BEIT_L512["num_blocks"], N_BEIT
+
+    def fused(kid, label, qkv, kw, route, kernel, scale=None):
+        got, ran = f16_launch(kid, label, lambda: fa.flash_attention_fused_qkv(qkv, HEADS, scale=scale, **kw), route, kernel)
+        check(kid, label + ran, got, fa.flash_attention_fused_qkv_reference(qkv, HEADS, scale=scale, **kw),
+              tuple(qkv.shape[:2]) + (HEADS * HEAD_DIM,))
+
+    # #1: the DA shapes; N = 63-385 straddle the 128-key K/V tiles and the 192-row q tiles
+    for b, nn, neg, scale in [(1, N_TOKENS, False, None), (8, N_TOKENS, False, None), (1, 1, False, None),
+                              (1, 63, False, None), (1, 65, False, None), (2, 127, False, None), (2, 129, False, None),
+                              (1, 191, False, None), (1, 193, False, None), (2, 257, True, None), (1, N_TOKENS, True, None),
+                              (2, 200, False, 0.3), (2, 200, False, -0.3), (2, 385, False, None)]:
+        label = f"float16 B={b} N={nn}{' all-negative' if neg else ''}{f' scale={scale}' if scale else ''}"
+        fused(1, label, make_qkv(rng, b, nn, f16, neg), {}, "fused_f16", F16_SM90["unbiased"], scale)
+    # #2 at BEiT-L-512's N: the stack's last layer by TMA, the same layer unpadded (the copy fill), other sources
+    stack = padded_stack(rng, layers, n, f16)  # 1e6 pads are inf in f16: never read
+    last = {"bias_stack": stack, "layer": layers - 1}
+    unpadded = stack[layers - 1][None, :, :n, :n].contiguous()  # rows of 1025 elements: no tensor map reads them
+    for b in (1, 8):
+        qkv = make_qkv(rng, b, n, f16)
+        sources = {f"stack layer {layers - 1}, pads inf": (last, F16_SM90["biased"]),
+                   f"stack layer {layers - 1} unpadded": ({"bias": unpadded}, F16_SM90["biased"]),
+                   "(B,H,N,N)": ({"bias": make_bias(rng, (b, HEADS, n, n), f16)}, F16_SM90["biased"]),
+                   "(1,1,1,N)": ({"bias": make_bias(rng, (1, 1, 1, n), f16, scale=4.0)}, F16_SM90["biased"]),
+                   "(1,H,N,N) float32": ({"bias": make_bias(rng, (1, HEADS, n, n), torch.float32)}, F16_MMA["biased"])}
+        for src, (kw, kernel) in sources.items():
+            fused(2, f"float16 B={b} N={n} bias {src}{fill_name(**kw, b=b, n=n)}", qkv, kw, "fused_biased_f16", kernel)
+    for b, nn in ((2, 127), (1, 193), (2, 257), (1, 385)):
+        qkv = make_qkv(rng, b, nn, f16)
+        for src, kw in {"stack layer 1, pads inf": {"bias_stack": padded_stack(rng, 2, nn, f16), "layer": 1},
+                        "(1,H,N,N) unpadded": {"bias": make_bias(rng, (1, HEADS, nn, nn), f16)}}.items():
+            fused(2, f"float16 B={b} N={nn} bias {src}{fill_name(**kw, b=b, n=nn)}", qkv, kw, "fused_biased_f16",
+                  F16_SM90["biased"])
+    qkv = make_qkv(rng, 2, n, f16, all_negative=True)
+    kw = {"bias": make_bias(rng, (1, HEADS, n, n), f16, 0.1, -50.0)}
+    fused(2, f"float16 B=2 N={n} all-negative, bias ~ -50{fill_name(**kw, b=2, n=n)}", qkv, kw, "fused_biased_f16",
+          F16_SM90["biased"])
+    for scale in (0.3, -0.3):
+        fused(2, f"float16 B=2 N={n} bias stack layer {layers - 1} scale={scale}{fill_name(**last, b=2, n=n)}",
+              make_qkv(rng, 2, n, f16), last, "fused_biased_f16", F16_SM90["biased"], scale)
+    # #4 on strided views of one qkv, with and without the stack layer as a (1, H, Np, Np) bias; #5 past 32768 keys
+    layer = stack[layers - 1][None]
+    for b, nn, kw in ((8, n, {}), (8, n, {"bias": layer}), (1, 129, {})):
+        q, k, v = _split(make_qkv(rng, b, nn, f16))
+        label = f"float16 B={b} N={nn} strided views{' bias (1,H,Np,Np) stack layer' if kw else ''}"
+        label += fill_name(**kw, b=b, n=nn) if kw else ""
+        got, ran = f16_launch(4, label, lambda: fa.flash_attention(q, k, v, **kw), "bnhd_f16", F16_SM90["biased" if kw else "unbiased"])
+        check(4, label + ran, got, fa.flash_attention_reference(q, k, v, **kw), (b, nn, HEADS, HEAD_DIM))
+    q, k, v = (make_bias(rng, (1, N_ONLINE, 2, HEAD_DIM), f16) for _ in range(3))
+    got, ran = f16_launch(5, f"float16 B=1 N={N_ONLINE} H=2", lambda: fa.flash_attention(q, k, v), "bnhd_f16",
+                          F16_SM90["unbiased"])
+    check(5, f"float16 B=1 N={N_ONLINE} H=2" + ran, got, fa.flash_attention_reference(q, k, v), (1, N_ONLINE, 2, HEAD_DIM))
+    del q, k, v, got
+    # #3: every SwinV2-L-384 stage at B=1 and 8 with f16 biases (sm_90) and f32 ones (mma.sync), A = 1024 and 2209,
+    # odd and ragged areas
+    for b in (1, 8):
+        for nw, window_hw, h, with_mask in SWIN_STAGES:
+            for bias_dtype in (f16, torch.float32):
+                check_f16_windows(check, rng, b, nw, window_hw, h, with_mask, bias_dtype)
+    for nw, h in ((16, 6), (4, 12)):
+        check_f16_windows(check, rng, 1, nw, (32, 32), h, True, f16)
+    check_f16_windows(check, rng, 1, 1, (47, 47), 2, False, f16)
+    for window_hw in ((4, 4), (5, 5), (6, 6), (10, 15)):
+        check_f16_windows(check, rng, 2, 4, window_hw, 3, True, f16)
     torch.cuda.empty_cache()
-    try:
-        with contextlib.chdir(tmp):
-            run_image.main(["-m", ckpt, "-i", app_frame(tmp, "f16.png")[0], "--headless", "-u", *app_device_args()])
-    except SystemExit as e:
-        if "A16" not in str(e.code):
-            raise
-    else:
-        raise RuntimeError("run_image -u ran on the card")
-    print(f"float16 DA-V2 ViT-L on the card: the kernel refuses it ({refused}); run_image -u exits up front [{smi}]",
-          flush=True)
+
+    # times at the JSON's shapes, each beside the bf16 kernel on the same inputs in bf16
+    times = {}
+    qkv = make_qkv(rng, 8, N_TOKENS, f16)
+    qkv_b, sdpa = qkv.to(bf16), [t.transpose(1, 2) for t in _split(qkv)]
+    times[1] = timed_f16(smi, f"#1 B=8 fused N={N_TOKENS} H={HEADS} D={HEAD_DIM}",
+                         lambda: fa.flash_attention_fused_qkv(qkv, HEADS), lambda: fa.flash_attention_fused_qkv(qkv_b, HEADS),
+                         lambda: fa.flash_attention_fused_qkv_reference(qkv, HEADS), lambda: F.scaled_dot_product_attention(*sdpa))
+    qkv = make_qkv(rng, 8, n, f16)
+    qkv_b, stack_b = qkv.to(bf16), stack.to(bf16)
+    last_b, unpadded_b = {"bias_stack": stack_b, "layer": layers - 1}, unpadded.to(bf16)
+    q, k, v = _split(qkv)
+    q_b, k_b, v_b = _split(qkv_b)
+    sdpa, mask = [t.transpose(1, 2) for t in (q, k, v)], layer[:, :, :n, :n]
+    library = lambda: F.scaled_dot_product_attention(*sdpa, attn_mask=mask)  # noqa: E731
+    times[2] = timed_f16(smi, f"#2 B=8 fused N={n} stack layer {layers - 1} [tma]",
+                         lambda: fa.flash_attention_fused_qkv(qkv, HEADS, **last),
+                         lambda: fa.flash_attention_fused_qkv(qkv_b, HEADS, **last_b),
+                         lambda: fa.flash_attention_fused_qkv_reference(qkv, HEADS, **last), library)
+    copy = timed_f16(smi, f"#2 B=8 fused N={n} stack layer {layers - 1} unpadded [copy]",
+                     lambda: fa.flash_attention_fused_qkv(qkv, HEADS, bias=unpadded),
+                     lambda: fa.flash_attention_fused_qkv(qkv_b, HEADS, bias=unpadded_b),
+                     lambda: fa.flash_attention_fused_qkv_reference(qkv, HEADS, bias=unpadded), library)
+    times[2].update({"f16_copy_fill_ms": copy["f16_ms"], "f16_copy_fill_bf16_ms": copy["f16_bf16_ms"]})
+    layer_b = stack_b[layers - 1][None]
+    times[4] = timed_f16(smi, f"#4 B=8 (B,N,H,D) views N={n} bias (1,H,Np,Np) stack layer [tma]",
+                         lambda: fa.flash_attention(q, k, v, bias=layer), lambda: fa.flash_attention(q_b, k_b, v_b, bias=layer_b),
+                         lambda: fa.flash_attention_reference(q, k, v, bias=layer), library)
+    del stack, stack_b, last, last_b, qkv, qkv_b, q, k, v, q_b, k_b, v_b, sdpa, mask, layer, layer_b
+    torch.cuda.empty_cache()
+    q, k, v = (make_bias(rng, (1, N_ONLINE, 2, HEAD_DIM), f16) for _ in range(3))
+    q_b, k_b, v_b = (t.to(bf16) for t in (q, k, v))
+    times[5] = timed_f16(smi, f"#5 B=1 N={N_ONLINE} H=2", lambda: fa.flash_attention(q, k, v),
+                         lambda: fa.flash_attention(q_b, k_b, v_b), lambda: fa.flash_attention_reference(q, k, v),
+                         lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+                         iters=5, warmup=1)
+    del q, k, v, q_b, k_b, v_b
+    for b, s in ((8, 1), (8, 2), (8, 3), (8, 4), (1, 1)):
+        nw, window_hw, h, with_mask = SWIN_STAGES[s - 1]
+        a = window_hw[0] * window_hw[1]
+        args = make_windows(rng, b, nw, window_hw, h, f16, f16, with_mask, views=True)
+        args_b = tuple(None if t is None else t.to(bf16) for t in args)
+        sdpa_args = window_sdpa_inputs(*args)
+        what = f"#3 B={b} stage {s} nW={nw} A={a} H={h} D={SWIN_D}{' mask' if with_mask else ''}"
+        numbers = timed_f16(smi, what, lambda: wa.window_attention(*args), lambda: wa.window_attention(*args_b),
+                            lambda: wa.window_attention_reference(*args),
+                            lambda: F.scaled_dot_product_attention(*sdpa_args[:3], attn_mask=sdpa_args[3], scale=1.0))
+        if (b, s) == (8, 1):
+            mixed = (*args[:3], args[3].float(), None if args[4] is None else args[4].float())  # the inline tables
+            numbers["f16_f32_bias_ms"] = time_ms(lambda: wa.window_attention(*mixed))
+            print(f"kernel time {what}, float32 biases (window_attention.cu's f16 instance): "
+                  f"{numbers['f16_f32_bias_ms']:.4f} ms [{smi}]", flush=True)
+            times[3] = numbers
+        del args, args_b, sdpa_args
+    torch.cuda.empty_cache()
+    return {kid: {"f16_max_abs_err": check.worst[kid], **times[kid]} for kid in (1, 2, 3, 4, 5)}
+
+
+def phase_f16_model(smi: str, ckpt: str, side, out_hw, routes: dict, blocks: int, what: str, bf16_depth, frame,
+                    plain_f32: dict) -> dict:
+    """A family's float16 kernel model (the apps' -u) on the card: served as
+    ``serve`` serves (3 requests and a batch of 8, ``blocks`` launches per
+    forward on the f16 route), its B=1 and B=8 times beside the bf16
+    model's; then on ``frame`` in each aux mode of ``routes`` ({enable_cache:
+    route}) against the float16 plain model (``F16_KERNEL_VS_PLAIN``) and the
+    float32 plain model (``plain_f32``, from ``parity``), which it must come
+    nearer than the bf16 kernel model (``bf16_depth``, from ``serve``) does.
+    Returns the launches by route."""
+    _, model = make_dpt_from_state_dict(ckpt, dtype=torch.float16, device=DEVICE)
+    _, plain = make_dpt_from_state_dict(ckpt, dtype=torch.float16, device=DEVICE, enable_optimizations=False)
+    fa.reset_launch_counts()  # count the path's run only
+    serve(smi, model, side, out_hw, routes[True], blocks, f"{what} f16")
+    rel_bf16 = _abs_rel(bf16_depth, plain_f32[True])
+    for enable_cache, route in routes.items():
+        for m in (model, plain):
+            m.config["enable_cache"] = enable_cache
+        d16 = _counted(lambda: model.inference(frame, side), route, blocks, f"{what} f16 kernel model")
+        d_plain = _counted(lambda: plain.inference(frame, side), route, 0, f"{what} f16 plain model")
+        _check_depth(d16, (1, *out_hw), f"{what} f16 kernel model")
+        rel_plain, rel_f32 = _abs_rel(d16, d_plain), _abs_rel(d16, plain_f32[enable_cache])
+        mode = f" (enable_cache={enable_cache})" if len(routes) > 1 else ""
+        print(f"{what} f16 kernel model{mode}: mean abs-rel {rel_plain:.3e} from the f16 plain model (limit "
+              f"{F16_KERNEL_VS_PLAIN[what]:g}), {rel_f32:.3e} from the f32 plain model against the bf16 kernel model's "
+              f"{rel_bf16:.3e} ({rel_bf16 / rel_f32:.1f}x nearer; {blocks} {route} launches) [{smi}]", flush=True)
+        if d16.dtype != torch.float16 or not rel_plain <= F16_KERNEL_VS_PLAIN[what] or not rel_f32 < rel_bf16:
+            raise RuntimeError(f"{what} f16 kernel model{mode}: {d16.dtype}, abs-rel {rel_plain:.3e} from the f16 plain "
+                               f"model, {rel_f32:.3e} from the f32 plain model (the bf16 kernel model's {rel_bf16:.3e})")
+    launches = {r: c for r, c in fa.launch_counts().items() if c}
+    (h1, h8), (b1, b8) = SERVED[f"{what} f16"], SERVED[what]
+    print(f"{what} f16 serving: {h1:.3f} ms per request at B=1, {h8:.3f} ms per frame at B=8, beside bf16 {b1:.3f} / "
+          f"{b8:.3f}; launches by route {launches} [{smi}]", flush=True)
+    del model, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_f16_apps(smi: str, ckpt: str, tmp: str, video: str) -> dict:
+    """The apps' -u on DA-V2 ViT-L (float16 on the card): run_image -u (24
+    ``fused_f16`` launches; its ``_raw.npy`` against the f16 facade's
+    normalized depth, ``APP_MAX_ABS``), run_image -u --int8 (the int8
+    tier of the f16 model: the same launches, its ``_raw.npy`` within the
+    tier's own error of the -u one), run_video -u -sync and dispatch-ahead
+    over ``video`` (24 per dispatch). Returns the apps' launches by route."""
+    blocks = VITL["num_blocks"]
+    saved, _, img = run_image_once(smi, ckpt, tmp, "fused_f16", blocks, "DA-V2 ViT-L", ["-u"])
+    dense = np.load(saved[1])
+    _, model = make_dpt_from_state_dict(ckpt, dtype=torch.float16, device=DEVICE)
+    h, w = img.shape[:2]
+    want = normalize_01(remove_infinities(scale_prediction(depth_to_numpy(model.inference(img)), (w, h)).squeeze()))
+    del model
+    err = float(np.abs(dense - want).max())
+    saved, _, _ = run_image_once(smi, ckpt, tmp, "fused_f16", blocks, "DA-V2 ViT-L", ["-u", "--int8"])
+    rel8 = _abs_rel(torch.from_numpy(np.load(saved[1])), torch.from_numpy(dense))
+    print(f"run_image -u: _raw.npy max abs {err:.3e} from the f16 facade's normalized depth (gate {APP_MAX_ABS:g}); "
+          f"-u --int8 mean abs-rel {rel8:.3e} from -u (gate {INT8_TIER_REL:g}) [{smi}]", flush=True)
+    if not (err <= APP_MAX_ABS and rel8 < INT8_TIER_REL):
+        raise RuntimeError(f"run_image -u: {err:.3e} from the f16 facade, --int8 {rel8:.3e} from the dense -u run")
+    with contextlib.chdir(tmp):
+        stats = [run_video_once(smi, ckpt, video, ["-u", *extra], blocks, f"-u {mode}", "fused_f16")
+                 for mode, extra in (("-sync", ["-sync"]), ("dispatch-ahead", []))]
+    launches = {"fused_f16": blocks * (2 + sum(len(s["host_ms"]) for s in stats))}
+    print(f"apps -u on DA-V2 ViT-L, launches from inside the apps: {launches} [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+    return launches
 
 
 EXPORT_TIMING_ITERS = 10  # B=1 host-clock ms of a reloaded program and the live forward: the median of these
@@ -2252,10 +2515,12 @@ def phase_tensor_parallel(smi: str, ckpts: dict, tmp: str) -> dict:
     return {1: totals["fused"], 2: totals["fused_biased"], 3: totals["window_sm90"]}
 
 
-def phase_bnhd_path(smi: str) -> tuple[int, int]:
+def phase_bnhd_path(smi: str) -> tuple[int, int, int, int]:
     """The (B, N, H, D) op: BEiT-L-512's attention shape (B=8, q, k, v as
     strided views of one qkv, a padded (1, H, Np, Np) bias as the JAX BEiT
-    route hands it over), then 32897 keys."""
+    route hands it over), then 32897 keys; in bf16, then the same inputs in
+    float16 (route ``bnhd_f16``). Returns the launches: #4 and #5 in bf16,
+    #4 and #5 in float16."""
     rng = np.random.default_rng(SEED + 3)
     qkv = make_qkv(rng, 8, N_BEIT, torch.bfloat16)
     bias = padded_stack(rng, 1, N_BEIT, torch.bfloat16)  # (1, H, Np, Np), pads 1e6
@@ -2267,8 +2532,17 @@ def phase_bnhd_path(smi: str) -> tuple[int, int]:
     out = _counted(lambda: fa.flash_attention(q, k, v), "bnhd", 1, f"(B, N, H, D) op at {N_ONLINE} keys")
     _check_depth(out, (1, N_ONLINE, 2, HEAD_DIM), f"(B, N, H, D) op at {N_ONLINE} keys")
     online = fa.flash_attention.launches - at_beit
-    print(f"(B, N, H, D) op: {at_beit} launch at B=8 N={N_BEIT} with bias, {online} at N={N_ONLINE}", flush=True)
-    return at_beit, online
+    qkv16, bias16 = qkv.to(torch.float16), bias.to(torch.float16)  # the 1e6 pads are inf in f16: never read
+    out = _counted(lambda: fa.flash_attention(*_split(qkv16), bias=bias16), "bnhd_f16", 1, "(B, N, H, D) op f16")
+    _check_depth(out, (8, N_BEIT, HEADS, HEAD_DIM), "(B, N, H, D) op f16")
+    at_beit16 = fa.flash_attention.f16_launches
+    q, k, v = (t.to(torch.float16) for t in (q, k, v))
+    out = _counted(lambda: fa.flash_attention(q, k, v), "bnhd_f16", 1, f"(B, N, H, D) op f16 at {N_ONLINE} keys")
+    _check_depth(out, (1, N_ONLINE, 2, HEAD_DIM), f"(B, N, H, D) op f16 at {N_ONLINE} keys")
+    online16 = fa.flash_attention.f16_launches - at_beit16
+    print(f"(B, N, H, D) op: {at_beit} launch at B=8 N={N_BEIT} with bias, {online} at N={N_ONLINE}; float16 {at_beit16} "
+          f"and {online16}", flush=True)
+    return at_beit, online, at_beit16, online16
 
 
 def mlp_inputs(rng, shape, dtype, hidden=None):
@@ -2474,7 +2748,7 @@ def phase_da_v1(smi: str, ckpt: str, check: Checker, times: dict):
     fa.reset_launch_counts()  # count the path's run only
     depth, frame = serve(smi, model, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V1 ViT-L")
     flash = fa.flash_attention_fused_qkv.launches
-    m_f32 = parity(ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V1 ViT-L", depth)
+    m_f32, _ = parity(ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V1 ViT-L", depth)
     stacks = frame_stacks()
     launches = hold_on_model(smi, model, "DA-V1 ViT-L", stacks, check, times=times)
     del model
@@ -3230,18 +3504,18 @@ def write_checkpoint(sd: dict, path: str) -> str:
     return path
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """The least time the card could take: bf16 operations over the dense
-    bf16 peak, or bytes over HBM's rate, whichever is larger."""
-    t_ops = ops / PEAK_FLOPS[torch.bfloat16] * 1e3
+def bound(ops: float, nbytes: float, dtype=torch.bfloat16) -> dict:
+    """The least time the card could take: ``dtype`` operations over its
+    dense peak, or bytes over HBM's rate, whichever is larger."""
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def attention_bound(b, n, h, d, bias_elements=0) -> dict:
-    """Attention's bound: 4 B H N^2 D operations (QK^T and PV); q, k and v
-    read, out written, a bias's N x N read once."""
-    return bound(4 * b * h * n * n * d, (4 * b * n * h * d + bias_elements) * 2)
+def attention_bound(b, n, h, d, bias_elements=0, dtype=torch.bfloat16) -> dict:
+    """Attention's bound in a 16-bit ``dtype``: 4 B H N^2 D operations (QK^T
+    and PV); q, k and v read, out written, a bias's N x N read once."""
+    return bound(4 * b * h * n * n * d, (4 * b * n * h * d + bias_elements) * 2, dtype)
 
 
 def staged_floor_ms(b, n, h, d) -> float:
@@ -3281,11 +3555,32 @@ def bounds() -> dict:
     }
 
 
+def f16_bounds() -> dict:
+    """#1-#5's float16 bounds at their JSON shapes: the bytes of bf16 (2 per
+    element) over HBM's rate, the operations over the same dense peak (989
+    TFLOP/s in f16 as in bf16 on an H100), so each equals its bf16 bound."""
+    f16, (nw, (wh, ww), sh, _) = torch.float16, SWIN_STAGES[0]
+    limits = {
+        1: attention_bound(8, N_TOKENS, HEADS, HEAD_DIM, dtype=f16),
+        2: attention_bound(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2, f16),
+        3: wa.window_bound(8, nw, wh * ww, sh, True),
+        4: attention_bound(8, N_BEIT, HEADS, HEAD_DIM, HEADS * N_BEIT**2, f16),
+        5: attention_bound(1, N_ONLINE, 2, HEAD_DIM, dtype=f16),
+    }
+    return {kid: {"f16_bound_ms": limit["bound_ms"], "f16_bound_by": limit["bound_by"]} for kid, limit in limits.items()}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = timed("device", phase_device)
     timed("build", phase_build)
     numbers = timed("kernel checks and times", phase_kernel, smi)
+    f16_numbers = timed("float16 kernel checks and times: #1-#5 and #3", phase_f16_kernels, smi)
+    f16_launches = {}  # the float16 routes' launches on the main path (models, apps, the (B, N, H, D) op)
+
+    def add_f16(moved: dict):
+        for route, count in moved.items():
+            f16_launches[route] = f16_launches.get(route, 0) + count
     numbers.update(timed("fused MLP and head tail checks and times", phase_fused_kernels, smi))
     int8_worst = timed("int8-QK^T attention checks", phase_int8_kernels, smi)
     launches, check, composite = {}, Checker(), {}
@@ -3293,8 +3588,10 @@ def main() -> int:
         ckpt = write_checkpoint(random_original_depth_anything_state_dict(VITL, seed=SEED),
                                 os.path.join(tmp, "depth_anything_v2_vitl_random.pth"))
         launches[1], depth, frame = timed("DA-V2 model", phase_da_model, smi, ckpt)
-        m32 = timed("DA-V2 f32 parity", parity, ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V2 ViT-L",
-                    depth)
+        m32, plain_f32 = timed("DA-V2 f32 parity", parity, ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"],
+                               "DA-V2 ViT-L", depth)
+        add_f16(timed("DA-V2 f16 model", phase_f16_model, smi, ckpt, MAX_SIDE, OUT_HW, {True: "fused_f16"},
+                      VITL["num_blocks"], "DA-V2 ViT-L", depth, frame, plain_f32))
         captured = timed("DA-V2 capture", phase_capture, smi, m32, frame, MAX_SIDE, OUT_HW, "DA-V2 ViT-L", DA_ROUTES)
         del m32
         timed("experiments on DA-V2 ViT-L", phase_experiments, smi, ckpt, tmp)
@@ -3318,13 +3615,18 @@ def main() -> int:
         ckpt = write_checkpoint(random_beit_state_dict(BEIT_L512, seed=SEED), os.path.join(tmp, "dpt_beit_large_512_random.pt"))
         launches[2], depth, frame, err = timed("BEiT model", phase_beit_model, smi, ckpt)
         numbers[2]["max_abs_err"] = max(numbers[2]["max_abs_err"], err)
-        m32 = timed("BEiT f32 parity", parity, ckpt, frame, BEIT_SIDE, BEIT_HW, "fused_biased", BEIT_L512["num_blocks"],
-                    "BEiT-L-512", depth, (True, False))
+        m32, plain_f32 = timed("BEiT f32 parity", parity, ckpt, frame, BEIT_SIDE, BEIT_HW, "fused_biased",
+                               BEIT_L512["num_blocks"], "BEiT-L-512", depth, (True, False))
+        add_f16(timed("BEiT f16 model", phase_f16_model, smi, ckpt, BEIT_SIDE, BEIT_HW,
+                      {True: "fused_biased_f16", False: "fused_biased_f16"}, BEIT_L512["num_blocks"], "BEiT-L-512", depth,
+                      frame, plain_f32))
         captured.update(timed("BEiT capture", phase_capture, smi, m32, frame, BEIT_SIDE, BEIT_HW, "BEiT-L-512",
                               BEIT_ROUTES, (True, False)))
         del m32
         apps["launches"]["fused_biased"] = timed("run_image on BEiT-L-512", phase_app_family, smi, ckpt, tmp,
                                                  "fused_biased", BEIT_L512["num_blocks"], "BEiT-L-512")
+        apps["launches"]["fused_biased_f16"] = timed("run_image -u on BEiT-L-512", phase_app_family, smi, ckpt, tmp,
+                                                     "fused_biased_f16", BEIT_L512["num_blocks"], "BEiT-L-512", ["-u"])
         export_launches, exported["BEiT-L-512 MB"] = timed("export on BEiT-L-512", phase_export_family, smi, ckpt, tmp,
                                                            BEIT_HW, "fused_biased", BEIT_L512["num_blocks"], "BEiT-L-512",
                                                            (True, False))
@@ -3332,19 +3634,23 @@ def main() -> int:
         tp_ckpts["beit"] = ckpt
         ckpt = write_checkpoint(random_swinv2_state_dict(SWIN_L384, seed=SEED), os.path.join(tmp, "dpt_swin2_large_384_random.pt"))
         launches[3], depth, frame = timed("SwinV2 model", phase_swin_model, smi, ckpt)
-        m32 = timed("SwinV2 f32 parity", parity, ckpt, frame, SWIN_SIDE, SWIN_HW, "window", SWIN_BLOCKS, "SwinV2-L-384",
-                    depth, (True, False))
+        m32, plain_f32 = timed("SwinV2 f32 parity", parity, ckpt, frame, SWIN_SIDE, SWIN_HW, "window", SWIN_BLOCKS,
+                               "SwinV2-L-384", depth, (True, False))
+        add_f16(timed("SwinV2 f16 model", phase_f16_model, smi, ckpt, SWIN_SIDE, SWIN_HW,
+                      {True: "window_sm90_f16", False: "window_f16"}, SWIN_BLOCKS, "SwinV2-L-384", depth, frame, plain_f32))
         captured.update(timed("SwinV2 capture", phase_capture, smi, m32, frame, SWIN_SIDE, SWIN_HW, "SwinV2-L-384",
                               SWIN_ROUTES, (True, False)))
         del m32
         apps["launches"]["window_sm90"] = timed("run_image on SwinV2-L-384", phase_app_family, smi, ckpt, tmp,
                                                 "window_sm90", SWIN_BLOCKS, "SwinV2-L-384")
+        apps["launches"]["window_sm90_f16"] = timed("run_image -u on SwinV2-L-384", phase_app_family, smi, ckpt, tmp,
+                                                    "window_sm90_f16", SWIN_BLOCKS, "SwinV2-L-384", ["-u"])
         export_launches, exported["SwinV2-L-384 MB"] = timed("export on SwinV2-L-384", phase_export_family, smi, ckpt,
                                                              tmp, SWIN_HW, "window_sm90", SWIN_BLOCKS, "SwinV2-L-384")
         launches[3] += export_launches
         torch.cuda.empty_cache()
         tp_ckpts["swin"] = ckpt
-        launches[4], launches[5] = timed("(B, N, H, D) op path", phase_bnhd_path, smi)
+        launches[4], launches[5], f16_bnhd_4, f16_bnhd_5 = timed("(B, N, H, D) op path", phase_bnhd_path, smi)
         ckpt = write_checkpoint(random_original_depth_anything_state_dict(VITL, seed=SEED + 1),
                                 os.path.join(tmp, "depth_anything_vitl14.pth"))
         flash_v1, fused = timed("DA-V1 model, f32 parity, #8 and #9 on its layers", phase_da_v1, smi, ckpt, check, composite)
@@ -3401,8 +3707,19 @@ def main() -> int:
           f"ONNX {exported['onnx_mb']:.1f} MB, evaluator {exported['onnx_s']:.1f} s, abs-rel {exported['onnx_rel']:.3e}; "
           f"BEiT-L-512 artifact MB by aux cached {exported['BEiT-L-512 MB']}, SwinV2-L-384 "
           f"{exported['SwinV2-L-384 MB']} [{smi}]", flush=True)
-    if not all(apps["launches"].get(r, 0) > 0 for r in ("fused", "fused_biased", "window_sm90")):
+    app_routes = ("fused", "fused_biased", "window_sm90", "fused_f16", "fused_biased_f16", "window_sm90_f16")
+    if not all(apps["launches"].get(r, 0) > 0 for r in app_routes):
         raise RuntimeError(f"an app never launched a serving kernel: {apps['launches']}")
+    add_f16({r: apps["launches"][r] for r in app_routes if r.endswith("_f16")})
+    print(f"float16 launches on the main path by route (f16 models, apps -u, the (B, N, H, D) op): {f16_launches}, "
+          f"bnhd_f16 {f16_bnhd_4} + {f16_bnhd_5} [{smi}]", flush=True)
+    if not all(f16_launches.get(r, 0) > 0 for r in F16_ROUTES if r != "bnhd_f16") or not f16_bnhd_4 or not f16_bnhd_5:
+        raise RuntimeError(f"a float16 route never launched on its path: {f16_launches}, bnhd_f16 {f16_bnhd_4}, {f16_bnhd_5}")
+    f16_counts = {1: f16_launches["fused_f16"], 2: f16_launches["fused_biased_f16"],
+                  3: f16_launches["window_sm90_f16"] + f16_launches["window_f16"], 4: f16_bnhd_4, 5: f16_bnhd_5}
+    f16_limits = f16_bounds()
+    for kid in f16_counts:
+        numbers[kid].update(f16_numbers[kid], f16_launches=f16_counts[kid], **f16_limits[kid])
     limits = bounds()
     kernels = [
         {

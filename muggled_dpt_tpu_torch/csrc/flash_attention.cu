@@ -1,13 +1,15 @@
-// Flash attention for Hopper (sm_90a), float32 and bfloat16, on strided q, k
-// and v with an optional additive bias: the C entry of every launch, and the
-// kernels of the float32 launches and of the one bfloat16 launch the sm_90
-// kernel does not take. Routing, by dtype alone:
-//   bf16 q/k/v, no bias or a bf16 bias -> flash_attention_sm90.cu (wgmma, TMA,
-//                                         a warp-specialised producer)
-//   bf16 q/k/v, a float32 bias         -> fa_bf16 here (no model path sends
-//                                         one: the models hand the bias over
-//                                         in their own dtype)
-//   float32                            -> fa_f32 here (the parity mode)
+// Flash attention for Hopper (sm_90a), float32, bfloat16 and float16, on
+// strided q, k and v with an optional additive bias: the C entry of every
+// launch, and the kernels of the float32 launches and of the 16-bit launches
+// the sm_90 kernel does not take. Routing, by dtype alone (T: bf16 or f16):
+//   T q/k/v, no bias or a bias of type T -> flash_attention_sm90.cu (wgmma,
+//                                           TMA, a warp-specialised producer)
+//   T q/k/v, a float32 bias              -> fa_mma<T> here (no model path
+//                                           sends one: the models hand the
+//                                           bias over in their own dtype)
+//   float32, no bias or a float32 or bf16 one -> fa_f32 here (the parity mode)
+//   a float16 bias beside bf16 or float32 q/k/v, a bf16 bias beside float16
+//   ones: refused (cudaErrorInvalidValue)
 //
 // Replaces four TPU kernels of muggled_dpt_tpu/ops/pallas/flash_attention.py,
 // which compute the same math on differently laid-out inputs:
@@ -31,8 +33,8 @@
 // N; each q row keeps a running (max m, sum l, accumulator acc) in
 // registers. That one streaming loop replaces the TPU's one-pass/online
 // split, its whole-row VMEM residency, its head grouping (hpp) and its bias
-// downcast, which were TPU tactics. fa_bf16 runs both products on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, f32 out), K/V
+// downcast, which were TPU tactics. fa_mma runs both products on the
+// tensor cores with mma.sync m16n8k16 (T in, f32 out), K/V
 // double-buffered by cp.async, and reads its float32 bias from global
 // memory into registers in the layout of the logits it is added to, one
 // key tile ahead; a unit column stride with even rows gets its own
@@ -41,8 +43,8 @@
 // Numerics kept from the TPU kernels:
 //   * exp2 domain: logits are s * scale * log2(e) + bias * log2(e), in f32,
 //     equal to the natural-exp softmax of s * scale + bias. The f32 kernel
-//     folds scale * log2(e) into q; the bf16 kernel applies it to the f32
-//     logits, so q is not rounded to bf16 a second time;
+//     folds scale * log2(e) into q; the T kernel applies it to the f32
+//     logits, so q is not rounded to T a second time;
 //   * keys at or past N are replaced by NEG_INF, whatever the bias holds
 //     there (never an analytic pad-count correction, which fails when every
 //     logit is very negative);
@@ -53,14 +55,15 @@
 // constants the measurement variants' float32 template shares.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_tile.cuh"
 
-// flash_attention_sm90.cu: every bfloat16 launch without a bias or with a bfloat16 one
-cudaError_t flash_attention_sm90(const void* q, const long long* q_st, const void* k, const long long* k_st, const void* v,
-                                 const long long* v_st, void* o, const long long* o_st, const void* bias,
+// flash_attention_sm90.cu: every bfloat16 (half false) or float16 (half true) launch without a bias or with one of q's type
+cudaError_t flash_attention_sm90(bool half, const void* q, const long long* q_st, const void* k, const long long* k_st,
+                                 const void* v, const long long* v_st, void* o, const long long* o_st, const void* bias,
                                  const long long* bias_st, int fill, int batch, int n, int heads, float qk_scale_log2,
                                  cudaStream_t stream);
 
@@ -68,6 +71,8 @@ namespace {
 
 // bias element types: template argument BIAS
 constexpr int BIAS_NONE = 0, BIAS_F32 = 1, BIAS_BF16 = 2;
+// the argument array's dtype codes (SLOT_DTYPE, SLOT_BIAS_DTYPE)
+constexpr int CODE_NONE = -1, CODE_F32 = 0, CODE_BF16 = 1, CODE_F16 = 2;
 
 struct Args {
     const void* q;
@@ -206,8 +211,8 @@ __global__ void __launch_bounds__(F32_BQ) fa_f32(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 with a float32 bias: tensor-core kernel, 4 warps x 16 q rows,
-// mma.sync m16n8k16
+// bfloat16 or float16 (T) with a float32 bias: tensor-core kernel, 4 warps x
+// 16 q rows, mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;       // q rows per CTA (16 per warp)
@@ -217,8 +222,9 @@ constexpr int THREADS = 128;
 // chunks of 16 B, 4 per thread. This thread copies rows r0 + 16i (i = 0..3)
 // at column c0: p points at row r0 of the tile, at column c0; `first` is
 // the tile's first row; `fallback` is a valid address for rows past N.
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[LDS], const __nv_bfloat16* p, long long step16, int first,
-                                          int n, int r0, int c0, const __nv_bfloat16* fallback) {
+template <typename T>
+__device__ __forceinline__ void load_tile(T (*dst)[LDS], const T* p, long long step16, int first, int n, int r0, int c0,
+                                          const T* fallback) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const bool valid = first + r0 + 16 * i < n;
@@ -256,23 +262,23 @@ __device__ __forceinline__ void bias_fetch(float2 (&raw)[2][BK / 8], const Args&
     }
 }
 
-template <bool PAIRS>
-__global__ void __launch_bounds__(THREADS) fa_bf16(const Args a) {
-    __shared__ __align__(16) __nv_bfloat16 qs[BQ][LDS];
-    __shared__ __align__(16) __nv_bfloat16 ks[2][BK][LDS];
-    __shared__ __align__(16) __nv_bfloat16 vs[2][BK][LDS];
+template <typename T, bool PAIRS>
+__global__ void __launch_bounds__(THREADS) fa_mma(const Args a) {
+    __shared__ __align__(16) T qs[BQ][LDS];
+    __shared__ __align__(16) T ks[2][BK][LDS];
+    __shared__ __align__(16) T vs[2][BK][LDS];
 
     const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, cq = lane % 4;  // fragment row group and column pair
     const int n = a.n;
-    const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * a.k_sh;
-    const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
+    const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+    const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+    const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
     // this thread's share of every tile copy: rows r0 + 16i, 16-byte column chunk c0
     const int r0 = tid / (D / 8), c0 = (tid % (D / 8)) * 8;
-    const __nv_bfloat16* kt = kb + r0 * a.k_sn + c0;  // advanced by one tile per iteration
-    const __nv_bfloat16* vt = vb + r0 * a.v_sn + c0;
+    const T* kt = kb + r0 * a.k_sn + c0;  // advanced by one tile per iteration
+    const T* vt = vb + r0 * a.v_sn + c0;
     const long long k16 = 16 * a.k_sn, v16 = 16 * a.v_sn;
     // this thread's logit rows are row_g and row_g + 8
     const int row_g = q0 + warp * 16 + g;
@@ -338,8 +344,8 @@ __global__ void __launch_bounds__(THREADS) fa_bf16(const Args a) {
         for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
             for (int nt = 0; nt < BK / 8; ++nt) {
-                const __nv_bfloat16* kp = &ks[st][nt * 8 + g][kk * 16 + 2 * cq];
-                mma_16816(s[nt], qf[kk], ld_u32(kp), ld_u32(kp + 8));
+                const T* kp = &ks[st][nt * 8 + g][kk * 16 + 2 * cq];
+                mma_16816<T>(s[nt], qf[kk], ld_u32(kp), ld_u32(kp + 8));
             }
         }
 
@@ -375,7 +381,7 @@ __global__ void __launch_bounds__(THREADS) fa_bf16(const Args a) {
             acc[dt][3] *= alpha[1];
         }
 
-        // P = exp2(S - m), rounded to bf16; the S C-fragments of key tiles
+        // P = exp2(S - m), rounded to T; the S C-fragments of key tiles
         // 2j and 2j+1 are exactly the A-fragment of PV k step j
         uint32_t pf[BK / 16][4];
 #pragma unroll
@@ -387,8 +393,8 @@ __global__ void __launch_bounds__(THREADS) fa_bf16(const Args a) {
                 const float p2 = exp2f(sv[2] - m_r[1]), p3 = exp2f(sv[3] - m_r[1]);
                 l_r[0] += p0 + p1;
                 l_r[1] += p2 + p3;
-                pf[j][2 * half] = pack_bf16(p0, p1);
-                pf[j][2 * half + 1] = pack_bf16(p2, p3);
+                pf[j][2 * half] = pack2<T>(p0, p1);
+                pf[j][2 * half + 1] = pack2<T>(p2, p3);
             }
         }
 
@@ -400,8 +406,8 @@ __global__ void __launch_bounds__(THREADS) fa_bf16(const Args a) {
             for (int dp = 0; dp < D / 16; ++dp) {
                 uint32_t vfrag[4];
                 ldmatrix_x4_trans(vfrag, &vs[st][j * 16 + (mtx & 1) * 8 + mrow][dp * 16 + (mtx >> 1) * 8]);
-                mma_16816(acc[2 * dp], pf[j], vfrag[0], vfrag[1]);
-                mma_16816(acc[2 * dp + 1], pf[j], vfrag[2], vfrag[3]);
+                mma_16816<T>(acc[2 * dp], pf[j], vfrag[0], vfrag[1]);
+                mma_16816<T>(acc[2 * dp + 1], pf[j], vfrag[2], vfrag[3]);
             }
         }
         __syncthreads();  // this stage is refilled two iterations on
@@ -412,56 +418,61 @@ __global__ void __launch_bounds__(THREADS) fa_bf16(const Args a) {
         l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
         l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     }
-    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
+    T* ob = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int row = row_g + 8 * r;
         if (row < n) {
             const float lr = fmaxf(l_r[r], 1e-30f);
-            __nv_bfloat16* op = ob + row * a.o_sn;
+            T* op = ob + row * a.o_sn;
 #pragma unroll
             for (int dt = 0; dt < D / 8; ++dt)
-                *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * cq) = pack_bf16(acc[dt][2 * r] / lr, acc[dt][2 * r + 1] / lr);
+                *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * cq) = pack2<T>(acc[dt][2 * r] / lr, acc[dt][2 * r + 1] / lr);
         }
     }
 }
 
-// Every launch but the two that flash_attention_sm90.cu takes (bf16 without
-// a bias or with a bf16 one). pairs: the float32 bias has column stride 1 and
-// every bias row starts at an even element, so fa_bf16 loads bias pairs at
-// immediate offsets.
+// Every launch but those flash_attention_sm90.cu takes (bf16 or f16 without
+// a bias or with one of q's type): fa_f32<BIAS> for float32 q/k/v, fa_mma<T>
+// for T q/k/v with a float32 bias. pairs: the float32 bias
+// has column stride 1 and every bias row starts at an even element, so
+// fa_mma loads bias pairs at immediate offsets.
 template <int BIAS>
-cudaError_t launch(const Args& a, int dtype, bool pairs, dim3 grid, cudaStream_t s) {
-    if (dtype == 0) {
-        fa_f32<BIAS><<<grid, F32_BQ, 0, s>>>(a);
-    } else if constexpr (BIAS != BIAS_F32) {
-        return cudaErrorInvalidValue;  // bf16 without a bias or with a bf16 one: flash_attention_sm90.cu only
-    } else if (pairs) {
-        fa_bf16<true><<<grid, THREADS, 0, s>>>(a);
+cudaError_t launch_f32(const Args& a, dim3 grid, cudaStream_t s) {
+    fa_f32<BIAS><<<grid, F32_BQ, 0, s>>>(a);
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_mma(const Args& a, bool pairs, dim3 grid, cudaStream_t s) {
+    if (pairs) {
+        fa_mma<T, true><<<grid, THREADS, 0, s>>>(a);
     } else {
-        fa_bf16<false><<<grid, THREADS, 0, s>>>(a);
+        fa_mma<T, false><<<grid, THREADS, 0, s>>>(a);
     }
     return cudaGetLastError();
 }
 
 cudaError_t launch_any(const Args& a, int dtype, int bias_dtype, int fill, int batch, int num_heads, cudaStream_t s) {
-    if (dtype == 1 && bias_dtype != 0) {
+    if (dtype != CODE_F32 && bias_dtype != CODE_F32) {
+        if (bias_dtype != CODE_NONE && bias_dtype != dtype) return cudaErrorInvalidValue;  // bf16 with f16, or f16 with bf16
         const long long qs[3] = {a.q_sb, a.q_sn, a.q_sh}, ks[3] = {a.k_sb, a.k_sn, a.k_sh};
         const long long vs[3] = {a.v_sb, a.v_sn, a.v_sh}, os[3] = {a.o_sb, a.o_sn, a.o_sh};
         const long long bs[4] = {a.b_sb, a.b_sh, a.b_sn, a.b_sk};
-        const void* bias = bias_dtype == 1 ? static_cast<const __nv_bfloat16*>(a.bias) + a.b_off : nullptr;
-        return flash_attention_sm90(a.q, qs, a.k, ks, a.v, vs, a.o, os, bias, bs, fill, batch, a.n, num_heads,
-                                    a.qk_scale_log2, s);
+        const void* bias = bias_dtype == CODE_NONE ? nullptr : static_cast<const char*>(a.bias) + a.b_off * 2;
+        return flash_attention_sm90(dtype == CODE_F16, a.q, qs, a.k, ks, a.v, vs, a.o, os, bias, bs, fill, batch, a.n,
+                                    num_heads, a.qk_scale_log2, s);
     }
-    bool pairs = false;
-    if (bias_dtype == 0) {
-        const uintptr_t first = reinterpret_cast<uintptr_t>(a.bias) + (uintptr_t)(a.b_off * 4);
-        pairs = a.b_sk == 1 && first % 8 == 0 && a.b_sb % 2 == 0 && a.b_sh % 2 == 0 && a.b_sn % 2 == 0;
+    const dim3 grid((a.n + BQ - 1) / BQ, num_heads, batch);  // F32_BQ == BQ: one q tile of 64 rows per CTA
+    if (dtype == CODE_F32) {
+        if (bias_dtype == CODE_NONE) return launch_f32<BIAS_NONE>(a, grid, s);
+        if (bias_dtype == CODE_F32) return launch_f32<BIAS_F32>(a, grid, s);
+        if (bias_dtype == CODE_BF16) return launch_f32<BIAS_BF16>(a, grid, s);
+        return cudaErrorInvalidValue;  // a float16 bias: no float32 instance
     }
-    const dim3 grid((a.n + BQ - 1) / BQ, num_heads, batch);
-    if (bias_dtype == -1) return launch<BIAS_NONE>(a, dtype, pairs, grid, s);
-    if (bias_dtype == 0) return launch<BIAS_F32>(a, dtype, pairs, grid, s);
-    return launch<BIAS_BF16>(a, dtype, pairs, grid, s);
+    const uintptr_t first = reinterpret_cast<uintptr_t>(a.bias) + (uintptr_t)(a.b_off * 4);
+    const bool pairs = a.b_sk == 1 && first % 8 == 0 && a.b_sb % 2 == 0 && a.b_sh % 2 == 0 && a.b_sn % 2 == 0;
+    return dtype == CODE_F16 ? launch_mma<__half>(a, pairs, grid, s) : launch_mma<__nv_bfloat16>(a, pairs, grid, s);
 }
 
 // Slots of the C entry's int64 argument array.
@@ -475,10 +486,10 @@ enum Slot {
     SLOT_N,
     SLOT_HEADS,
     SLOT_HEAD_DIM,
-    SLOT_DTYPE,        // q, k, v and out: 0 = float32, 1 = bfloat16
-    SLOT_BIAS_DTYPE,   // -1 = no bias, 0 = float32, 1 = bfloat16
+    SLOT_DTYPE,        // q, k, v and out: 0 = float32, 1 = bfloat16, 2 = float16
+    SLOT_BIAS_DTYPE,   // -1 = no bias, 0 = float32, 1 = bfloat16, 2 = float16
     SLOT_DEVICE,       // the CUDA device of every tensor
-    SLOT_BIAS_FILL,    // a bf16 bias with bf16 q/k/v: 0 = tensor map (TMA), 1 = copied by the producer's warps
+    SLOT_BIAS_FILL,    // a 16-bit bias of q/k/v's type: 0 = tensor map (TMA), 1 = copied by the producer's warps
     NUM_SLOTS,
 };
 
@@ -498,8 +509,8 @@ extern "C" int mdpt_flash_attention(const long long* args, float qk_scale_log2, 
     const void* bias = reinterpret_cast<const void*>(args[SLOT_BIAS]);
     if (args[SLOT_HEAD_DIM] != D || n < 1 || batch < 1 || num_heads < 1 || batch > 65535 || num_heads > 65535)
         return (int)cudaErrorInvalidValue;
-    if ((dtype != 0 && dtype != 1) || bias_dtype < -1 || bias_dtype > 1 || (bias_dtype >= 0 && bias == nullptr) ||
-        (fill != 0 && fill != 1))
+    if (dtype < CODE_F32 || dtype > CODE_F16 || bias_dtype < CODE_NONE || bias_dtype > CODE_F16 ||
+        (bias_dtype != CODE_NONE && bias == nullptr) || (fill != 0 && fill != 1))
         return (int)cudaErrorInvalidValue;
     const long long* q = args + SLOT_Q;
     const long long* k = args + SLOT_K;

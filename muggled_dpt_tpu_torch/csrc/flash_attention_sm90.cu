@@ -1,9 +1,12 @@
-// Bfloat16 flash attention for Hopper (sm_90a), with or without an additive
-// bfloat16 bias: wgmma, TMA and a warp-specialised producer. Every bfloat16
-// launch of mdpt_flash_attention (csrc/flash_attention.cu) whose bias is absent
-// or bfloat16 runs here (template BIAS_NONE or BIAS_BF16 over one producer and
-// one consumer); a float32 bias and the float32 launches stay in
-// flash_attention.cu.
+// Bfloat16 and float16 flash attention for Hopper (sm_90a), with or without
+// an additive bias of the same type: wgmma, TMA and a warp-specialised
+// producer. Every bfloat16 or float16 launch of mdpt_flash_attention
+// (csrc/flash_attention.cu) whose bias is absent or of q's type runs here
+// (template fa_sm90<T, BIAS>: T __nv_bfloat16 or __half, BIAS_NONE or
+// BIAS_ELEM, over one producer and one consumer); a float32 bias and the
+// float32 launches stay in flash_attention.cu. The two element types share
+// every line but the wgmma type strings, the tensor maps' data type and the
+// packs and unpacks of sm90_attention.cuh's Elem<T>.
 //
 // Replaces the TPU kernels of muggled_dpt_tpu/ops/pallas/flash_attention.py
 // that compute this function on differently laid-out inputs:
@@ -19,7 +22,7 @@
 // one layer of BEiT's cached (L, H, Np, Np) stack.
 //
 // Bound on an H100 SXM: each (q, k) pair costs 4 D = 256 tensor-core FLOPs
-// (QK^T and PV) and one exp2 on the SFU. At 989 TFLOP/s bf16 and 16 ex2 per
+// (QK^T and PV) and one exp2 on the SFU. At 989 TFLOP/s bf16 or f16 and 16 ex2 per
 // clock per SM (132 SMs, 1.83 GHz) both rates are 3.86e12 pairs/s: at D = 64
 // the exp is a co-bound of the products, so the kernel has to overlap the
 // softmax with the GEMMs to get near either. The bytes (q, k, v and a bias
@@ -46,7 +49,7 @@
 //     S = Q K^T by wgmma m64n128k16, both operands from shared memory
 //     through descriptors (K-major, 128B swizzle); the online softmax on
 //     the f32 accumulator in registers (its layout repeats mma.sync's
-//     m16n8 C fragment per warp: row max by two shuffles); P packed to bf16
+//     m16n8 C fragment per warp: row max by two shuffles); P packed to T
 //     in place, which is wgmma's register A fragment; O += P V by wgmma
 //     m64n64k16 with A from registers and V from shared memory, transposed
 //     by the descriptor (V is stored [key][d], MN-major). The bias tile is
@@ -76,13 +79,16 @@
 // Numerics kept from the TPU kernels and csrc/flash_attention.cu:
 //   * exp2 domain. Unbiased: the logit s * scale * log2(e) folded with the
 //     row max into one FFMA (the max taken on raw s, on -s for a negative
-//     scale). Biased: t = s * scale + bias in f32 from the bf16 bias, the max
+//     scale). Biased: t = s * scale + bias in f32 from the T bias, the max
 //     taken on t, p = exp2(t * log2(e) - m); q is not rounded a second time;
 //   * keys at or past N are masked by index (TMA's zero rows would give
 //     logit 0, not -inf), whatever the bias holds there: left out of the max
 //     and given p = 0, never a pad-count correction;
-//   * l summed from the f32 p; p rounded to bf16 before PV;
-//     out = acc / max(l, 1e-30), rounded to bf16;
+//   * l summed from the f32 p; p rounded to T before PV (in f16 a p below
+//     2^-24 rounds to 0 where bf16 keeps it; l, summed from the f32 p, does
+//     not lose it, as the plain version's f32 softmax does not);
+//     out = acc / max(l, 1e-30), rounded to T (in f16 never out of range: out
+//     is a convex combination of v's rows, p lies in [0, 1]);
 //   * q rows past N are computed on zeros and never written.
 
 #include <cuda.h>
@@ -96,7 +102,7 @@
 
 namespace {
 
-constexpr int BIAS_NONE = 0, BIAS_BF16 = 1;       // template argument BIAS
+constexpr int BIAS_NONE = 0, BIAS_ELEM = 1;       // template argument BIAS: none, or a bias of q's type T
 constexpr int FILL_TMA = 0, FILL_COPY = 1;        // how a bias stage is filled (the wrapper's choice)
 constexpr int CONSUMERS = 3;       // consumer warpgroups, 64 q rows each
 constexpr int BQ = 64 * CONSUMERS;  // q rows per CTA
@@ -108,42 +114,43 @@ constexpr int COPY_THREADS = 96;   // the producer's warps 1-3: the bias copy
 constexpr int PRODUCER_REGS = 32, CONSUMER_REGS = 160;
 constexpr int CTA_REGS = 128 * (PRODUCER_REGS + CONSUMERS * CONSUMER_REGS);
 static_assert(CTA_REGS <= 65536, "the register file holds one CTA");
-constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BKV * D * 2;  // one bf16 tile of q, of k or of v
+constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BKV * D * 2;  // one 16-bit tile of q, of k or of v
 constexpr uint32_t BIAS_BYTES = BQ * BKV * 2;                     // one bias tile: two boxes of 64 keys x 192 rows
 constexpr int CONSUMER_WARPS = 4 * CONSUMERS;  // each arrives once on an empty barrier
 
-template <int BIAS>
+template <typename T, int BIAS>
 struct BiasStages {};
 
-template <>
-struct BiasStages<BIAS_BF16> {
+template <typename T>
+struct BiasStages<T, BIAS_ELEM> {
     // stage st: keys 0-63 of the tile as 192 swizzled rows of 128 B, then keys 64-127
-    __nv_bfloat16 tile[STAGES][BQ * BKV];
+    T tile[STAGES][BQ * BKV];
     uint64_t full[STAGES], empty[STAGES];
 };
 
-template <int BIAS>
+template <typename T, int BIAS>
 struct Smem {  // at a 1024-byte aligned address: the 128B swizzle repeats every 8 rows
-    __nv_bfloat16 q[BQ * D];
-    __nv_bfloat16 k[STAGES][BKV * D];
-    __nv_bfloat16 v[STAGES][BKV * D];
-    BiasStages<BIAS> bias;
+    T q[BQ * D];
+    T k[STAGES][BKV * D];
+    T v[STAGES][BKV * D];
+    BiasStages<T, BIAS> bias;
     uint64_t full_q, full_k[STAGES], full_v[STAGES], empty_k[STAGES], empty_v[STAGES];
 };
-template <int BIAS>
-constexpr int SMEM_BYTES = sizeof(Smem<BIAS>) + 1024;  // slack to align the base
+template <typename T, int BIAS>
+constexpr int SMEM_BYTES = sizeof(Smem<T, BIAS>) + 1024;  // slack to align the base
 
+template <typename T>
 struct Params {
-    __nv_bfloat16* o;
+    T* o;
     long long sb, sn, sh;  // out's element strides: batch, row, head
-    const __nv_bfloat16* bias;     // the bias's element (0, 0, 0, 0), or null
+    const T* bias;     // the bias's element (0, 0, 0, 0), or null
     long long b_sb, b_sh, b_sn, b_sk;  // its element strides: batch, head, row, column (0: broadcast)
     int n;
     int fill;
     float qk_scale_log2;
 };
 
-// Four 8x8 bf16 matrices of shared memory, one row address per lane (lanes
+// Four 8x8 matrices of 16-bit elements in shared memory, one row address per lane (lanes
 // 8m..8m+7: matrix m); register m gets this lane's pair of matrix m in the
 // mma C-fragment layout: row lane / 4, columns 2 (lane % 4) and + 1.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], uint32_t addr) {
@@ -153,9 +160,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], uint32_t addr) {
                  : "memory");
 }
 
-__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
-
 // The online softmax of one S tile in place, exp2 domain. Keys at or past
 // N (MASK: the last tile) count in neither the max nor the sum. Unbiased:
 // the logit of s is s * scale_log2, folded with the row max into one FFMA
@@ -164,7 +168,7 @@ __device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x 
 // consume), and p = exp2(t * log2(e) - m). On return s holds the f32 p, m
 // the new row max of the logits (log2 units), alpha the factor for the old
 // accumulator, l the rescaled partial row sum.
-template <int BIAS, bool MASK>
+template <typename T, int BIAS, bool MASK>
 __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2], float (&l)[2], float (&alpha)[2], float scale_log2,
                                                float scale, uint32_t bias_addr, int kbase, int n, int c) {
     float mx[2] = {-INFINITY, -INFINITY};
@@ -184,7 +188,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2], fl
             for (int e = 0; e < 8; ++e) {
                 const int ii = i + (e >> 2), ee = e & 3;
                 const uint32_t raw = b[2 * (e >> 2) + (ee >> 1)];
-                const float t = fmaf(s[4 * ii + ee], scale, (ee & 1) ? bf16_hi(raw) : bf16_lo(raw));
+                const float t = fmaf(s[4 * ii + ee], scale, (ee & 1) ? Elem<T>::hi(raw) : Elem<T>::lo(raw));
                 s[4 * ii + ee] = MASK && key_masked(kbase, ii, ee, c, n) ? -INFINITY : t;
                 mx[ee >> 1] = fmaxf(mx[ee >> 1], s[4 * ii + ee]);
             }
@@ -215,19 +219,19 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2], fl
     }
 }
 
-template <int BIAS>
+template <typename T, int BIAS>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2], float (&alpha)[2], float scale_log2,
                                              float scale, uint32_t bias_addr, int kbase, int n, int c) {
     if (kbase + BKV <= n) {
-        online_softmax<BIAS, false>(s, m, l, alpha, scale_log2, scale, bias_addr, kbase, n, c);
+        online_softmax<T, BIAS, false>(s, m, l, alpha, scale_log2, scale, bias_addr, kbase, n, c);
     } else {
-        online_softmax<BIAS, true>(s, m, l, alpha, scale_log2, scale, bias_addr, kbase, n, c);
+        online_softmax<T, BIAS, true>(s, m, l, alpha, scale_log2, scale, bias_addr, kbase, n, c);
     }
 }
 
 // Consumer warpgroup `wg`: q rows q0 + 64 wg .. + 63 over every key tile.
-template <int BIAS>
-__device__ __forceinline__ void consume(Smem<BIAS>& sm, const Params& a, int wg, int q0, int b, int h, int tiles) {
+template <typename T, int BIAS>
+__device__ __forceinline__ void consume(Smem<T, BIAS>& sm, const Params<T>& a, int wg, int q0, int b, int h, int tiles) {
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, c = lane % 4;
     const int n = a.n;
@@ -238,7 +242,7 @@ __device__ __forceinline__ void consume(Smem<BIAS>& sm, const Params& a, int wg,
     // the 128B swizzle puts 16-byte chunk j of row r at j ^ (r % 8), and the
     // key block's chunk (i % 8, i even) is XORed in per load.
     uint32_t bias_lane = 0;
-    if constexpr (BIAS == BIAS_BF16) {
+    if constexpr (BIAS == BIAS_ELEM) {
         const int mi = lane / 8, r8 = lane % 8;
         const int row = wg * 64 + warp * 16 + (mi & 1) * 8 + r8;
         bias_lane = smem_u32(sm.bias.tile[0]) + row * 128 + (((mi >> 1) ^ r8) << 4);
@@ -263,10 +267,10 @@ __device__ __forceinline__ void consume(Smem<BIAS>& sm, const Params& a, int wg,
     wgmma_wait<0>();
     fence_regs(s);
     release(&sm.empty_k[0], lane);
-    if constexpr (BIAS == BIAS_BF16) mbar_wait(&sm.bias.full[0], 0);
-    softmax_tile<BIAS>(s, m, l, alpha, a.qk_scale_log2, scale, bias_addr(0), 0, n, c);
-    if constexpr (BIAS == BIAS_BF16) release(&sm.bias.empty[0], lane);
-    pack_p(p, s);
+    if constexpr (BIAS == BIAS_ELEM) mbar_wait(&sm.bias.full[0], 0);
+    softmax_tile<T, BIAS>(s, m, l, alpha, a.qk_scale_log2, scale, bias_addr(0), 0, n, c);
+    if constexpr (BIAS == BIAS_ELEM) release(&sm.bias.empty[0], lane);
+    pack_p<T>(p, s);
 
     // key tile t: S_t and PV_{t-1} issued together, softmax_t under PV_{t-1}
     for (int t = 1; t < tiles; ++t) {
@@ -284,14 +288,14 @@ __device__ __forceinline__ void consume(Smem<BIAS>& sm, const Params& a, int wg,
         wgmma_wait<1>();
         fence_regs(s);
         release(&sm.empty_k[st], lane);
-        if constexpr (BIAS == BIAS_BF16) mbar_wait(&sm.bias.full[st], parity);
-        softmax_tile<BIAS>(s, m, l, alpha, a.qk_scale_log2, scale, bias_addr(st), t * BKV, n, c);
-        if constexpr (BIAS == BIAS_BF16) release(&sm.bias.empty[st], lane);
+        if constexpr (BIAS == BIAS_ELEM) mbar_wait(&sm.bias.full[st], parity);
+        softmax_tile<T, BIAS>(s, m, l, alpha, a.qk_scale_log2, scale, bias_addr(st), t * BKV, n, c);
+        if constexpr (BIAS == BIAS_ELEM) release(&sm.bias.empty[st], lane);
         wgmma_wait<0>();
         fence_regs(o);
         release(&sm.empty_v[pst], lane);
         rescale(o, alpha);
-        pack_p(p, s);
+        pack_p<T>(p, s);
     }
 
     // the last PV
@@ -311,16 +315,16 @@ __device__ __forceinline__ void consume(Smem<BIAS>& sm, const Params& a, int wg,
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
     const int row_g = q0 + wg * 64 + warp * 16 + g;
-    __nv_bfloat16* ob = a.o + b * a.sb + h * a.sh;
+    T* ob = a.o + b * a.sb + h * a.sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int row = row_g + 8 * r;
         if (row < n) {
             const float lr = fmaxf(l[r], 1e-30f);
-            __nv_bfloat16* op = ob + row * a.sn;
+            T* op = ob + row * a.sn;
 #pragma unroll
             for (int i = 0; i < 8; ++i)
-                *reinterpret_cast<uint32_t*>(op + 8 * i + 2 * c) = pack_bf16(o[4 * i + 2 * r] / lr, o[4 * i + 2 * r + 1] / lr);
+                *reinterpret_cast<uint32_t*>(op + 8 * i + 2 * c) = Elem<T>::pack(o[4 * i + 2 * r] / lr, o[4 * i + 2 * r + 1] / lr);
         }
     }
 }
@@ -329,7 +333,8 @@ __device__ __forceinline__ void consume(Smem<BIAS>& sm, const Params& a, int wg,
 // strides (FILL_COPY): 16-byte chunks of 8 keys, consecutive threads on
 // consecutive chunks of a row, stored where TMA's 128B swizzle would put
 // them; elements past N are 0. Each thread arrives on the full barrier.
-__device__ __forceinline__ void copy_bias(Smem<BIAS_BF16>& sm, const Params& a, int b, int h, int q0, int tiles) {
+template <typename T>
+__device__ __forceinline__ void copy_bias(Smem<T, BIAS_ELEM>& sm, const Params<T>& a, int b, int h, int q0, int tiles) {
     const int ct = threadIdx.x - 32;
     const int n = a.n;
     const unsigned short* head = reinterpret_cast<const unsigned short*>(a.bias + b * a.b_sb + h * a.b_sh);
@@ -354,12 +359,12 @@ __device__ __forceinline__ void copy_bias(Smem<BIAS_BF16>& sm, const Params& a, 
     }
 }
 
-template <int BIAS>
+template <typename T, int BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
-    fa_sm90_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tb, const Params a) {
+    fa_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tb, const Params<T> a) {
     extern __shared__ uint8_t smem_raw[];
-    Smem<BIAS>& sm = *reinterpret_cast<Smem<BIAS>*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+    Smem<T, BIAS>& sm = *reinterpret_cast<Smem<T, BIAS>*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
     const int b = blockIdx.x, q0 = blockIdx.y * BQ, h = blockIdx.z;  // batch fastest
     const int tiles = (a.n + BKV - 1) / BKV;
 
@@ -371,7 +376,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             mbar_init(&sm.full_v[st], 1);
             mbar_init(&sm.empty_k[st], CONSUMER_WARPS);
             mbar_init(&sm.empty_v[st], CONSUMER_WARPS);
-            if constexpr (BIAS == BIAS_BF16) {
+            if constexpr (BIAS == BIAS_ELEM) {
                 mbar_init(&sm.bias.full[st], a.fill == FILL_TMA ? 1 : COPY_THREADS);
                 mbar_init(&sm.bias.empty[st], CONSUMER_WARPS);
             }
@@ -383,7 +388,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x < 128) {  // producer warpgroup: one thread issues every TMA copy
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
         if (threadIdx.x == 0) {
-            const bool bias_tma = BIAS == BIAS_BF16 && a.fill == FILL_TMA;
+            const bool bias_tma = BIAS == BIAS_ELEM && a.fill == FILL_TMA;
             // a dim the bias broadcasts over is a dim of size 1 in its tensor map
             const int bias_h = a.b_sh != 0 ? h : 0, bias_b = a.b_sb != 0 ? b : 0;
             mbar_expect_tx(&sm.full_q, Q_BYTES);
@@ -394,7 +399,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                 mbar_wait(&sm.empty_k[st], free_parity);
                 mbar_expect_tx(&sm.full_k[st], KV_BYTES);
                 tma_load(sm.k[st], &tk, &sm.full_k[st], 0, h, t * BKV, b);
-                if constexpr (BIAS == BIAS_BF16) {
+                if constexpr (BIAS == BIAS_ELEM) {
                     if (bias_tma) {
                         mbar_wait(&sm.bias.empty[st], free_parity);
                         mbar_expect_tx(&sm.bias.full[st], BIAS_BYTES);
@@ -406,12 +411,12 @@ __global__ void __launch_bounds__(THREADS, 1)
                 mbar_expect_tx(&sm.full_v[st], KV_BYTES);
                 tma_load(sm.v[st], &tv, &sm.full_v[st], 0, h, t * BKV, b);
             }
-        } else if constexpr (BIAS == BIAS_BF16) {
+        } else if constexpr (BIAS == BIAS_ELEM) {
             if (a.fill == FILL_COPY && threadIdx.x >= 32) copy_bias(sm, a, b, h, q0, tiles);
         }
     } else {
         asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
-        consume<BIAS>(sm, a, threadIdx.x / 128 - 1, q0, b, h, tiles);
+        consume<T, BIAS>(sm, a, threadIdx.x / 128 - 1, q0, b, h, tiles);
     }
 }
 
@@ -419,16 +424,17 @@ __global__ void __launch_bounds__(THREADS, 1)
 // pre-padded bias's pads read as zeros and are never fetched; `st` holds the
 // element strides (batch, head, row), 0 where the bias broadcasts: that dim
 // has size 1. Boxes of 64 keys x 192 rows.
-CUresult encode_bias(EncodeTiled fn, CUtensorMap* map, const void* ptr, const long long* st, int batch, int n, int heads) {
+CUresult encode_bias(EncodeTiled fn, CUtensorMap* map, const void* ptr, const long long* st, int batch, int n, int heads,
+                     CUtensorMapDataType type) {
     const cuuint64_t dims[4] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(n),
                                 static_cast<cuuint64_t>(st[1] != 0 ? heads : 1), static_cast<cuuint64_t>(st[0] != 0 ? batch : 1)};
     cuuint64_t stride[3] = {static_cast<cuuint64_t>(st[2]) * 2, static_cast<cuuint64_t>(st[1]) * 2,
                             static_cast<cuuint64_t>(st[0]) * 2};
-    return encode4(fn, map, ptr, dims, stride, {64, BQ, 1, 1});
+    return encode4(fn, map, ptr, dims, stride, {64, BQ, 1, 1}, type);
 }
 
-template <int BIAS>
-cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const CUtensorMap& tb, const Params& p,
+template <typename T, int BIAS>
+cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const CUtensorMap& tb, const Params<T>& p,
                    int batch, int heads, cudaStream_t stream) {
     // once per device: the dynamic shared memory limit, and a check that the
     // registers granted at launch cover what setmaxnreg hands out (a short
@@ -440,62 +446,77 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
     const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
     if (bit == 0 || !(configured.load() & bit)) {
         cudaFuncAttributes at;
-        err = cudaFuncGetAttributes(&at, fa_sm90_bf16<BIAS>);
+        err = cudaFuncGetAttributes(&at, fa_sm90<T, BIAS>);
         if (err != cudaSuccess) return err;
         if (at.numRegs * THREADS < CTA_REGS) return cudaErrorInvalidConfiguration;
-        err = cudaFuncSetAttribute(fa_sm90_bf16<BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES<BIAS>);
+        err = cudaFuncSetAttribute(fa_sm90<T, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES<T, BIAS>);
         if (err != cudaSuccess) return err;
         configured.fetch_or(bit);
     }
     const dim3 grid(batch, (p.n + BQ - 1) / BQ, heads);
-    fa_sm90_bf16<BIAS><<<grid, THREADS, SMEM_BYTES<BIAS>, stream>>>(tq, tk, tv, tb, p);
+    fa_sm90<T, BIAS><<<grid, THREADS, SMEM_BYTES<T, BIAS>, stream>>>(tq, tk, tv, tb, p);
     return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_elem(const void* q, const long long* q_st, const void* k, const long long* k_st, const void* v,
+                        const long long* v_st, void* o, const long long* o_st, const void* bias, const long long* bias_st,
+                        int fill, int batch, int n, int heads, float qk_scale_log2, cudaStream_t stream) {
+    const EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return cudaErrorNotSupported;
+    if (bias != nullptr && fill != FILL_TMA && fill != FILL_COPY) return cudaErrorInvalidValue;
+    constexpr CUtensorMapDataType type = Elem<T>::TMA;
+    CUtensorMap tq, tk, tv, tb{};
+    CUresult r = encode_qkv(fn, &tq, q, q_st, batch, n, heads, BQ, type);
+    if (r == CUDA_SUCCESS) r = encode_qkv(fn, &tk, k, k_st, batch, n, heads, BKV, type);
+    if (r == CUDA_SUCCESS) r = encode_qkv(fn, &tv, v, v_st, batch, n, heads, BKV, type);
+    if (r == CUDA_SUCCESS && bias != nullptr && fill == FILL_TMA) {
+        if (bias_st[3] != 1 || bias_st[2] == 0) return cudaErrorInvalidValue;  // TMA reads rows of unit column stride
+        r = encode_bias(fn, &tb, bias, bias_st, batch, n, heads, type);
+    }
+    if (r != CUDA_SUCCESS) return static_cast<cudaError_t>(r);
+    const long long* bs = bias_st;
+    const Params<T> p{static_cast<T*>(o), o_st[0], o_st[1], o_st[2], static_cast<const T*>(bias),
+                      bias ? bs[0] : 0, bias ? bs[1] : 0, bias ? bs[2] : 0, bias ? bs[3] : 0, n, fill, qk_scale_log2};
+    return bias == nullptr ? launch<T, BIAS_NONE>(tq, tk, tv, tb, p, batch, heads, stream)
+                           : launch<T, BIAS_ELEM>(tq, tk, tv, tb, p, batch, heads, stream);
 }
 
 }  // namespace
 
-// Launch the kernel on the current device. Pointers and (batch, row, head)
+// Launch the kernel on the current device. `half`: q, k, v, out and the
+// bias are float16 (else bfloat16). Pointers and (batch, row, head)
 // element strides as flash_attention.cu's Args carries them; the caller has
 // checked 16-byte alignment of q, k, v and out. `bias`: null, or the bias's
 // element (0, 0, 0, 0) (a stack layer's offset applied) with `bias_st` its
 // (batch, head, row, column) element strides and `fill` FILL_TMA or
 // FILL_COPY. Returns the error of a tensor-map encode (a CUresult, whose
 // codes agree with cudaError_t's for invalid values) or of the launch.
-cudaError_t flash_attention_sm90(const void* q, const long long* q_st, const void* k, const long long* k_st, const void* v,
-                                 const long long* v_st, void* o, const long long* o_st, const void* bias,
+cudaError_t flash_attention_sm90(bool half, const void* q, const long long* q_st, const void* k, const long long* k_st,
+                                 const void* v, const long long* v_st, void* o, const long long* o_st, const void* bias,
                                  const long long* bias_st, int fill, int batch, int n, int heads, float qk_scale_log2,
                                  cudaStream_t stream) {
-    const EncodeTiled fn = encode_tiled();
-    if (fn == nullptr) return cudaErrorNotSupported;
-    if (bias != nullptr && fill != FILL_TMA && fill != FILL_COPY) return cudaErrorInvalidValue;
-    CUtensorMap tq, tk, tv, tb{};
-    CUresult r = encode_qkv(fn, &tq, q, q_st, batch, n, heads, BQ);
-    if (r == CUDA_SUCCESS) r = encode_qkv(fn, &tk, k, k_st, batch, n, heads, BKV);
-    if (r == CUDA_SUCCESS) r = encode_qkv(fn, &tv, v, v_st, batch, n, heads, BKV);
-    if (r == CUDA_SUCCESS && bias != nullptr && fill == FILL_TMA) {
-        if (bias_st[3] != 1 || bias_st[2] == 0) return cudaErrorInvalidValue;  // TMA reads rows of unit column stride
-        r = encode_bias(fn, &tb, bias, bias_st, batch, n, heads);
-    }
-    if (r != CUDA_SUCCESS) return static_cast<cudaError_t>(r);
-    const long long* bs = bias_st;
-    const Params p{static_cast<__nv_bfloat16*>(o), o_st[0], o_st[1], o_st[2], static_cast<const __nv_bfloat16*>(bias),
-                   bias ? bs[0] : 0, bias ? bs[1] : 0, bias ? bs[2] : 0, bias ? bs[3] : 0, n, fill, qk_scale_log2};
-    return bias == nullptr ? launch<BIAS_NONE>(tq, tk, tv, tb, p, batch, heads, stream)
-                           : launch<BIAS_BF16>(tq, tk, tv, tb, p, batch, heads, stream);
+    return half ? launch_elem<__half>(q, q_st, k, k_st, v, v_st, o, o_st, bias, bias_st, fill, batch, n, heads, qk_scale_log2,
+                                      stream)
+                : launch_elem<__nv_bfloat16>(q, q_st, k, k_st, v, v_st, o, o_st, bias, bias_st, fill, batch, n, heads,
+                                             qk_scale_log2, stream);
 }
 
-// An instantiation's resources, for a report: `bias` 0 (unbiased) or 1
-// (bf16 bias); out: registers per thread at launch (before setmaxnreg),
-// local memory (spill) bytes per thread, static and dynamic shared memory
-// bytes, threads per block. Returns the cudaError_t.
-extern "C" int mdpt_flash_attention_sm90_info(int bias, int* out) {
+// An instantiation's resources, for a report: `bias` 0 (unbiased) or 1 (a
+// bias of the element type), `half` 0 (bfloat16) or 1 (float16); out:
+// registers per thread at launch (before setmaxnreg), local memory (spill)
+// bytes per thread, static and dynamic shared memory bytes, threads per
+// block. Returns the cudaError_t.
+extern "C" int mdpt_flash_attention_sm90_info(int bias, int half, int* out) {
     cudaFuncAttributes at;
-    const cudaError_t err = cudaFuncGetAttributes(&at, bias ? fa_sm90_bf16<BIAS_BF16> : fa_sm90_bf16<BIAS_NONE>);
+    const void* kernel = half ? (bias ? (const void*)fa_sm90<__half, BIAS_ELEM> : (const void*)fa_sm90<__half, BIAS_NONE>)
+                              : (bias ? (const void*)fa_sm90<__nv_bfloat16, BIAS_ELEM> : (const void*)fa_sm90<__nv_bfloat16, BIAS_NONE>);
+    const cudaError_t err = cudaFuncGetAttributes(&at, kernel);
     if (err != cudaSuccess) return (int)err;
     out[0] = at.numRegs;
     out[1] = (int)at.localSizeBytes;
     out[2] = (int)at.sharedSizeBytes;
-    out[3] = bias ? SMEM_BYTES<BIAS_BF16> : SMEM_BYTES<BIAS_NONE>;
+    out[3] = bias ? SMEM_BYTES<__nv_bfloat16, BIAS_ELEM> : SMEM_BYTES<__nv_bfloat16, BIAS_NONE>;  // the same for __half
     out[4] = at.maxThreadsPerBlock;
     return 0;
 }

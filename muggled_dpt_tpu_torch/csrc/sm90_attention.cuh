@@ -1,7 +1,10 @@
 // Hopper (sm_90a) primitives of the D = 64 attention kernels: mbarriers,
 // TMA loads through 4-D tensor maps with the 128-byte swizzle, wgmma from
 // shared-memory descriptors and from registers, and the exp2-domain softmax
-// pieces on wgmma's accumulator layout. Shared by
+// pieces on wgmma's accumulator layout. The element type T of q, k, v, P,
+// out and a bias (__nv_bfloat16 or __half) is a template argument, resolved
+// at compile time (Elem<T>): a wgmma issued under a run-time condition makes
+// ptxas serialize every wgmma of the kernel (C7520). Shared by
 //   flash_attention_sm90.cu  #1, #2, #4, #5 (the serving kernel)
 //   flash_staged_sm90.cu     #11 (the sweep's two-pass schedule)
 //   flash_xl_sm90.cu         #10 (the sweep's qp / pipelined schedules)
@@ -17,12 +20,15 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int D = 64;              // head dim: one 128-byte swizzle row of bf16
+constexpr int D = 64;              // head dim: one 128-byte swizzle row of a 16-bit type
 constexpr float NEG_INF = -1e30f;  // the JAX package's masking constant
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -102,55 +108,74 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
 #define ACC8(i) \
     "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 
+// The wgmma instructions at the element type TY ("bf16" or "f16"): f32
+// accumulators, both operand types TY.
+#define WGMMA_QK_N128(TY)                                                                              \
+    asm volatile(                                                                                      \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                   \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                                   \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                      \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "             \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "             \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "             \
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"                                                                \
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)                 \
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+#define WGMMA_QK_N64(TY)                                                                               \
+    asm volatile(                                                                                      \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                   \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                                    \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                      \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "             \
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                                \
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24)                                                         \
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+#define WGMMA_QK_N32(TY)                                                                               \
+    asm volatile(                                                                                      \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                                   \
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "                                    \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "                      \
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"                                                                \
+        : ACC8(0), ACC8(8)                                                                             \
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+#define WGMMA_PV_N64(TY)                                                                               \
+    asm volatile(                                                                                      \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                   \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                                    \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                      \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "             \
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                                  \
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24)                                                         \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
 // d (64 rows x 128 keys, f32) = or += A (64 x 16 of D) B^T (128 keys x 16 of D), both K-major in shared memory
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+    if constexpr (std::is_same<T, __half>::value) WGMMA_QK_N128("f16"); else WGMMA_QK_N128("bf16");
 }
 
 // The same over 64 keys: d (64 rows x 64 keys, f32)
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+    if constexpr (std::is_same<T, __half>::value) WGMMA_QK_N64("f16"); else WGMMA_QK_N64("bf16");
 }
 
 // The same over 32 keys: d (64 rows x 32 keys, f32)
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_qk(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n}\n"
-        : ACC8(0), ACC8(8)
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+    if constexpr (std::is_same<T, __half>::value) WGMMA_QK_N32("f16"); else WGMMA_QK_N32("bf16");
 }
 
-// d (64 rows x 64, f32) += A (64 x 16 keys, bf16 registers) B (16 keys x 64, MN-major in shared memory)
+// d (64 rows x 64, f32) += A (64 x 16 keys, T registers) B (16 keys x 64, MN-major in shared memory)
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+    if constexpr (std::is_same<T, __half>::value) WGMMA_PV_N64("f16"); else WGMMA_PV_N64("bf16");
 }
 
+#undef WGMMA_QK_N128
+#undef WGMMA_QK_N64
+#undef WGMMA_QK_N32
+#undef WGMMA_PV_N64
 #undef ACC8
 
 __device__ __forceinline__ float ex2(float x) {
@@ -164,22 +189,49 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// What differs between the element types: the tensor maps' data type, two
+// f32 values rounded into one 32-bit register (P's A fragment, out), and
+// the two f32 values of a register of two elements (a bias pair read by
+// ldmatrix). bf16 is the top half of an f32, so its unpack is a shift; f16
+// needs a conversion (cvt.f32.f16).
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+    static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    static __device__ __forceinline__ uint32_t pack(float lo, float hi) { return pack_bf16(lo, hi); }
+    static __device__ __forceinline__ float lo(uint32_t x) { return __uint_as_float(x << 16); }
+    static __device__ __forceinline__ float hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+};
+
+template <>
+struct Elem<__half> {
+    static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+    static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+        __half2 v = __floats2half2_rn(lo, hi);  // cvt.rn.f16x2.f32; .x (lo) in the low half
+        return *reinterpret_cast<uint32_t*>(&v);
+    }
+    static __device__ __forceinline__ float lo(uint32_t x) { return __half2float(__ushort_as_half(static_cast<unsigned short>(x))); }
+    static __device__ __forceinline__ float hi(uint32_t x) { return __half2float(__ushort_as_half(static_cast<unsigned short>(x >> 16))); }
+};
+
 // S = Q K^T over D = 64: four k steps of 16 (32 bytes along the swizzled
 // rows); the key tile's width is the accumulator's (64 floats: 128 keys,
 // 32: 64 keys, 16: 32 keys)
-template <int NS>
-__device__ __forceinline__ void issue_qk(float (&s)[NS], uint64_t dq, const __nv_bfloat16* k_tile) {
+template <typename T, int NS>
+__device__ __forceinline__ void issue_qk(float (&s)[NS], uint64_t dq, const T* k_tile) {
     const uint64_t dk = sw128_desc(k_tile);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_qk(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_qk<T>(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
 }
 
 // O += P V over 16 J keys: J k steps of 16 keys (16 rows of 128 B = 2048 B)
-template <int J>
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[J][4], const __nv_bfloat16* v_tile) {
+template <typename T, int J>
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[J][4], const T* v_tile) {
     const uint64_t dv = sw128_desc(v_tile);
 #pragma unroll
-    for (int j = 0; j < J; ++j) wgmma_pv(o, p[j], dv + j * (16 * 128 >> 4));
+    for (int j = 0; j < J; ++j) wgmma_pv<T>(o, p[j], dv + j * (16 * 128 >> 4));
 }
 
 // This thread holds rows g and g + 8 of its warp's 16 in an S tile:
@@ -199,13 +251,13 @@ __device__ __forceinline__ void row_max(const float (&s)[NS], float (&mx)[2], in
     }
 }
 
-// P in bf16: the S fragments of keys 16j..16j+15 are the A fragment of PV k step j
-template <int J>
+// P in T: the S fragments of keys 16j..16j+15 are the A fragment of PV k step j
+template <typename T = __nv_bfloat16, int J>
 __device__ __forceinline__ void pack_p(uint32_t (&p)[J][4], const float (&s)[8 * J]) {
 #pragma unroll
     for (int j = 0; j < J; ++j) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) p[j][i] = pack_bf16(s[8 * j + 2 * i], s[8 * j + 2 * i + 1]);
+        for (int i = 0; i < 4; ++i) p[j][i] = Elem<T>::pack(s[8 * j + 2 * i], s[8 * j + 2 * i + 1]);
     }
 }
 
@@ -238,27 +290,27 @@ EncodeTiled encode_tiled() {
     return fn;
 }
 
-// A 4-D bf16 tensor map, 128B swizzle, zeros past the edges. `stride`
-// holds the byte strides of dims 1-3; a dim of size 1 is never stepped
-// over, so it gets a packed stride whatever the caller's (TMA takes
-// non-zero multiples of 16 B).
+// A 4-D tensor map of 16-bit elements of `type`, 128B swizzle, zeros past
+// the edges. `stride` holds the byte strides of dims 1-3; a dim of size 1
+// is never stepped over, so it gets a packed stride whatever the caller's
+// (TMA takes non-zero multiples of 16 B).
 CUresult encode4(EncodeTiled fn, CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4], cuuint64_t (&stride)[3],
-                 const cuuint32_t (&box)[4]) {
+                 const cuuint32_t (&box)[4], CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
     for (int i = 0; i < 3; ++i)
         if (dims[i + 1] == 1) stride[i] = i == 0 ? dims[0] * 2 : stride[i - 1] * dims[i];
     const cuuint32_t unit[4] = {1, 1, 1, 1};
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, stride, box, unit,
+    return fn(map, type, 4, const_cast<void*>(ptr), dims, stride, box, unit,
               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // The (D, H, N, B) tensor map of q, k or v: `st` holds the element strides (batch, row, head).
 CUresult encode_qkv(EncodeTiled fn, CUtensorMap* map, const void* ptr, const long long* st, int batch, int n, int heads,
-                    cuuint32_t box_rows) {
+                    cuuint32_t box_rows, CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
     const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(batch)};
     cuuint64_t stride[3] = {static_cast<cuuint64_t>(st[2]) * 2, static_cast<cuuint64_t>(st[1]) * 2,
                             static_cast<cuuint64_t>(st[0]) * 2};
-    return encode4(fn, map, ptr, dims, stride, {D, 1, box_rows, 1});
+    return encode4(fn, map, ptr, dims, stride, {D, 1, box_rows, 1}, type);
 }
 
 }  // namespace

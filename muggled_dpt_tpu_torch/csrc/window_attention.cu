@@ -1,10 +1,10 @@
-// SwinV2 window attention for Hopper (sm_90a), float32 and bfloat16, with the
-// continuous-position bias (CPB) and the shift mask kept factored. The C
-// entry mdpt_window_attention sends every bfloat16 launch whose CPB and mask
-// are bfloat16 and whose layouts a tensor map can read to
-// csrc/window_attention_sm90.cu (wgmma and TMA); the kernels here take the
-// float32 launches, bfloat16 activations with float32 biases, and layouts
-// TMA cannot read.
+// SwinV2 window attention for Hopper (sm_90a), float32, bfloat16 and
+// float16, with the continuous-position bias (CPB) and the shift mask kept
+// factored. The C entry mdpt_window_attention sends every bfloat16 or
+// float16 launch whose CPB and mask are of q's type and whose layouts a
+// tensor map can read to csrc/window_attention_sm90.cu (wgmma and TMA); the
+// kernels here take the float32 launches, 16-bit activations with float32
+// biases (SwinV2's inline CPB tables), and layouts TMA cannot read.
 //
 // Replaces the TPU kernel muggled_dpt_tpu/ops/pallas/window_attention.py
 // window_flash_attention -> _kernel (:31). Per batch b, window w and head h:
@@ -35,9 +35,11 @@
 // bf16 q, k, v and (H + nW) * A^2 * 2 B = 7.3 MB of bf16 bias: about 130
 // operations a byte, below the bf16 ridge (about 295), so the bias read and
 // the latency of short K loops (9 key tiles) bound it, not the tensor cores.
-// The bf16 kernel runs both products on the tensor cores (mma.sync m16n8k16,
-// bf16 in, f32 out) with K/V double-buffered by cp.async; the f32 kernel (the
-// parity mode) uses plain FMAs, since TF32 would not hold float32 accuracy.
+// The 16-bit kernel wa_mma<T, TB, MASK> (T: __nv_bfloat16 or __half, the
+// bias type TB: float or T) runs both products on the tensor cores
+// (mma.sync m16n8k16, T in, f32 out) with K/V double-buffered by cp.async;
+// the f32 kernel (the parity mode) uses plain FMAs, since TF32 would not
+// hold float32 accuracy.
 // Numerics kept from the TPU kernel: logits, softmax and accumulation in f32
 // (exp2 domain: the logits are multiplied by log2(e)); p rounded to the input
 // type before the PV product; out = acc / max(l, 1e-30).
@@ -45,6 +47,7 @@
 // persistent grid.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,6 +74,9 @@ struct Args {
     long long m_sw, m_sn;  // mask: window and row strides (column stride 1)
     int nw, n;             // windows per image, window area A
 };
+
+// The argument array's dtype codes (SLOT_DTYPE, SLOT_BIAS_DTYPE)
+constexpr int CODE_F32 = 0, CODE_BF16 = 1, CODE_F16 = 2;
 
 template <typename TB>
 __device__ __forceinline__ float load_bias(const TB* p) {
@@ -196,13 +202,14 @@ __global__ void __launch_bounds__(F32_BQ) wa_f32(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core kernel, 4 warps x 16 q rows, mma.sync m16n8k16
+// bfloat16 or float16 (T): tensor-core kernel, 4 warps x 16 q rows, mma.sync
+// m16n8k16
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;       // q rows per CTA (16 per warp)
 constexpr int BK = 64;       // keys per tile
 constexpr int THREADS = 128;
-constexpr int LDS = D + 8;   // padded shared row (bf16 elements, 80 B): conflict-free fragment loads
+constexpr int LDS = D + 8;   // padded shared row (16-bit elements, 80 B): conflict-free fragment loads
 constexpr int CHUNKS = D / 8;                // 16-byte chunks per row
 constexpr int ROWS_PER_PASS = THREADS / CHUNKS;  // rows one pass of the CTA copies
 
@@ -220,21 +227,34 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
+__device__ __forceinline__ uint32_t ld_u32(const void* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-    return *reinterpret_cast<uint32_t*>(&v);
+// Two f32 values rounded to T in one register, lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    if constexpr (std::is_same<T, __half>::value) {
+        __half2 v = __floats2half2_rn(lo, hi);
+        return *reinterpret_cast<uint32_t*>(&v);
+    } else {
+        __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+        return *reinterpret_cast<uint32_t*>(&v);
+    }
 }
 
+#define MMA_16816(TY)                                                                                                   \
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "    \
+                 "{%0,%1,%2,%3};\n"                                                                                     \
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                                                       \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+
+template <typename T>
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    if constexpr (std::is_same<T, __half>::value) MMA_16816("f16"); else MMA_16816("bf16");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+#undef MMA_16816
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                  : "r"(smem_addr(p)));
@@ -244,8 +264,9 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
 // chunks of 16 B, 2 per thread. This thread copies rows r0 + 32i (i = 0, 1)
 // at column c0: p points at row r0 of the tile, at column c0; `first` is the
 // tile's first row; `fallback` is a valid address for rows past A.
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[LDS], const __nv_bfloat16* p, long long row_step,
-                                          int first, int n, int r0, int c0, const __nv_bfloat16* fallback) {
+template <typename T>
+__device__ __forceinline__ void load_tile(T (*dst)[LDS], const T* p, long long row_step, int first, int n, int r0, int c0,
+                                          const T* fallback) {
 #pragma unroll
     for (int i = 0; i < BK / ROWS_PER_PASS; ++i) {
         const bool valid = first + r0 + ROWS_PER_PASS * i < n;
@@ -254,8 +275,8 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[LDS], const __nv_
 }
 
 // Raw bias of one fragment element pair: float2 for a float32 bias, packed
-// bf16x2 for a bfloat16 one. Fetched a tile ahead, unpacked when its tile
-// comes up.
+// 16-bit pair for a bfloat16 or float16 one. Fetched a tile ahead, unpacked
+// when its tile comes up.
 template <typename TB>
 using BiasRaw = typename std::conditional<std::is_same<TB, float>::value, float2, uint32_t>::type;
 
@@ -263,6 +284,8 @@ template <typename TB>
 __device__ __forceinline__ float2 bias_unpack(BiasRaw<TB> v) {
     if constexpr (std::is_same<TB, float>::value) {
         return v;
+    } else if constexpr (std::is_same<TB, __half>::value) {
+        return __half22float2(*reinterpret_cast<const __half2*>(&v));
     } else {
         return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
     }
@@ -295,24 +318,24 @@ __device__ __forceinline__ void bias_fetch(BiasRaw<TB> (&raw)[2][BK / 8], const 
     }
 }
 
-template <typename TB, bool MASK>
-__global__ void __launch_bounds__(THREADS) wa_bf16(const Args a) {
-    __shared__ __align__(16) __nv_bfloat16 qs[BQ][LDS];
-    __shared__ __align__(16) __nv_bfloat16 ks[2][BK][LDS];
-    __shared__ __align__(16) __nv_bfloat16 vs[2][BK][LDS];
+template <typename T, typename TB, bool MASK>
+__global__ void __launch_bounds__(THREADS) wa_mma(const Args a) {
+    __shared__ __align__(16) T qs[BQ][LDS];
+    __shared__ __align__(16) T ks[2][BK][LDS];
+    __shared__ __align__(16) T vs[2][BK][LDS];
 
     const int z = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
     const int b = z / a.nw, w = z - b * a.nw;
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, cq = lane % 4;  // fragment row group and column pair
     const int n = a.n;
-    const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + w * a.q_sw + h * a.q_sh;
-    const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + w * a.k_sw + h * a.k_sh;
-    const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + w * a.v_sw + h * a.v_sh;
+    const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + w * a.q_sw + h * a.q_sh;
+    const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + w * a.k_sw + h * a.k_sh;
+    const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + w * a.v_sw + h * a.v_sh;
     // this thread's share of every tile copy: rows r0 + 32i, 16-byte column chunk c0
     const int r0 = tid / CHUNKS, c0 = (tid % CHUNKS) * 8;
-    const __nv_bfloat16* kt = kb + r0 * a.k_sn + c0;  // advanced by one tile per iteration
-    const __nv_bfloat16* vt = vb + r0 * a.v_sn + c0;
+    const T* kt = kb + r0 * a.k_sn + c0;  // advanced by one tile per iteration
+    const T* vt = vb + r0 * a.v_sn + c0;
     const long long kstep = ROWS_PER_PASS * a.k_sn, vstep = ROWS_PER_PASS * a.v_sn;
     // this thread's logit rows are row_g and row_g + 8
     const int row_g = q0 + warp * 16 + g;
@@ -398,8 +421,8 @@ __global__ void __launch_bounds__(THREADS) wa_bf16(const Args a) {
         for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
             for (int nt = 0; nt < BK / 8; ++nt) {
-                const __nv_bfloat16* kp = &ks[st][nt * 8 + g][kk * 16 + 2 * cq];
-                mma_16816(s[nt], qf[kk], ld_u32(kp), ld_u32(kp + 8));
+                const T* kp = &ks[st][nt * 8 + g][kk * 16 + 2 * cq];
+                mma_16816<T>(s[nt], qf[kk], ld_u32(kp), ld_u32(kp + 8));
             }
         }
 
@@ -435,7 +458,7 @@ __global__ void __launch_bounds__(THREADS) wa_bf16(const Args a) {
             acc[dt][3] *= alpha[1];
         }
 
-        // P = exp2(S - m), rounded to bf16; the S C-fragments of key tiles
+        // P = exp2(S - m), rounded to T; the S C-fragments of key tiles
         // 2j and 2j+1 are exactly the A-fragment of PV k step j
         uint32_t pf[BK / 16][4];
 #pragma unroll
@@ -447,8 +470,8 @@ __global__ void __launch_bounds__(THREADS) wa_bf16(const Args a) {
                 const float p2 = exp2f(sv[2] - m_r[1]), p3 = exp2f(sv[3] - m_r[1]);
                 l_r[0] += p0 + p1;
                 l_r[1] += p2 + p3;
-                pf[j][2 * half] = pack_bf16(p0, p1);
-                pf[j][2 * half + 1] = pack_bf16(p2, p3);
+                pf[j][2 * half] = pack2<T>(p0, p1);
+                pf[j][2 * half + 1] = pack2<T>(p2, p3);
             }
         }
 
@@ -460,8 +483,8 @@ __global__ void __launch_bounds__(THREADS) wa_bf16(const Args a) {
             for (int dp = 0; dp < D / 16; ++dp) {
                 uint32_t vfrag[4];
                 ldmatrix_x4_trans(vfrag, &vs[st][j * 16 + (mtx & 1) * 8 + mrow][dp * 16 + (mtx >> 1) * 8]);
-                mma_16816(acc[2 * dp], pf[j], vfrag[0], vfrag[1]);
-                mma_16816(acc[2 * dp + 1], pf[j], vfrag[2], vfrag[3]);
+                mma_16816<T>(acc[2 * dp], pf[j], vfrag[0], vfrag[1]);
+                mma_16816<T>(acc[2 * dp + 1], pf[j], vfrag[2], vfrag[3]);
             }
         }
         __syncthreads();  // this stage is refilled two iterations on
@@ -472,27 +495,29 @@ __global__ void __launch_bounds__(THREADS) wa_bf16(const Args a) {
         l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
         l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     }
-    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + w * a.o_sw + h * a.o_sh;
+    T* ob = static_cast<T*>(a.o) + b * a.o_sb + w * a.o_sw + h * a.o_sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int row = row_g + 8 * r;
         if (row < n) {
             const float lr = fmaxf(l_r[r], 1e-30f);
-            __nv_bfloat16* op = ob + row * a.o_sn;
+            T* op = ob + row * a.o_sn;
 #pragma unroll
             for (int dt = 0; dt < D / 8; ++dt)
-                *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * cq) = pack_bf16(acc[dt][2 * r] / lr, acc[dt][2 * r + 1] / lr);
+                *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * cq) = pack2<T>(acc[dt][2 * r] / lr, acc[dt][2 * r + 1] / lr);
         }
     }
 }
 
-template <typename TB>
-cudaError_t launch(const Args& a, int dtype, dim3 grid, cudaStream_t s) {
+// f32 q/k/v (T = float) with a float32 or bfloat16 bias, or T q/k/v with
+// a float32 bias or one of type T
+template <typename T, typename TB>
+cudaError_t launch(const Args& a, dim3 grid, cudaStream_t s) {
     const bool mask = a.mask != nullptr;
-    if (dtype == 0) {
+    if constexpr (std::is_same<T, float>::value) {
         if (mask) wa_f32<TB, true><<<grid, F32_BQ, 0, s>>>(a); else wa_f32<TB, false><<<grid, F32_BQ, 0, s>>>(a);
     } else {
-        if (mask) wa_bf16<TB, true><<<grid, THREADS, 0, s>>>(a); else wa_bf16<TB, false><<<grid, THREADS, 0, s>>>(a);
+        if (mask) wa_mma<T, TB, true><<<grid, THREADS, 0, s>>>(a); else wa_mma<T, TB, false><<<grid, THREADS, 0, s>>>(a);
     }
     return cudaGetLastError();
 }
@@ -510,8 +535,8 @@ enum Slot {
     SLOT_AREA,
     SLOT_HEADS,
     SLOT_HEAD_DIM,
-    SLOT_DTYPE,        // q, k, v and out: 0 = float32, 1 = bfloat16
-    SLOT_BIAS_DTYPE,   // cpb and mask: 0 = float32, 1 = bfloat16
+    SLOT_DTYPE,        // q, k, v and out: 0 = float32, 1 = bfloat16, 2 = float16
+    SLOT_BIAS_DTYPE,   // cpb and mask: 0 = float32, 1 = bfloat16, 2 = float16
     SLOT_DEVICE,       // the CUDA device of every tensor
     SLOT_ROUTE,        // written by the call: 1 = window_attention_sm90.cu ran, 0 = a kernel of this file
     NUM_SLOTS,
@@ -519,7 +544,7 @@ enum Slot {
 
 // Whether a tensor map can read an operand: a 16-byte aligned base and, for
 // every dim of size > 1, a positive stride of a multiple of 8 elements (16
-// bytes of bf16) below 2^39 elements (TMA: under 2^40 bytes).
+// bytes of 16-bit elements) below 2^39 elements (TMA: under 2^40 bytes).
 bool tma_readable(long long addr, const long long* strides, const long long* sizes, int dims) {
     if (addr % 16 != 0) return false;
     for (int i = 0; i < dims; ++i)
@@ -529,18 +554,21 @@ bool tma_readable(long long addr, const long long* strides, const long long* siz
 
 }  // namespace
 
-cudaError_t window_attention_sm90(const void* q, const long long* q_st, const void* k, const long long* k_st, const void* v,
-                                  const long long* v_st, void* o, const long long* o_st, const void* cpb, const long long* c_st,
-                                  const void* mask, const long long* m_st, int batch, int nw, int n, int heads,
-                                  cudaStream_t stream);
+cudaError_t window_attention_sm90(bool half, const void* q, const long long* q_st, const void* k, const long long* k_st,
+                                  const void* v, const long long* v_st, void* o, const long long* o_st, const void* cpb,
+                                  const long long* c_st, const void* mask, const long long* m_st, int batch, int nw, int n,
+                                  int heads, cudaStream_t stream);
 
 // C interface, bound with ctypes: `args` holds NUM_SLOTS int64 values laid out
 // as in `Slot`. Strides are in elements; the head dim of q, k, v and out and
 // the column dim of cpb and mask are contiguous. The caller checks alignment:
 // 16 B for q, k, v and out rows; an even element offset for every bias row.
-// bfloat16 q, k, v with bfloat16 biases go to window_attention_sm90.cu when
-// tma_readable holds for every operand (the kernels of this file take the
-// rest); the call writes its choice to args[SLOT_ROUTE]. The launch goes to
+// The dtype pairs taken (q, biases): (f32, f32), (f32, bf16), (bf16, f32),
+// (bf16, bf16), (f16, f32), (f16, f16); any other is refused
+// (cudaErrorInvalidValue). bfloat16 or float16 q, k, v with biases of the
+// same type go to window_attention_sm90.cu when tma_readable holds for every
+// operand (the kernels of this file take the rest); the call writes its
+// choice to args[SLOT_ROUTE]. The launch goes to
 // args[SLOT_DEVICE]; the calling thread's current device is the same after
 // the call as before. Returns the cudaError_t of the launch (0 on success);
 // the launch is asynchronous on `stream`.
@@ -552,7 +580,8 @@ extern "C" int mdpt_window_attention(long long* args, void* stream) {
     if (args[SLOT_HEAD_DIM] != D || n < 1 || batch < 1 || nw < 1 || num_heads < 1 || num_heads > 65535 ||
         args[SLOT_BATCH] * args[SLOT_WINDOWS] > 65535)
         return (int)cudaErrorInvalidValue;
-    if ((dtype != 0 && dtype != 1) || (bias_dtype != 0 && bias_dtype != 1) || cpb == nullptr)
+    const bool pair_taken = bias_dtype == CODE_F32 || bias_dtype == dtype || (dtype == CODE_F32 && bias_dtype == CODE_BF16);
+    if (dtype < CODE_F32 || dtype > CODE_F16 || bias_dtype < CODE_F32 || bias_dtype > CODE_F16 || !pair_taken || cpb == nullptr)
         return (int)cudaErrorInvalidValue;
     const long long* q = args + SLOT_Q;
     const long long* k = args + SLOT_K;
@@ -570,17 +599,23 @@ extern "C" int mdpt_window_attention(long long* args, void* stream) {
     if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     const long long rows[4] = {batch, nw, n, num_heads}, bias_rows[2] = {num_heads, n}, mask_rows[2] = {nw, n};
-    const bool sm90 = dtype == 1 && bias_dtype == 1 && (long long)nw * num_heads <= 65535 &&
+    const bool sm90 = dtype != CODE_F32 && bias_dtype == dtype && (long long)nw * num_heads <= 65535 &&
                       tma_readable(q[0], q + 1, rows, 4) && tma_readable(k[0], k + 1, rows, 4) &&
                       tma_readable(v[0], v + 1, rows, 4) && tma_readable(o[0], o + 1, rows, 4) &&
                       tma_readable(c[0], c + 1, bias_rows, 2) && (mk[0] == 0 || tma_readable(mk[0], mk + 1, mask_rows, 2));
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (sm90) {
-        err = window_attention_sm90(a.q, q + 1, a.k, k + 1, a.v, v + 1, a.o, o + 1, cpb, c + 1, a.mask, mk + 1, batch, nw, n,
-                                    num_heads, s);
+        err = window_attention_sm90(dtype == CODE_F16, a.q, q + 1, a.k, k + 1, a.v, v + 1, a.o, o + 1, cpb, c + 1, a.mask,
+                                    mk + 1, batch, nw, n, num_heads, s);
     } else {
-        const dim3 grid((n + BQ - 1) / BQ, num_heads, batch * nw);
-        err = bias_dtype == 0 ? launch<float>(a, dtype, grid, s) : launch<__nv_bfloat16>(a, dtype, grid, s);
+        const dim3 grid((n + BQ - 1) / BQ, num_heads, batch * nw);  // F32_BQ == BQ: one q tile of 64 rows per CTA
+        if (dtype == CODE_F32) {
+            err = bias_dtype == CODE_F32 ? launch<float, float>(a, grid, s) : launch<float, __nv_bfloat16>(a, grid, s);
+        } else if (dtype == CODE_BF16) {
+            err = bias_dtype == CODE_F32 ? launch<__nv_bfloat16, float>(a, grid, s) : launch<__nv_bfloat16, __nv_bfloat16>(a, grid, s);
+        } else {
+            err = bias_dtype == CODE_F32 ? launch<__half, float>(a, grid, s) : launch<__half, __half>(a, grid, s);
+        }
     }
     args[SLOT_ROUTE] = sm90 ? 1 : 0;
     if (current != device) {

@@ -1,10 +1,13 @@
-// SwinV2 window attention for Hopper (sm_90a) in bfloat16, with the
-// continuous-position bias (CPB) and the shift mask kept factored: wgmma, TMA
-// and a warp-specialised producer. Every launch of mdpt_window_attention
-// (csrc/window_attention.cu) whose q, k, v, CPB and mask are bfloat16 and
-// whose layouts a tensor map can read runs here (template MASK: with or
-// without the shift mask); the float32 launches, bfloat16 activations with
-// float32 biases and layouts TMA cannot read stay in window_attention.cu.
+// SwinV2 window attention for Hopper (sm_90a) in bfloat16 and float16, with
+// the continuous-position bias (CPB) and the shift mask kept factored: wgmma,
+// TMA and a warp-specialised producer. Every launch of mdpt_window_attention
+// (csrc/window_attention.cu) whose q, k, v, CPB and mask share one 16-bit
+// type and whose layouts a tensor map can read runs here (template
+// wa_sm90<T, MASK>: T __nv_bfloat16 or __half, with or without the shift
+// mask); the float32 launches, 16-bit activations with float32 biases and
+// layouts TMA cannot read stay in window_attention.cu. The two element types
+// share every line but the wgmma type strings, the tensor maps' data type
+// and the packs and unpacks of Elem<T>, all resolved at compile time.
 //
 // Replaces the TPU kernel muggled_dpt_tpu/ops/pallas/window_attention.py
 // window_flash_attention (:58) -> _kernel (:31). Per batch b, window w and
@@ -39,16 +42,16 @@
 //     stages, K and V tiles of BKV keys and the tile's 192 x BKV CPB (and, in
 //     the MASK instantiation, mask) tiles, each operand with a full and an
 //     empty mbarrier. q, k, v and out are 5-D tensor maps (D, H, A, nW, B)
-//     over the caller's strides with the 64-byte swizzle (a D = 32 bf16 row
+//     over the caller's strides with the 64-byte swizzle (a D = 32 16-bit row
 //     is 64 bytes); the CPB map is (A, A, H) and the mask's (A, A, nW), boxes
 //     of 64 keys (one 128-byte swizzle row) over the logical A, so a padded
 //     row's pads are never read. Rows and keys past A arrive as zeros.
 //   * three consumer warpgroups of 64 q rows (setmaxnreg.inc): S = Q K^T by
 //     wgmma m64nBKVk16, two k steps over D = 32, both operands from shared
 //     memory through K-major 64B-swizzle descriptors; the online softmax on
-//     the f32 accumulator: t = s + cpb + mask in f32 from the bf16 tiles, read
+//     the f32 accumulator: t = s + cpb + mask in f32 from the T tiles, read
 //     in S's fragment layout by ldmatrix.x4 (conflict-free under the 128B
-//     swizzle), the max taken on t, p = exp2(t log2(e) - m); P packed to bf16
+//     swizzle), the max taken on t, p = exp2(t log2(e) - m); P packed to T
 //     in registers, which is wgmma's A fragment; O += P V by wgmma m64n32k16,
 //     V MN-major through the descriptor's transpose bit, in one 64B swizzle
 //     atom. Tile t's QK^T and tile t-1's PV are issued together and tile t's
@@ -57,7 +60,7 @@
 //     Holding tile t+1's QK^T in flight under tile t's softmax (two S
 //     register arrays) was tried on an H100 and gave nothing, and drew
 //     ptxas's C7512 unless PV_{t-1} was waited for first.
-//   * the epilogue writes O, normalized and rounded to bf16, into the
+//   * the epilogue writes O, normalized and rounded to T, into the
 //     consumer's own 64 rows of the Q tile (free once its last QK^T is done)
 //     and stores them by TMA through the out map, which drops rows past A.
 //   * grid (batch, q tile, window x head), batch fastest: the CTAs that read
@@ -73,20 +76,24 @@
 // Numerics kept from the TPU kernel and csrc/window_attention.cu: logits,
 // softmax and accumulation in f32 (exp2 domain); keys at or past A masked by
 // index (-inf: left out of the max, p = 0), never a pad-count correction; l
-// summed from the f32 p; p rounded to bf16 before PV; out = acc / max(l,
-// 1e-30), rounded to bf16; q rows past A are computed on zeros and never
-// written.
+// summed from the f32 p (in f16 a p below 2^-24 rounds to 0 before PV, as
+// in the plain version's cast, and l keeps it); p rounded to T before PV;
+// out = acc / max(l, 1e-30), rounded to T; q rows past A are computed on
+// zeros and never written. In f16 nothing leaves its range: the mask is
+// -100, the CPB at most 16, p in [0, 1], out a convex combination of v.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
-constexpr int D = 32;              // head dim: one 64-byte swizzle row of bf16
+constexpr int D = 32;              // head dim: one 64-byte swizzle row of a 16-bit type
 constexpr float NEG_INF = -1e30f;  // the JAX package's masking constant
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int CONSUMERS = 3;       // consumer warpgroups, 64 q rows each
@@ -99,31 +106,31 @@ constexpr int THREADS = 128 * (1 + CONSUMERS);  // the producer warpgroup, then 
 constexpr int PRODUCER_REGS = 32, CONSUMER_REGS = 160;
 constexpr int CTA_REGS = 128 * (PRODUCER_REGS + CONSUMERS * CONSUMER_REGS);
 static_assert(CTA_REGS <= 65536, "the register file holds one CTA");
-constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BKV * D * 2;  // one bf16 tile of q, of k or of v
+constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BKV * D * 2;  // one 16-bit tile of q, of k or of v
 constexpr uint32_t BIAS_BYTES = BQ * BKV * 2;                     // one CPB or mask tile
 constexpr int CONSUMER_WARPS = 4 * CONSUMERS;  // each arrives once on an empty barrier
 constexpr long long WAIT_LIMIT = 1ll << 35;    // clocks (about 18 s): a wait this long is a fault, not a wait
 
-template <bool MASK>
+template <typename T, bool MASK>
 struct MaskStages {};
 
-template <>
-struct MaskStages<true> {
-    alignas(1024) __nv_bfloat16 tile[STAGES][BQ * BKV];
+template <typename T>
+struct MaskStages<T, true> {
+    alignas(1024) T tile[STAGES][BQ * BKV];
 };
 
-template <bool MASK>
+template <typename T, bool MASK>
 struct Smem {  // at a 1024-byte aligned address: the 128B swizzle repeats every 1024 bytes, the 64B one every 512
     // stage st: keys 0-63 of the tile as 192 swizzled rows of 128 B, then keys 64-127 (BKV = 128)
-    alignas(1024) __nv_bfloat16 cpb[STAGES][BQ * BKV];
-    alignas(1024) __nv_bfloat16 q[BQ * D];  // then, per consumer, its 64 rows of out
-    alignas(1024) __nv_bfloat16 k[STAGES][BKV * D];
-    alignas(1024) __nv_bfloat16 v[STAGES][BKV * D];
-    MaskStages<MASK> mask;
+    alignas(1024) T cpb[STAGES][BQ * BKV];
+    alignas(1024) T q[BQ * D];  // then, per consumer, its 64 rows of out
+    alignas(1024) T k[STAGES][BKV * D];
+    alignas(1024) T v[STAGES][BKV * D];
+    MaskStages<T, MASK> mask;
     uint64_t full_q, full_k[STAGES], full_v[STAGES], full_b[STAGES], empty_k[STAGES], empty_v[STAGES], empty_b[STAGES];
 };
-template <bool MASK>
-constexpr int SMEM_BYTES = sizeof(Smem<MASK>) + 1024;  // slack to align the base
+template <typename T, bool MASK>
+constexpr int SMEM_BYTES = sizeof(Smem<T, MASK>) + 1024;  // slack to align the base
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) { return static_cast<uint32_t>(__cvta_generic_to_shared(p)); }
 
@@ -209,7 +216,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[J][4]) {
         for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[j][i])::"memory");
 }
 
-// wgmma descriptor of a 64B-swizzled tile of 64-byte rows (D = 32 bf16):
+// wgmma descriptor of a 64B-swizzled tile of 64-byte rows (D = 32 16-bit elements):
 // start address >> 4, leading byte offset 1 (unused: one swizzle atom spans
 // the K extent of a K-major step and the N extent of the MN-major V), stride
 // byte offset 512 B >> 4 (from one 8-row group to the next), swizzle mode 2
@@ -222,32 +229,43 @@ __device__ __forceinline__ uint64_t sw64_desc(const void* p) {
 #define ACC8(i) \
     "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 
+// The wgmma instructions at the element type TY ("bf16" or "f16"): f32
+// accumulators, both operand types TY.
+#define WGMMA_QK_N64(TY)                                                                               \
+    asm volatile(                                                                                      \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                   \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                                    \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                      \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "             \
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                                \
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24)                                                         \
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+#define WGMMA_PV_N32(TY)                                                                               \
+    asm volatile(                                                                                      \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                                   \
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "                                    \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "                      \
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                                                  \
+        : ACC8(0), ACC8(8)                                                                             \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
 // d (64 rows x 64 keys, f32) = or += A (64 x 16 of D) B^T (64 keys x 16 of D), both K-major in shared memory
+template <typename T>
 __device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+    if constexpr (std::is_same<T, __half>::value) WGMMA_QK_N64("f16"); else WGMMA_QK_N64("bf16");
 }
 
-// d (64 rows x 32, f32) += A (64 x 16 keys, bf16 registers) B (16 keys x 32, MN-major in shared memory)
+// d (64 rows x 32, f32) += A (64 x 16 keys, T registers) B (16 keys x 32, MN-major in shared memory)
+template <typename T>
 __device__ __forceinline__ void wgmma_pv(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+    if constexpr (std::is_same<T, __half>::value) WGMMA_PV_N32("f16"); else WGMMA_PV_N32("bf16");
 }
 
+#undef WGMMA_QK_N64
+#undef WGMMA_PV_N32
 #undef ACC8
 
-// Four 8x8 bf16 matrices of shared memory, one row address per lane (lanes
+// Four 8x8 matrices of 16-bit elements in shared memory, one row address per lane (lanes
 // 8m..8m+7: matrix m); register m gets this lane's pair of matrix m in the
 // mma C-fragment layout: row lane / 4, columns 2 (lane % 4) and + 1.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], uint32_t addr) {
@@ -257,8 +275,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], uint32_t addr) {
                  : "memory");
 }
 
-__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
 
 __device__ __forceinline__ float ex2(float x) {
     float y;
@@ -266,26 +282,53 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-    return *reinterpret_cast<uint32_t*>(&v);
-}
+// What differs between the element types: the tensor maps' data type, two
+// f32 values rounded into one register (P's A fragment, out), and the two f32
+// values of a register of two elements (a bias pair read by ldmatrix). bf16
+// is the top half of an f32, so its unpack is a shift; f16 needs a
+// conversion (cvt.f32.f16).
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+    static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+        __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
+        return *reinterpret_cast<uint32_t*>(&v);
+    }
+    static __device__ __forceinline__ float lo(uint32_t x) { return __uint_as_float(x << 16); }
+    static __device__ __forceinline__ float hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+};
+
+template <>
+struct Elem<__half> {
+    static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+    static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+        __half2 v = __floats2half2_rn(lo, hi);  // cvt.rn.f16x2.f32; .x (lo) in the low half
+        return *reinterpret_cast<uint32_t*>(&v);
+    }
+    static __device__ __forceinline__ float lo(uint32_t x) { return __half2float(__ushort_as_half(static_cast<unsigned short>(x))); }
+    static __device__ __forceinline__ float hi(uint32_t x) { return __half2float(__ushort_as_half(static_cast<unsigned short>(x >> 16))); }
+};
 
 constexpr int SN = BKV / 2;   // S registers per thread
 constexpr int PJ = BKV / 16;  // PV k steps per tile
 
 // S = Q K^T over D = 32: two k steps of 16 (32 bytes along the swizzled rows)
-__device__ __forceinline__ void issue_qk(float (&s)[SN], uint64_t dq, const __nv_bfloat16* k_tile) {
+template <typename T>
+__device__ __forceinline__ void issue_qk(float (&s)[SN], uint64_t dq, const T* k_tile) {
     const uint64_t dk = sw64_desc(k_tile);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_qk(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_qk<T>(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
 }
 
 // O += P V over BKV keys: k steps of 16 keys (16 rows of 64 B = 1024 B)
-__device__ __forceinline__ void issue_pv(float (&o)[16], const uint32_t (&p)[PJ][4], const __nv_bfloat16* v_tile) {
+template <typename T>
+__device__ __forceinline__ void issue_pv(float (&o)[16], const uint32_t (&p)[PJ][4], const T* v_tile) {
     const uint64_t dv = sw64_desc(v_tile);
 #pragma unroll
-    for (int j = 0; j < PJ; ++j) wgmma_pv(o, p[j], dv + j * (16 * 64 >> 4));
+    for (int j = 0; j < PJ; ++j) wgmma_pv<T>(o, p[j], dv + j * (16 * 64 >> 4));
 }
 
 // This thread holds rows g and g + 8 of its warp's 16 in an S tile:
@@ -298,7 +341,7 @@ __device__ __forceinline__ bool key_masked(int kbase, int i, int e, int c, int n
 // -inf. On return s holds the f32 p = exp2(t log2(e) - m), m the new row max
 // of the logits (log2 units), alpha the factor for the old accumulator, l the
 // rescaled partial row sum.
-template <bool MASK, bool TAIL>
+template <typename T, bool MASK, bool TAIL>
 __device__ __forceinline__ void online_softmax(float (&s)[SN], float (&m)[2], float (&l)[2], float (&alpha)[2], uint32_t cpb_addr,
                                                uint32_t mask_addr, int kbase, int n, int c) {
     float mx[2] = {-INFINITY, -INFINITY};
@@ -312,8 +355,8 @@ __device__ __forceinline__ void online_softmax(float (&s)[SN], float (&m)[2], fl
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
             const int ii = i + (e >> 2), ee = e & 3, reg = 2 * (e >> 2) + (ee >> 1);
-            float t = s[4 * ii + ee] + ((ee & 1) ? bf16_hi(cb[reg]) : bf16_lo(cb[reg]));
-            if constexpr (MASK) t += (ee & 1) ? bf16_hi(mb[reg]) : bf16_lo(mb[reg]);
+            float t = s[4 * ii + ee] + ((ee & 1) ? Elem<T>::hi(cb[reg]) : Elem<T>::lo(cb[reg]));
+            if constexpr (MASK) t += (ee & 1) ? Elem<T>::hi(mb[reg]) : Elem<T>::lo(mb[reg]);
             s[4 * ii + ee] = TAIL && key_masked(kbase, ii, ee, c, n) ? -INFINITY : t;
             mx[ee >> 1] = fmaxf(mx[ee >> 1], s[4 * ii + ee]);
         }
@@ -334,22 +377,23 @@ __device__ __forceinline__ void online_softmax(float (&s)[SN], float (&m)[2], fl
     }
 }
 
-template <bool MASK>
+template <typename T, bool MASK>
 __device__ __forceinline__ void softmax_tile(float (&s)[SN], float (&m)[2], float (&l)[2], float (&alpha)[2], uint32_t cpb_addr,
                                              uint32_t mask_addr, int kbase, int n, int c) {
     if (kbase + BKV <= n) {
-        online_softmax<MASK, false>(s, m, l, alpha, cpb_addr, mask_addr, kbase, n, c);
+        online_softmax<T, MASK, false>(s, m, l, alpha, cpb_addr, mask_addr, kbase, n, c);
     } else {
-        online_softmax<MASK, true>(s, m, l, alpha, cpb_addr, mask_addr, kbase, n, c);
+        online_softmax<T, MASK, true>(s, m, l, alpha, cpb_addr, mask_addr, kbase, n, c);
     }
 }
 
-// P in bf16: the S fragments of keys 16j..16j+15 are the A fragment of PV k step j
+// P in T: the S fragments of keys 16j..16j+15 are the A fragment of PV k step j
+template <typename T>
 __device__ __forceinline__ void pack_p(uint32_t (&p)[PJ][4], const float (&s)[SN]) {
 #pragma unroll
     for (int j = 0; j < PJ; ++j) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) p[j][i] = pack_bf16(s[8 * j + 2 * i], s[8 * j + 2 * i + 1]);
+        for (int i = 0; i < 4; ++i) p[j][i] = Elem<T>::pack(s[8 * j + 2 * i], s[8 * j + 2 * i + 1]);
     }
 }
 
@@ -363,8 +407,8 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
 }
 
 // Consumer warpgroup `wg`: q rows q0 + 64 wg .. + 63 over every key tile.
-template <bool MASK>
-__device__ __forceinline__ void consume(Smem<MASK>& sm, const CUtensorMap* to, int wg, int b, int q0, int w, int h, int n,
+template <typename T, bool MASK>
+__device__ __forceinline__ void consume(Smem<T, MASK>& sm, const CUtensorMap* to, int wg, int b, int q0, int w, int h, int n,
                                         int tiles) {
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, c = lane % 4;
@@ -397,9 +441,9 @@ __device__ __forceinline__ void consume(Smem<MASK>& sm, const CUtensorMap* to, i
     fence_regs(s);
     release(&sm.empty_k[0], lane);
     mbar_wait(&sm.full_b[0], 0);
-    softmax_tile<MASK>(s, m, l, alpha, cpb_lane, mask_lane, 0, n, c);
+    softmax_tile<T, MASK>(s, m, l, alpha, cpb_lane, mask_lane, 0, n, c);
     release(&sm.empty_b[0], lane);
-    pack_p(p, s);
+    pack_p<T>(p, s);
 
     // key tile t: S_t and PV_{t-1} issued together, softmax_t under PV_{t-1}
     for (int t = 1; t < tiles; ++t) {
@@ -418,13 +462,13 @@ __device__ __forceinline__ void consume(Smem<MASK>& sm, const CUtensorMap* to, i
         fence_regs(s);
         release(&sm.empty_k[st], lane);
         mbar_wait(&sm.full_b[st], parity);
-        softmax_tile<MASK>(s, m, l, alpha, cpb_lane + st * BIAS_BYTES, mask_lane + st * BIAS_BYTES, t * BKV, n, c);
+        softmax_tile<T, MASK>(s, m, l, alpha, cpb_lane + st * BIAS_BYTES, mask_lane + st * BIAS_BYTES, t * BKV, n, c);
         release(&sm.empty_b[st], lane);
         wgmma_wait<0>();
         fence_regs(o);
         release(&sm.empty_v[pst], lane);
         rescale(o, alpha);
-        pack_p(p, s);
+        pack_p<T>(p, s);
     }
 
     // the last PV
@@ -438,7 +482,7 @@ __device__ __forceinline__ void consume(Smem<MASK>& sm, const CUtensorMap* to, i
     wgmma_wait<0>();
     fence_regs(o);
 
-    // out = O / l in bf16, staged in this consumer's 64 rows of the Q tile
+    // out = O / l in T, staged in this consumer's 64 rows of the Q tile
     // (its last QK^T is done) where the out map's 64B swizzle wants them:
     // chunk j of row r at j ^ (r / 2 % 4); then one TMA store
 #pragma unroll
@@ -454,15 +498,15 @@ __device__ __forceinline__ void consume(Smem<MASK>& sm, const CUtensorMap* to, i
 #pragma unroll
         for (int i = 0; i < 4; ++i)
             *reinterpret_cast<uint32_t*>(stage + row * 64 + ((i ^ ((row >> 1) & 3)) << 4) + 4 * c) =
-                pack_bf16(o[4 * i + 2 * r] / lr, o[4 * i + 2 * r + 1] / lr);
+                Elem<T>::pack(o[4 * i + 2 * r] / lr, o[4 * i + 2 * r + 1] / lr);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");        // the generic writes, visible to TMA
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");          // this warpgroup's rows are all written
     if (tid == 0) tma_store5(to, stage, 0, h, q0 + wg * 64, w, b);
 }
 
-template <bool MASK>
-__device__ __forceinline__ void produce(Smem<MASK>& sm, const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+template <typename T, bool MASK>
+__device__ __forceinline__ void produce(Smem<T, MASK>& sm, const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
                                         const CUtensorMap* tc, const CUtensorMap* tm, int b, int q0, int w, int h, int tiles) {
     mbar_expect_tx(&sm.full_q, Q_BYTES);
     tma_load5(sm.q, tq, &sm.full_q, 0, h, q0, w, b);
@@ -486,13 +530,13 @@ __device__ __forceinline__ void produce(Smem<MASK>& sm, const CUtensorMap* tq, c
     }
 }
 
-template <bool MASK>
+template <typename T, bool MASK>
 __global__ void __launch_bounds__(THREADS, 1)
-    wa_sm90_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
-                 const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap tm, const int n, const int heads) {
+    wa_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+            const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap tm, const int n, const int heads) {
     extern __shared__ uint8_t smem_raw[];
-    Smem<MASK>& sm = *reinterpret_cast<Smem<MASK>*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+    Smem<T, MASK>& sm = *reinterpret_cast<Smem<T, MASK>*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
     const int b = blockIdx.x, q0 = blockIdx.y * BQ;  // batch fastest
     const int w = blockIdx.z / heads, h = blockIdx.z - w * heads;
     const int tiles = (n + BKV - 1) / BKV;
@@ -514,10 +558,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     if (threadIdx.x < 128) {  // producer warpgroup: one thread issues every TMA load
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
-        if (threadIdx.x == 0) produce<MASK>(sm, &tq, &tk, &tv, &tc, &tm, b, q0, w, h, tiles);
+        if (threadIdx.x == 0) produce<T, MASK>(sm, &tq, &tk, &tv, &tc, &tm, b, q0, w, h, tiles);
     } else {
         asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
-        consume<MASK>(sm, &to, threadIdx.x / 128 - 1, b, q0, w, h, n, tiles);
+        consume<T, MASK>(sm, &to, threadIdx.x / 128 - 1, b, q0, w, h, n, tiles);
     }
 }
 
@@ -540,47 +584,48 @@ EncodeTiled encode_tiled() {
     return fn;
 }
 
-// A bf16 tensor map of RANK dims, zeros past the edges. `stride` holds the
-// byte strides of dims 1 .. RANK-1; a dim of size 1 is never stepped over, so
-// it gets a packed stride whatever the caller's (TMA takes non-zero
-// multiples of 16 B).
+// A tensor map of RANK dims of 16-bit elements of `type`, zeros past the
+// edges. `stride` holds the byte strides of dims 1 .. RANK-1; a dim of size
+// 1 is never stepped over, so it gets a packed stride whatever the caller's
+// (TMA takes non-zero multiples of 16 B).
 template <int RANK>
 CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[RANK], cuuint64_t (&stride)[RANK - 1],
-                const cuuint32_t (&box)[RANK], CUtensorMapSwizzle swizzle) {
+                const cuuint32_t (&box)[RANK], CUtensorMapSwizzle swizzle, CUtensorMapDataType type) {
     for (int i = 0; i < RANK - 1; ++i)
         if (dims[i + 1] == 1) stride[i] = i == 0 ? (dims[0] * 2 + 15) / 16 * 16 : stride[i - 1] * dims[i];
     cuuint32_t unit[RANK];
     for (int i = 0; i < RANK; ++i) unit[i] = 1;
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, RANK, const_cast<void*>(ptr), dims, stride, box, unit,
+    return fn(map, type, RANK, const_cast<void*>(ptr), dims, stride, box, unit,
               CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // The (D, H, A, nW, B) tensor map of q, k, v or out: `st` holds the element
 // strides (batch, window, row, head); boxes of `rows` rows of one head.
 CUresult encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr, const long long* st, int batch, int nw, int n, int heads,
-                     cuuint32_t rows) {
+                     cuuint32_t rows, CUtensorMapDataType type) {
     const cuuint64_t dims[5] = {D, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(nw),
                                 static_cast<cuuint64_t>(batch)};
     cuuint64_t stride[4] = {static_cast<cuuint64_t>(st[3]) * 2, static_cast<cuuint64_t>(st[2]) * 2,
                             static_cast<cuuint64_t>(st[1]) * 2, static_cast<cuuint64_t>(st[0]) * 2};
-    return encode<5>(fn, map, ptr, dims, stride, {D, 1, rows, 1, 1}, CU_TENSOR_MAP_SWIZZLE_64B);
+    return encode<5>(fn, map, ptr, dims, stride, {D, 1, rows, 1, 1}, CU_TENSOR_MAP_SWIZZLE_64B, type);
 }
 
 // The (A, A, count) tensor map of the CPB (count = H) or the mask (count =
 // nW): the logical A in both dims, so a padded row's pads read as zeros and
 // are never fetched; `st` holds the element strides (head or window, row).
 // Boxes of 64 keys x `rows` q rows.
-CUresult encode_bias(EncodeTiled fn, CUtensorMap* map, const void* ptr, const long long* st, int n, int count, cuuint32_t rows) {
+CUresult encode_bias(EncodeTiled fn, CUtensorMap* map, const void* ptr, const long long* st, int n, int count, cuuint32_t rows,
+                     CUtensorMapDataType type) {
     const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(count)};
     cuuint64_t stride[2] = {static_cast<cuuint64_t>(st[1]) * 2, static_cast<cuuint64_t>(st[0]) * 2};
-    return encode<3>(fn, map, ptr, dims, stride, {64, rows, 1}, CU_TENSOR_MAP_SWIZZLE_128B);
+    return encode<3>(fn, map, ptr, dims, stride, {64, rows, 1}, CU_TENSOR_MAP_SWIZZLE_128B, type);
 }
 
 struct Maps {
     CUtensorMap q, k, v, o, cpb, mask;
 };
 
-template <bool MASK>
+template <typename T, bool MASK>
 cudaError_t launch(const Maps& m, int batch, int nw, int n, int heads, cudaStream_t stream) {
     // once per device: the dynamic shared memory limit, and a check that the
     // registers granted at launch cover what setmaxnreg hands out (a short
@@ -592,56 +637,69 @@ cudaError_t launch(const Maps& m, int batch, int nw, int n, int heads, cudaStrea
     const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
     if (bit == 0 || !(configured.load() & bit)) {
         cudaFuncAttributes at;
-        err = cudaFuncGetAttributes(&at, wa_sm90_bf16<MASK>);
+        err = cudaFuncGetAttributes(&at, wa_sm90<T, MASK>);
         if (err != cudaSuccess) return err;
         if (at.numRegs * THREADS < CTA_REGS) return cudaErrorInvalidConfiguration;
-        err = cudaFuncSetAttribute(wa_sm90_bf16<MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES<MASK>);
+        err = cudaFuncSetAttribute(wa_sm90<T, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES<T, MASK>);
         if (err != cudaSuccess) return err;
         configured.fetch_or(bit);
     }
     const dim3 grid(batch, (n + BQ - 1) / BQ, nw * heads);
-    wa_sm90_bf16<MASK><<<grid, THREADS, SMEM_BYTES<MASK>, stream>>>(m.q, m.k, m.v, m.o, m.cpb, m.mask, n, heads);
+    wa_sm90<T, MASK><<<grid, THREADS, SMEM_BYTES<T, MASK>, stream>>>(m.q, m.k, m.v, m.o, m.cpb, m.mask, n, heads);
     return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_elem(const void* q, const long long* q_st, const void* k, const long long* k_st, const void* v,
+                        const long long* v_st, void* o, const long long* o_st, const void* cpb, const long long* c_st,
+                        const void* mask, const long long* m_st, int batch, int nw, int n, int heads, cudaStream_t stream) {
+    const EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return cudaErrorNotSupported;
+    constexpr CUtensorMapDataType type = Elem<T>::TMA;
+    Maps m{};
+    CUresult r = encode_rows(fn, &m.q, q, q_st, batch, nw, n, heads, BQ, type);
+    if (r == CUDA_SUCCESS) r = encode_rows(fn, &m.k, k, k_st, batch, nw, n, heads, BKV, type);
+    if (r == CUDA_SUCCESS) r = encode_rows(fn, &m.v, v, v_st, batch, nw, n, heads, BKV, type);
+    if (r == CUDA_SUCCESS) r = encode_rows(fn, &m.o, o, o_st, batch, nw, n, heads, 64, type);
+    if (r == CUDA_SUCCESS) r = encode_bias(fn, &m.cpb, cpb, c_st, n, heads, BQ, type);
+    if (r == CUDA_SUCCESS && mask != nullptr) r = encode_bias(fn, &m.mask, mask, m_st, n, nw, BQ, type);
+    if (r != CUDA_SUCCESS) return static_cast<cudaError_t>(r);
+    return mask != nullptr ? launch<T, true>(m, batch, nw, n, heads, stream) : launch<T, false>(m, batch, nw, n, heads, stream);
 }
 
 }  // namespace
 
-// Launch the kernel on the current device. q, k, v and out: addresses and
-// (batch, window, row, head) element strides, the head dim contiguous; cpb:
-// address and (head, row) element strides; mask: null, or address and
-// (window, row) element strides; columns contiguous. The caller has checked
-// that a tensor map reads every operand (csrc/window_attention.cu:
-// tma_readable). Returns the error of a tensor-map encode (a CUresult, whose
-// codes agree with cudaError_t's for invalid values) or of the launch.
-cudaError_t window_attention_sm90(const void* q, const long long* q_st, const void* k, const long long* k_st, const void* v,
-                                  const long long* v_st, void* o, const long long* o_st, const void* cpb, const long long* c_st,
-                                  const void* mask, const long long* m_st, int batch, int nw, int n, int heads,
-                                  cudaStream_t stream) {
-    const EncodeTiled fn = encode_tiled();
-    if (fn == nullptr) return cudaErrorNotSupported;
-    Maps m{};
-    CUresult r = encode_rows(fn, &m.q, q, q_st, batch, nw, n, heads, BQ);
-    if (r == CUDA_SUCCESS) r = encode_rows(fn, &m.k, k, k_st, batch, nw, n, heads, BKV);
-    if (r == CUDA_SUCCESS) r = encode_rows(fn, &m.v, v, v_st, batch, nw, n, heads, BKV);
-    if (r == CUDA_SUCCESS) r = encode_rows(fn, &m.o, o, o_st, batch, nw, n, heads, 64);
-    if (r == CUDA_SUCCESS) r = encode_bias(fn, &m.cpb, cpb, c_st, n, heads, BQ);
-    if (r == CUDA_SUCCESS && mask != nullptr) r = encode_bias(fn, &m.mask, mask, m_st, n, nw, BQ);
-    if (r != CUDA_SUCCESS) return static_cast<cudaError_t>(r);
-    return mask != nullptr ? launch<true>(m, batch, nw, n, heads, stream) : launch<false>(m, batch, nw, n, heads, stream);
+// Launch the kernel on the current device. `half`: every operand is float16
+// (else bfloat16). q, k, v and out: addresses and (batch, window, row, head)
+// element strides, the head dim contiguous; cpb: address and (head, row)
+// element strides; mask: null, or address and (window, row) element strides;
+// columns contiguous. The caller has checked that a tensor map reads every
+// operand (csrc/window_attention.cu: tma_readable). Returns the error of a
+// tensor-map encode (a CUresult, whose codes agree with cudaError_t's for
+// invalid values) or of the launch.
+cudaError_t window_attention_sm90(bool half, const void* q, const long long* q_st, const void* k, const long long* k_st,
+                                  const void* v, const long long* v_st, void* o, const long long* o_st, const void* cpb,
+                                  const long long* c_st, const void* mask, const long long* m_st, int batch, int nw, int n,
+                                  int heads, cudaStream_t stream) {
+    return half ? launch_elem<__half>(q, q_st, k, k_st, v, v_st, o, o_st, cpb, c_st, mask, m_st, batch, nw, n, heads, stream)
+                : launch_elem<__nv_bfloat16>(q, q_st, k, k_st, v, v_st, o, o_st, cpb, c_st, mask, m_st, batch, nw, n, heads,
+                                             stream);
 }
 
-// An instantiation's resources, for a report: `mask` 0 (no mask) or 1;
-// out: registers per thread at launch (before setmaxnreg), local memory
-// (spill) bytes per thread, static and dynamic shared memory bytes, threads
-// per block. Returns the cudaError_t.
-extern "C" int mdpt_window_attention_sm90_info(int mask, int* out) {
+// An instantiation's resources, for a report: `mask` 0 (no mask) or 1,
+// `half` 0 (bfloat16) or 1 (float16); out: registers per thread at launch
+// (before setmaxnreg), local memory (spill) bytes per thread, static and
+// dynamic shared memory bytes, threads per block. Returns the cudaError_t.
+extern "C" int mdpt_window_attention_sm90_info(int mask, int half, int* out) {
     cudaFuncAttributes at;
-    const cudaError_t err = cudaFuncGetAttributes(&at, mask ? wa_sm90_bf16<true> : wa_sm90_bf16<false>);
+    const void* kernel = half ? (mask ? (const void*)wa_sm90<__half, true> : (const void*)wa_sm90<__half, false>)
+                              : (mask ? (const void*)wa_sm90<__nv_bfloat16, true> : (const void*)wa_sm90<__nv_bfloat16, false>);
+    const cudaError_t err = cudaFuncGetAttributes(&at, kernel);
     if (err != cudaSuccess) return (int)err;
     out[0] = at.numRegs;
     out[1] = (int)at.localSizeBytes;
     out[2] = (int)at.sharedSizeBytes;
-    out[3] = mask ? SMEM_BYTES<true> : SMEM_BYTES<false>;
+    out[3] = mask ? SMEM_BYTES<__nv_bfloat16, true> : SMEM_BYTES<__nv_bfloat16, false>;  // the same for __half
     out[4] = at.maxThreadsPerBlock;
     return 0;
 }

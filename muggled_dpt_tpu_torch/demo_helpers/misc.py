@@ -23,9 +23,6 @@ import torch
 from ..dpt import resolve_device
 
 DEVICE_HELP = "Device to run on (default: the CUDA card, which must exist; 'cpu' for the CPU)"
-# float16 serving (-u) is not ported: the attention kernels take float32 and bfloat16 only
-F16_REFUSAL = ("-u/--prefer_unstable_f16: the card's attention kernels take float32 and bfloat16 only, so a float16 "
-               "model cannot run on the card (ROADMAP A16); drop -u to serve bfloat16, or add -f32")
 
 
 def run_with_backend_watchdog(fn, timeout_s: float = 60.0, what: str = "CUDA init"):
@@ -54,15 +51,14 @@ def run_with_backend_watchdog(fn, timeout_s: float = 60.0, what: str = "CUDA ini
 def make_device_config(device_str: str | None = None, use_float32: bool = False, prefer_bfloat16: bool = True) -> dict:
     """Compute policy of the apps' ``-d``, ``-f32`` and ``-u`` flags: the
     device (None: the CUDA card, resolved under the watchdog, raising without
-    one) and the dtype, bfloat16 on the card and float32 on the CPU or when
-    forced. ``prefer_bfloat16=False`` (``-u``) raises SystemExit on the card."""
+    one) and the dtype, float32 on the CPU or when forced, else on the card
+    bfloat16, or float16 for ``prefer_bfloat16=False`` (``-u``), as the JAX
+    package's ``make_device_config``."""
     device = run_with_backend_watchdog(lambda: resolve_device(device_str))
     if use_float32 or device.type == "cpu":
         dtype = torch.float32
-    elif not prefer_bfloat16:
-        raise SystemExit(F16_REFUSAL)
     else:
-        dtype = torch.bfloat16
+        dtype = torch.bfloat16 if prefer_bfloat16 else torch.float16
     return {"device": device, "dtype": dtype}
 
 

@@ -117,17 +117,18 @@ def kernel_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_flash_attention_sm90_info
-    # 0 (unbiased) or 1 (bf16 bias), then five int32 out values (csrc/flash_attention_sm90.cu): registers, spill bytes,
-    # static and dynamic shared bytes, threads
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    # 0 (unbiased) or 1 (a bias of q's type), 0 (bf16) or 1 (f16), then five int32 out values
+    # (csrc/flash_attention_sm90.cu): registers, spill bytes, static and dynamic shared bytes, threads
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_window_attention
     # the int64 argument array (its slots in csrc/window_attention.cu; the call writes SLOT_ROUTE), stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_window_attention_sm90_info
-    # 0 (no mask) or 1 (mask), then five int32 out values (csrc/window_attention_sm90.cu), as the flash kernel's
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    # 0 (no mask) or 1 (mask), 0 (bf16) or 1 (f16), then five int32 out values (csrc/window_attention_sm90.cu), as the
+    # flash kernel's
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.mdpt_fused_mlp
     # the int64 argument array (its slots in csrc/fused_mlp.cu; the call writes SLOT_ROUTE), LayerNorm eps, stream

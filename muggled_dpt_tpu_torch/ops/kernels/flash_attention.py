@@ -1,17 +1,22 @@
 """Flash attention: hand-written Hopper kernels behind one C entry
 (``csrc/flash_attention.cu``) and two Python entries, each with its plain
-PyTorch version beside it. The dtypes decide the kernel, nothing else:
+PyTorch version beside it. The dtypes decide the kernel, nothing else (T:
+bfloat16 or float16, the two 16-bit types, each with its own instances):
 
 =========================  ==================================================
-bf16 q/k/v, no bias        ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, a
-                           warp-specialised producer), ``BIAS_NONE``
-bf16 q/k/v, bf16 bias      the same source, ``BIAS_BF16``: the bias tile goes
-                           through shared memory, filled by TMA or copied by
-                           the producer's warps (``bias_fill``)
-bf16 q/k/v, float32 bias   ``fa_bf16`` in ``csrc/flash_attention.cu`` (no
+T q/k/v, no bias           ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, a
+                           warp-specialised producer), ``fa_sm90<T, BIAS_NONE>``
+T q/k/v, a T bias          the same source, ``fa_sm90<T, BIAS_ELEM>``: the
+                           bias tile goes through shared memory, filled by
+                           TMA or copied by the producer's warps (``bias_fill``)
+T q/k/v, float32 bias      ``fa_mma<T>`` in ``csrc/flash_attention.cu`` (no
                            model sends one: ``ops/nn.py`` hands the bias over
                            in the model's dtype)
-float32                    ``fa_f32`` in ``csrc/flash_attention.cu``
+float32                    ``fa_f32`` in ``csrc/flash_attention.cu``, with no
+                           bias or a float32 or bf16 one
+a float16 bias beside      refused (ValueError): no instance
+bf16 or float32 q/k/v, a
+bf16 bias beside float16
 =========================  ==================================================
 
 The tensor maps of the sm_90 kernel take the 16-byte aligned bases and
@@ -39,9 +44,12 @@ offset, with no copy. The kernel never expands a broadcast bias: a batch,
 head, row or column it broadcasts over gets stride 0.
 
 A CPU tensor takes the plain version. A CUDA tensor launches the kernel or
-raises; there is no fallback. Launches are counted per route, each in a plain
-integer on its entry: ``flash_attention_fused_qkv.launches`` (unbiased),
-``flash_attention_fused_qkv.biased_launches`` and ``flash_attention.launches``."""
+raises; there is no fallback (a float16 tensor launches a float16 kernel: it
+is never cast). Launches are counted per route, each in a plain integer on
+its entry: ``flash_attention_fused_qkv.launches`` (unbiased),
+``flash_attention_fused_qkv.biased_launches`` and ``flash_attention.launches``
+in float32 and bfloat16, and ``.f16_launches`` / ``.biased_f16_launches``
+in float16."""
 
 from __future__ import annotations
 
@@ -54,7 +62,12 @@ from ._build import kernel_library
 
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64  # the only head width the kernel is built for (DA and BEiT: F // 64 heads)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the C entries' dtype codes; kernels without a float16 instance
+# the attention kernels' (#1-#5 here, #3 in window_attention.py): float16 too
+ATTENTION_DTYPE_CODES = {**_DTYPE_CODES, torch.float16: 2}
+HALF_TYPES = (torch.bfloat16, torch.float16)  # the 16-bit types: each has its own sm_90 and mma.sync instances
+# a 16-bit bias's dtype code: the q/k/v codes a flash attention kernel takes it with
+_BIAS_WITH = {ATTENTION_DTYPE_CODES[torch.bfloat16]: (0, 1), ATTENTION_DTYPE_CODES[torch.float16]: (2,)}
 MAX_GRID_YZ = 65535  # CUDA grid y (heads) and z (batch) limit
 
 
@@ -147,18 +160,18 @@ BIAS_FILL_TMA, BIAS_FILL_COPY = 0, 1  # the argument array's SLOT_BIAS_FILL
 
 
 def bias_fill(bias) -> int:
-    """How the bf16 kernel fills its shared-memory bias tiles, from
+    """How the sm_90 kernel fills its shared-memory bias tiles, from
     ``_bias_operand``'s result: ``BIAS_FILL_TMA`` where a tensor map can read
-    the bias (bf16, column stride 1, rows not broadcast, the first element
-    and every batch, head and row stride a multiple of 16 bytes: BEiT's
-    cached stack and inline layer, whose rows are padded to 8 elements),
-    else ``BIAS_FILL_COPY`` (the kernel's producer warps load it at any
-    strides). Decided from the layout alone, before the launch; a launch
-    without a bf16 bias ignores it."""
+    the bias (bf16 or f16, column stride 1, rows not broadcast, the first
+    element and every batch, head and row stride a multiple of 16 bytes:
+    BEiT's cached stack and inline layer, whose rows are padded to 8
+    elements), else ``BIAS_FILL_COPY`` (the kernel's producer warps load it
+    at any strides). Decided from the layout alone, before the launch; a
+    launch without a 16-bit bias ignores it."""
     code, (addr, offset, sb, sh, sn, sk) = bias
-    es = 2  # bf16
+    es = 2  # a 16-bit bias
     aligned = (addr + offset * es) % 16 == 0 and all(st * es % 16 == 0 for st in (sb, sh, sn))
-    return BIAS_FILL_TMA if code == _DTYPE_CODES[torch.bfloat16] and sk == 1 and sn != 0 and aligned else BIAS_FILL_COPY
+    return BIAS_FILL_TMA if code in _BIAS_WITH and sk == 1 and sn != 0 and aligned else BIAS_FILL_COPY
 
 
 def _bias_operand(bias, bias_stack, layer, b: int, h: int, n: int, device):
@@ -175,10 +188,11 @@ def _bias_operand(bias, bias_stack, layer, b: int, h: int, n: int, device):
         shape, stride = (1, *bias_stack.shape[1:]), (0, *bias_stack.stride()[1:])
     else:
         t, offset, shape, stride = bias, 0, bias.shape, bias.stride()
-    if t.device != device or t.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash attention kernel: bias is {t.dtype} on {t.device}, want float32 or bfloat16 on {device}")
+    if t.device != device or t.dtype not in ATTENTION_DTYPE_CODES:
+        raise ValueError(f"flash attention kernel: bias is {t.dtype} on {t.device}, "
+                         f"want float32, bfloat16 or float16 on {device}")
     shape, stride = _bias_dims(shape, stride, b, h, n)
-    return _DTYPE_CODES[t.dtype], (t.data_ptr(), offset, *(st if size > 1 else 0 for size, st in zip(shape, stride)))
+    return ATTENTION_DTYPE_CODES[t.dtype], (t.data_ptr(), offset, *(st if size > 1 else 0 for size, st in zip(shape, stride)))
 
 
 def _operand(name: str, t: torch.Tensor, device, dtype) -> tuple[int, ...]:
@@ -234,14 +248,17 @@ def _launch(shape, dtype, device, q, k, v, out, bias, scale):
     b, n, h, d = shape
     if d != HEAD_DIM:
         raise ValueError(f"flash attention kernel supports head_dim {HEAD_DIM} only, got {d}")
-    dtype_code = _DTYPE_CODES.get(dtype)
+    dtype_code = ATTENTION_DTYPE_CODES.get(dtype)
     if dtype_code is None:
-        raise ValueError(f"flash attention kernel takes float32 or bfloat16, got {dtype}")
+        raise ValueError(f"flash attention kernel takes float32, bfloat16 or float16, got {dtype}")
+    bias_code, bias_args = bias
+    if dtype_code not in _BIAS_WITH.get(bias_code, (dtype_code,)):
+        raise ValueError(f"flash attention kernel: no instance takes a bias of dtype code {bias_code} with {dtype} q, k "
+                         "and v; pass the bias in q's dtype or in float32")
     if not math.isfinite(scale):
         raise ValueError(f"flash attention kernel needs a finite scale, got {scale}")
     if n < 1 or b < 1 or b > MAX_GRID_YZ or h > MAX_GRID_YZ:
         raise ValueError(f"flash attention kernel: bad grid batch={b} heads={h} n={n}")
-    bias_code, bias_args = bias
     args = array.array("q", [*q, *k, *v, *out, *bias_args, b, n, h, d, dtype_code, bias_code, device.index, bias_fill(bias)])
     stream = torch.cuda.current_stream(device).cuda_stream
     err = kernel_library().mdpt_flash_attention(args.buffer_info()[0], scale * LOG2E, stream)
@@ -276,7 +293,8 @@ def flash_attention_fused_qkv(qkv, num_heads, bias=None, scale=None, bias_stack=
     head-major qkv slab. ``scale`` defaults to D ** -0.5. ``bias`` is
     broadcastable to (B, H, N, N); or ``bias_stack`` (L, H, Np, Np) with
     ``layer`` selects one layer of a cached stack. Counts its launches in
-    ``flash_attention_fused_qkv.launches`` (unbiased) and ``.biased_launches``."""
+    ``flash_attention_fused_qkv.launches`` (unbiased) and ``.biased_launches``,
+    float16 ones in ``.f16_launches`` and ``.biased_f16_launches``."""
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads) != 0:
         raise ValueError(f"qkv must be (B, N, 3 * num_heads * D), got {tuple(qkv.shape)} for {num_heads} heads")
     b, n, c3 = qkv.shape
@@ -291,17 +309,17 @@ def flash_attention_fused_qkv(qkv, num_heads, bias=None, scale=None, bias_stack=
     out = torch.empty((b, n, num_heads * d), dtype=qkv.dtype, device=device)
     o = (out.data_ptr(), n * num_heads * d, num_heads * d, d)
     _launch((b, n, num_heads, d), qkv.dtype, device, q, k, v, o, bias_arg, scale)
-    if bias_arg is _NO_BIAS:
-        flash_attention_fused_qkv.launches += 1
-    else:
-        flash_attention_fused_qkv.biased_launches += 1
+    f16 = "f16_" if qkv.dtype == torch.float16 else ""
+    route = f"{f16}launches" if bias_arg is _NO_BIAS else f"biased_{f16}launches"
+    setattr(flash_attention_fused_qkv, route, getattr(flash_attention_fused_qkv, route) + 1)
     return out
 
 
 def flash_attention(q, k, v, bias=None, scale=None):
     """Attention on (B, N, H, D) q, k and v (strided views allowed, head dim
     contiguous) with an optional bias broadcastable to (B, H, N, N); returns
-    a new (B, N, H, D) tensor. Counts its launches in ``flash_attention.launches``."""
+    a new (B, N, H, D) tensor. Counts its launches in ``flash_attention.launches``
+    (float16: ``.f16_launches``)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, N, H, D) shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, n, h, d = q.shape
@@ -315,13 +333,19 @@ def flash_attention(q, k, v, bias=None, scale=None):
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=device)
     o = (out.data_ptr(), n * h * d, h * d, d)
     _launch((b, n, h, d), q.dtype, device, *specs, o, bias_arg, scale)
-    flash_attention.launches += 1
+    if q.dtype == torch.float16:
+        flash_attention.f16_launches += 1
+    else:
+        flash_attention.launches += 1
     return out
 
 
 flash_attention_fused_qkv.launches = 0
 flash_attention_fused_qkv.biased_launches = 0
+flash_attention_fused_qkv.f16_launches = 0
+flash_attention_fused_qkv.biased_f16_launches = 0
 flash_attention.launches = 0
+flash_attention.f16_launches = 0
 
 
 def _counted_entries() -> dict:
@@ -340,6 +364,11 @@ def _counted_entries() -> dict:
         "bnhd": (flash_attention, "launches"),
         "window": (window_attention, "launches"),
         "window_sm90": (window_attention, "sm90_launches"),
+        "fused_f16": (flash_attention_fused_qkv, "f16_launches"),
+        "fused_biased_f16": (flash_attention_fused_qkv, "biased_f16_launches"),
+        "bnhd_f16": (flash_attention, "f16_launches"),
+        "window_f16": (window_attention, "f16_launches"),
+        "window_sm90_f16": (window_attention, "sm90_f16_launches"),
         "fused_mlp": (fused_ln_mlp_residual, "launches"),
         "fused_mlp_sm90": (fused_ln_mlp_residual, "sm90_launches"),
         "head_tail": (fused_head_tail, "launches"),
@@ -361,9 +390,12 @@ def reset_launch_counts():
 
 
 def launch_counts() -> dict[str, int]:
-    """The launch count of every kernel route of the package: the SwinV2
+    """The launch count of every kernel route of the package: the fused qkv
+    entry's ``fused`` and ``fused_biased`` and the (B, N, H, D) op's ``bnhd``
+    (float16: ``fused_f16``, ``fused_biased_f16``, ``bnhd_f16``), the SwinV2
     window kernels (``ops/kernels/window_attention.py``: ``window`` and the
-    sm_90 kernel's ``window_sm90``), the fused MLP (``fused_mlp.py``:
+    sm_90 kernel's ``window_sm90``; float16 ``window_f16`` and
+    ``window_sm90_f16``), the fused MLP (``fused_mlp.py``:
     ``fused_mlp`` and the sm_90 kernels' ``fused_mlp_sm90``), the head tail
     (``head_tail.py``: ``head_tail`` and the sm_90 kernel's
     ``head_tail_sm90``), the int8-QK^T attention's two entries

@@ -13,28 +13,31 @@ be strided views (the head dim contiguous); the output is a new (B, nW, A,
 H, D) tensor in q's dtype.
 
 The C entry picks the kernel and reports it back through the argument
-array's ``SLOT_ROUTE``:
+array's ``SLOT_ROUTE`` (T: bfloat16 or float16, each with its own instances):
 
 =====================================  =====================================
-bf16 q/k/v, bf16 CPB and mask, every   ``csrc/window_attention_sm90.cu``
+T q/k/v, T CPB and mask, every         ``csrc/window_attention_sm90.cu``
 operand readable by a tensor map       (wgmma, TMA, a warp-specialised
                                        producer); counted in
                                        ``window_attention.sm90_launches``,
-                                       the route ``window_sm90``
-float32; bf16 q/k/v with a float32     ``csrc/window_attention.cu`` (bf16 on
-bias; other layouts                    ``mma.sync``, float32 on FMAs);
-                                       counted in ``window_attention.launches``,
-                                       the route ``window``
+                                       the route ``window_sm90`` (float16:
+                                       ``.sm90_f16_launches``,
+                                       ``window_sm90_f16``)
+float32; T q/k/v with float32          ``csrc/window_attention.cu`` (T on
+biases (SwinV2's inline CPB); other    ``mma.sync``, float32 on FMAs);
+layouts                                counted in ``window_attention.launches``,
+                                       the route ``window`` (float16:
+                                       ``.f16_launches``, ``window_f16``)
 =====================================  =====================================
 
-The wrapper lays a bias out for its route (``_bias_operands``): with bf16
-q/k/v and bf16 biases every bias row starts at a multiple of 8 elements (16
-bytes, what a tensor map reads), so every layout the SwinV2 model sends takes
-the sm_90 kernel; otherwise every row starts at an even element.
+The wrapper lays a bias out for its route (``_bias_operands``): with T q/k/v
+and T biases every bias row starts at a multiple of 8 elements (16 bytes,
+what a tensor map reads), so every layout the SwinV2 model sends takes the
+sm_90 kernel; otherwise every row starts at an even element.
 
 A CPU tensor takes the plain version. A CUDA tensor launches a kernel or
-raises; there is no fallback. ``flash_attention.launch_counts()`` reports both
-counts."""
+raises; there is no fallback (float16 q, k and v launch a float16 kernel: they
+are never cast). ``flash_attention.launch_counts()`` reports every count."""
 
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ import array
 import torch
 
 from ._build import kernel_library
-from .flash_attention import _DTYPE_CODES, MAX_GRID_YZ, _device_route, _operand, _refuse_grad
+from .flash_attention import ATTENTION_DTYPE_CODES, HALF_TYPES, MAX_GRID_YZ, _device_route, _operand, _refuse_grad
 
 HEAD_DIM = 32  # the only head width the kernel is built for (every SwinV2 config: F / H = 32)
 # H100 SXM rates of the yardsticks below: dense bf16 tensor cores, HBM, and
@@ -52,7 +55,8 @@ BF16_FLOPS_PER_S, HBM_BYTES_PER_S, EX2_PER_S = 989e12, 3.35e12, 16 * 132 * 1.83e
 
 
 def window_bound(b, nw, a, h, with_mask) -> dict:
-    """The yardsticks of one bf16 call at (B, nW, A, H, D=32), in ms:
+    """The yardsticks of one 16-bit call (bf16 or f16: the same tensor-core
+    rate and bytes on an H100) at (B, nW, A, H, D=32), in ms:
     ``bound_ms``, the larger of 4 B nW H A^2 D operations over the tensor
     cores' rate and q, k, v, out and the CPB and mask tables moved once over
     HBM's (``bound_by`` names which), and ``exp_floor_ms``, one ex2 per
@@ -99,18 +103,22 @@ def _row_aligned(t: torch.Tensor, step: int) -> bool:
 
 def _bias_operands(cpb, mask, device, dtype=torch.float32):
     """(dtype code, cpb, mask) as the kernels read them: both biases in one
-    dtype (float32 when they differ: exact). With ``dtype`` (q's) bf16 and
-    bf16 biases every row starts at a multiple of 8 elements, 16 bytes, so
-    that a tensor map reads it (the sm_90 kernel); otherwise at an even
-    element (the kernels load element pairs). A bias that is not so laid out
-    (an odd window area, say) is copied once into rows padded to a multiple
-    of 8 with zeros."""
+    dtype, float32 when they differ, and float32 where their 16-bit type has
+    no instance beside ``dtype`` (q's): float16 biases with float32 or
+    bfloat16 q, bfloat16 biases with float16 q (each cast exact). With
+    16-bit q and biases of q's type every row starts at a multiple of 8
+    elements, 16 bytes, so that a tensor map reads it (the sm_90 kernel);
+    otherwise at an even element (the kernels load element pairs). A bias
+    that is not so laid out (an odd window area, say) is copied once into
+    rows padded to a multiple of 8 with zeros."""
     for name, t in (("cpb", cpb), ("mask", mask)):
-        if t is not None and (t.device != device or t.dtype not in _DTYPE_CODES):
-            raise ValueError(f"window attention kernel: {name} is {t.dtype} on {t.device}, want float32 or bfloat16 on {device}")
-    if mask is not None and mask.dtype != cpb.dtype:
-        cpb, mask = cpb.float(), mask.float()
-    step = 8 if dtype == torch.bfloat16 and cpb.dtype == torch.bfloat16 else 2
+        if t is not None and (t.device != device or t.dtype not in ATTENTION_DTYPE_CODES):
+            raise ValueError(f"window attention kernel: {name} is {t.dtype} on {t.device}, "
+                             f"want float32, bfloat16 or float16 on {device}")
+    no_instance = (cpb.dtype == torch.float16) != (dtype == torch.float16) and cpb.dtype != torch.float32
+    if mask is not None and mask.dtype != cpb.dtype or no_instance:
+        cpb, mask = cpb.float(), None if mask is None else mask.float()
+    step = 8 if dtype in HALF_TYPES and cpb.dtype == dtype else 2
 
     def laid_out(t):
         if t is None or _row_aligned(t, step):
@@ -120,7 +128,7 @@ def _bias_operands(cpb, mask, device, dtype=torch.float32):
         padded[..., :a] = t
         return padded[..., :a]
 
-    return _DTYPE_CODES[cpb.dtype], laid_out(cpb), laid_out(mask)
+    return ATTENTION_DTYPE_CODES[cpb.dtype], laid_out(cpb), laid_out(mask)
 
 
 def _launch(shape, dtype, device, q, k, v, out, bias_code, cpb, mask):
@@ -134,9 +142,9 @@ def _launch(shape, dtype, device, q, k, v, out, bias_code, cpb, mask):
     b, nw, a, h, d = shape
     if d != HEAD_DIM:
         raise ValueError(f"window attention kernel supports head_dim {HEAD_DIM} only, got {d}")
-    dtype_code = _DTYPE_CODES.get(dtype)
+    dtype_code = ATTENTION_DTYPE_CODES.get(dtype)
     if dtype_code is None:
-        raise ValueError(f"window attention kernel takes float32 or bfloat16, got {dtype}")
+        raise ValueError(f"window attention kernel takes float32, bfloat16 or float16, got {dtype}")
     if min(b, nw, a, h) < 1 or b * nw > MAX_GRID_YZ or h > MAX_GRID_YZ:
         raise ValueError(f"window attention kernel: bad grid batch={b} windows={nw} heads={h} area={a}")
     cpb_args = (cpb.data_ptr(), cpb.stride(0), cpb.stride(1))
@@ -152,9 +160,10 @@ def _launch(shape, dtype, device, q, k, v, out, bias_code, cpb, mask):
 def window_attention(q, k, v, cpb, mask=None):
     """softmax(q kᵀ + cpb[h] + mask[w]) v per (batch, window, head) on
     (B, nW, A, H, D) tensors; cpb (H, A, A), mask None or (nW, A, A), each
-    float32 or bfloat16 whatever q's dtype. Counts its launches in
+    float32, bfloat16 or float16 whatever q's dtype. Counts its launches in
     ``window_attention.sm90_launches`` (csrc/window_attention_sm90.cu) or
-    ``window_attention.launches`` (csrc/window_attention.cu)."""
+    ``window_attention.launches`` (csrc/window_attention.cu); float16 ones in
+    ``.sm90_f16_launches`` and ``.f16_launches``."""
     _check_shapes(q, k, v, cpb, mask)
     device = q.device
     if _device_route(device, "window_attention"):
@@ -165,12 +174,13 @@ def window_attention(q, k, v, cpb, mask=None):
     b, nw, a, h, d = q.shape
     out = torch.empty((b, nw, a, h, d), dtype=q.dtype, device=device)
     o = (out.data_ptr(), nw * a * h * d, a * h * d, h * d, d)
-    if _launch(tuple(q.shape), q.dtype, device, *specs, o, bias_code, cpb, mask):
-        window_attention.sm90_launches += 1
-    else:
-        window_attention.launches += 1
+    sm90 = _launch(tuple(q.shape), q.dtype, device, *specs, o, bias_code, cpb, mask)
+    route = ("sm90_" if sm90 else "") + ("f16_" if q.dtype == torch.float16 else "") + "launches"
+    setattr(window_attention, route, getattr(window_attention, route) + 1)
     return out
 
 
 window_attention.launches = 0
 window_attention.sm90_launches = 0
+window_attention.f16_launches = 0
+window_attention.sm90_f16_launches = 0

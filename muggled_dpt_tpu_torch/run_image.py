@@ -6,8 +6,8 @@ uint16-PNG export.
 
     python -m muggled_dpt_tpu_torch.run_image -m CKPT -i IMAGE [--headless] [-d cpu]
 
-Runs on the CUDA card in bfloat16 unless ``-d cpu`` (float32) is given, and
-exits with an error where there is no card.
+Runs on the CUDA card in bfloat16 (float16 with ``-u``) unless ``-d cpu``
+(float32) is given, and exits with an error where there is no card.
 
 Keys: s = save, c = cycle colormap, r = reverse colors, p = plane removal,
       e = histogram equalization, q/esc = quit."""
@@ -106,7 +106,7 @@ def main(argv=None):
     print("", "Loading model weights...", f"  @ {model_path}", sep="\n", flush=True)
     # The per-grid aux cache stays on (the JAX app turns it off): the port's cache is bounded by the card's free
     # memory and evicts the least recently used size, and SwinV2's inline CPB bias is float32, which would send
-    # every bfloat16 window attention to the slower kernel of csrc/window_attention.cu.
+    # every bfloat16 or float16 window attention to the slower kernel of csrc/window_attention.cu.
     model_config, dpt_model = make_dpt_from_state_dict(
         model_path, enable_optimizations=not args.no_optimization, dtype=device_config["dtype"],
         device=device_config["device"],

@@ -8,9 +8,10 @@ every frame instead, for honest per-frame times.
 
     python -m muggled_dpt_tpu_torch.run_video -m CKPT -i VIDEO [--headless --max_frames N] [-sync] [-d cpu]
 
-Runs on the CUDA card in bfloat16 unless ``-d cpu`` (float32) is given, and
-exits with an error where there is no card. With ``--headless -r`` every
-shown frame is recorded (there is no window in which to toggle recording).
+Runs on the CUDA card in bfloat16 (float16 with ``-u``) unless ``-d cpu``
+(float32) is given, and exits with an error where there is no card. With
+``--headless -r`` every shown frame is recorded (there is no window in which
+to toggle recording).
 
 Keys: space = pause, c = colormap, r = reverse, e = equalize, o = record
       frames, q/esc = quit."""

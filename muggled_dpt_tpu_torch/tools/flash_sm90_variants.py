@@ -56,7 +56,7 @@ ENTRY = r"""
 extern "C" int run(const void* q, const void* k, const void* v, void* o, const long long* st_in, const long long* st_out,
                    const void* bias, const long long* bias_st, int fill, int batch, int n, int heads, float scale_log2,
                    void* stream) {
-    return (int)flash_attention_sm90(q, st_in, k, st_in, v, st_in, o, st_out, bias, bias_st, fill, batch, n, heads,
+    return (int)flash_attention_sm90(false, q, st_in, k, st_in, v, st_in, o, st_out, bias, bias_st, fill, batch, n, heads,
                                      scale_log2, (cudaStream_t)stream);
 }
 """

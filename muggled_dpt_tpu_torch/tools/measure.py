@@ -6,7 +6,7 @@
     python3 muggled_dpt_tpu_torch/tools/measure.py head [--against DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py mlp [--against DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py int8 [--against DIR]
-    python3 muggled_dpt_tpu_torch/tools/measure.py profile [--model beit|swinv2|vitl|giant] [--out DIR]
+    python3 muggled_dpt_tpu_torch/tools/measure.py profile [--model beit|swinv2|vitl|giant] [--dtype bf16|f16] [--out DIR]
     python3 muggled_dpt_tpu_torch/tools/measure.py profile --int8 [dense] [default] [qkv] [neck] [--out DIR]
 
 ``host``: the attention and window attention wrappers' host cost per call,
@@ -164,8 +164,8 @@ SWIN_L384 = {
 FRAME_HW = (720, 1280)
 KINDS = [  # (kind, substrings of the kernel name), first match wins
     ("int8 GEMM (torch._int_mm)", ("gemm_s8", "i16832gemm", "imma")),
-    ("attention kernel", ("fa_sm90_bf16", "fa_bf16", "fa_f32")),
-    ("window attention kernel", ("wa_bf16", "wa_f32")),
+    ("attention kernel", ("fa_sm90", "fa_mma", "fa_f32")),
+    ("window attention kernel", ("wa_sm90", "wa_mma", "wa_f32")),
     ("conv (cuDNN, with layout transforms)", ("cudnn", "xmma", "fprop", "dgrad", "nchwToNhwc", "nhwcToNchw")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm")),
     ("resize", ("upsample",)),
@@ -834,6 +834,9 @@ PROFILED = {  # model: (label, checkpoints module.generator, config, checkpoint 
 }
 
 
+DTYPES = {"bf16": "bfloat16", "f16": "float16"}  # profile's --dtype: torch attribute names (torch is imported late)
+
+
 def profile(args, smi):
     import importlib
 
@@ -849,7 +852,7 @@ def profile(args, smi):
     random_state_dict = getattr(importlib.import_module(f"muggled_dpt_tpu_torch.checkpoints.{module}"), function)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = write_checkpoint(random_state_dict(config, seed=0), os.path.join(tmp, name))
-        _, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device="cuda")
+        _, model = make_dpt_from_state_dict(ckpt, dtype=getattr(torch, DTYPES[args.dtype]), device="cuda")
     for grid in grids:
         build_ms(model, grid, aux_label, smi)
     frames = np.random.default_rng(1).integers(0, 256, (8, *FRAME_HW, 3), dtype=np.uint8)
@@ -863,7 +866,7 @@ def profile(args, smi):
     tiers = {tier: INT8_TIERS[tier] for tier in args.int8} if args.int8 else {"": None}
     for tier, opts in tiers.items():
         served = model if opts is None else model.quantize_encoder_int8(**opts)
-        what = f"{label}{' int8 ' + tier if opts is not None else ''} bf16 {size}"
+        what = f"{label}{' int8 ' + tier if opts is not None else ''} {args.dtype} {size}"
         for b, forwards, fn in ((1, 10, lambda: served.inference(frames[0], side)),
                                 (8, 5, lambda: served.inference_rgb_device(batch, hw))):
             profile_forward(fn, forwards, f"{what} B={b}", smi, lines)
@@ -871,7 +874,8 @@ def profile(args, smi):
         torch.cuda.empty_cache()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, f"profile_{args.model}{'_int8' if args.int8 else ''}_kernels.txt"), "w") as f:
+        name = f"profile_{args.model}{'_int8' if args.int8 else ''}{'_f16' if args.dtype == 'f16' else ''}_kernels.txt"
+        with open(os.path.join(args.out, name), "w") as f:
             f.write(f"# ms per forward per kernel [{smi}]\n" + "\n".join(lines) + "\n")
 
 
@@ -884,6 +888,8 @@ def main() -> int:
                         "vitl with --int8)")
     parser.add_argument("--int8", nargs="+", choices=list(INT8_TIERS), default=None,
                         help="profile these int8 tiers of the model (dense: the bf16 model) instead of the bf16 model")
+    parser.add_argument("--dtype", choices=["bf16", "f16"], default="bf16", help="the model's dtype for profile (f16: the "
+                        "apps' -u)")
     parser.add_argument("--out", default=None, help="directory for the per-kernel profile table")
     args = parser.parse_args()
     args.model = args.model or ("vitl" if args.int8 else "beit")

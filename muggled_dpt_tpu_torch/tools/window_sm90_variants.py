@@ -67,15 +67,15 @@ ENTRY = r"""
 extern "C" int run(const void* q, const long long* q_st, const void* k, const long long* k_st, const void* v,
                    const long long* v_st, void* o, const long long* o_st, const void* cpb, const long long* c_st,
                    const void* mask, const long long* m_st, int batch, int nw, int n, int heads, void* stream) {
-    return (int)window_attention_sm90(q, q_st, k, k_st, v, v_st, o, o_st, cpb, c_st, mask, m_st, batch, nw, n, heads,
-                                      (cudaStream_t)stream);
+    return (int)window_attention_sm90(false, q, q_st, k, k_st, v, v_st, o, o_st, cpb, c_st, mask, m_st, batch, nw, n,
+                                      heads, (cudaStream_t)stream);
 }
 """
 RUN_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-CONSUME = "        consume<MASK>(sm, &to, threadIdx.x / 128 - 1, b, q0, w, h, n, tiles);"
-KERNEL = "template <bool MASK>\n__global__"
-DRAIN = r"""template <bool MASK>
-__device__ __forceinline__ void drain(Smem<MASK>& sm, int tiles) {
+CONSUME = "        consume<T, MASK>(sm, &to, threadIdx.x / 128 - 1, b, q0, w, h, n, tiles);"
+KERNEL = "template <typename T, bool MASK>\n__global__"
+DRAIN = r"""template <typename T, bool MASK>
+__device__ __forceinline__ void drain(Smem<T, MASK>& sm, int tiles) {
     const int lane = threadIdx.x % 32;
     mbar_wait(&sm.full_q, 0);
     for (int t = 0; t < tiles; ++t) {
@@ -91,21 +91,25 @@ __device__ __forceinline__ void drain(Smem<MASK>& sm, int tiles) {
 }
 
 """
-SOFTMAX_CALLS = ("    softmax_tile<MASK>(s, m, l, alpha, cpb_lane, mask_lane, 0, n, c);",
-                 "        softmax_tile<MASK>(s, m, l, alpha, cpb_lane + st * BIAS_BYTES, mask_lane + st * BIAS_BYTES, t * BKV, n, c);")
+SOFTMAX_CALLS = ("    softmax_tile<T, MASK>(s, m, l, alpha, cpb_lane, mask_lane, 0, n, c);",
+                 "        softmax_tile<T, MASK>(s, m, l, alpha, cpb_lane + st * BIAS_BYTES, mask_lane + st * BIAS_BYTES, t * BKV, n, c);")
 PV_MARK = "// d (64 rows x 32, f32) += A (64 x 16 keys"
-WGMMA_N128 = r"""__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+WGMMA_N128 = r"""#define WGMMA_QK_N128(TY)                                                                              \
+    asm volatile(                                                                                      \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                   \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                                   \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                      \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "             \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "             \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "             \
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"                                                                \
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)                 \
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+template <typename T>
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+    if constexpr (std::is_same<T, __half>::value) WGMMA_QK_N128("f16"); else WGMMA_QK_N128("bf16");
 }
+#undef WGMMA_QK_N128
 
 """
 # compute only: the producer fills the first STAGES tiles and stops; the consumers run every tile on them
@@ -158,11 +162,11 @@ CLUSTER_LAUNCH = """    cudaLaunchAttribute attr[1];
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = grid;
     cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = SMEM_BYTES<MASK>;
+    cfg.dynamicSmemBytes = SMEM_BYTES<T, MASK>;
     cfg.stream = stream;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, wa_sm90_bf16<MASK>, m.q, m.k, m.v, m.o, m.cpb, m.mask, n, heads);
+    err = cudaLaunchKernelEx(&cfg, wa_sm90<T, MASK>, m.q, m.k, m.v, m.o, m.cpb, m.mask, n, heads);
     return err != cudaSuccess ? err : cudaGetLastError();
 """
 STORE_MARK = "// Shared memory to the box of a 5-D tensor map"
@@ -181,11 +185,11 @@ CLUSTER_PATCH = [
      "    cluster_sync();  // every barrier of the cluster initialized before any multicast or remote arrival\n\n"
      "    if (threadIdx.x < 128) {"),
     (CONSUME + "\n    }\n}", CONSUME + "\n    }\n    __syncwarp();\n    cluster_sync();  // no CTA leaves while another may still arrive on its barriers\n}"),
-    ("""    wa_sm90_bf16<MASK><<<grid, THREADS, SMEM_BYTES<MASK>, stream>>>(m.q, m.k, m.v, m.o, m.cpb, m.mask, n, heads);
+    ("""    wa_sm90<T, MASK><<<grid, THREADS, SMEM_BYTES<T, MASK>, stream>>>(m.q, m.k, m.v, m.o, m.cpb, m.mask, n, heads);
     return cudaGetLastError();
 """, CLUSTER_LAUNCH),
-    ("encode_bias(fn, &m.cpb, cpb, c_st, n, heads, BQ);", "encode_bias(fn, &m.cpb, cpb, c_st, n, heads, BQ / CLUSTER);"),
-    ("encode_bias(fn, &m.mask, mask, m_st, n, nw, BQ);", "encode_bias(fn, &m.mask, mask, m_st, n, nw, BQ / CLUSTER);"),
+    ("encode_bias(fn, &m.cpb, cpb, c_st, n, heads, BQ, type);", "encode_bias(fn, &m.cpb, cpb, c_st, n, heads, BQ / CLUSTER, type);"),
+    ("encode_bias(fn, &m.mask, mask, m_st, n, nw, BQ, type);", "encode_bias(fn, &m.mask, mask, m_st, n, nw, BQ / CLUSTER, type);"),
 ]
 NO_EXP2 = [("        s[i] = ex2(fmaf(s[i], LOG2E, -m[(i >> 1) & 1]));  // a masked -inf gives 0",
             "        s[i] = fmaf(s[i], LOG2E, -m[(i >> 1) & 1]);")]
@@ -201,7 +205,7 @@ def variants() -> dict:
         "2 consumers": ([("constexpr int CONSUMERS = 3;", "constexpr int CONSUMERS = 2;"),
                          ("PRODUCER_REGS = 32, CONSUMER_REGS = 160;", "PRODUCER_REGS = 24, CONSUMER_REGS = 240;")], True),
         "6 stages": ([("constexpr int STAGES = 3;", "constexpr int STAGES = 6;")], True),
-        "loads only": ([(CONSUME, "        drain<MASK>(sm, tiles);"), (KERNEL, DRAIN + KERNEL)], False),
+        "loads only": ([(CONSUME, "        drain<T, MASK>(sm, tiles);"), (KERNEL, DRAIN + KERNEL)], False),
         "no softmax": ([(call, call[: len(call) - len(call.lstrip())] + "alpha[0] = alpha[1] = 1.f;") for call in SOFTMAX_CALLS], False),
         "compute only": (COMPUTE_ONLY, False),
         "compute, no bias reads": (COMPUTE_ONLY + NO_BIAS_READS, False),

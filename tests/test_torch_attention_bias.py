@@ -170,7 +170,8 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     _fused(qkv, 2, bias=bias)
     _fused(qkv, 2, bias_stack=stack, layer=1)
     _bnhd(q, k, v, bias)
-    assert fa.launch_counts() == {"fused": 0, "fused_biased": 0, "bnhd": 0, "window": 0, "window_sm90": 0, "fused_mlp": 0,
+    assert fa.launch_counts() == {"fused": 0, "fused_biased": 0, "bnhd": 0, "window": 0, "window_sm90": 0, "fused_f16": 0,
+                                  "fused_biased_f16": 0, "bnhd_f16": 0, "window_f16": 0, "window_sm90_f16": 0, "fused_mlp": 0,
                                   "fused_mlp_sm90": 0, "head_tail": 0, "head_tail_sm90": 0, "int8_qk": 0, "int8_qk_sm90": 0,
                                   "int8_qk_fused": 0, "int8_qk_fused_sm90": 0, "xl": 0, "staged": 0, "variant": 0}
     torch.testing.assert_close(
@@ -202,8 +203,9 @@ def test_bad_bias_shapes_and_arguments_raise():
 
 def test_kernel_launcher_refuses_what_it_cannot_take():
     """What the CUDA kernel cannot take raises before any launch: another
-    head width or dtype, a head dim that is not contiguous, rows that are not
-    16-byte aligned, a non-finite scale, a batch past the grid limit."""
+    head width or dtype (float64: float16 is taken, and packs dtype code 2),
+    a head dim that is not contiguous, rows that are not 16-byte aligned, a
+    non-finite scale, a batch past the grid limit."""
     b, n, h = 1, 16, 2
 
     def bnhd(d=D, dtype=torch.bfloat16):
@@ -216,7 +218,9 @@ def test_kernel_launcher_refuses_what_it_cannot_take():
             fa._launch(tuple(q.shape), q.dtype, q.device, *specs, specs[0], fa._NO_BIAS, scale)
 
     refused(bnhd(d=32))
-    refused(bnhd(dtype=torch.float16))
+    refused(bnhd(dtype=torch.float64))
+    half = bnhd(dtype=torch.float16)
+    assert fa._operand("q", half, half.device, torch.float16) == (half.data_ptr(), *half.stride()[:3])
     refused(bnhd(), scale=float("inf"))
     refused(torch.zeros(b, n, h, 2 * D, dtype=torch.bfloat16)[..., ::2])  # head dim strided
     refused(torch.zeros(b, n, h, D + 4, dtype=torch.bfloat16)[..., :D])  # rows 8 B apart from 16 B alignment
@@ -242,7 +246,9 @@ def test_kernel_bias_operand_strides_and_offset():
     row = torch.zeros(1, n)
     assert fa._bias_operand(row, None, None, b, h, n, cpu)[1][2:] == (0, 0, 0, 1)
     assert fa._bias_operand(None, None, None, b, h, n, cpu) is fa._NO_BIAS
-    for bad in ({"bias": torch.zeros(1, h, n, n, dtype=torch.float16)}, {"bias": torch.zeros(1, h, n, n, device="meta")},
+    half = torch.zeros(1, h, n, n, dtype=torch.float16)  # a float16 bias packs code 2
+    assert fa._bias_operand(half, None, None, b, h, n, cpu) == (2, (half.data_ptr(), 0, 0, n * n, n, 1))
+    for bad in ({"bias": torch.zeros(1, h, n, n, dtype=torch.float64)}, {"bias": torch.zeros(1, h, n, n, device="meta")},
                 {"bias": torch.zeros(1, h, n - 1, n)}, {"bias_stack": stack, "layer": 4}):
         with pytest.raises(ValueError):
             fa._bias_operand(bad.get("bias"), bad.get("bias_stack"), bad.get("layer"), b, h, n, cpu)

@@ -97,7 +97,7 @@ class StubLibrary:
         s = self.slots
         a = list((ctypes.c_longlong * s["NUM_SLOTS"]).from_address(args_ptr))
         b, n, h, d = (a[s[k]] for k in ("SLOT_BATCH", "SLOT_N", "SLOT_HEADS", "SLOT_HEAD_DIM"))
-        dtype = [torch.float32, torch.bfloat16][a[s["SLOT_DTYPE"]]]
+        dtype = [torch.float32, torch.bfloat16, torch.float16][a[s["SLOT_DTYPE"]]]
         assert a[s["SLOT_BIAS_DTYPE"]] == -1 and d == D
         es = torch.empty((), dtype=dtype).element_size()
         views = []

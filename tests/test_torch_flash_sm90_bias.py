@@ -192,7 +192,7 @@ class StubLibrary:
         s = self.slots
         a = list((ctypes.c_longlong * s["NUM_SLOTS"]).from_address(args_ptr))
         b, n, h, d = (a[s[k]] for k in ("SLOT_BATCH", "SLOT_N", "SLOT_HEADS", "SLOT_HEAD_DIM"))
-        dtype = [torch.float32, torch.bfloat16][a[s["SLOT_DTYPE"]]]
+        dtype = [torch.float32, torch.bfloat16, torch.float16][a[s["SLOT_DTYPE"]]]
         views = []
         for name in ("Q", "K", "V", "O"):
             addr, *strides = a[s[f"SLOT_{name}"] : s[f"SLOT_{name}"] + 4]
@@ -202,10 +202,10 @@ class StubLibrary:
         bias, code, self.fill = None, a[s["SLOT_BIAS_DTYPE"]], a[s["SLOT_BIAS_FILL"]]
         if code >= 0:
             addr, offset, *strides = a[s["SLOT_BIAS"] : s["SLOT_BIAS"] + 6]
-            bias_dtype = [torch.float32, torch.bfloat16][code]
+            bias_dtype = [torch.float32, torch.bfloat16, torch.float16][code]
             es = torch.empty((), dtype=bias_dtype).element_size()
             self.bias = (addr, offset, tuple(strides))
-            if dtype == torch.bfloat16 and bias_dtype == torch.bfloat16 and self.fill == fa.BIAS_FILL_TMA:
+            if dtype in fa.HALF_TYPES and bias_dtype == dtype and self.fill == fa.BIAS_FILL_TMA:
                 sb, sh, sn, sk = strides
                 assert sk == 1 and sn != 0 and (addr + offset * es) % 16 == 0, (addr, offset, strides)
                 assert all(st * es % 16 == 0 for st in (sb, sh, sn)), strides

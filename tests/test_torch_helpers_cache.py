@@ -137,13 +137,12 @@ def test_device_config_policy(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):  # no -d and no card: never the CPU
         misc.make_device_config(None)
-    # on a card: bf16 by default, f32 with -f32, and -u refused up front
+    # on a card: bf16 by default, f32 with -f32, f16 with -u (the JAX package's policy)
     calls = []
     monkeypatch.setattr(misc, "resolve_device", lambda d: calls.append(d) or torch.device("cuda", 0))
     assert misc.make_device_config(None) == {"device": torch.device("cuda", 0), "dtype": torch.bfloat16}
     assert misc.make_device_config(None, use_float32=True)["dtype"] == torch.float32
-    with pytest.raises(SystemExit, match="A16"):
-        misc.make_device_config(None, prefer_bfloat16=False)
+    assert misc.make_device_config(None, prefer_bfloat16=False)["dtype"] == torch.float16
     assert calls == [None, None, None]
 
 

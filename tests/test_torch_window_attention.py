@@ -91,8 +91,9 @@ def test_bad_shapes_raise():
 
 def test_kernel_launcher_refuses_what_it_cannot_take():
     """What the CUDA kernel cannot take raises before any launch: a head
-    width other than 32, another dtype, a head dim that is not contiguous,
-    rows that are not 16-byte aligned, a grid past CUDA's limits."""
+    width other than 32, another dtype (float64: float16 is taken, and packs
+    dtype code 2), a head dim that is not contiguous, rows that are not
+    16-byte aligned, a grid past CUDA's limits."""
     cpu = torch.device("cpu")
 
     def refused(q, k=None, cpb=None):
@@ -109,12 +110,18 @@ def test_kernel_launcher_refuses_what_it_cannot_take():
 
     refused(bnwahd(d=64))
     refused(bnwahd(d=16))
-    refused(bnwahd(dtype=torch.float16))
+    refused(bnwahd(dtype=torch.float64))
     refused(bnwahd(), k=bnwahd(dtype=torch.float32))  # operands of two dtypes
     refused(torch.zeros(1, 2, 16, 2, 2 * D, dtype=torch.bfloat16)[..., ::2])  # head dim strided
     refused(torch.zeros(1, 2, 16, 2, D + 4, dtype=torch.bfloat16)[..., :D])  # rows 8 B off 16 B alignment
-    refused(bnwahd(), cpb=torch.zeros(2, 16, 16, dtype=torch.float16))  # a bias dtype the kernel has no instance for
+    refused(bnwahd(), cpb=torch.zeros(2, 16, 16, dtype=torch.float64))  # a bias dtype the kernel has no instance for
     refused(torch.zeros(8193, 8, 1, 1, D, dtype=torch.bfloat16).expand(8193, 8, 16, 1, D))  # B * nW past 65535
+    # float16 is taken: q, k, v and a float16 bias pack code 2; a float16 bias beside bf16 q goes over as float32
+    half = bnwahd(dtype=torch.float16)
+    assert [wa._operand(name, half, cpu, torch.float16)[0] for name in "qkv"] == [half.data_ptr()] * 3
+    assert wa._bias_operands(torch.zeros(2, 16, 16, dtype=torch.float16), None, cpu, torch.float16)[0] == 2
+    code, cpb, _ = wa._bias_operands(torch.zeros(2, 16, 16, dtype=torch.float16), None, cpu, torch.bfloat16)
+    assert (code, cpb.dtype) == (0, torch.float32)
 
 
 def _slots() -> dict:
@@ -146,7 +153,7 @@ class StubLibrary:
         s = self.slots
         a = list((ctypes.c_longlong * s["NUM_SLOTS"]).from_address(args_ptr))
         b, nw, n, h, d = (a[s[k]] for k in ("SLOT_BATCH", "SLOT_WINDOWS", "SLOT_AREA", "SLOT_HEADS", "SLOT_HEAD_DIM"))
-        dtype, bias_dtype = ([torch.float32, torch.bfloat16][a[s[k]]] for k in ("SLOT_DTYPE", "SLOT_BIAS_DTYPE"))
+        dtype, bias_dtype = ([torch.float32, torch.bfloat16, torch.float16][a[s[k]]] for k in ("SLOT_DTYPE", "SLOT_BIAS_DTYPE"))
         q, k, v, o = (self._view(a[s[k]], (b, nw, n, h, d), [*a[s[k] + 1 : s[k] + 5], 1], dtype)
                       for k in ("SLOT_Q", "SLOT_K", "SLOT_V", "SLOT_O"))
         c = s["SLOT_CPB"]

@@ -43,7 +43,7 @@ C_ROUTE = (
     "if (addr % 16 != 0) return false; for (int i = 0; i < dims; ++i) if (sizes[i] > 1 && (strides[i] <= 0 || "
     "strides[i] % 8 != 0 || strides[i] >= (1ll << 39))) return false; return true;",
     "const long long rows[4] = {batch, nw, n, num_heads}, bias_rows[2] = {num_heads, n}, mask_rows[2] = {nw, n};",
-    "dtype == 1 && bias_dtype == 1 && (long long)nw * num_heads <= 65535 && tma_readable(q[0], q + 1, rows, 4) && "
+    "dtype != CODE_F32 && bias_dtype == dtype && (long long)nw * num_heads <= 65535 && tma_readable(q[0], q + 1, rows, 4) && "
     "tma_readable(k[0], k + 1, rows, 4) && tma_readable(v[0], v + 1, rows, 4) && tma_readable(o[0], o + 1, rows, 4) && "
     "tma_readable(c[0], c + 1, bias_rows, 2) && (mk[0] == 0 || tma_readable(mk[0], mk + 1, mask_rows, 2))",
 )
@@ -98,7 +98,8 @@ def test_plain_version_matches_jax_kernel_at_tile_edges(area, with_mask):
 class Sm90Stub:
     """Stands in for the kernel library. Reads the int64 argument array as
     the C entry does and chooses the kernel as it does: the sm_90 kernel for
-    bf16 q, k, v with bf16 biases whose every operand a tensor map can read.
+    bf16 or f16 q, k, v with biases of their type whose every operand a
+    tensor map can read.
     On that route it checks what the kernel's tensor maps require: the 5-D
     (D, H, A, nW, B) maps of q, k, v and out and the 3-D (A, A, H | nW) maps
     of the CPB and the mask need 16-byte aligned bases and non-zero strides
@@ -136,13 +137,13 @@ class Sm90Stub:
         a = list(raw)
         b, nw, n, h, d = (a[s[k]] for k in ("SLOT_BATCH", "SLOT_WINDOWS", "SLOT_AREA", "SLOT_HEADS", "SLOT_HEAD_DIM"))
         dtype_code, bias_code = a[s["SLOT_DTYPE"]], a[s["SLOT_BIAS_DTYPE"]]
-        dtype, bias_dtype = torch.float32 if dtype_code == 0 else torch.bfloat16, torch.float32 if bias_code == 0 else torch.bfloat16
+        dtype, bias_dtype = ([torch.float32, torch.bfloat16, torch.float16][code] for code in (dtype_code, bias_code))
         rows = {k: (a[s[k]], a[s[k] + 1 : s[k] + 5]) for k in ("SLOT_Q", "SLOT_K", "SLOT_V", "SLOT_O")}
         c, m = s["SLOT_CPB"], s["SLOT_MASK"]
         cpb_addr, cpb_st = a[c], (a[c + 1], a[c + 2])
         mask_addr, mask_st = a[m], (a[m + 1], a[m + 2])
         sizes = (b, nw, n, h)
-        sm90 = (dtype_code == 1 and bias_code == 1 and nw * h <= 65535
+        sm90 = (dtype_code != 0 and bias_code == dtype_code and nw * h <= 65535
                 and all(self._readable(addr, st, sizes) for addr, st in rows.values())
                 and self._readable(cpb_addr, cpb_st, (h, n))
                 and (mask_addr == 0 or self._readable(mask_addr, mask_st, (nw, n))))
