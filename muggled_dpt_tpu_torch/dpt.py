@@ -14,7 +14,12 @@ every block's CPB bias and every stage's shift mask). The
 facade builds it once per patch grid, keeps the grids in least-recently-used
 order within a device-memory budget, remembers a grid that never fits, and
 passes the aux to the net's forward; with ``enable_cache=False`` it passes
-None and the net builds what it needs inline.
+None and the net builds what it needs inline. ``aux_stats`` counts the
+cache's lookups by outcome.
+
+Spans (``utils/observability.py``, off by default): ``facade`` around each
+entry call (``inference``, ``inference_rgb_device``, ``forward``), with
+``facade.prep``, ``facade.aux`` and ``facade.aux_build`` inside it.
 
 float32 is the parity mode: while the model runs, TF32 is switched off for
 both cuBLAS matmuls and cuDNN convolutions (cuDNN uses TF32 by default), and
@@ -33,6 +38,7 @@ import torch
 
 from .ops import quant
 from .ops.resize import resize_2d
+from .utils.observability import trace_span
 
 FALLBACK_BUDGET_BYTES = 8 * 1024**3  # where the device reports no memory stats (the CPU)
 CUDA_BUDGET_FRACTION = 0.5  # share of the card's free bytes an aux may take: headroom for activations
@@ -125,6 +131,8 @@ class DPTModel:
         self.tiling_size = family_spec["tiling_size"]
         self.default_size_px = family_spec["default_size_px"]
         self._aux_cache: dict = {}  # grid -> aux, least recently used first; None = never fits
+        # lookups by outcome (hits + builds + never_fit = lookups), and the grids evicted
+        self.aux_stats = {"hits": 0, "builds": 0, "evictions": 0, "never_fit": 0}
 
     def _precision(self):
         return _no_tf32() if self.dtype == torch.float32 else contextlib.nullcontext()
@@ -147,43 +155,54 @@ class DPTModel:
         return self.net(x, aux)
 
     def _infer(self, image_rgb_u8, scaled_hw):
-        with torch.inference_mode(), self._precision():
-            return self._run(self._prep(self._to_device_nchw(image_rgb_u8), scaled_hw))
+        with trace_span("facade", request=True), torch.inference_mode(), self._precision():
+            with trace_span("facade.prep"):
+                x = self._prep(self._to_device_nchw(image_rgb_u8), scaled_hw)
+            return self._run(x)
 
     # -- per-grid aux cache ----------------------------------------------------
 
     def _get_aux(self, grid_hw):
         """The grid's aux from the cache, built on a miss; None when the
-        family has none, caching is off or the grid never fits the budget."""
-        make_aux = self.spec.get("make_aux")
-        if make_aux is None or not self.config.get("enable_cache", True):
-            return None
-        grid_hw = tuple(int(g) for g in grid_hw)
-        if grid_hw in self._aux_cache:
-            self._aux_cache[grid_hw] = self._aux_cache.pop(grid_hw)  # most recently used last
-            return self._aux_cache[grid_hw]
-        estimate = self.spec.get("aux_bytes_estimate")
-        if estimate is not None:
-            needed = estimate(self.config, grid_hw, self.dtype)
-            params_bytes = _tensor_bytes([*self.net.parameters(), *self.net.buffers()])
-            cache_bytes = _tensor_bytes(self._aux_cache.values())
-            if not fits_device_budget(needed, self.device, resident_bytes=params_bytes + cache_bytes,
-                                      reclaimable_bytes=cache_bytes):
-                # does not fit even with an empty cache: remember that, and
-                # keep the cached grids, which evicting would not help
-                print("*** WARNING ***\nNot enough device memory for relpos caching! Caching disabled for this grid...")
-                self._aux_cache[grid_hw] = None
+        family has none, caching is off or the grid never fits the budget.
+        Counts the lookup in ``aux_stats``: a hit, a build or a never-fit
+        grid (None, the net builds its aux inline), and each grid evicted to
+        make room."""
+        with trace_span("facade.aux"):
+            make_aux = self.spec.get("make_aux")
+            if make_aux is None or not self.config.get("enable_cache", True):
                 return None
-            while not fits_device_budget(needed, self.device,
-                                         resident_bytes=params_bytes + _tensor_bytes(self._aux_cache.values())):
-                lru = next((k for k, v in self._aux_cache.items() if v is not None), None)
-                if lru is None:  # drained: go on with the empty-cache verdict
-                    break
-                del self._aux_cache[lru]
-        with torch.inference_mode():
-            aux = make_aux(self.net, grid_hw, self.dtype)
-        self._aux_cache[grid_hw] = aux
-        return aux
+            stats = self.aux_stats
+            grid_hw = tuple(int(g) for g in grid_hw)
+            if grid_hw in self._aux_cache:
+                aux = self._aux_cache[grid_hw] = self._aux_cache.pop(grid_hw)  # most recently used last
+                stats["hits" if aux is not None else "never_fit"] += 1
+                return aux
+            estimate = self.spec.get("aux_bytes_estimate")
+            if estimate is not None:
+                needed = estimate(self.config, grid_hw, self.dtype)
+                params_bytes = _tensor_bytes([*self.net.parameters(), *self.net.buffers()])
+                cache_bytes = _tensor_bytes(self._aux_cache.values())
+                if not fits_device_budget(needed, self.device, resident_bytes=params_bytes + cache_bytes,
+                                          reclaimable_bytes=cache_bytes):
+                    # does not fit even with an empty cache: remember that, and
+                    # keep the cached grids, which evicting would not help
+                    print("*** WARNING ***\nNot enough device memory for relpos caching! Caching disabled for this grid...")
+                    self._aux_cache[grid_hw] = None
+                    stats["never_fit"] += 1
+                    return None
+                while not fits_device_budget(needed, self.device,
+                                             resident_bytes=params_bytes + _tensor_bytes(self._aux_cache.values())):
+                    lru = next((k for k, v in self._aux_cache.items() if v is not None), None)
+                    if lru is None:  # drained: go on with the empty-cache verdict
+                        break
+                    del self._aux_cache[lru]
+                    stats["evictions"] += 1
+            with trace_span("facade.aux_build"), torch.inference_mode():
+                aux = make_aux(self.net, grid_hw, self.dtype)
+            self._aux_cache[grid_hw] = aux
+            stats["builds"] += 1
+            return aux
 
     def clear_cache(self):
         """Drop every cached per-grid aux."""
@@ -208,10 +227,11 @@ class DPTModel:
 
     def forward(self, image_rgb_normalized_bchw):
         """Depth prediction on a preprocessed BCHW tensor -> (B, H, W)."""
-        self.verify_input(image_rgb_normalized_bchw)
-        x = torch.as_tensor(image_rgb_normalized_bchw).to(self.device, self.dtype)
-        with torch.inference_mode(), self._precision():
-            return self._run(x)
+        with trace_span("facade", request=True):
+            self.verify_input(image_rgb_normalized_bchw)
+            x = torch.as_tensor(image_rgb_normalized_bchw).to(self.device, self.dtype)
+            with torch.inference_mode(), self._precision():
+                return self._run(x)
 
     __call__ = forward
 

@@ -11,6 +11,7 @@ from torch import nn
 
 from ..checkpoints.beit import REASSEMBLY_SCALES
 from ..ops.nn import patchify_embed
+from ..utils.observability import trace_span
 from .beit import BEiTEncoder, bias_build_bytes, compute_bias_stack, padded_tokens
 from .dpt_neck import FusionBlock, Head, ReassembleStage, fusion_forward
 
@@ -51,10 +52,12 @@ class BEiTDPT(nn.Module):
         """Normalized (B, 3, H, W) image, H and W multiples of the patch size
         -> (B, H, W) depth. aux: the grid's cached bias stack from
         ``make_aux``, or None to build each block's bias inline."""
-        tokens, grid = patchify_embed(image_nchw, self.patch_embed.weight, self.patch_embed.bias)
-        stages = self.encoder(tokens, grid, aux)
-        maps = [stage(t, grid) for stage, t in zip(self.reassemble, stages)]
-        return self.head(fusion_forward(maps, self.fusion))
+        with trace_span("encoder"):
+            tokens, grid = patchify_embed(image_nchw, self.patch_embed.weight, self.patch_embed.bias)
+            stages = self.encoder(tokens, grid, aux)
+        with trace_span("neck"):
+            maps = [stage(t, grid) for stage, t in zip(self.reassemble, stages)]
+            return self.head(fusion_forward(maps, self.fusion))
 
     def forward_capture(self, image_nchw, aux=None):
         """``forward`` on the plain attention path -> (depth, internals):

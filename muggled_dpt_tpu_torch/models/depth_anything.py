@@ -12,6 +12,7 @@ from torch import nn
 
 from ..checkpoints.depth_anything import REASSEMBLY_SCALES
 from ..ops.nn import patchify_embed
+from ..utils.observability import trace_span
 from .dinov2 import DinoV2Encoder, last4_taps, stage_taps
 from .dpt_neck import FusionBlock, Head, ReassembleStage, fusion_forward
 
@@ -62,10 +63,12 @@ class DepthAnything(nn.Module):
         """Normalized (B, 3, H, W) image, H and W multiples of the patch size
         -> (B, H, W) depth. ``aux`` is the facade's per-grid cache entry,
         which this family does not use (it has no ``make_aux``)."""
-        tokens, grid = patchify_embed(image_nchw, self.patch_embed.weight, self.patch_embed.bias)
-        stages = self.encoder(tokens, grid)
-        maps = [stage(t, grid) for stage, t in zip(self.reassemble, stages)]
-        return self.head(fusion_forward(maps, self.fusion))
+        with trace_span("encoder"):
+            tokens, grid = patchify_embed(image_nchw, self.patch_embed.weight, self.patch_embed.bias)
+            stages = self.encoder(tokens, grid)
+        with trace_span("neck"):
+            maps = [stage(t, grid) for stage, t in zip(self.reassemble, stages)]
+            return self.head(fusion_forward(maps, self.fusion))
 
     def forward_capture(self, image_nchw, aux=None):
         """``forward`` on the plain attention path -> (depth, internals):

@@ -15,6 +15,7 @@ from torch import nn
 from ..checkpoints.random_init import swiglu_hidden
 from ..ops.nn import layer_norm, mlp_gelu, mlp_swiglu, self_attention
 from ..ops.resize import resize_bicubic_hwc
+from ..utils.observability import trace_span
 
 
 def stage_taps(num_blocks: int) -> tuple[int, ...]:
@@ -97,9 +98,11 @@ class Block(nn.Module):
         return tokens + self.ls1 * h
 
     def mlp_residual(self, tokens):
-        """The second half: tokens + ls2 * mlp(norm2(tokens)). For a GELU
-        MLP this is what ``ops/kernels/fused_mlp.py`` computes in one kernel."""
-        return tokens + self.ls2 * self.mlp(layer_norm(tokens, self.norm2.weight, self.norm2.bias))
+        """The second half: tokens + ls2 * mlp(norm2(tokens)), in an ``mlp``
+        span. For a GELU MLP this is what ``ops/kernels/fused_mlp.py``
+        computes in one kernel."""
+        with trace_span("mlp"):
+            return tokens + self.ls2 * self.mlp(layer_norm(tokens, self.norm2.weight, self.norm2.bias))
 
     def forward(self, tokens, bias=None):
         return self.mlp_residual(self.attention_residual(tokens, bias))

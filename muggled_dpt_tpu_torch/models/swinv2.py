@@ -18,7 +18,10 @@ partition, the rolls and every linear act on the last axis. The blocks are an
 Per-grid constants (the CPB of every block and the shift mask of every
 shifting stage) are built on the device from aranges: once per grid into the
 facade's aux cache (``compute_cpb_stack``), or, with caching off, inside each
-forward and dropped after it. Nothing is cached outside the aux."""
+forward and dropped after it. Nothing is cached outside the aux.
+
+Each block opens an ``attention`` span around its window-attention call and
+an ``mlp`` span around its MLP half (``utils/observability.py``)."""
 
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from ..ops.kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
 from ..ops.kernels.window_attention import window_attention as window_attention_kernel
 from ..ops.nn import layer_norm, linear, mlp_gelu
 from ..ops.collectives import copy_to_model, row_linear
+from ..utils.observability import trace_span
 
 SWIN_LN_EPS = 1e-5
 CPB_HIDDEN = 512  # width of the CPB MLP's hidden layer
@@ -241,14 +245,16 @@ class SwinBlock(nn.Module):
             q_scaled = (qf * scale.reshape(heads, 1)).to(x.dtype)
             # while torch.export traces, the kernel is an operator node (ops/kernels/library.py)
             attend = torch.ops.mdpt.window_attention if torch.compiler.is_exporting() else window_attention_kernel
-            out = attend(q_scaled, kf.to(x.dtype), v, cpb, mask)
+            with trace_span("attention"):
+                out = attend(q_scaled, kf.to(x.dtype), v, cpb, mask)
         else:
-            logits = torch.einsum("bwnhd,bwmhd->bwhnm", qf, kf) * scale.reshape(1, 1, heads, 1, 1)
-            logits = logits + cpb.float()[None, None]
-            if mask is not None:
-                logits = logits + mask.float()[None, :, None]
-            weights = torch.softmax(logits, dim=-1)
-            out = torch.einsum("bwhnm,bwmhd->bwnhd", weights.to(v.dtype), v)
+            with trace_span("attention"):
+                logits = torch.einsum("bwnhd,bwmhd->bwhnm", qf, kf) * scale.reshape(1, 1, heads, 1, 1)
+                logits = logits + cpb.float()[None, None]
+                if mask is not None:
+                    logits = logits + mask.float()[None, :, None]
+                weights = torch.softmax(logits, dim=-1)
+                out = torch.einsum("bwhnm,bwmhd->bwnhd", weights.to(v.dtype), v)
         out = out.reshape(b, nw, area, -1)
         out = linear(out, self.proj.weight, self.proj.bias) if group is None else row_linear(out, self.proj, group)
         out = merge_windows(out, window_hw, (gh, gw))
@@ -257,10 +263,12 @@ class SwinBlock(nn.Module):
         return (out, weights) if capture else out
 
     def _after_attention(self, x, h):
-        """The rest of the block on its attention output h: the norm1 residual, then the MLP's norm2 residual."""
+        """The rest of the block on its attention output h: the norm1
+        residual, then the MLP's norm2 residual in an ``mlp`` span."""
         x = x + layer_norm(h, self.norm1.weight, self.norm1.bias, eps=SWIN_LN_EPS)
-        h = mlp_gelu(x, self.fc1, self.fc2, self.mlp_group)  # int8 tier: fc1 and fc2 only, qkv and proj stay dense
-        return x + layer_norm(h, self.norm2.weight, self.norm2.bias, eps=SWIN_LN_EPS)
+        with trace_span("mlp"):
+            h = mlp_gelu(x, self.fc1, self.fc2, self.mlp_group)  # int8 tier: fc1 and fc2 only, qkv and proj stay dense
+            return x + layer_norm(h, self.norm2.weight, self.norm2.bias, eps=SWIN_LN_EPS)
 
     def forward(self, x, window_hw, shift_hw, cpb, mask=None):
         return self._after_attention(x, self.attention(x, window_hw, shift_hw, cpb, mask))

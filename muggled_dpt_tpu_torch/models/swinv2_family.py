@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ..ops.nn import layer_norm, patchify_embed
+from ..utils.observability import trace_span
 from .dpt_neck import FuseOnlyStage, FusionBlock, Head, fusion_forward
 from .swinv2 import SWIN_LN_EPS, SwinV2Encoder, aux_build_bytes, compute_cpb_stack
 
@@ -41,9 +42,11 @@ class SwinV2DPT(nn.Module):
         """Normalized (B, 3, H, W) image, H and W multiples of 8 patches ->
         (B, H, W) depth. aux: the grid's cached ``compute_cpb_stack``, or
         None to build the CPB and masks inside the forward."""
-        stages = self.encoder(self.embed(image_nchw), aux)
-        maps = [stage(t.permute(0, 3, 1, 2)) for stage, t in zip(self.reassemble, stages)]  # NCHW from here on
-        return self.head(fusion_forward(maps, self.fusion))
+        with trace_span("encoder"):
+            stages = self.encoder(self.embed(image_nchw), aux)
+        with trace_span("neck"):
+            maps = [stage(t.permute(0, 3, 1, 2)) for stage, t in zip(self.reassemble, stages)]  # NCHW from here on
+            return self.head(fusion_forward(maps, self.fusion))
 
     def embed(self, image_nchw):
         """Patch embed and its LayerNorm: the (B, gh, gw, C) tokens of the first block."""

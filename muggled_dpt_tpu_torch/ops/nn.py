@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.observability import trace_span
 from .collectives import copy_to_model, row_linear
 from .kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
 from .kernels.flash_attention import flash_attention_fused_qkv
@@ -89,27 +90,31 @@ def self_attention(tokens, qkv, proj, num_heads: int, use_kernel: bool = True, b
 
     ``group``: the model group of a tensor-parallel pair (``parallel/tensor.py``):
     qkv holds this rank's ``num_heads`` heads' rows and proj their columns,
-    whose partial products are summed over the group before proj's bias."""
+    whose partial products are summed over the group before proj's bias.
+
+    The ``attention`` span (``utils/observability.py``) holds the attention
+    core: the kernel call, or the plain path."""
     b, n, _ = tokens.shape
     x = linear_p(tokens if group is None else copy_to_model(tokens, group), qkv, "qkv")  # (B, N, [h][3][d])
     bias_stack = layer = None
     if isinstance(bias, tuple):
         (bias_stack, layer), bias = bias, None
     weights = None
-    if use_kernel and not capture:
-        # while torch.export traces, the kernel is an operator node (ops/kernels/library.py)
-        attend = torch.ops.mdpt.flash_attention_fused_qkv if torch.compiler.is_exporting() else flash_attention_fused_qkv
-        out = attend(x, num_heads, bias=bias, bias_stack=bias_stack, layer=layer)
-    else:
-        if bias_stack is not None:
-            bias = bias_stack[layer][None]
-        x = x.reshape(b, n, num_heads, 3, -1)
-        q, k, v = x[..., 0, :], x[..., 1, :], x[..., 2, :]
-        if capture:
-            out, weights = sdpa_capture(q, k, v, bias)
+    with trace_span("attention"):
+        if use_kernel and not capture:
+            # while torch.export traces, the kernel is an operator node (ops/kernels/library.py)
+            attend = torch.ops.mdpt.flash_attention_fused_qkv if torch.compiler.is_exporting() else flash_attention_fused_qkv
+            out = attend(x, num_heads, bias=bias, bias_stack=bias_stack, layer=layer)
         else:
-            out = sdpa(q, k, v, bias=bias)
-        out = out.reshape(b, n, -1)
+            if bias_stack is not None:
+                bias = bias_stack[layer][None]
+            x = x.reshape(b, n, num_heads, 3, -1)
+            q, k, v = x[..., 0, :], x[..., 1, :], x[..., 2, :]
+            if capture:
+                out, weights = sdpa_capture(q, k, v, bias)
+            else:
+                out = sdpa(q, k, v, bias=bias)
+            out = out.reshape(b, n, -1)
     out = linear_p(out, proj, "proj") if group is None else row_linear(out, proj, group)
     return (out, weights) if capture else out
 

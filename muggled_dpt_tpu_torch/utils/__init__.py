@@ -1,1 +1,1 @@
-"""Evaluation metrics (``metrics``) and tracing, memory and step-time helpers (``observability``)."""
+"""Evaluation metrics (``metrics``) and the program's spans, a memory report and a NaN guard (``observability``)."""

@@ -1,86 +1,125 @@
-"""Tracing, profiling, memory and logging helpers: the counterpart of JAX
-``utils/observability.py`` on torch.
+"""The port's spans, and two helpers beside them: a memory report and a
+NaN/inf guard.
 
-* ``trace_span``: a wall-clock span that is also a ``torch.profiler``
-  ``record_function`` range and, once CUDA is initialized, an NVTX range,
-  so the region shows up in a captured trace;
-* ``start_profiler_trace`` / ``stop_profiler_trace``: a ``torch.profiler``
-  session over the CPU and, where there is one, the card, exported as a
-  Chrome trace. A process that has traced once and then loads a kernel
-  library may see no device events in a later trace: name kernels from
-  CUPTI's callback API instead (``chip_smoke.py:device_kernels``);
+* ``trace_span`` / ``tracing``: the program's spans. The serving path opens
+  one at each layer boundary: ``facade`` (each ``DPTModel`` entry call, which
+  starts a new request id), ``facade.prep``, ``facade.aux`` and, on a cache
+  miss, ``facade.aux_build``, ``encoder``, ``attention`` and ``mlp`` (once
+  per block), ``neck``. Spans are off by default: ``trace_span`` then
+  returns one shared null context after a single flag check. Inside ``with
+  tracing() as spans:`` each span appends a ``Span`` record to ``spans`` on
+  the host's ``time.perf_counter_ns`` clock, and, while a ``torch.profiler``
+  session is active, also opens a ``record_function`` range
+  ``mdpt:<name>``, on the profiler's clock with the CUDA runtime calls and
+  the device's operations. While ``torch.export`` traces, spans are skipped,
+  so an exported graph is the same with tracing on or off.
 * ``device_memory_report``: the caching allocator's bytes per visible card;
 * ``assert_finite``: a NaN/inf guard over tensors, arrays and nested
-  dicts, lists and tuples;
-* ``StepTimer``: an EMA step-time / fps counter."""
+  dicts, lists and tuples."""
 
 from __future__ import annotations
 
 import contextlib
-import logging
-import os
+import itertools
+import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
-LOGGER = logging.getLogger("muggled_dpt_tpu_torch")
-_PROFILER = {}  # the running torch.profiler session and its trace folder
+RANGE_PREFIX = "mdpt:"  # the profiler ranges' names: RANGE_PREFIX + the span's name
+
+_NULL = contextlib.nullcontext()  # what every span is while tracing is off
+_recorder = None  # the innermost ``tracing()`` context's recorder; None: tracing is off
 
 
-def setup_logging(level=logging.INFO):
-    if not LOGGER.handlers:
-        handler = logging.StreamHandler()
-        handler.setFormatter(logging.Formatter("%(asctime)s %(name)s %(levelname)s %(message)s"))
-        LOGGER.addHandler(handler)
-    LOGGER.setLevel(level)
-    return LOGGER
+class Span(NamedTuple):
+    """One span: ``parent`` is the index in the same list of the span that
+    held it (None at the top), ``request`` the id of the facade call it
+    belongs to (None outside any). Written when the span closes: until then
+    its place in the list holds None."""
+
+    name: str
+    parent: int | None
+    request: int | None
+    t0_ns: int
+    t1_ns: int
+
+
+class _Recorder:
+    """The span list of one ``tracing()`` context, its request counter, the
+    lock that keeps a span's index its place in the list, and, per thread,
+    the stack of its open spans."""
+
+    def __init__(self):
+        self.spans: list[Span | None] = []
+        self.requests = itertools.count()
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+
+class _OpenSpan:
+    __slots__ = ("recorder", "name", "new_request", "index", "parent", "request", "range", "t0")
+
+    def __init__(self, recorder: _Recorder, name: str, new_request: bool):
+        self.recorder, self.name, self.new_request = recorder, name, new_request
+
+    def __enter__(self):
+        recorder = self.recorder
+        stack = getattr(recorder.local, "stack", None)
+        if stack is None:
+            stack = recorder.local.stack = []
+        outer = stack[-1] if stack else None
+        self.parent = None if outer is None else outer.index
+        if self.new_request:
+            self.request = next(recorder.requests)
+        else:
+            self.request = None if outer is None else outer.request
+        self.range = None
+        if _profiler._is_profiler_enabled:
+            self.range = torch.profiler.record_function(RANGE_PREFIX + self.name)
+            self.range.__enter__()
+        with recorder.lock:
+            self.index = len(recorder.spans)
+            recorder.spans.append(None)
+        stack.append(self)
+        self.t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        recorder = self.recorder
+        # tuple.__new__ skips the NamedTuple's Python-level constructor
+        recorder.spans[self.index] = tuple.__new__(Span, (self.name, self.parent, self.request, self.t0, t1))
+        recorder.local.stack.pop()
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+        return False
+
+
+def trace_span(name: str, request: bool = False):
+    """A span named ``name`` around a ``with`` block. ``request=True`` (the
+    facade's entry calls) gives it and every span inside it a new request
+    id. Off (outside ``tracing()``) or while ``torch.export`` traces: the
+    shared null context."""
+    if _recorder is None or torch.compiler.is_exporting():
+        return _NULL
+    return _OpenSpan(_recorder, name, request)
 
 
 @contextlib.contextmanager
-def trace_span(name: str, log: bool = False):
-    """Wall-clock span that is also a profiler range (and an NVTX range
-    once CUDA is initialized), so the region shows up in captured traces."""
-    t0 = time.perf_counter()
-    nvtx = torch.cuda.is_available() and torch.cuda.is_initialized()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
-    dt = time.perf_counter() - t0
-    if log:
-        LOGGER.info("%s: %.2f ms", name, dt * 1000)
-
-
-def start_profiler_trace(log_dir: str = "torch_trace") -> str:
-    """Start a ``torch.profiler`` session (CPU, plus CUDA where a card is
-    visible); ``stop_profiler_trace`` writes it into ``log_dir``."""
-    if _PROFILER:
-        raise RuntimeError(f"a profiler trace is already running into {_PROFILER['dir']}")
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities)
-    prof.start()
-    _PROFILER.update(prof=prof, dir=log_dir)
-    return log_dir
-
-
-def stop_profiler_trace() -> str:
-    """Stop the running session and export it as a Chrome trace
-    (``<log_dir>/trace.json``); returns the file's path."""
-    if not _PROFILER:
-        raise RuntimeError("no profiler trace is running")
-    prof, log_dir = _PROFILER.pop("prof"), _PROFILER.pop("dir")
-    prof.stop()
-    os.makedirs(log_dir, exist_ok=True)
-    path = os.path.join(log_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    return path
+def tracing():
+    """Turn spans on for the ``with`` block; yields the list that every span
+    opened inside it, on any thread, appends its ``Span`` to, in the order
+    they open. A nested ``tracing()`` records into its own list until it
+    ends."""
+    global _recorder
+    outer, _recorder = _recorder, _Recorder()
+    try:
+        yield _recorder.spans
+    finally:
+        _recorder = outer
 
 
 def device_memory_report() -> dict:
@@ -129,29 +168,3 @@ def assert_finite(tree, name: str = "output"):
             pathstr = "/".join(path)
             raise FloatingPointError(f"{name}{'/' + pathstr if pathstr else ''}: {bad} non-finite values")
     return tree
-
-
-class StepTimer:
-    """EMA step-time / fps counter for streaming loops (the reference's
-    on-frame ms overlay, run_video.py:383-384)."""
-
-    def __init__(self, smoothing: float = 0.9):
-        self._smoothing = smoothing
-        self._ema = None
-        self._last = None
-
-    def tick(self) -> float:
-        now = time.perf_counter()
-        if self._last is not None:
-            dt = now - self._last
-            self._ema = dt if self._ema is None else self._smoothing * self._ema + (1 - self._smoothing) * dt
-        self._last = now
-        return self.ms
-
-    @property
-    def ms(self) -> float:
-        return 0.0 if self._ema is None else self._ema * 1000.0
-
-    @property
-    def fps(self) -> float:
-        return 0.0 if not self._ema else 1.0 / self._ema

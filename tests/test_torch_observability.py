@@ -1,19 +1,24 @@
-"""``muggled_dpt_tpu_torch.utils.observability`` (the cases of
-tests/test_helpers_and_cache.py:97-118 on the port, plus the profiler trace
-and ``assert_finite`` on tensors and nested containers) and the kernels'
+"""``muggled_dpt_tpu_torch.utils.observability``: the program's spans on
+every family's serving path (off by default; on inside ``tracing()``;
+``mdpt:`` ranges under ``torch.profiler``; skipped under ``torch.export``),
+the aux cache's counters, the memory report and ``assert_finite`` on
+tensors and nested containers (the cases of
+tests/test_helpers_and_cache.py:97-118 on the port); and the kernels'
 refusal to run under autograd (``ops/kernels/flash_attention.py:_refuse_grad``):
 every wrapper's CUDA route raises when an operand requires grad with grad
 mode on, before it touches the kernel library, and never falls back to the
 plain version; under ``no_grad`` / ``inference_mode`` the refusal passes."""
 
-import json
-import os
-import time
+import sys
+import threading
 
 import numpy as np
 import pytest
 import torch
 
+from muggled_dpt_tpu_torch import dpt as dpt_mod
+from muggled_dpt_tpu_torch import make_beit_dpt, make_depthanythingv2_dpt, make_swinv2_dpt
+from muggled_dpt_tpu_torch.experiments.export_model import export_forward
 from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_int8 as fi8
@@ -23,28 +28,185 @@ from muggled_dpt_tpu_torch.ops.kernels import fused_mlp as fm
 from muggled_dpt_tpu_torch.ops.kernels import head_tail as ht
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 from muggled_dpt_tpu_torch.tools import attn_variants as fav
+from muggled_dpt_tpu_torch.utils import observability
 from muggled_dpt_tpu_torch.utils.observability import (
-    StepTimer,
+    RANGE_PREFIX,
     assert_finite,
     device_memory_report,
-    start_profiler_trace,
-    stop_profiler_trace,
     trace_span,
+    tracing,
 )
+
+DEVICE = "cpu"  # the entry points build on the CUDA card unless told otherwise
+FRAMES = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 60, 80, 3), np.uint8))
+
+# name -> (tiny model builder, output size, blocks)
+FAMILIES = {
+    "da_v2": (lambda: make_depthanythingv2_dpt(64, 2, 4, (8, 16, 32, 64), (8, 8), 16, device=DEVICE), (112, 112), 4),
+    "beit": (lambda: make_beit_dpt(128, 2, 4, (16, 24, 32, 40), (6, 6), 16, device=DEVICE), (96, 96), 4),
+    "swinv2": (lambda: make_swinv2_dpt((16, 32, 64, 128), (2, 4, 4, 8), (2, 2, 2, 2), (16, 16), (4, 4), (None,) * 4, 16,
+                                       device=DEVICE), (128, 128), 8),
+}
 
 
 def test_step_timer_and_memory_report():
-    t = StepTimer(smoothing=0.0)
-    t.tick()
-    time.sleep(0.01)
-    t.tick()
-    assert t.ms > 5 and t.fps > 0
+    """The memory report is a dict ({} without a card), and a span outside
+    ``tracing()`` is the shared null context."""
     report = device_memory_report()
     assert isinstance(report, dict)
     if not torch.cuda.is_available():
         assert report == {}  # JAX: `stats or {}` per device; the CPU has no allocator stats here
-    with trace_span("test-span", log=True):
+    with trace_span("test-span"):
         pass
+
+
+def children(spans, parent) -> list:
+    return [s.name for s in spans if s.parent == parent]
+
+
+def check_request(spans, root: int, blocks: int, built: bool):
+    """The spans of one facade call, rooted at ``spans[root]``: the facade's
+    children in order, the encoder's blocks, one request id, every span
+    closed and inside its parent."""
+    facade = spans[root]
+    assert facade.name == "facade" and facade.parent is None
+    aux = [i for i, s in enumerate(spans) if s.parent == root and s.name == "facade.aux"]
+    encoder = [i for i, s in enumerate(spans) if s.parent == root and s.name == "encoder"]
+    assert children(spans, root) == ["facade.prep", "facade.aux", "encoder", "neck"]
+    assert children(spans, aux[0]) == (["facade.aux_build"] if built else [])
+    assert children(spans, encoder[0]) == ["attention", "mlp"] * blocks
+    held = {root}
+    for i, s in enumerate(spans):
+        if s.parent in held:
+            held.add(i)
+    for i in held:
+        s = spans[i]
+        assert s.request == facade.request and 0 < s.t0_ns <= s.t1_ns
+        if s.parent is not None:
+            p = spans[s.parent]
+            assert p.t0_ns <= s.t0_ns and s.t1_ns <= p.t1_ns
+    return held
+
+
+def test_spans_off_record_nothing():
+    """Outside ``tracing()`` a forward records nothing: every span is one
+    shared object, and a list from an ended context stays as it was."""
+    model = FAMILIES["da_v2"][0]()
+    with tracing() as spans:
+        pass
+    assert observability._recorder is None
+    assert trace_span("a") is trace_span("b", request=True) is observability._NULL
+    model.inference_rgb_device(FRAMES, (112, 112))
+    assert spans == []
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_spans_nest_on_the_serving_path(family):
+    """Two ``inference_rgb_device`` calls: each a ``facade`` span over prep,
+    the aux lookup (a build on the first call where the family caches one),
+    the encoder (an ``attention`` then an ``mlp`` span per block) and the
+    neck; parents right, one request id per call, children inside their
+    parents, and no span left over."""
+    make, size, blocks = FAMILIES[family]
+    model = make()
+    cached = model.spec.get("make_aux") is not None
+    with tracing() as spans:
+        model.inference_rgb_device(FRAMES, size)
+        second = len(spans)
+        model.inference_rgb_device(FRAMES[:1], size)
+    first = check_request(spans, 0, blocks, built=cached)
+    again = check_request(spans, second, blocks, built=False)
+    assert first | again == set(range(len(spans)))
+    assert (spans[0].request, spans[second].request) == (0, 1)
+    assert sum(s.name == "attention" for s in spans) == 2 * blocks
+
+
+def test_profiler_ranges_nest_like_the_spans():
+    """Under a CPU ``torch.profiler`` session each span is also an
+    ``mdpt:<name>`` range, nested as the spans are; with tracing off the
+    profile holds no such range."""
+    make, size, blocks = FAMILIES["beit"]
+    model = make()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        model.inference_rgb_device(FRAMES, size)
+        with tracing() as spans:
+            model.inference_rgb_device(FRAMES, size)
+    ranges = sorted((e.time_range.start, -e.time_range.end, e.name[len(RANGE_PREFIX):])
+                    for e in prof.events() if e.name.startswith(RANGE_PREFIX))
+    assert [name for _, _, name in ranges] == [s.name for s in spans]
+    for span, (start, neg_end, _) in zip(spans, ranges):
+        if span.parent is not None:
+            p_start, p_neg_end, _ = ranges[span.parent]
+            assert p_start <= start and -neg_end <= -p_neg_end
+    assert sum(s.name == "mlp" for s in spans) == blocks
+
+
+def test_export_is_the_same_with_tracing_on():
+    """``torch.export`` of the kernel forward gives the same graph with
+    tracing on, and records no span while it traces."""
+    model = FAMILIES["beit"][0]()
+    off = export_forward(model, (96, 96)).graph_module.print_readable(print_output=False)
+    with tracing() as spans:
+        on = export_forward(model, (96, 96)).graph_module.print_readable(print_output=False)
+    assert on == off and spans == []
+
+
+def test_aux_counters(monkeypatch):
+    """BEiT's aux cache over two grids, a forced eviction and a grid that
+    never fits: each lookup is a hit, a build or a never-fit, and each grid
+    dropped to make room an eviction."""
+    model = FAMILIES["beit"][0]()
+    assert model.aux_stats == {"hits": 0, "builds": 0, "evictions": 0, "never_fit": 0}
+    model.inference_rgb_device(FRAMES, (96, 96))
+    model.inference_rgb_device(FRAMES, (96, 96))
+    model.inference_rgb_device(FRAMES, (128, 128))
+    assert model.aux_stats == {"hits": 1, "builds": 2, "evictions": 0, "never_fit": 0}
+    # room for one grid: a third grid evicts the least recently used
+    cache_values = type({}.values())
+    monkeypatch.setattr(dpt_mod, "_tensor_bytes",
+                        lambda ts: sum(t is not None for t in ts) if isinstance(ts, cache_values) else 0)
+    monkeypatch.setattr(dpt_mod, "fits_device_budget",
+                        lambda needed, device, resident_bytes=0, reclaimable_bytes=0: resident_bytes - reclaimable_bytes < 1)
+    model.inference_rgb_device(FRAMES, (64, 64))
+    assert model.aux_stats == {"hits": 1, "builds": 3, "evictions": 2, "never_fit": 0}
+    monkeypatch.setattr(dpt_mod, "fits_device_budget", lambda needed, device, resident_bytes=0, reclaimable_bytes=0: False)
+    model.inference_rgb_device(FRAMES, (160, 160))
+    model.inference_rgb_device(FRAMES, (160, 160))
+    model.inference_rgb_device(FRAMES, (64, 64))
+    assert model.aux_stats == {"hits": 2, "builds": 3, "evictions": 2, "never_fit": 2}
+
+
+def test_spans_from_threads_keep_their_parents():
+    """Threads opening nested spans at once into one ``tracing()`` list:
+    every span's parent is its own thread's outer span, every span closes."""
+    threads, rounds = 8, 200
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with tracing() as spans:
+            def work(k):
+                for _ in range(rounds):
+                    with trace_span(f"outer.{k}", request=True):
+                        with trace_span(f"inner.{k}"):
+                            pass
+
+            pool = [threading.Thread(target=work, args=(k,)) for k in range(threads)]
+            for t in pool:
+                t.start()
+            for t in pool:
+                t.join(timeout=30)
+            assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(spans) == 2 * threads * rounds
+    assert len({s.request for s in spans}) == threads * rounds
+    for s in spans:
+        assert s.t1_ns >= s.t0_ns > 0
+        if s.name.startswith("inner."):
+            parent = spans[s.parent]
+            assert parent.name == "outer." + s.name.split(".")[1] and parent.request == s.request
+        else:
+            assert s.parent is None
 
 
 def test_assert_finite_guard():
@@ -60,19 +222,6 @@ def test_assert_finite_tensors_and_nesting():
         assert_finite(torch.tensor([1.0, float("nan")]), "loss")
     with pytest.raises(FloatingPointError, match=r"^grads/y/1/z: 2 non-finite values$"):
         assert_finite({"y": [torch.ones(1), {"z": torch.tensor([np.inf, -np.inf], dtype=torch.bfloat16)}]}, "grads")
-
-
-def test_profiler_trace_exports_chrome_json(tmp_path):
-    folder = start_profiler_trace(str(tmp_path / "trace"))
-    with trace_span("traced-region"):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    path = stop_profiler_trace()
-    assert path == os.path.join(folder, "trace.json")
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "traced-region" for e in events)
-    with pytest.raises(RuntimeError, match="no profiler trace"):
-        stop_profiler_trace()
 
 
 def test_refuse_grad_passes_without_autograd():
