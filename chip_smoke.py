@@ -157,6 +157,13 @@ failure raises:
   13. DA-V2-metric ViT-L bf16 serving (depth in (0, 1)), #9 on its head;
   14. DA-V2 ViT-Giant bf16 serving (40 launches per forward), its int8
       default tier served the same way, and f32 parity;
+  14a. (after 11) the neck's upsample (``ops/kernels/upsample.py``, no TPU
+      kernel) against ``F.interpolate`` at every neck shape of the three
+      benchmark cells (DA-V2 504 and 1428, BEiT 512), B = 1 and 8, bf16,
+      f16 and f32, channels-last and NCHW: its route per layout, bit-equal
+      (ulps and the share of differing elements printed); bf16 CUDA-event times of
+      both against the byte floor. Every serving forward of 4, 6, 8 and
+      the f16 models holds exactly 5 upsample launches;
   15. (between 3 and 4) #6 and #7 vs their plain versions and float32
       attention, float32 and bfloat16: ragged N, all-negative logits, a
       zero q row, the lossless case, #6 at N=32897 and on views whose rows
@@ -365,6 +372,7 @@ from muggled_dpt_tpu_torch.ops.kernels import flash_attention_staged as fst
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_xl as fxl
 from muggled_dpt_tpu_torch.ops.kernels import fused_mlp as fm
 from muggled_dpt_tpu_torch.ops.kernels import head_tail as ht
+from muggled_dpt_tpu_torch.ops.kernels import upsample as up
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 from muggled_dpt_tpu_torch.tools import attn_variants as fav
 from muggled_dpt_tpu_torch.tools import finetune_demo
@@ -433,6 +441,16 @@ HEAD_CHANNELS = (32, 64, 128, 192)  # the tail's input: half of fusion 64 (ViT-S
 HEAD_SIZES = ((1, 504, 504, "head_tail_sm90"), (8, 504, 504, "head_tail_sm90"), (1, 389, 512, "head_tail_sm90"),
               (1, 37, 52, "head_tail"), (1, 392, 518, "head_tail"))
 HEAD_ROUTE_KERNEL = {"head_tail_sm90": "ht_sm90", "head_tail": "head_tail<"}  # a #9 route and its kernel, as traced
+
+NECK_UPSAMPLES = 5  # upsample launches per forward of every family: four fusion blocks and the head
+NECK_ROUTES = ("upsample_ac", "upsample_ac_nchw")  # its routes: a channels-last map, an NCHW one
+UPSAMPLE_SHAPES = {  # the neck's five upsamples in each cell, (in side, out side, channels): fusion 2x, then the head
+    "DA-V2 504": ((18, 36, 256), (36, 72, 256), (72, 144, 256), (144, 288, 256), (288, 504, 128)),
+    "BEiT 512": ((16, 32, 256), (32, 64, 256), (64, 128, 256), (128, 256, 256), (256, 512, 128)),
+    "DA-V2 1428": ((51, 102, 256), (102, 204, 256), (204, 408, 256), (408, 816, 256), (816, 1428, 128)),
+}
+UPSAMPLE_SERVED = {"DA-V2 504": (8, True), "BEiT 512": (8, True), "DA-V2 1428": (1, False)}  # batch, channels-last
+UPSAMPLE_MAX_ULP = 0  # the kernel against F.interpolate: bit-equal (it writes out the FMAs torch compiles to)
 TAP_BLOCKS = (0, 11, 23)  # DA-V1 ViT-L blocks whose second half #8 is held against; int8 DA-V2 qkv slabs for #6, #7
 INT8_TIERS = {  # DA-V2 ViT-L int8 serving tiers: quantize_encoder_int8 options ("calibrate": 2 frames)
     "int8": {},
@@ -982,15 +1000,27 @@ def _host_ms(fn, iters=10, warmup=3) -> float:
     return statistics.median(times)
 
 
-def _counted(fn, route, want, what):
-    """Run fn, require exactly `want` launches on `route` and none on the others."""
+def launch_counts() -> dict:
+    """``fa.launch_counts()`` without the neck's upsample routes, which
+    every forward on the card launches 5 times whatever its attention route:
+    the phases hold the attention, MLP and head routes to exact counts with
+    these, and ``serve`` and ``phase_upsample`` hold the neck's."""
+    return {r: n for r, n in fa.launch_counts().items() if r not in NECK_ROUTES}
+
+
+def _counted(fn, route, want, what, neck=None):
+    """Run fn, require exactly `want` launches on `route` and none on the
+    other routes of ``launch_counts``; with ``neck``, exactly that many on
+    the neck's upsample routes too."""
     before = fa.launch_counts()
     out = fn()
     torch.cuda.synchronize()
     after = fa.launch_counts()
     delta = {r: after[r] - before[r] for r in after}
-    if delta != {r: (want if r == route else 0) for r in delta}:
-        raise RuntimeError(f"{what}: launches {delta}, want {want} on route {route!r} only")
+    upsamples = sum(delta.pop(r) for r in NECK_ROUTES)
+    if delta != {r: (want if r == route else 0) for r in delta} or neck not in (None, upsamples):
+        raise RuntimeError(f"{what}: launches {delta} and {upsamples} neck upsamples, want {want} on route {route!r} "
+                           f"only and {neck} upsamples")
     return out
 
 
@@ -1002,18 +1032,18 @@ def serve(smi, model, side, out_hw, route, blocks, what) -> torch.Tensor:
     frames = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(6)]
     first = None
     for i in range(3):
-        depth = _counted(lambda: model.inference(frames[i], side), route, blocks, f"{what} request {i}")
+        depth = _counted(lambda: model.inference(frames[i], side), route, blocks, f"{what} request {i}", NECK_UPSAMPLES)
         _check_depth(depth, (1, *out_hw), f"{what} request {i}")
         first = depth if first is None else first
     hw = model.compute_scaled_hw(FRAME_HW, side)
     stack = torch.from_numpy(np.stack(frames + [frames[0], frames[3]])).to(DEVICE)  # rows 6, 7 repeat rows 0, 3
-    batch = _counted(lambda: model.inference_rgb_device(stack, hw), route, blocks, f"{what} batch of 8")
+    batch = _counted(lambda: model.inference_rgb_device(stack, hw), route, blocks, f"{what} batch of 8", NECK_UPSAMPLES)
     _check_depth(batch, (8, *out_hw), f"{what} batch of 8")
     if not (torch.equal(batch[6], batch[0]) and torch.equal(batch[7], batch[3])):
         raise RuntimeError(f"{what} batch: duplicate frames gave different depth")
     name = str(model.dtype)[6:]
-    print(f"{what} {name}: 3 requests -> {(1, *out_hw)}, batch -> {(8, *out_hw)}, {blocks} {route} launches per forward, "
-          "duplicates bit-equal", flush=True)
+    print(f"{what} {name}: 3 requests -> {(1, *out_hw)}, batch -> {(8, *out_hw)}, {blocks} {route} launches and "
+          f"{NECK_UPSAMPLES} neck upsample launches per forward, duplicates bit-equal", flush=True)
 
     def per_request():
         model.inference(frames[0], side)
@@ -1330,11 +1360,11 @@ def run_image_once(smi, ckpt, tmp, route, blocks, what, extra=()) -> tuple:
 def run_video_once(smi, ckpt, video, extra, blocks, what, route="fused") -> dict:
     """run_video --headless over the clip through its ``main``; every
     dispatch launched ``blocks`` times on ``route`` and nothing else."""
-    before = fa.launch_counts()
+    before = launch_counts()
     stats = run_video.main(["-m", ckpt, "-i", video, "--headless", "--max_frames", str(APP_VIDEO_FRAMES), *extra,
                             *app_device_args()])
     torch.cuda.synchronize()
-    moved = {r: n - before[r] for r, n in fa.launch_counts().items() if n != before[r]}
+    moved = {r: n - before[r] for r, n in launch_counts().items() if n != before[r]}
     dispatched = len(stats["host_ms"])
     if moved != {route: blocks * dispatched} or stats["frames"] != APP_VIDEO_FRAMES or stats["shown"] < 1:
         raise RuntimeError(f"run_video {what}: launches {moved} for {dispatched} dispatches, {stats['frames']} frames, "
@@ -1451,7 +1481,7 @@ def phase_viewer(smi, model, image_path, img, blocks) -> tuple[float, int]:
     thread.start()
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     try:
-        before = fa.launch_counts()
+        before = launch_counts()
         headers, first = viewer_get(base, "/frame/0")
         times = []
         for _ in range(VIEWER_SERIAL):
@@ -1489,7 +1519,7 @@ def phase_viewer(smi, model, image_path, img, blocks) -> tuple[float, int]:
         if rgb_up.shape != (180, 320, 3) or not np.isfinite(depth_up).all():
             raise RuntimeError(f"3D viewer after /upload: rgb {rgb_up.shape}")
         torch.cuda.synchronize()
-        moved = {r: n - before[r] for r, n in fa.launch_counts().items() if n != before[r]}
+        moved = {r: n - before[r] for r, n in launch_counts().items() if n != before[r]}
         inferences = 1 + VIEWER_SERIAL + VIEWER_CONCURRENT + 1 + 1  # the frames, the export, the uploaded frame
         if moved != {"fused": blocks * inferences}:
             raise RuntimeError(f"3D viewer: launches {moved}, want {blocks * inferences} on fused only")
@@ -1596,11 +1626,11 @@ def batch_folder(tmp: str, n: int) -> tuple[str, list]:
 def run_batch_once(ckpt, tmp, frames_dir, out, extra, want, what) -> dict:
     """run_batch's ``main`` with no -d, so on the card; exactly ``want``
     launches on route fused and none elsewhere, counted from inside the app."""
-    before = fa.launch_counts()
+    before = launch_counts()
     with contextlib.chdir(tmp):
         stats = run_batch.main(["-m", ckpt, "-i", frames_dir, "-o", out, "-dp", "1", *extra, *app_device_args()])
     torch.cuda.synchronize()
-    moved = {r: n - before[r] for r, n in fa.launch_counts().items() if n != before[r]}
+    moved = {r: n - before[r] for r, n in launch_counts().items() if n != before[r]}
     if moved != {"fused": want}:
         raise RuntimeError(f"run_batch {what}: launches {moved}, want {want} on fused only")
     return stats
@@ -2161,8 +2191,9 @@ def export_reloaded(model, hw, path: str):
 
 def check_nodes(program, op: str, blocks: int, what: str):
     nodes = export_model.kernel_nodes(program)
-    if nodes != {op: blocks}:
-        raise RuntimeError(f"{what}: the exported program's kernel nodes are {nodes}, want {{{op!r}: {blocks}}}")
+    if nodes != {op: blocks, "upsample_bilinear_ac": NECK_UPSAMPLES}:
+        raise RuntimeError(f"{what}: the exported program's kernel nodes are {nodes}, want {{{op!r}: {blocks}, "
+                           f"'upsample_bilinear_ac': {NECK_UPSAMPLES}}}")
 
 
 def export_input(model, hw, seed) -> torch.Tensor:
@@ -2224,8 +2255,10 @@ def phase_export(smi: str, ckpt: str, tmp: str) -> dict:
     if proc.returncode != 0:
         raise RuntimeError(f"export: loading the program in a fresh process failed:\n{proc.stderr[-4000:]}")
     child_launches = json.loads(proc.stdout.strip().splitlines()[-1])
+    child_upsamples = sum(child_launches.pop(r) for r in NECK_ROUTES)
     child_rel = _abs_rel(torch.from_numpy(np.load(child_out)), got.float().cpu())
-    if child_launches["fused"] != blocks or sum(child_launches.values()) != blocks or not child_rel <= ABS_REL_BUDGET:
+    if (child_launches["fused"] != blocks or sum(child_launches.values()) != blocks or child_upsamples != NECK_UPSAMPLES
+            or not child_rel <= ABS_REL_BUDGET):
         raise RuntimeError(f"export: the fresh process launched {child_launches}, abs-rel {child_rel:.3e}")
     launches += child_launches["fused"]
     print(f"export: the program loaded and ran in a fresh process ({time.perf_counter() - t0:.1f} s, importing only "
@@ -2237,7 +2270,7 @@ def phase_export(smi: str, ckpt: str, tmp: str) -> dict:
     fa.reset_launch_counts()
     main_out = export_model.main(["-m", ckpt, "-b", str(MAX_SIDE), "-o", tmp, "--timing_iters", str(EXPORT_TIMING_ITERS),
                                   *app_device_args()])
-    if main_out["nodes"] != {"flash_attention_fused_qkv": blocks}:
+    if main_out["nodes"] != {"flash_attention_fused_qkv": blocks, "upsample_bilinear_ac": NECK_UPSAMPLES}:
         raise RuntimeError(f"export_model.main: kernel nodes {main_out['nodes']}")
     program = torch.export.load(main_out["path"])
     _, plain = make_dpt_from_state_dict(ckpt, dtype=torch.float32, device=DEVICE, enable_optimizations=False)
@@ -2641,6 +2674,74 @@ def phase_fused_kernels(smi: str) -> dict:
         torch.cuda.empty_cache()
     return {kid: {"max_abs_err": check.worst[kid], **dict(zip(("ms", "plain_ms", "library_ms"), times[(kid, torch.bfloat16, 8)]))}
             for kid in (8, 9)}
+
+
+def ulp_distance(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Per element, how many representable values of the dtype lie between
+    got and want (0 where equal), from the bit patterns: ordered as integers
+    on each side of zero, the two zeros one apart."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}[got.dtype]
+
+    def ordered(t):
+        i = t.view(ints).long()
+        return torch.where(i < 0, -(i & (2 ** (8 * t.element_size() - 1) - 1)) - 1, i)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def phase_upsample(smi: str) -> dict:
+    """The neck's upsample kernel against ``F.interpolate`` on the card at
+    every neck shape of the three benchmark cells, B = 1 and 8, in bf16, f16
+    and f32, channels-last and NCHW: each launch on its layout's route, the
+    largest difference in ulps of the output (at most ``UPSAMPLE_MAX_ULP``)
+    and the share of differing elements; in bf16, CUDA-event times of the
+    kernel and of ``F.interpolate`` (torch's kernel of that layout) in turns
+    against the byte floor (input read once, output written once). Returns
+    the worst ulps and the five upsamples' summed times in each cell as it
+    is served."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    worst_ulp, differing, served = 0, 0, {}
+    for cell, shapes in UPSAMPLE_SHAPES.items():
+        for b in (1, 8):
+            for channels_last in (True, False):
+                layout = "channels-last" if channels_last else "NCHW"
+                route = NECK_ROUTES[0] if channels_last else NECK_ROUTES[1]
+                totals = [0.0, 0.0, 0.0]
+                for s_in, s_out, c in shapes:
+                    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+                        x = torch.randn(b, c, s_in, s_in, device=DEVICE, generator=gen).to(dtype)
+                        x = x.contiguous(memory_format=torch.channels_last) if channels_last else x
+                        call = lambda: up.upsample_bilinear_ac(x, (s_out, s_out))  # noqa: E731
+                        library = lambda: F.interpolate(x, size=(s_out, s_out), mode="bilinear", align_corners=True)  # noqa: E731
+                        got, ran = counted_route(call, NECK_ROUTES)
+                        want = library()
+                        ulps = max(int(ulp_distance(got[i], want[i]).max()) for i in range(b))
+                        diff = sum(int(torch.ne(got[i], want[i]).sum()) for i in range(b))
+                        max_abs = max(float((got[i].float() - want[i].float()).abs().max()) for i in range(b))
+                        label = f"{cell} B={b} {layout} {str(dtype)[6:]} ({c}, {s_in}, {s_in}) -> {s_out}"
+                        if ran != route or got.stride() != want.stride() or ulps > UPSAMPLE_MAX_ULP:
+                            raise RuntimeError(f"upsample {label}: route {ran}, strides {got.stride()} vs "
+                                               f"{want.stride()}, {ulps} ulps")
+                        worst_ulp, differing = max(worst_ulp, ulps), differing + diff
+                        line = (f"upsample check {label}: {ulps} ulps, max abs {max_abs:.3e}, {diff / got.numel():.2e} of "
+                                f"elements differ")
+                        if dtype is torch.bfloat16:
+                            k1, l1, l2, k2 = (time_ms(f) for f in (call, library, library, call))
+                            floor = (x.numel() + got.numel()) * x.element_size() / HBM_BYTES_PER_S * 1e3
+                            kernel, lib = min(k1, k2), min(l1, l2)
+                            totals = [totals[0] + kernel, totals[1] + lib, totals[2] + floor]
+                            line += (f"; kernel {k1:.4f}/{k2:.4f} ms, F.interpolate {l1:.4f}/{l2:.4f} ms, byte floor "
+                                     f"{floor:.4f} ms ({100 * floor / kernel:.1f} % of 3.35 TB/s) [{smi}]")
+                        print(line, flush=True)
+                        del x, got, want
+                print(f"upsample {cell} B={b} {layout}, the five bf16 upsamples: kernel {totals[0]:.4f} ms, "
+                      f"F.interpolate {totals[1]:.4f} ms, byte floor {totals[2]:.4f} ms [{smi}]", flush=True)
+                if UPSAMPLE_SERVED[cell] == (b, channels_last):
+                    served[cell] = totals
+    torch.cuda.empty_cache()
+    print(f"upsample: worst {worst_ulp} ulps against F.interpolate over every shape, batch, dtype and layout, "
+          f"{differing} elements differ in all; as served (kernel, F.interpolate, floor ms): {served} [{smi}]", flush=True)
+    return {"worst_ulp": worst_ulp, "served": served}
 
 
 def capture(model, frames, blocks):
@@ -3582,6 +3683,7 @@ def main() -> int:
         for route, count in moved.items():
             f16_launches[route] = f16_launches.get(route, 0) + count
     numbers.update(timed("fused MLP and head tail checks and times", phase_fused_kernels, smi))
+    timed("neck upsample checks and times", phase_upsample, smi)
     int8_worst = timed("int8-QK^T attention checks", phase_int8_kernels, smi)
     launches, check, composite = {}, Checker(), {}
     with tempfile.TemporaryDirectory() as tmp:

@@ -24,7 +24,8 @@ HEAD_UPSAMPLE = 2.0  # MiDaS's head upsamples by a fixed 2x
 class BEiTDPT(nn.Module):
     """Built from a config dict of ``checkpoints.beit.get_config_from_state_dict``.
     ``enable_optimizations`` (default True) sends attention through the
-    biased fused-qkv flash kernel; False runs the plain attention path."""
+    biased fused-qkv flash kernel and the neck's upsample through its kernel;
+    False runs the plain attention path and ``F.interpolate``."""
 
     def __init__(self, config: dict, device=None):
         super().__init__()
@@ -32,21 +33,22 @@ class BEiTDPT(nn.Module):
         p = config["patch_size_px"]
         cf = config["fusion_channels"]
         self.patch_size_px = p
+        use_kernel = config.get("enable_optimizations", True)
         self.patch_embed = nn.Conv2d(3, f, p, stride=p, device=device)
         self.encoder = BEiTEncoder(
             f,
             config["num_heads"],
             config["num_blocks"],
             config["base_patch_grid_hw"],
-            use_kernel=config.get("enable_optimizations", True),
+            use_kernel=use_kernel,
             device=device,
         )
         self.reassemble = nn.ModuleList(
             ReassembleStage(f, r, cf, s, readout="project", device=device)
             for r, s in zip(config["reassembly_features_list"], REASSEMBLY_SCALES)
         )
-        self.fusion = nn.ModuleList(FusionBlock(cf, top=(i == 3), device=device) for i in range(4))
-        self.head = Head(cf, HEAD_UPSAMPLE, False, device=device)
+        self.fusion = nn.ModuleList(FusionBlock(cf, top=(i == 3), use_kernel=use_kernel, device=device) for i in range(4))
+        self.head = Head(cf, HEAD_UPSAMPLE, False, use_kernel=use_kernel, device=device)
 
     def forward(self, image_nchw, aux=None):
         """Normalized (B, 3, H, W) image, H and W multiples of the patch size

@@ -32,8 +32,9 @@ class DepthAnything(nn.Module):
     """Built from a config dict of ``checkpoints.depth_anything.get_config_from_state_dict``
     and a ``version`` (1 or 2), which picks the encoder taps; the config's
     ``is_giant`` picks the SwiGLU blocks. ``enable_optimizations`` (default
-    True) sends attention through the fused-qkv flash kernel; False runs the
-    plain attention path."""
+    True) sends attention through the fused-qkv flash kernel and the neck's
+    upsample through its kernel; False runs the plain attention path and
+    ``F.interpolate``."""
 
     def __init__(self, config: dict, version: int = 2, device=None):
         super().__init__()
@@ -41,13 +42,14 @@ class DepthAnything(nn.Module):
         p = config["patch_size_px"]
         cf = config["fusion_channels"]
         self.patch_size_px = p
+        use_kernel = config.get("enable_optimizations", True)
         self.patch_embed = nn.Conv2d(3, f, p, stride=p, device=device)
         self.encoder = DinoV2Encoder(
             f,
             config["num_heads"],
             config["num_blocks"],
             config["base_patch_grid_hw"],
-            use_kernel=config.get("enable_optimizations", True),
+            use_kernel=use_kernel,
             is_giant=config.get("is_giant", False),
             taps=encoder_taps(config["num_blocks"], version),
             device=device,
@@ -56,8 +58,8 @@ class DepthAnything(nn.Module):
             ReassembleStage(f, r, cf, s, device=device)
             for r, s in zip(config["reassembly_features_list"], REASSEMBLY_SCALES)
         )
-        self.fusion = nn.ModuleList(FusionBlock(cf, top=(i == 3), device=device) for i in range(4))
-        self.head = Head(cf, p / 8, config.get("is_metric", False), device=device)
+        self.fusion = nn.ModuleList(FusionBlock(cf, top=(i == 3), use_kernel=use_kernel, device=device) for i in range(4))
+        self.head = Head(cf, p / 8, config.get("is_metric", False), use_kernel=use_kernel, device=device)
 
     def forward(self, image_nchw, aux=None):
         """Normalized (B, 3, H, W) image, H and W multiples of the patch size

@@ -10,6 +10,13 @@ conv pair; fusion and head upsample with bilinear align_corners=True; the
 head's upsample factor is P/8 for Depth-Anything and 2 for MiDaS; a metric
 head ends in a sigmoid instead of a ReLU.
 
+The upsample (``upsample``) follows what its input shows: with ``use_kernel``
+on (the family's ``enable_optimizations``), a CUDA map goes through the
+hand-written kernel (``ops/kernels/upsample.py``), an exported program holds
+the operator ``mdpt::upsample_bilinear_ac``; with it off (the train step's
+``plain_attention``), or on the CPU, ``F.interpolate`` (``resize_2d``) runs,
+with the same result.
+
 The int8 tier (``ops/quant.py:quantize_neck``) swaps the readout and 1x1
 projections for ``QuantLinear``s and the residual units' and head's 3x3
 convolutions for shiftsum ``QuantConv3x3``s; the ``*_p`` calls run either."""
@@ -19,6 +26,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
+from ..ops.kernels.upsample import upsample_bilinear_ac
 from ..ops.nn import conv2d, conv_transpose_blocky, gelu
 from ..ops.quant import QuantLinear, conv1x1_p, conv3x3_p, linear_p
 from ..ops.resize import resize_2d, resize_output_size
@@ -96,13 +105,25 @@ class ResidualConvUnit(nn.Module):
         return h + x
 
 
+def upsample(x, out_hw, use_kernel: bool):
+    """Bilinear align_corners=True resize of an NCHW map to ``out_hw``: the
+    kernel for a CUDA map with ``use_kernel``, its operator node while
+    ``torch.export`` traces, else ``F.interpolate``."""
+    if use_kernel and torch.compiler.is_exporting():
+        return torch.ops.mdpt.upsample_bilinear_ac(x, list(out_hw))
+    if use_kernel and x.is_cuda:
+        return upsample_bilinear_ac(x, out_hw)
+    return resize_2d(x, out_hw, align_corners=True)
+
+
 class FusionBlock(nn.Module):
     """RefineNet-style block: [res1(reassembly map) + previous] -> res2 ->
     2x bilinear (align_corners=True) -> 1x1 conv. The top-most block has no
     res1 (it has no previous map to add)."""
 
-    def __init__(self, channels: int, top: bool, device=None):
+    def __init__(self, channels: int, top: bool, use_kernel: bool = True, device=None):
         super().__init__()
+        self.use_kernel = use_kernel
         self.res1 = None if top else ResidualConvUnit(channels, device=device)
         self.res2 = ResidualConvUnit(channels, device=device)
         self.out = nn.Conv2d(channels, channels, 1, device=device)
@@ -110,7 +131,7 @@ class FusionBlock(nn.Module):
     def forward(self, fmap, prev=None):
         x = fmap if prev is None else self.res1(fmap) + prev
         x = self.res2(x)
-        x = resize_2d(x, resize_output_size(x.shape[-2:], 2.0), align_corners=True)
+        x = upsample(x, resize_output_size(x.shape[-2:], 2.0), self.use_kernel)
         return conv1x1_p(x, self.out)
 
 
@@ -136,8 +157,9 @@ class Head(nn.Module):
     """3x3 conv C -> C/2 -> upsample by P/8 -> 3x3 conv -> 32 -> ReLU ->
     1x1 conv -> 1 -> ReLU (sigmoid for metric). Returns (B, H, W)."""
 
-    def __init__(self, channels: int, upsample_factor: float, is_metric: bool, device=None):
+    def __init__(self, channels: int, upsample_factor: float, is_metric: bool, use_kernel: bool = True, device=None):
         super().__init__()
+        self.use_kernel = use_kernel
         self.upsample_factor = upsample_factor
         self.is_metric = is_metric
         self.conv_in = nn.Conv2d(channels, channels // 2, 3, padding=1, device=device)
@@ -155,5 +177,5 @@ class Head(nn.Module):
 
     def forward(self, x):
         x = conv3x3_p(x, self.conv_in)
-        x = resize_2d(x, resize_output_size(x.shape[-2:], self.upsample_factor), align_corners=True)
+        x = upsample(x, resize_output_size(x.shape[-2:], self.upsample_factor), self.use_kernel)
         return self.tail(x)

@@ -24,19 +24,21 @@ HEAD_UPSAMPLE = 2.0  # MiDaS's head upsamples by a fixed 2x
 class SwinV2DPT(nn.Module):
     """Built from a config dict of ``checkpoints.swinv2.get_config_from_state_dict``.
     ``enable_optimizations`` (default True) sends the window attention
-    through the window kernel's entry; False runs the plain einsum path."""
+    through the window kernel's entry and the neck's upsample through its
+    kernel; False runs the plain einsum path and ``F.interpolate``."""
 
     def __init__(self, config: dict, device=None):
         super().__init__()
         feats = config["features_per_stage"]
         p = config["patch_size_px"]
         cf = config["fusion_channels"]
+        use_kernel = config.get("enable_optimizations", True)
         self.patch_embed = nn.Conv2d(3, feats[0], p, stride=p, device=device)
         self.patch_norm = nn.LayerNorm(feats[0], eps=SWIN_LN_EPS, device=device)
-        self.encoder = SwinV2Encoder(config, use_kernel=config.get("enable_optimizations", True), device=device)
+        self.encoder = SwinV2Encoder(config, use_kernel=use_kernel, device=device)
         self.reassemble = nn.ModuleList(FuseOnlyStage(f, cf, device=device) for f in feats)
-        self.fusion = nn.ModuleList(FusionBlock(cf, top=(i == 3), device=device) for i in range(4))
-        self.head = Head(cf, HEAD_UPSAMPLE, False, device=device)
+        self.fusion = nn.ModuleList(FusionBlock(cf, top=(i == 3), use_kernel=use_kernel, device=device) for i in range(4))
+        self.head = Head(cf, HEAD_UPSAMPLE, False, use_kernel=use_kernel, device=device)
 
     def forward(self, image_nchw, aux=None):
         """Normalized (B, 3, H, W) image, H and W multiples of 8 patches ->

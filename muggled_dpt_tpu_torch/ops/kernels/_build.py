@@ -143,6 +143,10 @@ def kernel_library() -> ctypes.CDLL:
     # the int64 argument array (its slots in csrc/head_tail.cu; the call writes SLOT_ROUTE), stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.mdpt_upsample_bilinear_ac
+    # the int64 argument array (its slots in csrc/upsample_bilinear_ac.cu), stream
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     fn = lib.mdpt_flash_attention_int8
     # the int64 argument array (its slots in csrc/flash_attention_int8.cu; the call writes SLOT_ROUTE), q's factor, #6's
     # scale, stream

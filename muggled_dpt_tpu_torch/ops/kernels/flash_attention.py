@@ -356,6 +356,7 @@ def _counted_entries() -> dict:
     from .flash_attention_xl import flash_attention_fused_qkv_xl
     from .fused_mlp import fused_ln_mlp_residual
     from .head_tail import fused_head_tail
+    from .upsample import upsample_bilinear_ac
     from .window_attention import window_attention
 
     return {
@@ -380,6 +381,8 @@ def _counted_entries() -> dict:
         "xl": (flash_attention_fused_qkv_xl, "launches"),
         "staged": (flash_attention_fused_qkv_staged, "launches"),
         "variant": (flash_variant, "launches"),
+        "upsample_ac": (upsample_bilinear_ac, "launches"),
+        "upsample_ac_nchw": (upsample_bilinear_ac, "nchw_launches"),
     }
 
 
@@ -402,5 +405,7 @@ def launch_counts() -> dict[str, int]:
     (``flash_attention_int8.py``: ``int8_qk`` and ``int8_qk_fused``, and
     the sm_90 kernel's ``int8_qk_sm90`` and ``int8_qk_fused_sm90``) and
     the attention sweep's variants #10-#12 (``flash_attention_xl.py``,
-    ``flash_attention_staged.py``, ``tools/attn_variants.py``) included."""
+    ``flash_attention_staged.py``, ``tools/attn_variants.py``) and the
+    neck's upsample (``upsample.py``: ``upsample_ac`` on a channels-last
+    map, ``upsample_ac_nchw`` on an NCHW one) included."""
     return {route: getattr(entry, attribute) for route, (entry, attribute) in _counted_entries().items()}

@@ -13,6 +13,8 @@ call and runs the kernel when it is called:
                                    or ``bias_stack`` + ``layer``)
 ``mdpt::window_attention``         ``window_attention.window_attention``: TPU
                                    kernel #3
+``mdpt::upsample_bilinear_ac``     ``upsample.upsample_bilinear_ac``: the
+                                   neck's bilinear align_corners=True upsample
 =================================  ==========================================
 
 The real implementation of each is the wrapper itself, called on real
@@ -26,7 +28,7 @@ The ops have no backward (the kernels have none): the wrapper's
 ``_refuse_grad`` raises when an operand requires grad under autograd, as it
 does when the wrapper is called directly.
 
-Importing this module registers both ops; ``torch.export.load`` of a
+Importing this module registers the ops; ``torch.export.load`` of a
 program that holds them needs that import first. Only the serving call
 sites use them, and only while a model is being exported
 (``torch.compiler.is_exporting()``): eager serving calls the wrappers
@@ -38,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from . import flash_attention as fa
+from . import upsample as up
 from . import window_attention as wa
 
 
@@ -92,3 +95,18 @@ def _(q, k, v, cpb, mask=None):
 
 
 _register_refusal(window_attention, "mdpt::window_attention")
+
+
+@torch.library.custom_op("mdpt::upsample_bilinear_ac", mutates_args=())
+def upsample_bilinear_ac(x: torch.Tensor, out_hw: list[int]) -> torch.Tensor:
+    """``upsample.upsample_bilinear_ac`` as an operator: (B, C, H, W) -> a
+    new (B, C, *out_hw) tensor in x's memory format."""
+    return up.upsample_bilinear_ac(x, out_hw)
+
+
+@upsample_bilinear_ac.register_fake
+def _(x, out_hw):
+    return up.empty_output(x, out_hw)
+
+
+_register_refusal(upsample_bilinear_ac, "mdpt::upsample_bilinear_ac")

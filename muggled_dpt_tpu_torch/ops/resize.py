@@ -4,6 +4,7 @@ ported paths use:
 * bilinear, align_corners=False, antialias=True  -- image preprocessing
 * bicubic,  align_corners=False, antialias=False -- position-embedding resize
 * bilinear, align_corners=True                   -- fusion and head upsampling
+  (on the card the neck runs ``ops/kernels/upsample.py``, bit for bit the same)
 * bilinear, align_corners=False, antialias=False -- BEiT relative-position LUT
 
 The JAX package rebuilds these as dense or banded weight matrices for the

@@ -50,7 +50,8 @@ def adamw(params, lr: float) -> torch.optim.AdamW:
 @contextlib.contextmanager
 def plain_attention(net: torch.nn.Module):
     """Every block of ``net`` (DINOv2, BEiT and SwinV2 alike) on the plain,
-    differentiable attention for the duration; the kernels after."""
+    differentiable attention, and the neck's upsamples on ``F.interpolate``,
+    for the duration (every module with a ``use_kernel``); the kernels after."""
     blocks = [m for m in net.modules() if hasattr(m, "use_kernel")]
     saved = [m.use_kernel for m in blocks]
     for m in blocks:

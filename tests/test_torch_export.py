@@ -1,13 +1,15 @@
 """``torch.export`` of the port's kernel forward
 (``experiments/export_model.py``) through the serving kernels' operators
 (``ops/kernels/library.py``: ``mdpt::flash_attention_fused_qkv`` for TPU
-kernels #1 and #2, ``mdpt::window_attention`` for #3), on the CPU.
+kernels #1 and #2, ``mdpt::window_attention`` for #3,
+``mdpt::upsample_bilinear_ac`` for the neck's upsamples), on the CPU.
 
-1. ``torch.library.opcheck`` on both ops, float32 and bfloat16, with every
-   bias form of #1/#2 (none, dense, stack + layer) and #3 with and without
-   its shift mask.
+1. ``torch.library.opcheck`` on the ops, float32 and bfloat16, with every
+   bias form of #1/#2 (none, dense, stack + layer), #3 with and without
+   its shift mask, and the upsample in both memory formats.
 2. Each family's tiny model, exported: the graph holds one ``mdpt`` node per
-   attention block and no ``scaled_dot_product_attention``; saved, reloaded,
+   attention block, five upsample nodes (four fusion blocks and the head) and
+   no ``scaled_dot_product_attention``; saved, reloaded,
    it equals the live port model (max abs 1e-6: the same ops, on the
    kernels' plain versions here) and the JAX package's float32 forward on
    the same random original checkpoint (both builders draw it with numpy
@@ -54,6 +56,7 @@ DA_ARGS = (128, 2, 4, (16, 24, 32, 40), (8, 8), 16)  # two heads of 64, the kern
 BEIT_ARGS = (128, 2, 4, (16, 24, 32, 40), (6, 6), 16)
 SWIN_ARGS = ((64, 128, 256, 512), (2, 4, 8, 16), (2, 2, 2, 2), (16, 16), (4, 4), (None,) * 4, 16)  # heads of 32
 
+NECK_UPSAMPLES = 5  # an upsample node per fusion block and one in the head, in every family
 FAMILIES = {  # name -> (JAX builder, port builder, args, keyword args, input hw, attention op, blocks)
     "da_v2": (jax_make_v2, make_depthanythingv2_dpt, DA_ARGS, {}, (112, 140), "flash_attention_fused_qkv", 4),
     "da_v1": (jax_make_v1, make_depthanythingv1_dpt, (128, 2, 6) + DA_ARGS[3:], {}, (112, 112),
@@ -121,6 +124,18 @@ def test_opcheck_window(with_mask, dtype):
     torch.testing.assert_close(torch.ops.mdpt.window_attention(*args), wa.window_attention(*args), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
+def test_opcheck_upsample(channels_last, dtype):
+    x = _rand(7, 2, 8, 9, 12).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last) if channels_last else x
+    torch.library.opcheck(torch.ops.mdpt.upsample_bilinear_ac, (x, [18, 21]))
+    got = torch.ops.mdpt.upsample_bilinear_ac(x, [18, 21])
+    want = torch.nn.functional.interpolate(x, size=(18, 21), mode="bilinear", align_corners=True)
+    assert got.stride() == want.stride()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 # -- 2. each family, exported -------------------------------------------------
 
 
@@ -146,7 +161,7 @@ def exported(tmp_path_factory):
 def test_exported_graph_holds_one_kernel_node_per_block(exported, name):
     _, _, program, _ = exported(name)
     op, blocks = FAMILIES[name][5:]
-    assert kernel_nodes(program) == {op: blocks}
+    assert kernel_nodes(program) == {op: blocks, "upsample_bilinear_ac": NECK_UPSAMPLES}
     assert not [t for t in _aten_targets(program) if "scaled_dot_product_attention" in t]
 
 
@@ -160,6 +175,24 @@ def test_reloaded_program_matches_live_port_and_jax(exported, name):
     assert float((got - live).abs().max()) <= LIVE_MAX_ABS
     want = np.asarray(jax_model.forward(jnp.asarray(x)), np.float32)
     assert float(np.abs(got.numpy() - want).mean() / np.abs(want).mean()) < JAX_ABS_REL
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_exported_neck_upsamples_are_operator_nodes_bit_equal_to_the_live_forward(tmp_path, batch):
+    """DA-V2 exported at B=1 (NCHW maps) and B=2 (channels-last maps): five
+    ``mdpt.upsample_bilinear_ac`` nodes and no ``upsample_bilinear2d``; the
+    reloaded program equals the live forward bit for bit."""
+    _, port_make, args, kwargs, hw, _, _ = FAMILIES["da_v2"]
+    model = port_make(*args, **kwargs, seed=SEED, device=DEVICE)
+    x = torch.from_numpy(np.concatenate([_image(hw, seed) for seed in range(batch)]))
+    path = str(tmp_path / "program.pt2")
+    torch.export.save(torch.export.export(export_model.ExportedForward(model.net, None), (x,)), path)
+    program = torch.export.load(path)
+    assert kernel_nodes(program)["upsample_bilinear_ac"] == NECK_UPSAMPLES
+    assert not [t for t in _aten_targets(program) if "upsample_bilinear2d" in t]
+    with torch.no_grad():
+        live = model.net(x)
+    torch.testing.assert_close(program.module()(x), live, rtol=0, atol=0)
 
 
 def test_cached_aux_is_lifted_as_constants(exported):
@@ -178,7 +211,7 @@ def test_int8_tier_exports_and_round_trips(tmp_path):
     path = str(tmp_path / "int8.pt2")
     torch.export.save(export_forward(model, (112, 112)), path)
     program = torch.export.load(path)
-    assert kernel_nodes(program) == {"flash_attention_fused_qkv": 4}
+    assert kernel_nodes(program) == {"flash_attention_fused_qkv": 4, "upsample_bilinear_ac": NECK_UPSAMPLES}
     x = torch.from_numpy(_image((112, 112)))
     torch.testing.assert_close(program.module()(x), model.forward(x), rtol=1e-6, atol=1e-6)
 
@@ -186,7 +219,8 @@ def test_int8_tier_exports_and_round_trips(tmp_path):
 def test_export_model_main_writes_and_checks_the_artifact(tmp_path):
     out = export_model.main(["-d", "cpu", "-o", str(tmp_path), "--timing_iters", "1"])
     assert out["path"] == str(tmp_path / "tiny_dav2_224x224.pt2") and os.path.getsize(out["path"]) == out["bytes"]
-    assert out["nodes"] == {"flash_attention_fused_qkv": 8} and out["abs_rel"] == 0.0 and out["ms"] > 0
+    assert out["nodes"] == {"flash_attention_fused_qkv": 8, "upsample_bilinear_ac": NECK_UPSAMPLES}
+    assert out["abs_rel"] == 0.0 and out["ms"] > 0
 
 
 FRESH = r"""
