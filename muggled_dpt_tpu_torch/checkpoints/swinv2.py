@@ -65,10 +65,11 @@ def get_config_from_state_dict(state_dict: dict, enable_cache=True, enable_optim
 
 
 def fold_logit_scale(logit_scale) -> torch.Tensor:
-    """The stored (H, 1, 1) log-scale -> the (H,) multiplier the attention
-    uses, exp(min(ls, log 100)), computed in float32 numpy as the JAX
-    converter does."""
-    ls = np.asarray(logit_scale, dtype=np.float32).reshape(-1)
+    """The stored (H, 1, 1) log-scale (a numpy array or a tensor of any
+    float type, on any device) -> the (H,) multiplier the attention uses,
+    exp(min(ls, log 100)), computed in float32 numpy as the JAX converter
+    does."""
+    ls = t_tensor(logit_scale).numpy().reshape(-1)
     return t_tensor(np.exp(np.minimum(ls, math.log(100.0))))
 
 

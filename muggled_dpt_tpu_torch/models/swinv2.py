@@ -20,8 +20,13 @@ shifting stage) are built on the device from aranges: once per grid into the
 facade's aux cache (``compute_cpb_stack``), or, with caching off, inside each
 forward and dropped after it. Nothing is cached outside the aux.
 
-Each block opens an ``attention`` span around its window-attention call and
-an ``mlp`` span around its MLP half (``utils/observability.py``)."""
+Each block opens, in order (``utils/observability.py``): a ``window`` span
+over the roll and the window partition before the qkv projection, a
+``cosine`` span from the qkv output to the window-attention call (the
+float32 l2-normalize of q and k, the logit-scale fold and the casts), an
+``attention`` span around that call, a second ``window`` span over the
+window merge and the roll back after ``proj``, and an ``mlp`` span around
+its MLP half. Each patch merge opens a ``merge`` span."""
 
 from __future__ import annotations
 
@@ -228,25 +233,29 @@ class SwinBlock(nn.Module):
         b, gh, gw, _ = x.shape
         heads = self.num_heads
         shifting = shift_hw != (0, 0)
-        if shifting:
-            x = torch.roll(x, shifts=(-shift_hw[0], -shift_hw[1]), dims=(1, 2))
-        x = partition_windows(x, window_hw)
+        with trace_span("window"):
+            if shifting:
+                x = torch.roll(x, shifts=(-shift_hw[0], -shift_hw[1]), dims=(1, 2))
+            x = partition_windows(x, window_hw)
         nw, area = x.shape[1], x.shape[2]
         group = self.attn_group
         if group is not None:
             x = copy_to_model(x, group)
         qkv = linear(x, self.qkv.weight, self.qkv.bias).reshape(b, nw, area, 3, heads, -1)
         q, k, v = qkv.unbind(3)
-        qf, kf = cosine_normalize(q), cosine_normalize(k)
-        scale = self.logit_scale.float()
+        kernel = self.use_kernel and not capture
+        with trace_span("cosine"):
+            qf, kf = cosine_normalize(q), cosine_normalize(k)
+            scale = self.logit_scale.float()
+            if kernel:
+                # the logit scale folded into q: the kernel adds the biases to q . k
+                qf, kf = (qf * scale.reshape(heads, 1)).to(x.dtype), kf.to(x.dtype)
         weights = None
-        if self.use_kernel and not capture:
-            # the logit scale folded into q: the kernel adds the biases to q . k
-            q_scaled = (qf * scale.reshape(heads, 1)).to(x.dtype)
+        if kernel:
             # while torch.export traces, the kernel is an operator node (ops/kernels/library.py)
             attend = torch.ops.mdpt.window_attention if torch.compiler.is_exporting() else window_attention_kernel
             with trace_span("attention"):
-                out = attend(q_scaled, kf.to(x.dtype), v, cpb, mask)
+                out = attend(qf, kf, v, cpb, mask)
         else:
             with trace_span("attention"):
                 logits = torch.einsum("bwnhd,bwmhd->bwhnm", qf, kf) * scale.reshape(1, 1, heads, 1, 1)
@@ -257,9 +266,10 @@ class SwinBlock(nn.Module):
                 out = torch.einsum("bwhnm,bwmhd->bwnhd", weights.to(v.dtype), v)
         out = out.reshape(b, nw, area, -1)
         out = linear(out, self.proj.weight, self.proj.bias) if group is None else row_linear(out, self.proj, group)
-        out = merge_windows(out, window_hw, (gh, gw))
-        if shifting:
-            out = torch.roll(out, shifts=shift_hw, dims=(1, 2))
+        with trace_span("window"):
+            out = merge_windows(out, window_hw, (gh, gw))
+            if shifting:
+                out = torch.roll(out, shifts=shift_hw, dims=(1, 2))
         return (out, weights) if capture else out
 
     def _after_attention(self, x, h):
@@ -289,8 +299,9 @@ class PatchMerge(nn.Module):
         self.norm = nn.LayerNorm(out_features, eps=SWIN_LN_EPS, device=device)
 
     def forward(self, x):
-        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
-        return layer_norm(linear(x, self.reduction.weight), self.norm.weight, self.norm.bias, eps=SWIN_LN_EPS)
+        with trace_span("merge"):
+            x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+            return layer_norm(linear(x, self.reduction.weight), self.norm.weight, self.norm.bias, eps=SWIN_LN_EPS)
 
 
 class SwinV2Encoder(nn.Module):

@@ -47,6 +47,14 @@ FAMILIES = {
     "swinv2": (lambda: make_swinv2_dpt((16, 32, 64, 128), (2, 4, 4, 8), (2, 2, 2, 2), (16, 16), (4, 4), (None,) * 4, 16,
                                        device=DEVICE), (128, 128), 8),
 }
+SWIN_BLOCK_SPANS = ["window", "cosine", "attention", "window", "mlp"]
+# name -> the encoder span's children in order: a ViT block opens attention then mlp; SwinV2's stages of
+# 2 blocks each open a merge span between them
+ENCODER_CHILDREN = {
+    "da_v2": ["attention", "mlp"] * 4,
+    "beit": ["attention", "mlp"] * 4,
+    "swinv2": (SWIN_BLOCK_SPANS * 2 + ["merge"]) * 3 + SWIN_BLOCK_SPANS * 2,
+}
 
 
 def test_step_timer_and_memory_report():
@@ -64,17 +72,17 @@ def children(spans, parent) -> list:
     return [s.name for s in spans if s.parent == parent]
 
 
-def check_request(spans, root: int, blocks: int, built: bool):
+def check_request(spans, root: int, encoder_children: list, built: bool):
     """The spans of one facade call, rooted at ``spans[root]``: the facade's
-    children in order, the encoder's blocks, one request id, every span
-    closed and inside its parent."""
+    children in order, the encoder's children in order, one request id,
+    every span closed and inside its parent."""
     facade = spans[root]
     assert facade.name == "facade" and facade.parent is None
     aux = [i for i, s in enumerate(spans) if s.parent == root and s.name == "facade.aux"]
     encoder = [i for i, s in enumerate(spans) if s.parent == root and s.name == "encoder"]
     assert children(spans, root) == ["facade.prep", "facade.aux", "encoder", "neck"]
     assert children(spans, aux[0]) == (["facade.aux_build"] if built else [])
-    assert children(spans, encoder[0]) == ["attention", "mlp"] * blocks
+    assert children(spans, encoder[0]) == encoder_children
     held = {root}
     for i, s in enumerate(spans):
         if s.parent in held:
@@ -104,9 +112,10 @@ def test_spans_off_record_nothing():
 def test_spans_nest_on_the_serving_path(family):
     """Two ``inference_rgb_device`` calls: each a ``facade`` span over prep,
     the aux lookup (a build on the first call where the family caches one),
-    the encoder (an ``attention`` then an ``mlp`` span per block) and the
-    neck; parents right, one request id per call, children inside their
-    parents, and no span left over."""
+    the encoder (an ``attention`` then an ``mlp`` span per block; SwinV2's
+    ``window``, ``cosine`` and ``merge`` spans besides) and the neck;
+    parents right, one request id per call, children inside their parents,
+    and no span left over."""
     make, size, blocks = FAMILIES[family]
     model = make()
     cached = model.spec.get("make_aux") is not None
@@ -114,8 +123,8 @@ def test_spans_nest_on_the_serving_path(family):
         model.inference_rgb_device(FRAMES, size)
         second = len(spans)
         model.inference_rgb_device(FRAMES[:1], size)
-    first = check_request(spans, 0, blocks, built=cached)
-    again = check_request(spans, second, blocks, built=False)
+    first = check_request(spans, 0, ENCODER_CHILDREN[family], built=cached)
+    again = check_request(spans, second, ENCODER_CHILDREN[family], built=False)
     assert first | again == set(range(len(spans)))
     assert (spans[0].request, spans[second].request) == (0, 1)
     assert sum(s.name == "attention" for s in spans) == 2 * blocks

@@ -103,6 +103,20 @@ def test_swinv2_params_from_jax_equals_own_conversion(name):
         assert torch.equal(ours[k], theirs[k]), k
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_conversion_of_a_tensor_state_dict(dtype):
+    """A state dict of tensors in a 16-bit type (as a checkpoint saved in
+    bf16 or weights made on the card arrive) converts as its float32 values
+    do, the folded logit scale included."""
+    sd = {k: torch.from_numpy(v).to(dtype) for k, v in random_original_state_dict(D32_CFG, seed=SEED).items()}
+    cfg = get_config_from_state_dict(sd)
+    ours = convert_state_dict(sd, cfg)
+    theirs = convert_state_dict({k: v.float().numpy() for k, v in sd.items()}, cfg)
+    assert set(ours) == set(theirs)
+    for k in ours:
+        assert ours[k].dtype == torch.float32 and torch.equal(ours[k], theirs[k]), k
+
+
 def test_config_and_sniffing_match_jax(ckpts, jax_models):
     cfg, model = make_dpt_from_state_dict(ckpts["tiny"], device=DEVICE)
     assert isinstance(model.net, SwinV2DPT)
