@@ -366,6 +366,7 @@ from muggled_dpt_tpu_torch.parallel.tensor import shard_model, spec_for_param
 from muggled_dpt_tpu_torch.parallel.train import adamw, make_train_step
 from muggled_dpt_tpu_torch.simple_examples import depth_prediction
 from muggled_dpt_tpu_torch.ops import quant as tq
+from muggled_dpt_tpu_torch.ops.kernels import cosine_qk as cq
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_int8 as fi8
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_staged as fst
@@ -451,6 +452,11 @@ UPSAMPLE_SHAPES = {  # the neck's five upsamples in each cell, (in side, out sid
 }
 UPSAMPLE_SERVED = {"DA-V2 504": (8, True), "BEiT 512": (8, True), "DA-V2 1428": (1, False)}  # batch, channels-last
 UPSAMPLE_MAX_ULP = 0  # the kernel against F.interpolate: bit-equal (it writes out the FMAs torch compiles to)
+COSINE_ROUTE = "cosine_qk"  # SwinV2's q, k normalization: on the kernel path one launch before each window attention
+WINDOW_ROUTES = ("window", "window_sm90", "window_f16", "window_sm90_f16")
+COSINE_SHAPES = [(32, nw, wh * ww, h) for nw, (wh, ww), h, _ in SWIN_STAGES]  # (B, nW, A, H), the benchmark's B=32
+COSINE_MAX_ULP = 1  # 16-bit outputs against the composite's: its sum in another order moves one rounding by an ulp
+COSINE_F32_REL = 2e-6  # float32 outputs: rsqrt of a sum a few ulps apart
 TAP_BLOCKS = (0, 11, 23)  # DA-V1 ViT-L blocks whose second half #8 is held against; int8 DA-V2 qkv slabs for #6, #7
 INT8_TIERS = {  # DA-V2 ViT-L int8 serving tiers: quantize_encoder_int8 options ("calibrate": 2 frames)
     "int8": {},
@@ -793,7 +799,7 @@ def check_windows(check, rng, dtype, b, nw, window_hw, h, with_mask, bias_dtype=
     route = "window_sm90" if dtype == bias_dtype == torch.bfloat16 else "window"
     label = (f"{str(dtype)[6:]} B={b} nW={nw} A={a} H={h}{' mask' if with_mask else ''} bias {str(bias_dtype)[6:]}"
              f"{' strided views of one qkv' if views else ''} [{route}]")
-    got = _counted(lambda: wa.window_attention(*args), route, 1, f"#3 {label}")
+    got = _counted(lambda: wa.window_attention(*args), route, 1, f"#3 {label}", normalized=False)
     check(3, label, got, wa.window_attention_reference(*args), (b, nw, a, h, SWIN_D))
 
 
@@ -1002,25 +1008,31 @@ def _host_ms(fn, iters=10, warmup=3) -> float:
 
 def launch_counts() -> dict:
     """``fa.launch_counts()`` without the neck's upsample routes, which
-    every forward on the card launches 5 times whatever its attention route:
+    every forward on the card launches 5 times whatever its attention route,
+    and SwinV2's ``cosine_qk``, one before each of its window attentions:
     the phases hold the attention, MLP and head routes to exact counts with
-    these, and ``serve`` and ``phase_upsample`` hold the neck's."""
-    return {r: n for r, n in fa.launch_counts().items() if r not in NECK_ROUTES}
+    these, ``serve`` and ``phase_upsample`` hold the neck's and ``_counted``
+    and ``phase_cosine_qk`` the normalization's."""
+    return {r: n for r, n in fa.launch_counts().items() if r not in NECK_ROUTES + (COSINE_ROUTE,)}
 
 
-def _counted(fn, route, want, what, neck=None):
+def _counted(fn, route, want, what, neck=None, normalized=True):
     """Run fn, require exactly `want` launches on `route` and none on the
     other routes of ``launch_counts``; with ``neck``, exactly that many on
-    the neck's upsample routes too."""
+    the neck's upsample routes too. ``normalized``: each window attention
+    comes with one ``cosine_qk`` launch, as a SwinV2 block on the kernel
+    path gives it (False: none, a window kernel called alone)."""
     before = fa.launch_counts()
     out = fn()
     torch.cuda.synchronize()
     after = fa.launch_counts()
     delta = {r: after[r] - before[r] for r in after}
     upsamples = sum(delta.pop(r) for r in NECK_ROUTES)
-    if delta != {r: (want if r == route else 0) for r in delta} or neck not in (None, upsamples):
-        raise RuntimeError(f"{what}: launches {delta} and {upsamples} neck upsamples, want {want} on route {route!r} "
-                           f"only and {neck} upsamples")
+    cosines = delta.pop(COSINE_ROUTE)
+    want_cosines = sum(delta[r] for r in WINDOW_ROUTES) if normalized else 0
+    if delta != {r: (want if r == route else 0) for r in delta} or neck not in (None, upsamples) or cosines != want_cosines:
+        raise RuntimeError(f"{what}: launches {delta}, {upsamples} neck upsamples and {cosines} cosine_qk, want {want} on "
+                           f"route {route!r} only, {neck} upsamples and {want_cosines} cosine_qk")
     return out
 
 
@@ -1923,7 +1935,7 @@ def f16_launch(kid, label, fn, route, kernel):
     traced (CUPTI): it must run the float16 instance whose demangled name
     holds ``kernel``, and no other attention kernel. Returns fn()'s output
     and, for the check's label, the instance that ran."""
-    out, names = device_kernels(lambda: _counted(fn, route, 1, f"#{kid} {label}"))
+    out, names = device_kernels(lambda: _counted(fn, route, 1, f"#{kid} {label}", normalized=False))
     ran = [m.group(0) for m in (re.search(r"\b[fw]a_\w+<[^>]*>", name) for name in names) if m]
     if len(ran) != 1 or kernel not in ran[0]:
         raise RuntimeError(f"#{kid} {label}: the launch ran {names}, want the float16 instance {kernel}")
@@ -2190,10 +2202,12 @@ def export_reloaded(model, hw, path: str):
 
 
 def check_nodes(program, op: str, blocks: int, what: str):
+    """One ``op`` node per block (SwinV2: and one ``cosine_qk`` node per block) and the neck's upsample nodes."""
     nodes = export_model.kernel_nodes(program)
-    if nodes != {op: blocks, "upsample_bilinear_ac": NECK_UPSAMPLES}:
-        raise RuntimeError(f"{what}: the exported program's kernel nodes are {nodes}, want {{{op!r}: {blocks}, "
-                           f"'upsample_bilinear_ac': {NECK_UPSAMPLES}}}")
+    want = {op: blocks, **({COSINE_ROUTE: blocks} if op == "window_attention" else {}),
+            "upsample_bilinear_ac": NECK_UPSAMPLES}
+    if nodes != want:
+        raise RuntimeError(f"{what}: the exported program's kernel nodes are {nodes}, want {want}")
 
 
 def export_input(model, hw, seed) -> torch.Tensor:
@@ -2742,6 +2756,63 @@ def phase_upsample(smi: str) -> dict:
     print(f"upsample: worst {worst_ulp} ulps against F.interpolate over every shape, batch, dtype and layout, "
           f"{differing} elements differ in all; as served (kernel, F.interpolate, floor ms): {served} [{smi}]", flush=True)
     return {"worst_ulp": worst_ulp, "served": served}
+
+
+def phase_cosine_qk(smi: str) -> dict:
+    """SwinV2's q, k normalization kernel against the block's float32
+    composite (``cq.cosine_qk_reference``) on the card at SwinV2-L-384's four
+    stage shapes at the benchmark's B=32, 384x384, on strided q and k views
+    of a qkv output as the block hands them over, in bf16, f16 and f32 with
+    the logit scale in q's dtype (as the model holds it): each launch
+    counted on its route;
+    16-bit outputs within ``COSINE_MAX_ULP`` ulps of the composite's, with
+    the share bit-equal; float32 within ``COSINE_F32_REL`` relative; CUDA-event
+    times of the kernel and the composite per call (median of 30 after 5, the
+    wrapper's host cost included), in turns, and the kernel's device time
+    (``flash_tune.device_ms``: 20 launches queued behind a spin) against the
+    byte floor (q and k read once, both outputs written once). Returns per
+    dtype the worst ulps or relative error and per (stage, dtype) the times
+    and the device time's share of 3.35 TB/s."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    worst, times = {}, {}
+    for stage, (b, nw, a, h) in enumerate(COSINE_SHAPES, 1):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            q, k, _ = torch.randn(b, nw, a, 3, h, SWIN_D, device=DEVICE, generator=gen).to(dtype).unbind(3)
+            scale = (torch.rand(h, device=DEVICE, generator=gen) * 99 + 1).to(dtype)  # exp(min(ls, log 100))
+            call = lambda: cq.cosine_qk(q, k, scale)  # noqa: E731
+            plain = lambda: cq.cosine_qk_reference(q, k, scale)  # noqa: E731
+            got, _ = counted_route(call, (COSINE_ROUTE,))
+            want = plain()
+            name = str(dtype)[6:]
+            label = f"stage {stage} (B={b}, nW={nw}, A={a}, H={h}) {name}"
+            if dtype is torch.float32:
+                rel = max(float(((g - w).abs() / w.abs().clamp_min(torch.finfo(dtype).tiny)).max()) for g, w in zip(got, want))
+                worst[name] = max(worst.get(name, 0.0), rel)
+                ok, line = rel <= COSINE_F32_REL, f"max relative error {rel:.3e} (limit {COSINE_F32_REL:g})"
+            else:
+                ulps = max(int(ulp_distance(g, w).max()) for g, w in zip(got, want))
+                equal = sum(int(torch.eq(g, w).sum()) for g, w in zip(got, want)) / (2 * got[0].numel())
+                worst[name] = max(worst.get(name, 0), ulps)
+                ok, line = ulps <= COSINE_MAX_ULP, f"{ulps} ulps (limit {COSINE_MAX_ULP}), {100 * equal:.4f} % bit-equal"
+            ok = ok and all(g.is_contiguous() and g.dtype == dtype and g.shape == q.shape for g in got)
+            if not ok:
+                raise RuntimeError(f"cosine_qk {label}: {line}, outputs {[(g.dtype, g.stride()) for g in got]}")
+            k1, p1, p2, k2 = (time_ms(f) for f in (call, plain, plain, call))
+            d1, d2 = ft.device_ms(call), ft.device_ms(call)
+            floor = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S * 1e3
+            kernel = min(d1, d2)
+            times[(stage, name)] = {"call_ms": min(k1, k2), "composite_ms": min(p1, p2), "kernel_ms": kernel,
+                                    "floor_ms": floor, "hbm_share": floor / kernel}
+            print(f"cosine_qk check {label}: {line}; per call: kernel {k1:.4f}/{k2:.4f} ms, composite {p1:.4f}/{p2:.4f} "
+                  f"ms; kernel device time {d1:.4f}/{d2:.4f} ms against the byte floor {floor:.4f} ms "
+                  f"({100 * floor / kernel:.1f} % of 3.35 TB/s) [{smi}]", flush=True)
+            del q, k, got, want
+    torch.cuda.empty_cache()
+    step = {name: sum(times[(s, name)]["kernel_ms"] * n for s, n in enumerate(SWIN_L384["layers_per_stage"], 1))
+            for name in ("bfloat16", "float16")}
+    print(f"cosine_qk: worst against the composite {worst}; the 24 launches of a SwinV2-L-384 step at B=32, device "
+          f"time: {step['bfloat16']:.3f} ms bf16, {step['float16']:.3f} ms f16 [{smi}]", flush=True)
+    return {"worst": worst, "times": times}
 
 
 def capture(model, frames, blocks):
@@ -3684,6 +3755,7 @@ def main() -> int:
             f16_launches[route] = f16_launches.get(route, 0) + count
     numbers.update(timed("fused MLP and head tail checks and times", phase_fused_kernels, smi))
     timed("neck upsample checks and times", phase_upsample, smi)
+    timed("SwinV2 cosine normalization checks and times", phase_cosine_qk, smi)
     int8_worst = timed("int8-QK^T attention checks", phase_int8_kernels, smi)
     launches, check, composite = {}, Checker(), {}
     with tempfile.TemporaryDirectory() as tmp:

@@ -23,7 +23,8 @@ forward and dropped after it. Nothing is cached outside the aux.
 Each block opens, in order (``utils/observability.py``): a ``window`` span
 over the roll and the window partition before the qkv projection, a
 ``cosine`` span from the qkv output to the window-attention call (the
-float32 l2-normalize of q and k, the logit-scale fold and the casts), an
+l2-normalize of q and k with the logit scale folded into q: on the kernel
+path one ``cosine_qk`` launch, on the plain path the float32 composite), an
 ``attention`` span around that call, a second ``window`` span over the
 window merge and the roll back after ``proj``, and an ``mlp`` span around
 its MLP half. Each patch merge opens a ``merge`` span."""
@@ -36,6 +37,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
+from ..ops.kernels.cosine_qk import cosine_normalize, cosine_qk
 from ..ops.kernels.window_attention import window_attention as window_attention_kernel
 from ..ops.nn import layer_norm, linear, mlp_gelu
 from ..ops.collectives import copy_to_model, row_linear
@@ -184,12 +186,6 @@ def aux_build_bytes(config: dict, patch_grid_hw, bytes_per_element: int = 4) -> 
     return aux_bytes(config, patch_grid_hw, bytes_per_element) + transient
 
 
-def cosine_normalize(x):
-    """x * rsqrt(sum(x^2) + 1e-12) over the last axis, in float32."""
-    x = x.float()
-    return x * torch.rsqrt((x * x).sum(dim=-1, keepdim=True) + 1e-12)
-
-
 class SwinBlock(nn.Module):
     """Post-norm SwinV2 block: windowed cosine attention with the CPB bias,
     then an MLP, each followed by its LayerNorm before the residual add."""
@@ -244,16 +240,18 @@ class SwinBlock(nn.Module):
         qkv = linear(x, self.qkv.weight, self.qkv.bias).reshape(b, nw, area, 3, heads, -1)
         q, k, v = qkv.unbind(3)
         kernel = self.use_kernel and not capture
+        # while torch.export traces, the kernels are operator nodes (ops/kernels/library.py)
+        exporting = kernel and torch.compiler.is_exporting()
         with trace_span("cosine"):
-            qf, kf = cosine_normalize(q), cosine_normalize(k)
-            scale = self.logit_scale.float()
             if kernel:
                 # the logit scale folded into q: the kernel adds the biases to q . k
-                qf, kf = (qf * scale.reshape(heads, 1)).to(x.dtype), kf.to(x.dtype)
+                qf, kf = (torch.ops.mdpt.cosine_qk if exporting else cosine_qk)(q, k, self.logit_scale)
+            else:
+                qf, kf = cosine_normalize(q), cosine_normalize(k)
+                scale = self.logit_scale.float()
         weights = None
         if kernel:
-            # while torch.export traces, the kernel is an operator node (ops/kernels/library.py)
-            attend = torch.ops.mdpt.window_attention if torch.compiler.is_exporting() else window_attention_kernel
+            attend = torch.ops.mdpt.window_attention if exporting else window_attention_kernel
             with trace_span("attention"):
                 out = attend(qf, kf, v, cpb, mask)
         else:

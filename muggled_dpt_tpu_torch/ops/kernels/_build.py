@@ -147,6 +147,10 @@ def kernel_library() -> ctypes.CDLL:
     # the int64 argument array (its slots in csrc/upsample_bilinear_ac.cu), stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.mdpt_cosine_qk
+    # the int64 argument array (its slots in csrc/cosine_qk.cu), stream
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     fn = lib.mdpt_flash_attention_int8
     # the int64 argument array (its slots in csrc/flash_attention_int8.cu; the call writes SLOT_ROUTE), q's factor, #6's
     # scale, stream

@@ -351,6 +351,7 @@ flash_attention.f16_launches = 0
 def _counted_entries() -> dict:
     """Route name -> (the entry, its attribute that counts the route's launches)."""
     from ...tools.attn_variants import flash_variant
+    from .cosine_qk import cosine_qk
     from .flash_attention_int8 import flash_attention_int8_qk, flash_attention_int8_qk_fused
     from .flash_attention_staged import flash_attention_fused_qkv_staged
     from .flash_attention_xl import flash_attention_fused_qkv_xl
@@ -383,6 +384,7 @@ def _counted_entries() -> dict:
         "variant": (flash_variant, "launches"),
         "upsample_ac": (upsample_bilinear_ac, "launches"),
         "upsample_ac_nchw": (upsample_bilinear_ac, "nchw_launches"),
+        "cosine_qk": (cosine_qk, "launches"),
     }
 
 
@@ -407,5 +409,6 @@ def launch_counts() -> dict[str, int]:
     the attention sweep's variants #10-#12 (``flash_attention_xl.py``,
     ``flash_attention_staged.py``, ``tools/attn_variants.py``) and the
     neck's upsample (``upsample.py``: ``upsample_ac`` on a channels-last
-    map, ``upsample_ac_nchw`` on an NCHW one) included."""
+    map, ``upsample_ac_nchw`` on an NCHW one) and SwinV2's cosine
+    normalization of q and k (``cosine_qk.py``: ``cosine_qk``) included."""
     return {route: getattr(entry, attribute) for route, (entry, attribute) in _counted_entries().items()}

@@ -15,6 +15,9 @@ call and runs the kernel when it is called:
                                    kernel #3
 ``mdpt::upsample_bilinear_ac``     ``upsample.upsample_bilinear_ac``: the
                                    neck's bilinear align_corners=True upsample
+``mdpt::cosine_qk``                ``cosine_qk.cosine_qk``: SwinV2's cosine
+                                   normalization of q and k, the logit scale
+                                   folded into q
 =================================  ==========================================
 
 The real implementation of each is the wrapper itself, called on real
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from . import cosine_qk as cq
 from . import flash_attention as fa
 from . import upsample as up
 from . import window_attention as wa
@@ -70,7 +74,7 @@ def _register_refusal(op, name: str):
         with torch.enable_grad():
             fa._refuse_grad(name, *inputs)
 
-    def backward(ctx, grad):  # never reached: setup_context raised
+    def backward(ctx, *grads):  # never reached: setup_context raised
         raise RuntimeError(f"{name} has no backward")
 
     op.register_autograd(backward, setup_context=setup_context)
@@ -110,3 +114,19 @@ def _(x, out_hw):
 
 
 _register_refusal(upsample_bilinear_ac, "mdpt::upsample_bilinear_ac")
+
+
+@torch.library.custom_op("mdpt::cosine_qk", mutates_args=())
+def cosine_qk(q: torch.Tensor, k: torch.Tensor, logit_scale: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cosine_qk.cosine_qk`` as an operator: (B, nW, A, H, D) q and k and
+    the (H,) logit scale -> two new contiguous (B, nW, A, H, D) tensors in
+    q's dtype."""
+    return cq.cosine_qk(q, k, logit_scale)
+
+
+@cosine_qk.register_fake
+def _(q, k, logit_scale):
+    return q.new_empty(q.shape), q.new_empty(q.shape)
+
+
+_register_refusal(cosine_qk, "mdpt::cosine_qk")

@@ -2,13 +2,16 @@
 (``experiments/export_model.py``) through the serving kernels' operators
 (``ops/kernels/library.py``: ``mdpt::flash_attention_fused_qkv`` for TPU
 kernels #1 and #2, ``mdpt::window_attention`` for #3,
+``mdpt::cosine_qk`` for SwinV2's q and k normalization,
 ``mdpt::upsample_bilinear_ac`` for the neck's upsamples), on the CPU.
 
 1. ``torch.library.opcheck`` on the ops, float32 and bfloat16, with every
    bias form of #1/#2 (none, dense, stack + layer), #3 with and without
-   its shift mask, and the upsample in both memory formats.
+   its shift mask, the cosine normalization on strided q and k views, and
+   the upsample in both memory formats.
 2. Each family's tiny model, exported: the graph holds one ``mdpt`` node per
-   attention block, five upsample nodes (four fusion blocks and the head) and
+   attention block (SwinV2: and one ``cosine_qk`` node per block), five
+   upsample nodes (four fusion blocks and the head) and
    no ``scaled_dot_product_attention``; saved, reloaded,
    it equals the live port model (max abs 1e-6: the same ops, on the
    kernels' plain versions here) and the JAX package's float32 forward on
@@ -41,6 +44,7 @@ from muggled_dpt_tpu.make_swinv2_dpt import make_swinv2_dpt as jax_make_swinv2
 from muggled_dpt_tpu_torch import make_beit_dpt, make_depthanythingv1_dpt, make_depthanythingv2_dpt, make_swinv2_dpt
 from muggled_dpt_tpu_torch.experiments import export_model
 from muggled_dpt_tpu_torch.experiments.export_model import export_forward, kernel_nodes
+from muggled_dpt_tpu_torch.ops.kernels import cosine_qk as cq
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
@@ -125,6 +129,16 @@ def test_opcheck_window(with_mask, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_opcheck_cosine_qk(dtype):
+    q, k, _ = _rand(8, 2, 4, 16, 3, 2, 32).to(dtype).unbind(3)  # strided views of a qkv output, as the block has them
+    scale = _rand(9, 2).abs().to(dtype)
+    torch.library.opcheck(torch.ops.mdpt.cosine_qk, (q, k, scale))
+    for got, want in zip(torch.ops.mdpt.cosine_qk(q, k, scale), cq.cosine_qk(q, k, scale)):
+        assert got.is_contiguous() and got.dtype == dtype
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
 def test_opcheck_upsample(channels_last, dtype):
     x = _rand(7, 2, 8, 9, 12).to(dtype)
@@ -161,7 +175,8 @@ def exported(tmp_path_factory):
 def test_exported_graph_holds_one_kernel_node_per_block(exported, name):
     _, _, program, _ = exported(name)
     op, blocks = FAMILIES[name][5:]
-    assert kernel_nodes(program) == {op: blocks, "upsample_bilinear_ac": NECK_UPSAMPLES}
+    cosine = {"cosine_qk": blocks} if op == "window_attention" else {}
+    assert kernel_nodes(program) == {op: blocks, **cosine, "upsample_bilinear_ac": NECK_UPSAMPLES}
     assert not [t for t in _aten_targets(program) if "scaled_dot_product_attention" in t]
 
 

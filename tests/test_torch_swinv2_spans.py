@@ -1,19 +1,24 @@
 """SwinV2's own spans (``models/swinv2.py``): each block opens two ``window``
 spans (the roll and partition before qkv, the merge and roll back after
-proj), one ``cosine`` span (the float32 normalize of q and k up to the
-attention call) and one ``attention`` span, each patch merge a ``merge``
-span, all directly under ``encoder``; under ``torch.profiler`` each is an
-``mdpt:<name>`` range; and tracing changes no bit of the depth.
+proj), one ``cosine`` span (the normalize of q and k up to the attention
+call: one ``cosine_qk`` call on the kernel path, the float32 composite on
+the plain path and in ``forward_with_internals``) and one ``attention``
+span, each patch merge a ``merge`` span, all directly under ``encoder``;
+under ``torch.profiler`` each is an ``mdpt:<name>`` range; and tracing
+changes no bit of the depth.
 
 A tiny SwinV2 at 96x96 with window 4: its stage grids 24, 12, 6 and 3 shift
 at 24 and 12, fit one 6x6 window at 6 and clip to 3 at 3, the pattern of
 SwinV2-L-384's 96, 48, 24 and 12 with window 24."""
+
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from muggled_dpt_tpu_torch import make_swinv2_dpt
+from muggled_dpt_tpu_torch.models import swinv2
 from muggled_dpt_tpu_torch.models.swinv2 import stage_grids, window_plan
 from muggled_dpt_tpu_torch.utils.observability import RANGE_PREFIX, tracing
 
@@ -90,3 +95,51 @@ def test_capture_opens_the_block_spans():
     names = [s.name for s in spans]
     assert (names.count("window"), names.count("cosine"), names.count("attention"), names.count("merge")) == (
         2 * BLOCKS, BLOCKS, BLOCKS, 3)
+
+
+@pytest.fixture()
+def normalize_calls(monkeypatch):
+    """The block's two normalize routes, wrapped: the host clock of each
+    ``cosine_qk`` call and the number of ``cosine_normalize`` calls."""
+    calls = {"cosine_qk": [], "cosine_normalize": 0}
+    kernel, composite = swinv2.cosine_qk, swinv2.cosine_normalize
+
+    def cosine_qk(q, k, logit_scale):
+        calls["cosine_qk"].append(time.perf_counter_ns())
+        return kernel(q, k, logit_scale)
+
+    def cosine_normalize(x):
+        calls["cosine_normalize"] += 1
+        return composite(x)
+
+    monkeypatch.setattr(swinv2, "cosine_qk", cosine_qk)
+    monkeypatch.setattr(swinv2, "cosine_normalize", cosine_normalize)
+    return calls
+
+
+@pytest.mark.parametrize("enable_cache", [True, False], ids=["cached", "inline"])
+def test_cosine_span_holds_one_cosine_qk_call_per_block(normalize_calls, enable_cache):
+    """On the kernel path each block's ``cosine`` span opens once, around
+    its one ``cosine_qk`` call; the composite never runs."""
+    model = make(enable_cache=enable_cache)
+    with tracing() as spans:
+        model.inference_rgb_device(FRAMES, SIZE)
+    cosine = [s for s in spans if s.name == "cosine"]
+    assert len(cosine) == len(normalize_calls["cosine_qk"]) == BLOCKS
+    assert all(s.t0_ns <= t <= s.t1_ns for s, t in zip(cosine, normalize_calls["cosine_qk"]))
+    assert normalize_calls["cosine_normalize"] == 0
+
+
+@pytest.mark.parametrize("path", ["use_kernel_off", "forward_capture"])
+def test_plain_path_and_capture_take_the_composite(normalize_calls, path):
+    """``use_kernel=False`` (``enable_optimizations=False``) and
+    ``forward_with_internals`` (``forward_capture``) normalize q and k with
+    the float32 composite, twice a block, inside the ``cosine`` span, and
+    never call ``cosine_qk``."""
+    with tracing() as spans:
+        if path == "use_kernel_off":
+            make(enable_optimizations=False).inference_rgb_device(FRAMES, SIZE)
+        else:
+            make().forward_with_internals(torch.randn(1, 3, *SIZE))
+    assert sum(s.name == "cosine" for s in spans) == BLOCKS
+    assert normalize_calls == {"cosine_qk": [], "cosine_normalize": 2 * BLOCKS}
