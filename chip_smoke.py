@@ -555,16 +555,20 @@ def phase_device() -> str:
 
 
 def phase_build():
-    from muggled_dpt_tpu_torch.ops.kernels._build import build_library, kernel_library, ptxas_report
+    from muggled_dpt_tpu_torch.ops.kernels._build import build_library, kernel_entry, ptxas_report
 
+    # the *_sm90_info entries, which only this phase calls: int arguments, then an array of int32 out values (the
+    # kernel's registers, spill bytes, static and dynamic shared bytes and threads, then each source's own)
+    i32, out = ctypes.c_int, ctypes.c_void_p
     logs = {}
     path = build_library(verbose=True, logs=logs)
     print(f"build: {path.name}", flush=True)
     for half, elem in ((0, "__nv_bfloat16"), (1, "__half")):  # every instantiation of the two serving sm_90 sources
         for query, source, kernel, args in (
-                (kernel_library().mdpt_flash_attention_sm90_info, "flash_attention_sm90.cu", "fa_sm90",
+                (kernel_entry("mdpt_flash_attention_sm90_info", i32, i32, out), "flash_attention_sm90.cu", "fa_sm90",
                  ((0, "BIAS_NONE"), (1, "BIAS_ELEM"))),
-                (kernel_library().mdpt_window_attention_sm90_info, WINDOW_SM90, "wa_sm90", ((0, "false"), (1, "true")))):
+                (kernel_entry("mdpt_window_attention_sm90_info", i32, i32, out), WINDOW_SM90, "wa_sm90",
+                 ((0, "false"), (1, "true")))):
             for arg, what in args:
                 info = (ctypes.c_int * 5)()
                 err = query(arg, half, info)
@@ -576,11 +580,13 @@ def phase_build():
                       f"{dynamic_smem} B dynamic shared memory, {threads} threads", flush=True)
     sm90_variants = [(f"fxl_sm90<qp={qp}, pipelined={pipelined}, {'ablate' if ablate else 'flash'}>",
                       lambda info, qp=qp, pipelined=pipelined, ablate=ablate:
-                      kernel_library().mdpt_flash_xl_sm90_info(qp, pipelined, ablate, info))
+                      kernel_entry("mdpt_flash_xl_sm90_info", i32, i32, i32, out)(qp, pipelined, ablate, info))
                      for qp in (1, 2, 4) for pipelined in (0, 1) for ablate in (0, 1)]
-    sm90_variants += [(f"fst_sm90<NEG={neg}>", lambda info, neg=neg: kernel_library().mdpt_flash_staged_sm90_info(neg, info))
+    sm90_variants += [(f"fst_sm90<NEG={neg}>",
+                       lambda info, neg=neg: kernel_entry("mdpt_flash_staged_sm90_info", i32, out)(neg, info))
                       for neg in (0, 1)]
-    sm90_variants += [(f"fv_sm90<{name}>", lambda info, mode=mode: kernel_library().mdpt_flash_variant_sm90_info(mode, info))
+    sm90_variants += [(f"fv_sm90<{name}>",
+                       lambda info, mode=mode: kernel_entry("mdpt_flash_variant_sm90_info", i32, out)(mode, info))
                       for mode, name in enumerate(FV_MODES)]
     for what, query in sm90_variants:
         info = (ctypes.c_int * 7)()
@@ -593,7 +599,7 @@ def phase_build():
               f"threads, {keys}-key tiles", flush=True)
     for rows, channels in ((8, 128), (6, 192)):
         info = (ctypes.c_int * 7)()
-        err = kernel_library().mdpt_head_tail_sm90_info(rows, info)
+        err = kernel_entry("mdpt_head_tail_sm90_info", i32, out)(rows, info)
         if err != 0:
             raise RuntimeError(f"cudaFuncGetAttributes of ht_sm90<{rows}> failed: CUDA error {err}")
         regs, spill, static_smem, dynamic_smem, threads, rows, stages = info
@@ -602,7 +608,7 @@ def phase_build():
               f"threads, {rows} output rows per unit, {stages} TMA stages", flush=True)
     for kernel, name in enumerate(MLP_SM90_KERNELS):
         info = (ctypes.c_int * 9)()
-        err = kernel_library().mdpt_fused_mlp_sm90_info(kernel, info)
+        err = kernel_entry("mdpt_fused_mlp_sm90_info", i32, out)(kernel, info)
         if err != 0:
             raise RuntimeError(f"cudaFuncGetAttributes of {name} failed: CUDA error {err}")
         regs, spill, static_smem, dynamic_smem, threads, tile_m, tile_n, stages, pingpong = info
@@ -613,7 +619,7 @@ def phase_build():
               f"thread, {static_smem} B static + {dynamic_smem} B dynamic shared memory, {threads} threads, {shape}",
               flush=True)
     info = (ctypes.c_int * 8)()
-    err = kernel_library().mdpt_flash_attention_int8_sm90_info(info)
+    err = kernel_entry("mdpt_flash_attention_int8_sm90_info", out)(info)
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes of fa_i8_sm90 failed: CUDA error {err}")
     regs, spill, static_smem, dynamic_smem, threads, rows, stages, consumer_regs = info
@@ -1076,7 +1082,7 @@ def phase_da_model(smi: str, ckpt: str):
     _, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE)
     fa.reset_launch_counts()  # count the path's run only
     depth, frame = serve(smi, model, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V2 ViT-L")
-    return fa.flash_attention_fused_qkv.launches, depth, frame
+    return fa.launch_counts()["fused"], depth, frame
 
 
 def parity(ckpt, frame, side, out_hw, route, blocks, what, bf16_depth, cache_modes=(True,)):
@@ -1124,7 +1130,7 @@ def phase_beit_model(smi: str, ckpt: str):
     print(f"BEiT-L-512 bf16 1024x1024 request: {(time.perf_counter() - t0) * 1e3:.1f} ms, first at this size "
           f"(bias stack {tuple(stack.shape)} {str(stack.dtype)[6:]}, {stack.numel() * stack.element_size() / 1e9:.2f} GB, "
           f"built once and cached) [{smi}]", flush=True)
-    launches = fa.flash_attention_fused_qkv.biased_launches
+    launches = fa.launch_counts()["fused_biased"]
     n = grid[0] * grid[1] + 1
     qkv = make_qkv(rng, 1, n, torch.bfloat16)
     kw = {"bias_stack": stack, "layer": blocks - 1}
@@ -1160,7 +1166,7 @@ def phase_swin_model(smi: str, ckpt: str):
     gb = sum(t.numel() * t.element_size() for stage in aux for t in stage.values() if t is not None) / 1e9
     print(f"SwinV2-L-384 bf16 512x512 request: {ms:.1f} ms, first at this size (CPB stacks and masks, {gb:.3f} GB, "
           f"built once and cached); windows per stage {windows} [{smi}]", flush=True)
-    launches = wa.window_attention.sm90_launches
+    launches = fa.launch_counts()["window_sm90"]
     serve_int8_once(smi, model, {}, SWIN_SIDE, SWIN_HW, "window_sm90", SWIN_BLOCKS, "SwinV2-L-384 int8 (MLP only)", depth,
                     frame)
     return launches, depth, frame
@@ -2574,19 +2580,19 @@ def phase_bnhd_path(smi: str) -> tuple[int, int, int, int]:
     fa.reset_launch_counts()  # count the path's run only
     out = _counted(lambda: fa.flash_attention(*_split(qkv), bias=bias), "bnhd", 1, "(B, N, H, D) op")
     _check_depth(out, (8, N_BEIT, HEADS, HEAD_DIM), "(B, N, H, D) op")
-    at_beit = fa.flash_attention.launches
+    at_beit = fa.launch_counts()["bnhd"]
     q, k, v = (make_bias(rng, (1, N_ONLINE, 2, HEAD_DIM), torch.bfloat16) for _ in range(3))
     out = _counted(lambda: fa.flash_attention(q, k, v), "bnhd", 1, f"(B, N, H, D) op at {N_ONLINE} keys")
     _check_depth(out, (1, N_ONLINE, 2, HEAD_DIM), f"(B, N, H, D) op at {N_ONLINE} keys")
-    online = fa.flash_attention.launches - at_beit
+    online = fa.launch_counts()["bnhd"] - at_beit
     qkv16, bias16 = qkv.to(torch.float16), bias.to(torch.float16)  # the 1e6 pads are inf in f16: never read
     out = _counted(lambda: fa.flash_attention(*_split(qkv16), bias=bias16), "bnhd_f16", 1, "(B, N, H, D) op f16")
     _check_depth(out, (8, N_BEIT, HEADS, HEAD_DIM), "(B, N, H, D) op f16")
-    at_beit16 = fa.flash_attention.f16_launches
+    at_beit16 = fa.launch_counts()["bnhd_f16"]
     q, k, v = (t.to(torch.float16) for t in (q, k, v))
     out = _counted(lambda: fa.flash_attention(q, k, v), "bnhd_f16", 1, f"(B, N, H, D) op f16 at {N_ONLINE} keys")
     _check_depth(out, (1, N_ONLINE, 2, HEAD_DIM), f"(B, N, H, D) op f16 at {N_ONLINE} keys")
-    online16 = fa.flash_attention.f16_launches - at_beit16
+    online16 = fa.launch_counts()["bnhd_f16"] - at_beit16
     print(f"(B, N, H, D) op: {at_beit} launch at B=8 N={N_BEIT} with bias, {online} at N={N_ONLINE}; float16 {at_beit16} "
           f"and {online16}", flush=True)
     return at_beit, online, at_beit16, online16
@@ -2919,7 +2925,7 @@ def phase_da_v1(smi: str, ckpt: str, check: Checker, times: dict):
         raise RuntimeError(f"DA-V1: {ckpt} did not load as V1 (taps {model.net.encoder.taps})")
     fa.reset_launch_counts()  # count the path's run only
     depth, frame = serve(smi, model, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V1 ViT-L")
-    flash = fa.flash_attention_fused_qkv.launches
+    flash = fa.launch_counts()["fused"]
     m_f32, _ = parity(ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITL["num_blocks"], "DA-V1 ViT-L", depth)
     stacks = frame_stacks()
     launches = hold_on_model(smi, model, "DA-V1 ViT-L", stacks, check, times=times)
@@ -2962,7 +2968,7 @@ def phase_giant(smi: str, ckpt: str):
         raise RuntimeError(f"DA-V2 ViT-Giant: {ckpt} loaded as {cfg}")
     fa.reset_launch_counts()
     depth, frame = serve(smi, model, MAX_SIDE, OUT_HW, "fused", VITG["num_blocks"], "DA-V2 ViT-Giant")
-    launches = fa.flash_attention_fused_qkv.launches
+    launches = fa.launch_counts()["fused"]
     int8 = model.quantize_encoder_int8()
     d_int8, _ = serve(smi, int8, MAX_SIDE, OUT_HW, "fused", VITG["num_blocks"], "DA-V2 ViT-Giant int8")
     (b1, b8), (i1, i8) = SERVED["DA-V2 ViT-Giant"], SERVED["DA-V2 ViT-Giant int8"]

@@ -1,4 +1,4 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's CUDA kernels, and count their launches.
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``), one
 ``nvcc`` per source, all started together, and the objects are linked into
@@ -6,7 +6,11 @@ one shared library with a plain C interface, which is loaded with ctypes. The
 build happens at first use, never at import, into ``muggled_dpt_tpu_torch/build/``
 (listed in .gitignore); the library's file name carries a hash of the sources
 and flags, so an edited source is rebuilt. ``nvcc`` is found through
-``CUDA_HOME``, then ``PATH``, then ``/usr/local/cuda/bin/nvcc``."""
+``CUDA_HOME``, then ``PATH``, then ``/usr/local/cuda/bin/nvcc``.
+
+A wrapper module reaches its C entry through ``kernel_entry``, declaring the
+entry's signature at the call, and counts each launch under its route with
+``count``; ``launch_counts()`` reports every route of ``ROUTES``."""
 
 from __future__ import annotations
 
@@ -109,79 +113,39 @@ def ptxas_report(source: str) -> str:
 
 @functools.cache
 def kernel_library() -> ctypes.CDLL:
-    """The built kernel library, loaded once per process, with every entry
-    point's argtypes declared (64-bit pointers stay whole)."""
-    lib = ctypes.CDLL(str(build_library()))
-    fn = lib.mdpt_flash_attention
-    # the int64 argument array (its slots in csrc/flash_attention.cu), qk_scale_log2, stream
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_flash_attention_sm90_info
-    # 0 (unbiased) or 1 (a bias of q's type), 0 (bf16) or 1 (f16), then five int32 out values
-    # (csrc/flash_attention_sm90.cu): registers, spill bytes, static and dynamic shared bytes, threads
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_window_attention
-    # the int64 argument array (its slots in csrc/window_attention.cu; the call writes SLOT_ROUTE), stream
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_window_attention_sm90_info
-    # 0 (no mask) or 1 (mask), 0 (bf16) or 1 (f16), then five int32 out values (csrc/window_attention_sm90.cu), as the
-    # flash kernel's
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_fused_mlp
-    # the int64 argument array (its slots in csrc/fused_mlp.cu; the call writes SLOT_ROUTE), LayerNorm eps, stream
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_fused_mlp_sm90_info
-    # 0 (the LayerNorm pass), 1 (fc1) or 2 (fc2), then nine int32 out values (csrc/fused_mlp_sm90.cu): the five of the
-    # flash kernel's, the tile's rows and columns, the TMA stages, 1 for the ping-pong schedule
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_head_tail
-    # the int64 argument array (its slots in csrc/head_tail.cu; the call writes SLOT_ROUTE), stream
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_upsample_bilinear_ac
-    # the int64 argument array (its slots in csrc/upsample_bilinear_ac.cu), stream
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_cosine_qk
-    # the int64 argument array (its slots in csrc/cosine_qk.cu), stream
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_flash_attention_int8
-    # the int64 argument array (its slots in csrc/flash_attention_int8.cu; the call writes SLOT_ROUTE), q's factor, #6's
-    # scale, stream
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_flash_attention_int8_sm90_info
-    # eight int32 out values (csrc/flash_attention_int8_sm90.cu): the five of the flash kernel's, the q rows per CTA, the
-    # K/V stages, the consumers' registers after setmaxnreg
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_flash_xl_sm90_info
-    # qp, pipelined, ablate, then seven int32 out values (csrc/flash_xl_sm90.cu): the five of the flash kernel's, the key
-    # tile and the consumers' registers after setmaxnreg
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_flash_staged_sm90_info
-    # 0 or 1 (the scale's sign), then seven int32 out values (csrc/flash_staged_sm90.cu), as #10's
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_flash_variant_sm90_info
-    # mode (csrc/flash_variant_sm90.cu's FvMode), then seven int32 out values, as #10's
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.mdpt_head_tail_sm90_info
-    # output rows per unit (8 or 6), then seven int32 out values (csrc/head_tail_sm90.cu): the five of the flash kernel's,
-    # the rows again, the TMA ring's stages
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    for name in ("mdpt_flash_attention_xl", "mdpt_flash_attention_staged", "mdpt_flash_variant"):
-        fn = getattr(lib, name)
-        # the int64 argument array (its slots in csrc/flash_variants.cuh), qk_scale, stream
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    """The built kernel library, loaded once per process."""
+    return ctypes.CDLL(str(build_library()))
+
+
+@functools.cache
+def kernel_entry(name: str, *argtypes):
+    """The library's C function ``name`` with ``argtypes`` declared (64-bit
+    pointers stay whole) and an int result, the CUDA error it returns. Each
+    module that calls an entry declares its signature at the call."""
+    fn = kernel_library()[name]
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+# every kernel route of the package, in the order launch_counts() reports them
+ROUTES = ("fused", "fused_biased", "bnhd", "window", "window_sm90", "fused_f16", "fused_biased_f16", "bnhd_f16",
+          "window_f16", "window_sm90_f16", "fused_mlp", "fused_mlp_sm90", "head_tail", "head_tail_sm90", "int8_qk",
+          "int8_qk_sm90", "int8_qk_fused", "int8_qk_fused_sm90", "xl", "staged", "variant", "upsample_ac",
+          "upsample_ac_nchw", "cosine_qk")
+_launches = dict.fromkeys(ROUTES, 0)
+
+
+def count(route: str) -> None:
+    """Count one launch of ``route``, a name in ``ROUTES`` (KeyError otherwise)."""
+    _launches[route] += 1
+
+
+def reset_launch_counts() -> None:
+    """Zero the launch count of every kernel route of the package."""
+    _launches.update(dict.fromkeys(ROUTES, 0))
+
+
+def launch_counts() -> dict[str, int]:
+    """The launch count of every kernel route of the package, by the names
+    of ``ROUTES`` in their order, zeros included."""
+    return dict(_launches)

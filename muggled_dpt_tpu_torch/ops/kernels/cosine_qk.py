@@ -13,16 +13,16 @@ leaves this to XLA. On the card it is bound by bytes, and the kernel moves q
 and k once in and once out (the design is in the source's note).
 
 A CPU tensor takes the plain version. A CUDA tensor launches the kernel or
-raises; there is no fallback. Launches are counted in
-``cosine_qk.launches`` (route ``cosine_qk`` of ``flash_attention.launch_counts()``)."""
+raises; there is no fallback. Launches are counted in ``launch_counts()``."""
 
 from __future__ import annotations
 
 import array
+import ctypes
 
 import torch
 
-from ._build import kernel_library
+from . import _build
 from .flash_attention import ATTENTION_DTYPE_CODES, _device_route, _operand, _refuse_grad
 from .window_attention import HEAD_DIM
 
@@ -66,7 +66,8 @@ def _launch(q, k, logit_scale, qs, kn) -> None:
     args = array.array("q", [*specs[0], *specs[1], logit_scale.data_ptr(), qs.data_ptr(), kn.data_ptr(), b, nw, a, h, d,
                              ATTENTION_DTYPE_CODES[q.dtype], device.index])
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = kernel_library().mdpt_cosine_qk(args.buffer_info()[0], stream)
+    # mdpt_cosine_qk(the int64 argument array, stream)
+    err = _build.kernel_entry("mdpt_cosine_qk", ctypes.c_void_p, ctypes.c_void_p)(args.buffer_info()[0], stream)
     if err != 0:
         raise RuntimeError(f"cosine_qk kernel launch failed: CUDA error {err}")
 
@@ -74,7 +75,7 @@ def _launch(q, k, logit_scale, qs, kn) -> None:
 def cosine_qk(q, k, logit_scale):
     """(q l2-normalized times its head's ``logit_scale``, k l2-normalized)
     over the head dim of (B, nW, A, H, D) q and k, each a new contiguous
-    tensor in q's dtype. Counts its launches in ``cosine_qk.launches``."""
+    tensor in q's dtype. Counts its launches as the route ``cosine_qk``."""
     _check_shapes(q, k, logit_scale)
     if _device_route(q.device, "cosine_qk"):
         return cosine_qk_reference(q, k, logit_scale)
@@ -82,8 +83,6 @@ def cosine_qk(q, k, logit_scale):
     qs = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     kn = torch.empty_like(qs)
     _launch(q, k, logit_scale, qs, kn)
-    cosine_qk.launches += 1
+    _build.count("cosine_qk")
     return qs, kn
 
-
-cosine_qk.launches = 0

@@ -45,20 +45,20 @@ head, row or column it broadcasts over gets stride 0.
 
 A CPU tensor takes the plain version. A CUDA tensor launches the kernel or
 raises; there is no fallback (a float16 tensor launches a float16 kernel: it
-is never cast). Launches are counted per route, each in a plain integer on
-its entry: ``flash_attention_fused_qkv.launches`` (unbiased),
-``flash_attention_fused_qkv.biased_launches`` and ``flash_attention.launches``
-in float32 and bfloat16, and ``.f16_launches`` / ``.biased_f16_launches``
-in float16."""
+is never cast). Each launch is counted under its route in ``launch_counts()``
+(``_build.py``'s one table of every kernel route of the package, re-exported
+here with ``reset_launch_counts``)."""
 
 from __future__ import annotations
 
 import array
+import ctypes
 import math
 
 import torch
 
-from ._build import kernel_library
+from . import _build
+from ._build import launch_counts, reset_launch_counts  # noqa: F401 (re-exported: callers read them here)
 
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64  # the only head width the kernel is built for (DA and BEiT: F // 64 heads)
@@ -261,7 +261,9 @@ def _launch(shape, dtype, device, q, k, v, out, bias, scale):
         raise ValueError(f"flash attention kernel: bad grid batch={b} heads={h} n={n}")
     args = array.array("q", [*q, *k, *v, *out, *bias_args, b, n, h, d, dtype_code, bias_code, device.index, bias_fill(bias)])
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = kernel_library().mdpt_flash_attention(args.buffer_info()[0], scale * LOG2E, stream)
+    # mdpt_flash_attention(the int64 argument array, qk_scale_log2, stream)
+    err = _build.kernel_entry("mdpt_flash_attention", ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p)(
+        args.buffer_info()[0], scale * LOG2E, stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
 
@@ -292,9 +294,9 @@ def flash_attention_fused_qkv(qkv, num_heads, bias=None, scale=None, bias_stack=
     """softmax(q k^T * scale + bias) v per head, read straight from the
     head-major qkv slab. ``scale`` defaults to D ** -0.5. ``bias`` is
     broadcastable to (B, H, N, N); or ``bias_stack`` (L, H, Np, Np) with
-    ``layer`` selects one layer of a cached stack. Counts its launches in
-    ``flash_attention_fused_qkv.launches`` (unbiased) and ``.biased_launches``,
-    float16 ones in ``.f16_launches`` and ``.biased_f16_launches``."""
+    ``layer`` selects one layer of a cached stack. Counts its launches as
+    the routes ``fused`` (unbiased) and ``fused_biased``, float16 ones as
+    ``fused_f16`` and ``fused_biased_f16``."""
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads) != 0:
         raise ValueError(f"qkv must be (B, N, 3 * num_heads * D), got {tuple(qkv.shape)} for {num_heads} heads")
     b, n, c3 = qkv.shape
@@ -309,17 +311,15 @@ def flash_attention_fused_qkv(qkv, num_heads, bias=None, scale=None, bias_stack=
     out = torch.empty((b, n, num_heads * d), dtype=qkv.dtype, device=device)
     o = (out.data_ptr(), n * num_heads * d, num_heads * d, d)
     _launch((b, n, num_heads, d), qkv.dtype, device, q, k, v, o, bias_arg, scale)
-    f16 = "f16_" if qkv.dtype == torch.float16 else ""
-    route = f"{f16}launches" if bias_arg is _NO_BIAS else f"biased_{f16}launches"
-    setattr(flash_attention_fused_qkv, route, getattr(flash_attention_fused_qkv, route) + 1)
+    _build.count(("fused" if bias_arg is _NO_BIAS else "fused_biased") + ("_f16" if qkv.dtype == torch.float16 else ""))
     return out
 
 
 def flash_attention(q, k, v, bias=None, scale=None):
     """Attention on (B, N, H, D) q, k and v (strided views allowed, head dim
     contiguous) with an optional bias broadcastable to (B, H, N, N); returns
-    a new (B, N, H, D) tensor. Counts its launches in ``flash_attention.launches``
-    (float16: ``.f16_launches``)."""
+    a new (B, N, H, D) tensor. Counts its launches as the route ``bnhd``
+    (float16: ``bnhd_f16``)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, N, H, D) shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, n, h, d = q.shape
@@ -333,82 +333,6 @@ def flash_attention(q, k, v, bias=None, scale=None):
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=device)
     o = (out.data_ptr(), n * h * d, h * d, d)
     _launch((b, n, h, d), q.dtype, device, *specs, o, bias_arg, scale)
-    if q.dtype == torch.float16:
-        flash_attention.f16_launches += 1
-    else:
-        flash_attention.launches += 1
+    _build.count("bnhd_f16" if q.dtype == torch.float16 else "bnhd")
     return out
 
-
-flash_attention_fused_qkv.launches = 0
-flash_attention_fused_qkv.biased_launches = 0
-flash_attention_fused_qkv.f16_launches = 0
-flash_attention_fused_qkv.biased_f16_launches = 0
-flash_attention.launches = 0
-flash_attention.f16_launches = 0
-
-
-def _counted_entries() -> dict:
-    """Route name -> (the entry, its attribute that counts the route's launches)."""
-    from ...tools.attn_variants import flash_variant
-    from .cosine_qk import cosine_qk
-    from .flash_attention_int8 import flash_attention_int8_qk, flash_attention_int8_qk_fused
-    from .flash_attention_staged import flash_attention_fused_qkv_staged
-    from .flash_attention_xl import flash_attention_fused_qkv_xl
-    from .fused_mlp import fused_ln_mlp_residual
-    from .head_tail import fused_head_tail
-    from .upsample import upsample_bilinear_ac
-    from .window_attention import window_attention
-
-    return {
-        "fused": (flash_attention_fused_qkv, "launches"),
-        "fused_biased": (flash_attention_fused_qkv, "biased_launches"),
-        "bnhd": (flash_attention, "launches"),
-        "window": (window_attention, "launches"),
-        "window_sm90": (window_attention, "sm90_launches"),
-        "fused_f16": (flash_attention_fused_qkv, "f16_launches"),
-        "fused_biased_f16": (flash_attention_fused_qkv, "biased_f16_launches"),
-        "bnhd_f16": (flash_attention, "f16_launches"),
-        "window_f16": (window_attention, "f16_launches"),
-        "window_sm90_f16": (window_attention, "sm90_f16_launches"),
-        "fused_mlp": (fused_ln_mlp_residual, "launches"),
-        "fused_mlp_sm90": (fused_ln_mlp_residual, "sm90_launches"),
-        "head_tail": (fused_head_tail, "launches"),
-        "head_tail_sm90": (fused_head_tail, "sm90_launches"),
-        "int8_qk": (flash_attention_int8_qk, "launches"),
-        "int8_qk_sm90": (flash_attention_int8_qk, "sm90_launches"),
-        "int8_qk_fused": (flash_attention_int8_qk_fused, "launches"),
-        "int8_qk_fused_sm90": (flash_attention_int8_qk_fused, "sm90_launches"),
-        "xl": (flash_attention_fused_qkv_xl, "launches"),
-        "staged": (flash_attention_fused_qkv_staged, "launches"),
-        "variant": (flash_variant, "launches"),
-        "upsample_ac": (upsample_bilinear_ac, "launches"),
-        "upsample_ac_nchw": (upsample_bilinear_ac, "nchw_launches"),
-        "cosine_qk": (cosine_qk, "launches"),
-    }
-
-
-def reset_launch_counts():
-    """Zero the launch count of every kernel route of the package."""
-    for entry, attribute in _counted_entries().values():
-        setattr(entry, attribute, 0)
-
-
-def launch_counts() -> dict[str, int]:
-    """The launch count of every kernel route of the package: the fused qkv
-    entry's ``fused`` and ``fused_biased`` and the (B, N, H, D) op's ``bnhd``
-    (float16: ``fused_f16``, ``fused_biased_f16``, ``bnhd_f16``), the SwinV2
-    window kernels (``ops/kernels/window_attention.py``: ``window`` and the
-    sm_90 kernel's ``window_sm90``; float16 ``window_f16`` and
-    ``window_sm90_f16``), the fused MLP (``fused_mlp.py``:
-    ``fused_mlp`` and the sm_90 kernels' ``fused_mlp_sm90``), the head tail
-    (``head_tail.py``: ``head_tail`` and the sm_90 kernel's
-    ``head_tail_sm90``), the int8-QK^T attention's two entries
-    (``flash_attention_int8.py``: ``int8_qk`` and ``int8_qk_fused``, and
-    the sm_90 kernel's ``int8_qk_sm90`` and ``int8_qk_fused_sm90``) and
-    the attention sweep's variants #10-#12 (``flash_attention_xl.py``,
-    ``flash_attention_staged.py``, ``tools/attn_variants.py``) and the
-    neck's upsample (``upsample.py``: ``upsample_ac`` on a channels-last
-    map, ``upsample_ac_nchw`` on an NCHW one) and SwinV2's cosine
-    normalization of q and k (``cosine_qk.py``: ``cosine_qk``) included."""
-    return {route: getattr(entry, attribute) for route, (entry, attribute) in _counted_entries().items()}

@@ -33,17 +33,16 @@ kernels against the int8 DA-V2 ViT-L's own qkv slabs.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels or
 raises. The C entry reports the attention route it took, and launches are
-counted per route, one per call: ``flash_attention_int8_qk.sm90_launches``
-and ``flash_attention_int8_qk_fused.sm90_launches`` (bfloat16), ``.launches``
-(float32), as ``flash_attention.launch_counts()`` reports them."""
+counted per route in ``launch_counts()``, one per call."""
 
 from __future__ import annotations
 
 import array
+import ctypes
 
 import torch
 
-from ._build import kernel_library
+from . import _build
 from .flash_attention import (HEAD_DIM, LOG2E, MAX_GRID_YZ, _DTYPE_CODES, _device_route, _operand, _qkv_operands,
                               _refuse_grad)
 from .window_attention import BF16_FLOPS_PER_S, EX2_PER_S, HBM_BYTES_PER_S
@@ -195,7 +194,10 @@ class Int8Launch:
         route is flash_attention_int8_sm90.cu's kernel. Counts no launch."""
         self.args[SLOT_STAGES] = stages
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        err = kernel_library().mdpt_flash_attention_int8(self.args.buffer_info()[0], self.q_mul, self.scale, stream)
+        # mdpt_flash_attention_int8(the int64 argument array, q's factor, #6's scale, stream)
+        entry = _build.kernel_entry("mdpt_flash_attention_int8", ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
+                                    ctypes.c_void_p)
+        err = entry(self.args.buffer_info()[0], self.q_mul, self.scale, stream)
         if err != 0:
             raise RuntimeError(f"int8 flash attention kernel launch failed: CUDA error {err}")
         return self.args[SLOT_ROUTE] == SM90_ROUTE
@@ -238,25 +240,22 @@ def prepare_int8_qk_fused(qkv, num_heads: int, scale=None) -> Int8Launch:
 
 def flash_attention_int8_qk(q, k, v, scale=None):
     """Attention with int8 QK^T on (BH, N, D) q, k and v (q unscaled);
-    returns (BH, N, D) in v's dtype. Counts its launches in
-    ``flash_attention_int8_qk.sm90_launches`` (bfloat16) or ``.launches``."""
+    returns (BH, N, D) in v's dtype. Counts its launches as the route
+    ``int8_qk_sm90`` (bfloat16) or ``int8_qk`` (float32)."""
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (BH, N, D) shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if _device_route(q.device, "flash_attention_int8_qk"):
         return flash_attention_int8_qk_reference(q, k, v, scale)
     _refuse_grad("flash_attention_int8_qk", q, k, v)
     launch = prepare_int8_qk(q, k, v, scale)
-    if launch.run():
-        flash_attention_int8_qk.sm90_launches += 1
-    else:
-        flash_attention_int8_qk.launches += 1
+    _build.count("int8_qk_sm90" if launch.run() else "int8_qk")
     return launch.out[:, :, 0]
 
 
 def flash_attention_int8_qk_fused(qkv, num_heads, scale=None):
     """Attention with int8 QK^T off a head-major (B, N, 3C) qkv slab; returns
-    (B, N, C) in qkv's dtype. Counts its launches in
-    ``flash_attention_int8_qk_fused.sm90_launches`` (bfloat16) or ``.launches``."""
+    (B, N, C) in qkv's dtype. Counts its launches as the route
+    ``int8_qk_fused_sm90`` (bfloat16) or ``int8_qk_fused`` (float32)."""
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads) != 0:
         raise ValueError(f"qkv must be (B, N, 3 * num_heads * D), got {tuple(qkv.shape)} for {num_heads} heads")
     if _device_route(qkv.device, "flash_attention_int8_qk_fused"):
@@ -264,14 +263,6 @@ def flash_attention_int8_qk_fused(qkv, num_heads, scale=None):
     _refuse_grad("flash_attention_int8_qk_fused", qkv)
     b, n, c3 = qkv.shape
     launch = prepare_int8_qk_fused(qkv, num_heads, scale)
-    if launch.run():
-        flash_attention_int8_qk_fused.sm90_launches += 1
-    else:
-        flash_attention_int8_qk_fused.launches += 1
+    _build.count("int8_qk_fused_sm90" if launch.run() else "int8_qk_fused")
     return launch.out.reshape(b, n, c3 // 3)
 
-
-flash_attention_int8_qk.launches = 0
-flash_attention_int8_qk.sm90_launches = 0
-flash_attention_int8_qk_fused.launches = 0
-flash_attention_int8_qk_fused.sm90_launches = 0

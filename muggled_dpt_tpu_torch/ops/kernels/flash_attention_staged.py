@@ -5,8 +5,7 @@ with the next tile's QK^T in flight, pass 2 exp2 and PV with no rescale);
 float32 runs the FMA kernel of ``csrc/flash_variants.cuh``. The C entry is
 ``csrc/flash_attention_staged.cu``.
 
-``flash_attention_fused_qkv_staged(qkv, num_heads, scale, block_q, hpp,
-panels)`` replaces
+``flash_attention_fused_qkv_staged(qkv, num_heads, scale, panels)`` replaces
 ``experiments/flash_attention_staged.py:flash_attention_fused_qkv_staged``
 (``_staged_qkv_kernel``): #1 on the head-major (B, N, 3C) qkv slab,
 unbiased, as a two-pass schedule with no online rescaling. Phase 1 takes
@@ -14,18 +13,21 @@ every key panel's logits and the running row max; phase 2 takes exp2(s - m)
 and PV per panel, plus the row sum. The -1e30 pad mask applies before the
 max and touches only the last panel. The panels are ``_panel_bounds`` over
 the keys padded to a multiple of 128 (the port's own copy: the JAX module
-imports jax). As in the JAX package, no model serves through it: it is a
-variant of the attention sweep (``muggled_dpt_tpu_torch/tools/flash_tune.py``).
+imports jax). The JAX wrapper's ``block_q`` and ``hpp``, the TPU kernel's VMEM
+tactics, have no counterpart: the CUDA grid has 192 q rows in bf16, 64 in
+f32, and one head per CTA. As in the JAX package, no model serves through it:
+it is a variant of the attention sweep
+(``muggled_dpt_tpu_torch/tools/flash_tune.py``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. Launches are counted in ``flash_attention_fused_qkv_staged.launches``
+raises. Launches are counted as the route ``staged`` of ``launch_counts()``
 (bfloat16 ones all run the sm_90 kernel)."""
 
 from __future__ import annotations
 
 import torch
 
-from ._build import NEG_INF, round_up
+from ._build import NEG_INF, count, round_up
 from .flash_attention import LOG2E, _device_route, _qkv_operands, _refuse_grad, reference_row_step
 from .flash_variants import launch_variant, qkv_dims
 
@@ -81,15 +83,12 @@ def flash_attention_fused_qkv_staged_reference(qkv, num_heads: int, scale=None, 
     return out.reshape(b, n, num_heads * d)
 
 
-def flash_attention_fused_qkv_staged(qkv, num_heads, scale=None, block_q=None, hpp=None, panels=2):
+def flash_attention_fused_qkv_staged(qkv, num_heads, scale=None, panels=2):
     """Unbiased attention off a head-major (B, N, 3C) qkv slab by the staged
     two-pass schedule; returns (B, N, C) in qkv's dtype. ``panels``: the key
     panels of ``_panel_bounds``, each reducing its own max before pass 2
     reads their maximum; the output does not depend on them beyond float32
-    round-off. ``block_q`` and ``hpp`` are the TPU kernel's VMEM tactics:
-    accepted so that the JAX call sites map one to one, and ignored (the
-    CUDA grid has 192 q rows in bf16, 64 in f32, and one head per CTA).
-    Counts its launches in ``flash_attention_fused_qkv_staged.launches``."""
+    round-off. Counts its launches as the route ``staged``."""
     b, n, d = qkv_dims(qkv, num_heads)
     scale = d**-0.5 if scale is None else float(scale)
     device = qkv.device
@@ -102,8 +101,6 @@ def flash_attention_fused_qkv_staged(qkv, num_heads, scale=None, block_q=None, h
     o = (out.data_ptr(), n * num_heads * d, num_heads * d, d)
     launch_variant("mdpt_flash_attention_staged", (b, n, num_heads, d), qkv.dtype, device, q, k, v, o, keys=n,
                    mode="staged", qk_scale=scale * LOG2E, panel=bounds[1] - bounds[0])
-    flash_attention_fused_qkv_staged.launches += 1
+    count("staged")
     return out
 
-
-flash_attention_fused_qkv_staged.launches = 0

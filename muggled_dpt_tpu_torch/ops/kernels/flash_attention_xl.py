@@ -4,8 +4,8 @@ Hopper kernels with their plain PyTorch version beside them. bfloat16 runs
 qp, pipelining and mode); float32 runs the FMA kernel of
 ``csrc/flash_variants.cuh``. The C entry is ``csrc/flash_attention_xl.cu``.
 
-``flash_attention_fused_qkv_xl(qkv, num_heads, scale, block_q, hpp, qp,
-pipelined, ablate_softmax)`` replaces
+``flash_attention_fused_qkv_xl(qkv, num_heads, scale, qp, pipelined,
+ablate_softmax)`` replaces
 ``experiments/flash_attention_xl.py:flash_attention_fused_qkv_xl``
 (``_xl_qkv_kernel``): #1 on the head-major (B, N, 3C) qkv slab, unbiased,
 D = 64, with ``qp`` q blocks of 64 rows per CTA sharing each K/V tile (in
@@ -14,17 +14,20 @@ key tile t+1's QK^T before tile t's softmax (in bf16: two S tiles in
 registers, the next tile's QK^T wgmma in flight under this tile's softmax).
 ``ablate_softmax`` gives p = (s * 1e-6) cast to v's dtype and o = p v, with
 no max, sum or division: the kernel structure's timing floor, not a valid
-attention. As in the JAX package, no model serves through it: it is a
+attention. The JAX wrapper's ``block_q`` and ``hpp``, the TPU kernel's VMEM
+tactics, have no counterpart: the CUDA grid has 64 * qp q rows per CTA and
+one head per CTA. As in the JAX package, no model serves through it: it is a
 variant of the attention sweep (``muggled_dpt_tpu_torch/tools/flash_tune.py``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. Launches are counted in ``flash_attention_fused_qkv_xl.launches``
+raises. Launches are counted as the route ``xl`` of ``launch_counts()``
 (bfloat16 ones all run the sm_90 kernels)."""
 
 from __future__ import annotations
 
 import torch
 
+from ._build import count
 from .flash_attention import (
     LOG2E,
     _device_route,
@@ -63,16 +66,12 @@ def flash_attention_fused_qkv_xl_reference(qkv, num_heads: int, scale=None, abla
     return flash_attention_fused_qkv_reference(qkv, num_heads, scale=scale)
 
 
-def flash_attention_fused_qkv_xl(qkv, num_heads, scale=None, block_q=None, hpp=None, qp=1, pipelined=True,
-                                 ablate_softmax=False):
+def flash_attention_fused_qkv_xl(qkv, num_heads, scale=None, qp=1, pipelined=True, ablate_softmax=False):
     """Unbiased attention off a head-major (B, N, 3C) qkv slab; returns
     (B, N, C) in qkv's dtype. ``qp``: q blocks of 64 rows per CTA (1, 2 or
     4); ``pipelined``: the next key tile's QK^T before this tile's softmax;
-    ``ablate_softmax``: the no-softmax timing floor. ``block_q`` and ``hpp``
-    are the TPU kernel's VMEM tactics: accepted so that the JAX call sites
-    map one to one, and ignored (the CUDA grid has 64 * qp q rows per CTA
-    and one head per CTA). Counts its launches in
-    ``flash_attention_fused_qkv_xl.launches``."""
+    ``ablate_softmax``: the no-softmax timing floor. Counts its launches as
+    the route ``xl``."""
     b, n, d = qkv_dims(qkv, num_heads)
     if qp not in QP_CHOICES:
         raise ValueError(f"qp must be one of {QP_CHOICES}, got {qp}")
@@ -86,8 +85,6 @@ def flash_attention_fused_qkv_xl(qkv, num_heads, scale=None, block_q=None, hpp=N
     o = (out.data_ptr(), n * num_heads * d, num_heads * d, d)
     launch_variant("mdpt_flash_attention_xl", (b, n, num_heads, d), qkv.dtype, device, q, k, v, o, keys=n,
                    mode="ablate" if ablate_softmax else "flash", qk_scale=scale * LOG2E, qp=qp, pipelined=bool(pipelined))
-    flash_attention_fused_qkv_xl.launches += 1
+    count("xl")
     return out
 
-
-flash_attention_fused_qkv_xl.launches = 0

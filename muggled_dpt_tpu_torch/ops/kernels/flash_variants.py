@@ -13,11 +13,12 @@ The entries live beside their plain versions: ``flash_attention_xl.py``
 from __future__ import annotations
 
 import array
+import ctypes
 import math
 
 import torch
 
-from ._build import kernel_library
+from . import _build
 from .flash_attention import HEAD_DIM, MAX_GRID_YZ
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,6 +62,8 @@ def launch_variant(entry: str, shape, dtype, device, q, k, v, out, *, keys: int,
     args = array.array("q", [*q, *k, *v, *out, b, n, keys, h, d, dtype_code, device.index, MODES[mode], qp,
                              int(pipelined), panel, chunk])
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(kernel_library(), entry)(args.buffer_info()[0], qk_scale, stream)
+    # each of the three entries(the int64 argument array, qk_scale, stream)
+    err = _build.kernel_entry(entry, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p)(
+        args.buffer_info()[0], qk_scale, stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")

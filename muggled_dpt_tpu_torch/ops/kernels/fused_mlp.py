@@ -23,19 +23,18 @@ these kernels stand beside them and are held against ``Block.mlp_residual``.
 
 A CPU tensor takes the plain version. A CUDA tensor launches the kernels or
 raises; there is no fallback. The C entry reports the route it took, and
-launches are counted per route, one per call whatever the number of device
-kernels behind it: ``fused_ln_mlp_residual.sm90_launches`` (bfloat16,
-``fused_mlp_sm90``) and ``fused_ln_mlp_residual.launches`` (float32,
-``fused_mlp``), as ``flash_attention.launch_counts()`` reports them."""
+launches are counted per route in ``launch_counts()``, one per call whatever
+the number of device kernels behind it."""
 
 from __future__ import annotations
 
 import array
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
-from ._build import kernel_library
+from . import _build
 from .flash_attention import _DTYPE_CODES, _contiguous_pointer, _device_route, _refuse_grad
 
 MAX_FEATURES = 1024  # the f32 kernel's register accumulator and the bf16 LayerNorm pass's row hold F up to ViT-L's width
@@ -90,7 +89,9 @@ def _launch(x, params, out, eps: float, events=None) -> bool:
     args = array.array("q", [*ptrs, rows, f, hidden, dtype_code, device.index,
                              *([t.data_ptr() for t in scratch] or [0, 0]), handles.buffer_info()[0] if events else 0, 0])
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = kernel_library().mdpt_fused_mlp(args.buffer_info()[0], float(eps), stream)
+    # mdpt_fused_mlp(the int64 argument array, LayerNorm eps, stream)
+    err = _build.kernel_entry("mdpt_fused_mlp", ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p)(
+        args.buffer_info()[0], float(eps), stream)
     if err != 0:
         raise RuntimeError(f"fused MLP kernel launch failed: CUDA error {err}")
     return args[SLOT_ROUTE] == SM90_ROUTE
@@ -99,8 +100,8 @@ def _launch(x, params, out, eps: float, events=None) -> bool:
 def fused_ln_mlp_residual(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, ls, eps: float = 1e-6):
     """x + ls * fc2(gelu(fc1(layer_norm(x)))) over the last axis of x (any
     leading shape, at least one row). Returns a new tensor of x's shape and
-    dtype. Counts its launches in ``fused_ln_mlp_residual.sm90_launches`` or
-    ``.launches``, by the route the C entry took."""
+    dtype. Counts its launches as the route ``fused_mlp_sm90`` (bfloat16) or
+    ``fused_mlp`` (float32), by the route the C entry took."""
     params = (ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, ls)
     if x.dim() < 1 or x.numel() == 0:
         raise ValueError(f"fused_ln_mlp_residual needs at least one row, got x {tuple(x.shape)}")
@@ -109,10 +110,7 @@ def fused_ln_mlp_residual(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, ls, eps: fl
         return fused_ln_mlp_residual_reference(x, *params, eps=eps)
     _refuse_grad("fused_ln_mlp_residual", x, *params)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    if _launch(x, params, out, eps):
-        fused_ln_mlp_residual.sm90_launches += 1
-    else:
-        fused_ln_mlp_residual.launches += 1
+    _build.count("fused_mlp_sm90" if _launch(x, params, out, eps) else "fused_mlp")
     return out
 
 
@@ -132,6 +130,3 @@ def sm90_stage_ms(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, ls, eps: float = 1e
     events[-1].synchronize()
     return tuple(a.elapsed_time(b) for a, b in zip(events, events[1:]))
 
-
-fused_ln_mlp_residual.launches = 0
-fused_ln_mlp_residual.sm90_launches = 0

@@ -23,19 +23,18 @@ these kernels stand beside them and are held against ``Head.tail``.
 
 A CPU tensor takes the plain version. A CUDA tensor launches the kernel or
 raises; there is no fallback. The C entry reports the kernel it ran, and
-launches are counted per route: ``fused_head_tail.sm90_launches``
-(``head_tail_sm90``) and ``fused_head_tail.launches`` (``head_tail``), as
-``flash_attention.launch_counts()`` reports them."""
+launches are counted per route in ``launch_counts()``."""
 
 from __future__ import annotations
 
 import array
 import contextlib
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
-from ._build import kernel_library
+from . import _build
 from .flash_attention import _DTYPE_CODES, MAX_GRID_YZ, _contiguous_pointer, _device_route, _refuse_grad
 
 OUT_CHANNELS = 32  # every DPT head's last 3x3 conv
@@ -90,7 +89,8 @@ def _launch(x, params, out, is_metric: bool) -> bool:
     ptrs = [_contiguous_pointer("head tail", n, t, device, dtype) for n, t in zip(names, (x, *params, out))]
     args = array.array("q", [*ptrs, b, ci, h, w, OUT_CHANNELS, int(bool(is_metric)), dtype_code, device.index, 0])
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = kernel_library().mdpt_head_tail(args.buffer_info()[0], stream)
+    # mdpt_head_tail(the int64 argument array, stream)
+    err = _build.kernel_entry("mdpt_head_tail", ctypes.c_void_p, ctypes.c_void_p)(args.buffer_info()[0], stream)
     if err != 0:
         raise RuntimeError(f"head tail kernel launch failed: CUDA error {err}")
     return args[SLOT_ROUTE] == SM90_ROUTE
@@ -99,20 +99,14 @@ def _launch(x, params, out, is_metric: bool) -> bool:
 def fused_head_tail(x, conv_w, conv_b, proj_w, proj_b, is_metric: bool = False):
     """relu(conv3x3(x) + conv_b) -> 1x1 projection + proj_b -> ReLU or
     sigmoid, on a contiguous (B, ci, H, W) map; returns (B, H, W). Counts its
-    launches in ``fused_head_tail.sm90_launches`` or ``.launches``, by the
-    route the C entry took."""
+    launches as the route ``head_tail_sm90`` or ``head_tail``, by the kernel
+    the C entry ran."""
     params = (conv_w, conv_b, proj_w, proj_b)
     _check_shapes(x, *params)
     if _device_route(x.device, "fused_head_tail"):
         return fused_head_tail_reference(x, *params, is_metric=is_metric)
     _refuse_grad("fused_head_tail", x, *params)
     out = torch.empty((x.shape[0], x.shape[2], x.shape[3]), dtype=x.dtype, device=x.device)
-    if _launch(x, params, out, is_metric):
-        fused_head_tail.sm90_launches += 1
-    else:
-        fused_head_tail.launches += 1
+    _build.count("head_tail_sm90" if _launch(x, params, out, is_metric) else "head_tail")
     return out
 
-
-fused_head_tail.launches = 0
-fused_head_tail.sm90_launches = 0

@@ -19,19 +19,18 @@ memory format ``F.interpolate`` gives it (``torch``'s
 would see after ``F.interpolate``.
 
 A CPU tensor takes the plain version. A CUDA tensor launches the kernel or
-raises; there is no fallback. Launches are counted per memory format:
-``upsample_bilinear_ac.launches`` (channels-last, route ``upsample_ac``) and
-``upsample_bilinear_ac.nchw_launches`` (``upsample_ac_nchw``), as
-``flash_attention.launch_counts()`` reports them."""
+raises; there is no fallback. Launches are counted per memory format in
+``launch_counts()``."""
 
 from __future__ import annotations
 
 import array
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
-from ._build import kernel_library
+from . import _build
 from .flash_attention import ATTENTION_DTYPE_CODES, MAX_GRID_YZ, _device_route, _refuse_grad
 
 LAYOUT_NCHW, LAYOUT_CHANNELS_LAST = 0, 1  # csrc/upsample_bilinear_ac.cu's SLOT_LAYOUT values
@@ -98,7 +97,9 @@ def _launch(x: torch.Tensor, out: torch.Tensor, layout: int) -> None:
     args = array.array("q", [x.data_ptr(), *x.stride(), out.data_ptr(), b, c, h, w, ho, wo, layout,
                              ATTENTION_DTYPE_CODES[x.dtype], device.index])
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = kernel_library().mdpt_upsample_bilinear_ac(args.buffer_info()[0], stream)
+    # mdpt_upsample_bilinear_ac(the int64 argument array, stream)
+    entry = _build.kernel_entry("mdpt_upsample_bilinear_ac", ctypes.c_void_p, ctypes.c_void_p)
+    err = entry(args.buffer_info()[0], stream)
     if err != 0:
         raise RuntimeError(f"upsample_bilinear_ac kernel launch failed: CUDA error {err}")
 
@@ -106,19 +107,13 @@ def _launch(x: torch.Tensor, out: torch.Tensor, layout: int) -> None:
 def upsample_bilinear_ac(x: torch.Tensor, out_hw) -> torch.Tensor:
     """Bilinear align_corners=True resize of a (B, C, H, W) map to ``out_hw``
     = (HO, WO), returned in x's dtype and memory format. Counts its launches
-    in ``upsample_bilinear_ac.launches`` (channels-last) or ``.nchw_launches``."""
+    as the route ``upsample_ac`` (channels-last) or ``upsample_ac_nchw``."""
     layout = _layout(x)
     if _device_route(x.device, "upsample_bilinear_ac"):
         return upsample_bilinear_ac_reference(x, out_hw)
     _refuse_grad("upsample_bilinear_ac", x)
     out = empty_output(x, out_hw, layout)
     _launch(x, out, layout)
-    if layout == LAYOUT_CHANNELS_LAST:
-        upsample_bilinear_ac.launches += 1
-    else:
-        upsample_bilinear_ac.nchw_launches += 1
+    _build.count("upsample_ac" if layout == LAYOUT_CHANNELS_LAST else "upsample_ac_nchw")
     return out
 
-
-upsample_bilinear_ac.launches = 0
-upsample_bilinear_ac.nchw_launches = 0

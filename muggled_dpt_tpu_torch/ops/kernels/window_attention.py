@@ -18,16 +18,12 @@ array's ``SLOT_ROUTE`` (T: bfloat16 or float16, each with its own instances):
 =====================================  =====================================
 T q/k/v, T CPB and mask, every         ``csrc/window_attention_sm90.cu``
 operand readable by a tensor map       (wgmma, TMA, a warp-specialised
-                                       producer); counted in
-                                       ``window_attention.sm90_launches``,
-                                       the route ``window_sm90`` (float16:
-                                       ``.sm90_f16_launches``,
-                                       ``window_sm90_f16``)
+                                       producer); the route ``window_sm90``
+                                       (float16: ``window_sm90_f16``)
 float32; T q/k/v with float32          ``csrc/window_attention.cu`` (T on
 biases (SwinV2's inline CPB); other    ``mma.sync``, float32 on FMAs);
-layouts                                counted in ``window_attention.launches``,
-                                       the route ``window`` (float16:
-                                       ``.f16_launches``, ``window_f16``)
+layouts                                the route ``window`` (float16:
+                                       ``window_f16``)
 =====================================  =====================================
 
 The wrapper lays a bias out for its route (``_bias_operands``): with T q/k/v
@@ -37,15 +33,16 @@ sm_90 kernel; otherwise every row starts at an even element.
 
 A CPU tensor takes the plain version. A CUDA tensor launches a kernel or
 raises; there is no fallback (float16 q, k and v launch a float16 kernel: they
-are never cast). ``flash_attention.launch_counts()`` reports every count."""
+are never cast). Each launch is counted under its route in ``launch_counts()``."""
 
 from __future__ import annotations
 
 import array
+import ctypes
 
 import torch
 
-from ._build import kernel_library
+from . import _build
 from .flash_attention import ATTENTION_DTYPE_CODES, HALF_TYPES, MAX_GRID_YZ, _device_route, _operand, _refuse_grad
 
 HEAD_DIM = 32  # the only head width the kernel is built for (every SwinV2 config: F / H = 32)
@@ -151,7 +148,8 @@ def _launch(shape, dtype, device, q, k, v, out, bias_code, cpb, mask):
     mask_args = (0, 0, 0) if mask is None else (mask.data_ptr(), mask.stride(0), mask.stride(1))
     args = array.array("q", [*q, *k, *v, *out, *cpb_args, *mask_args, b, nw, a, h, d, dtype_code, bias_code, device.index, 0])
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = kernel_library().mdpt_window_attention(args.buffer_info()[0], stream)
+    # mdpt_window_attention(the int64 argument array, stream)
+    err = _build.kernel_entry("mdpt_window_attention", ctypes.c_void_p, ctypes.c_void_p)(args.buffer_info()[0], stream)
     if err != 0:
         raise RuntimeError(f"window attention kernel launch failed: CUDA error {err}")
     return args[SLOT_ROUTE] == SM90_ROUTE
@@ -160,10 +158,10 @@ def _launch(shape, dtype, device, q, k, v, out, bias_code, cpb, mask):
 def window_attention(q, k, v, cpb, mask=None):
     """softmax(q kᵀ + cpb[h] + mask[w]) v per (batch, window, head) on
     (B, nW, A, H, D) tensors; cpb (H, A, A), mask None or (nW, A, A), each
-    float32, bfloat16 or float16 whatever q's dtype. Counts its launches in
-    ``window_attention.sm90_launches`` (csrc/window_attention_sm90.cu) or
-    ``window_attention.launches`` (csrc/window_attention.cu); float16 ones in
-    ``.sm90_f16_launches`` and ``.f16_launches``."""
+    float32, bfloat16 or float16 whatever q's dtype. Counts its launches as
+    the route ``window_sm90`` (csrc/window_attention_sm90.cu) or ``window``
+    (csrc/window_attention.cu); float16 ones as ``window_sm90_f16`` and
+    ``window_f16``."""
     _check_shapes(q, k, v, cpb, mask)
     device = q.device
     if _device_route(device, "window_attention"):
@@ -175,12 +173,6 @@ def window_attention(q, k, v, cpb, mask=None):
     out = torch.empty((b, nw, a, h, d), dtype=q.dtype, device=device)
     o = (out.data_ptr(), nw * a * h * d, a * h * d, h * d, d)
     sm90 = _launch(tuple(q.shape), q.dtype, device, *specs, o, bias_code, cpb, mask)
-    route = ("sm90_" if sm90 else "") + ("f16_" if q.dtype == torch.float16 else "") + "launches"
-    setattr(window_attention, route, getattr(window_attention, route) + 1)
+    _build.count(("window_sm90" if sm90 else "window") + ("_f16" if q.dtype == torch.float16 else ""))
     return out
 
-
-window_attention.launches = 0
-window_attention.sm90_launches = 0
-window_attention.f16_launches = 0
-window_attention.sm90_f16_launches = 0

@@ -5,7 +5,7 @@ is ``csrc/flash_variant.cu``: bfloat16 runs the wgmma/TMA kernel of
 and CTA height), float32 the FMA template of ``csrc/flash_variants.cuh``.
 A measurement tool: no serving route calls it.
 
-``flash_variant(q, k, v, mode, block_q, chunk)`` replaces
+``flash_variant(q, k, v, mode, chunk)`` replaces
 ``tools/attn_variants.py:flash_variant`` (``_onepass_kernel`` and
 ``_innerloop_kernel``) on pre-scaled (BH, N, D) q, k and v, whose keys the
 JAX wrapper zero-pads to a multiple of 128. Modes:
@@ -23,8 +23,9 @@ JAX wrapper zero-pads to a multiple of 128. Modes:
 * the ablations ``nosm`` (p = s), ``maxonly`` (p = s - max) and ``exponly``
   (p = exp2(s)), each with l = 1.
 
-``block_q`` is the TPU kernel's q tile: accepted and ignored. The JAX
-tool's ``main`` is part of the attention sweep, ``flash_tune.py``.
+The JAX wrapper's ``block_q``, the TPU kernel's q tile, has no counterpart:
+the bf16 kernel's CTA height is the C entry's choice, the f32 kernel's 64
+rows. The JAX tool's ``main`` is part of the attention sweep, ``flash_tune.py``.
 
 The kernel takes the keys the modes need as ``keys`` and reads rows at or
 past N as zeros: the mask modes N keys, masked past N; padfix and the
@@ -34,13 +35,13 @@ end, which equals the JAX kernel's per-chunk corrections rescaled through
 the online softmax.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. Launches are counted in ``flash_variant.launches``."""
+raises. Launches are counted as the route ``variant`` of ``launch_counts()``."""
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.kernels._build import NEG_INF, round_up
+from ..ops.kernels._build import NEG_INF, count, round_up
 from ..ops.kernels.flash_attention import _device_route, _operand, _refuse_grad, reference_row_step
 from ..ops.kernels.flash_variants import launch_variant
 
@@ -119,11 +120,9 @@ def _innerloop_reference(q, kp, vp, n: int, chunk: int, dtype):
     return acc / l.clamp_min(1e-30)
 
 
-def flash_variant(q, k, v, mode="padfix", block_q=704, chunk=None):
+def flash_variant(q, k, v, mode="padfix", chunk=None):
     """The variant kernel on pre-scaled (BH, N, D) q, k and v; returns
-    (BH, N, D) in q's dtype. ``block_q``: the TPU kernel's q tile, accepted
-    and ignored (the bf16 kernel's CTA height is the C entry's choice, the
-    f32 kernel's 64 rows). Counts its launches in ``flash_variant.launches``."""
+    (BH, N, D) in q's dtype. Counts its launches as the route ``variant``."""
     n_pad = _check(q, k, v, mode, chunk)
     if _device_route(q.device, "flash_variant"):
         return flash_variant_reference(q, k, v, mode, chunk)
@@ -142,8 +141,6 @@ def flash_variant(q, k, v, mode="padfix", block_q=704, chunk=None):
     else:
         kw = {"mode": mode, "keys": n_pad, "panel": n_pad}  # maxonly: one panel
     launch_variant("mdpt_flash_variant", (g, n, 1, d), q.dtype, device, *specs, o, qk_scale=1.0, **kw)
-    flash_variant.launches += 1
+    count("variant")
     return out
 
-
-flash_variant.launches = 0

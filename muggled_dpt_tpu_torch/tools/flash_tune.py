@@ -12,12 +12,12 @@ one bf16 request from a 720x1280 frame at each ladder size; block 11's
 N (default: the ladder; an N off the ladder gets a random slab from the
 seed) it prints one table of CUDA-event times: #1 (the anchor), SDPA on the
 same views, every #10 case of ``tools/flash_tune.py:76-86``, every #11
-(hpp, panels) case of ``:192``, every #12 mode of
+panel count of ``:192``, every #12 mode of
 ``tools/attn_variants.py:192-222`` on the slab's heads, then the plain
 versions of #1, #11 and #12. ``flash_tune.py 1297`` gives the JAX tool's
-(16, 1297, 64) rows on a random slab. ``hpp`` and ``block_q`` are TPU tactics the
-port accepts and ignores, so cases that differ only in them time the same
-launch. Times: median per launch after warm-up, the kernels in two turns
+(16, 1297, 64) rows on a random slab. ``hpp`` and ``block_q`` are TPU tactics
+with no counterpart in the port, so the JAX cases that differ only in them
+are one case here. Times: median per launch after warm-up, the kernels in two turns
 (forward, then backward) and the faster of the two kept; 30 launches after
 5 up to N=10405, 5 after 1 past it and for every plain version.
 
@@ -82,13 +82,12 @@ XL_CASES = (  # tools/flash_tune.py:76-86
     ("xl qp=1 pipelined", {"qp": 1, "pipelined": True}),
     ("xl qp=2 pipelined", {"qp": 2, "pipelined": True}),
     ("xl qp=2 seq", {"qp": 2, "pipelined": False}),
-    ("xl qp=4 pipelined bq=128", {"qp": 4, "block_q": 128, "pipelined": True}),
-    ("xl hpp=4 pipelined", {"hpp": 4, "pipelined": True}),
+    ("xl qp=4 pipelined", {"qp": 4, "pipelined": True}),
     ("xl ABLATION no-softmax", {"ablate_softmax": True}),
     ("xl ABLATION no-sm qp=2 pl", {"qp": 2, "pipelined": True, "ablate_softmax": True}),
 )
-STAGED_CASES = ((2, 1), (2, 2), (2, 4), (2, 8), (4, 1), (4, 2), (4, 4), (8, 1), (8, 2))  # (hpp, panels), :192
-VARIANT_CASES = (  # tools/attn_variants.py:192-222, one per distinct launch (block_q is ignored)
+STAGED_CASES = (1, 2, 4, 8)  # the panel counts of :192
+VARIANT_CASES = (  # tools/attn_variants.py:192-222, one per distinct launch
     ("v1 mask+exp", {"mode": "mask_exp"}),
     ("v2 mask+exp2", {"mode": "mask_exp2"}),
     ("v3 padfix", {"mode": "padfix"}),
@@ -99,7 +98,7 @@ VARIANT_CASES = (  # tools/attn_variants.py:192-222, one per distinct launch (bl
     ("abl: + exp2 (no reductions)", {"mode": "exponly"}),
 )
 ANCHOR, SDPA = "#1 anchor (fused-qkv)", "SDPA"
-XL_DEFAULT, STAGED_DEFAULT = "xl qp=1 pipelined", "staged hpp=2 panels=2"  # the JAX defaults
+XL_DEFAULT, STAGED_DEFAULT = "xl qp=1 pipelined", "staged panels=2"  # the JAX defaults
 
 
 def card_line() -> str:
@@ -135,9 +134,8 @@ def kernel_calls(slab, inputs=None) -> list:
     calls = [(ANCHOR, lambda: fa.flash_attention_fused_qkv(slab, HEADS)),
              (SDPA, lambda: F.scaled_dot_product_attention(*sdpa))]
     calls += [(label, lambda kw=kw: flash_attention_fused_qkv_xl(slab, HEADS, **kw)) for label, kw in XL_CASES]
-    calls += [(f"staged hpp={hpp} panels={panels}",
-               lambda hpp=hpp, panels=panels: flash_attention_fused_qkv_staged(slab, HEADS, hpp=hpp, panels=panels))
-              for hpp, panels in STAGED_CASES]
+    calls += [(f"staged panels={n}", lambda n=n: flash_attention_fused_qkv_staged(slab, HEADS, panels=n))
+              for n in STAGED_CASES]
     k, v = inputs["k"], inputs["v"]
     calls += [(label, lambda kw=kw: flash_variant(variant_q(inputs, kw), k, v, **kw)) for label, kw in VARIANT_CASES]
     return calls

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from muggled_dpt_tpu.ops.pallas.flash_attention import flash_attention_fused_qkv as jax_fused_qkv
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -51,18 +52,37 @@ def test_reference_all_logits_negative():
 
 def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
     qkv = torch.from_numpy(_qkv(3, 2, 70, 2, 64))
-    before = fa.flash_attention_fused_qkv.launches
+    before = fa.launch_counts()["fused"]
     got = fa.flash_attention_fused_qkv(qkv, 2)
-    assert fa.flash_attention_fused_qkv.launches == before == 0
+    assert fa.launch_counts()["fused"] == before == 0
     torch.testing.assert_close(got, fa.flash_attention_fused_qkv_reference(qkv, 2), rtol=0, atol=0)
     assert got.shape == (2, 70, 128) and got.dtype == torch.float32
+
+
+ROUTES = ["fused", "fused_biased", "bnhd", "window", "window_sm90", "fused_f16", "fused_biased_f16", "bnhd_f16",
+          "window_f16", "window_sm90_f16", "fused_mlp", "fused_mlp_sm90", "head_tail", "head_tail_sm90", "int8_qk",
+          "int8_qk_sm90", "int8_qk_fused", "int8_qk_fused_sm90", "xl", "staged", "variant", "upsample_ac",
+          "upsample_ac_nchw", "cosine_qk"]
+
+
+def test_launch_counts_report_every_route_in_order():
+    """``launch_counts()`` (which the benchmark logs) holds the 24 routes in
+    this order, zeros included; counting a name it lacks raises."""
+    fa.reset_launch_counts()
+    assert list(fa.launch_counts()) == ROUTES and not any(fa.launch_counts().values())
+    _build.count("xl")
+    assert [r for r, n in fa.launch_counts().items() if n] == ["xl"]
+    with pytest.raises(KeyError):
+        _build.count("fused_bias")
+    assert list(fa.launch_counts()) == ROUTES
+    fa.reset_launch_counts()
 
 
 def test_cpu_wrapper_keeps_bf16_dtype():
     qkv = torch.from_numpy(_qkv(4, 1, 33, 2, 64)).to(torch.bfloat16)
     got = fa.flash_attention_fused_qkv(qkv, 2)
     assert got.dtype == torch.bfloat16 and got.shape == (1, 33, 128)
-    assert fa.flash_attention_fused_qkv.launches == 0
+    assert fa.launch_counts()["fused"] == 0
 
 
 def test_wrapper_rejects_bad_shape_and_device():

@@ -30,6 +30,7 @@ import torch
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_variants as fv
 from muggled_dpt_tpu_torch.tools import attn_variants as av
@@ -97,7 +98,7 @@ def _exp2_attention(q, k, v):
 def test_variant_matches_jax_kernel(mode, n):
     q, k, v = _inputs(np.random.default_rng(n), 2, n)
     want = _jax_variant(*(jnp.asarray(a) for a in (q, k, v)), mode=mode)
-    got = _port(q, k, v, mode=mode, block_q=704)
+    got = _port(q, k, v, mode=mode)
     np.testing.assert_allclose(got, want, rtol=TOL["rtol"], atol=TOL["atol"] * max(1.0, np.abs(want).max()))
     if mode in ("mask_exp2", "padfix"):
         np.testing.assert_allclose(got, _exp2_attention(q, k, v), **TOL)
@@ -187,7 +188,7 @@ class StubLibrary:
 def stub(monkeypatch):
     lib = StubLibrary(_slots())
     monkeypatch.setattr(fv, "array", types.SimpleNamespace(array=lambda code, v: array.array(code, [x or 0 for x in v])))
-    monkeypatch.setattr(fv, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     monkeypatch.setattr(av, "_device_route", lambda device, name: False)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     return lib
@@ -201,9 +202,9 @@ def test_variant_entry_arithmetic_through_stub_library(stub, dtype, variant):
     equals the plain entry."""
     rng = np.random.default_rng(8)
     q, k, v = (torch.from_numpy(a).to(dtype) for a in _inputs(rng, 3, 90))
-    av.flash_variant.launches = 0
-    got = av.flash_variant(q, k, v, block_q=1408, **variant)
-    assert av.flash_variant.launches == 1 and len(stub.calls) == 1
+    fa.reset_launch_counts()
+    got = av.flash_variant(q, k, v, **variant)
+    assert fa.launch_counts()["variant"] == 1 and len(stub.calls) == 1
     mode = variant.get("mode", "padfix")
     keys = {"mask_exp": 90, "mask_exp2": 90}.get(mode, 128)
     assert stub.calls[0]["SLOT_HEADS"] == 1 and stub.calls[0]["SLOT_KEYS"] == keys

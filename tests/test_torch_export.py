@@ -44,6 +44,7 @@ from muggled_dpt_tpu.make_swinv2_dpt import make_swinv2_dpt as jax_make_swinv2
 from muggled_dpt_tpu_torch import make_beit_dpt, make_depthanythingv1_dpt, make_depthanythingv2_dpt, make_swinv2_dpt
 from muggled_dpt_tpu_torch.experiments import export_model
 from muggled_dpt_tpu_torch.experiments.export_model import export_forward, kernel_nodes
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import cosine_qk as cq
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
@@ -278,10 +279,10 @@ def stubs(monkeypatch):
     flash, window = StubLibrary(_slots()), Sm90Stub()
     monkeypatch.setattr(fa, "array", _record(fa.array.array))
     monkeypatch.setattr(fa, "_device_route", lambda device, name: False)
-    monkeypatch.setattr(fa, "kernel_library", lambda: flash)
     monkeypatch.setattr(wa, "array", _record(wa.array.array))
     monkeypatch.setattr(wa, "_device_route", lambda device, name: False)
-    monkeypatch.setattr(wa, "kernel_library", lambda: window)
+    libs = {"mdpt_flash_attention": flash, "mdpt_window_attention": window}  # each C entry's stub
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(libs[name], name))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     fa.reset_launch_counts()
     return flash, window

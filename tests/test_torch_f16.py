@@ -64,6 +64,7 @@ from muggled_dpt_tpu_torch.checkpoints.random_init import random_original_depth_
 from muggled_dpt_tpu_torch.checkpoints.swinv2 import random_original_state_dict as swinv2_state_dict
 from muggled_dpt_tpu_torch.demo_helpers import misc
 from muggled_dpt_tpu_torch.ops import quant as tq
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 from test_torch_flash_sm90_bias import StubLibrary, _slots
@@ -315,10 +316,11 @@ def stubs(monkeypatch):
     def route(device, name):  # a CPU tensor takes the CUDA route; any other device is refused as ever
         return real_route(torch.device("cuda") if device.type == "cpu" else device, name)
 
-    for module, lib in ((fa, flash), (wa, window)):
+    for module in (fa, wa):
         monkeypatch.setattr(module, "array", types.SimpleNamespace(array=record))
         monkeypatch.setattr(module, "_device_route", route)
-        monkeypatch.setattr(module, "kernel_library", lambda lib=lib: lib)
+    libs = {"mdpt_flash_attention": flash, "mdpt_window_attention": window}  # each C entry's stub
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(libs[name], name))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     fa.reset_launch_counts()
     return flash, window

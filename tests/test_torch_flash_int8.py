@@ -26,6 +26,7 @@ import torch
 
 import jax.numpy as jnp
 from experiments.flash_attention_int8 import LOG2E, flash_attention_int8_qk, flash_attention_int8_qk_fused
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_int8 as fi8
 
@@ -249,7 +250,7 @@ def stub(monkeypatch):
 
     monkeypatch.setattr(fi8, "array", types.SimpleNamespace(array=record))
     monkeypatch.setattr(fi8, "_device_route", lambda device, name: False)
-    monkeypatch.setattr(fi8, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     lib.recorded = recorded
     return lib

@@ -38,6 +38,7 @@ import torch
 
 import jax.numpy as jnp
 from experiments.flash_attention_int8 import LOG2E, flash_attention_int8_qk, flash_attention_int8_qk_fused
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_int8 as fi8
 from muggled_dpt_tpu_torch.tools import int8_sm90_variants as iv
@@ -370,7 +371,7 @@ def stub(monkeypatch):
     # a CPU tensor's device index is None: the stub has no device
     monkeypatch.setattr(fi8, "array", types.SimpleNamespace(array=lambda code, v: array.array(code, [x or 0 for x in v])))
     monkeypatch.setattr(fi8, "_device_route", lambda device, name: False)
-    monkeypatch.setattr(fi8, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     return lib
 
@@ -436,7 +437,7 @@ def test_stages_run_apart_give_one_calls_output(monkeypatch):
     qkv = torch.from_numpy(rng.standard_normal((1, 70, 3 * 2 * D), dtype=np.float32)).bfloat16()
     lib = RouteStub()
     monkeypatch.setattr(fi8, "array", types.SimpleNamespace(array=lambda code, v: array.array(code, [x or 0 for x in v])))
-    monkeypatch.setattr(fi8, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     launch = fi8.prepare_int8_qk_fused(qkv, 2)
     assert launch.run(fi8.STAGE_PROLOGUE) and launch.run(fi8.STAGE_ATTENTION)

@@ -29,6 +29,7 @@ import torch
 
 from muggled_dpt_tpu.ops.pallas.flash_attention import _flash_bhnd_prescaled
 from muggled_dpt_tpu.ops.pallas.flash_attention import flash_attention_fused_qkv as jax_fused_qkv
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -121,7 +122,7 @@ def stub(monkeypatch):
 
     monkeypatch.setattr(fa, "array", types.SimpleNamespace(array=record))
     monkeypatch.setattr(fa, "_device_route", lambda device, name: False)
-    monkeypatch.setattr(fa, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     return lib
 
@@ -139,7 +140,7 @@ def test_fused_slab_at_da_widths_through_stub_library(stub, dtype):
     qkv = _t(_rand(1, b, n, HEADS * 3 * D), dtype)
     fa.reset_launch_counts()
     got = fa.flash_attention_fused_qkv(qkv, HEADS)
-    assert fa.flash_attention_fused_qkv.launches == 1 and stub.calls == 1
+    assert fa.launch_counts()["fused"] == 1 and stub.calls == 1
     es, ptr, c3 = qkv.element_size(), qkv.data_ptr(), 3 * HEADS * D
     assert stub.operands["Q"] == (ptr, (n * c3, c3, 3 * D))
     assert stub.operands["K"] == (ptr + D * es, (n * c3, c3, 3 * D))
@@ -167,7 +168,7 @@ def test_bnhd_views_through_stub_library(stub, layout, b):
         q, k, v = (t.contiguous() for t in (q, k, v))
     fa.reset_launch_counts()
     got = fa.flash_attention(q, k, v, scale=0.125)
-    assert fa.flash_attention.launches == 1 and stub.calls == 1
+    assert fa.launch_counts()["bnhd"] == 1 and stub.calls == 1
     for name, t in (("Q", q), ("K", k), ("V", v)):
         assert stub.operands[name] == (t.data_ptr(), t.stride()[:3])
     torch.testing.assert_close(got, fa.flash_attention_reference(q, k, v, scale=0.125), rtol=0, atol=0)

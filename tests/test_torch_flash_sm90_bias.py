@@ -37,6 +37,7 @@ import torch
 from muggled_dpt_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from muggled_dpt_tpu.ops.pallas.flash_attention import flash_attention_fused_qkv as jax_fused_qkv
 from muggled_dpt_tpu_torch.models.beit import compute_bias_stack, padded_tokens
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -225,7 +226,7 @@ def stub(monkeypatch):
 
     monkeypatch.setattr(fa, "array", types.SimpleNamespace(array=record))
     monkeypatch.setattr(fa, "_device_route", lambda device, name: False)
-    monkeypatch.setattr(fa, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     return lib
 

@@ -34,6 +34,7 @@ import torch
 import jax.numpy as jnp
 from experiments.flash_attention_staged import flash_attention_fused_qkv_staged as jax_staged
 from experiments.flash_attention_xl import flash_attention_fused_qkv_xl as jax_xl
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_staged as st
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_xl as xl
@@ -207,7 +208,7 @@ def stub(monkeypatch):
     lib = RouteStub()
     # a CPU tensor's device index is None: the stub has no device
     monkeypatch.setattr(fv, "array", types.SimpleNamespace(array=lambda code, v: array.array(code, [x or 0 for x in v])))
-    monkeypatch.setattr(fv, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     for module in (xl, st, av):
         monkeypatch.setattr(module, "_device_route", lambda device, name: False)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))

@@ -22,6 +22,7 @@ import torch
 import jax.numpy as jnp
 from experiments.flash_attention_staged import _panel_bounds as jax_panel_bounds
 from experiments.flash_attention_staged import flash_attention_fused_qkv_staged as jax_staged
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_staged as st
 from muggled_dpt_tpu_torch.ops.kernels import flash_variants as fv
@@ -40,9 +41,11 @@ def _qkv(rng, b, n, h, d=64, all_negative=False):
 
 
 def _both(qkv, h, **kw):
-    """(port entry on CPU, JAX kernel in interpret mode), each (B, N, C)."""
+    """(port entry on CPU, JAX kernel in interpret mode), each (B, N, C);
+    the JAX kernel's VMEM tactics ``block_q`` and ``hpp`` go to it alone."""
     want = np.asarray(jax_staged(jnp.asarray(qkv), h, interpret=True, **kw))
-    got = st.flash_attention_fused_qkv_staged(torch.from_numpy(qkv), h, **kw).numpy()
+    port_kw = {k: v for k, v in kw.items() if k not in ("block_q", "hpp")}
+    got = st.flash_attention_fused_qkv_staged(torch.from_numpy(qkv), h, **port_kw).numpy()
     return got, want
 
 
@@ -142,7 +145,7 @@ class StubLibrary:
 def stub(monkeypatch):
     lib = StubLibrary(_slots())
     monkeypatch.setattr(fv, "array", types.SimpleNamespace(array=lambda code, v: array.array(code, [x or 0 for x in v])))
-    monkeypatch.setattr(fv, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     monkeypatch.setattr(st, "_device_route", lambda device, name: False)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     return lib
@@ -155,9 +158,9 @@ def test_staged_entry_arithmetic_through_stub_library(stub, dtype, n, panels):
     ``_panel_bounds`` in its slot, the route the C entry takes (bf16: the
     sm_90 kernel; f32: fv_f32): the stub's result equals the plain entry."""
     qkv = torch.from_numpy(_qkv(np.random.default_rng(8), 2, n, 3)).to(dtype)
-    st.flash_attention_fused_qkv_staged.launches = 0
-    got = st.flash_attention_fused_qkv_staged(qkv, 3, panels=panels, hpp=3, block_q=256)
-    assert st.flash_attention_fused_qkv_staged.launches == 1 and len(stub.calls) == 1
+    fa.reset_launch_counts()
+    got = st.flash_attention_fused_qkv_staged(qkv, 3, panels=panels)
+    assert fa.launch_counts()["staged"] == 1 and len(stub.calls) == 1
     bounds = st._panel_bounds((n + 127) // 128 * 128, panels)
     want_route = "sm90" if dtype == torch.bfloat16 else "fv_f32"  # bf16: the wgmma/TMA kernel of csrc/flash_staged_sm90.cu
     assert stub.calls[0] == {"route": want_route, "SLOT_KEYS": n, "SLOT_MODE": fv.MODES["staged"], "SLOT_QP": 1,

@@ -20,6 +20,7 @@ import torch
 
 import jax.numpy as jnp
 from experiments.flash_attention_xl import flash_attention_fused_qkv_xl as jax_xl
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_xl as xl
 from muggled_dpt_tpu_torch.ops.kernels import flash_variants as fv
@@ -38,9 +39,10 @@ def _qkv(rng, b, n, h, d=64, all_negative=False):
 
 
 def _both(qkv, h, **kw):
-    """(port entry on CPU, JAX kernel in interpret mode), each (B, N, C)."""
+    """(port entry on CPU, JAX kernel in interpret mode), each (B, N, C);
+    the JAX kernel's VMEM tactics ``block_q`` and ``hpp`` go to it alone."""
     want = np.asarray(jax_xl(jnp.asarray(qkv), h, interpret=True, **kw))
-    port_kw = {k: v for k, v in kw.items() if k != "interpret"}
+    port_kw = {k: v for k, v in kw.items() if k not in ("block_q", "hpp")}
     got = xl.flash_attention_fused_qkv_xl(torch.from_numpy(qkv), h, **port_kw).numpy()
     return got, want
 
@@ -154,7 +156,7 @@ def stub(monkeypatch):
         return array.array(code, recorded["values"])
 
     monkeypatch.setattr(fv, "array", types.SimpleNamespace(array=record))
-    monkeypatch.setattr(fv, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     monkeypatch.setattr(xl, "_device_route", lambda device, name: False)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     lib.recorded = recorded
@@ -169,9 +171,9 @@ def test_xl_entry_arithmetic_through_stub_library(stub, dtype, qp, pipelined, ab
     route the C entry takes (bf16: the sm_90 kernel; f32: fv_f32): the
     stub's result equals the plain entry."""
     qkv = torch.from_numpy(_qkv(np.random.default_rng(8), 2, 70, 3)).to(dtype)
-    xl.flash_attention_fused_qkv_xl.launches = 0
-    got = xl.flash_attention_fused_qkv_xl(qkv, 3, qp=qp, pipelined=pipelined, ablate_softmax=ablate, block_q=512, hpp=3)
-    assert xl.flash_attention_fused_qkv_xl.launches == 1 and len(stub.calls) == 1
+    fa.reset_launch_counts()
+    got = xl.flash_attention_fused_qkv_xl(qkv, 3, qp=qp, pipelined=pipelined, ablate_softmax=ablate)
+    assert fa.launch_counts()["xl"] == 1 and len(stub.calls) == 1
     assert len(stub.recorded["values"]) == stub.slots["NUM_SLOTS"]
     want_mode = fv.MODES["ablate" if ablate else "flash"]
     want_route = "sm90" if dtype == torch.bfloat16 else "fv_f32"  # bf16: the wgmma/TMA kernel of csrc/flash_xl_sm90.cu

@@ -35,6 +35,7 @@ from scipy.special import erf
 
 import jax.numpy as jnp
 from experiments.pallas_fused_mlp import fused_ln_mlp_residual as jax_fused_ln_mlp_residual
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import fused_mlp as fm
 from muggled_dpt_tpu_torch.tools import mlp_sm90_variants as mv
@@ -138,7 +139,7 @@ def stub(monkeypatch):
     # a CPU tensor's device index is None: the stub has no device
     monkeypatch.setattr(fm, "array", types.SimpleNamespace(array=lambda code, v: array.array(code, [x or 0 for x in v])))
     monkeypatch.setattr(fm, "_device_route", lambda device, name: False)
-    monkeypatch.setattr(fm, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     return lib
 

@@ -35,6 +35,7 @@ import torch
 
 import jax.numpy as jnp
 from experiments.pallas_head_conv import fused_head_tail as jax_fused_head_tail
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import head_tail as ht
 from muggled_dpt_tpu_torch.tools import shootout_head_variants as shv
@@ -137,7 +138,7 @@ def stub(monkeypatch):
     # a CPU tensor's device index is None: the stub has no device
     monkeypatch.setattr(ht, "array", types.SimpleNamespace(array=lambda code, v: array.array(code, [x or 0 for x in v])))
     monkeypatch.setattr(ht, "_device_route", lambda device, name: False)
-    monkeypatch.setattr(ht, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     return lib
 

@@ -4,8 +4,10 @@ module of ``muggled_dpt_tpu_torch`` (the attention sweep's
 ``parallel``, ``utils``, the fine-tune and int8 tools, the kernels'
 operators and the export modules included), and
 ``chip_smoke.py``, with jax blocked must succeed, and must
-not import jax, the JAX package, ``experiments`` or the root ``tools``."""
+not import jax, the JAX package, ``experiments`` or the root ``tools``.
+The kernel layer, ``ops/kernels/``, imports nothing of the package above it."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -51,3 +53,28 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True, text=True, cwd=REPO_ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
+
+
+def _package_imports(path: str, package: str) -> list[str]:
+    """Every module of the package that the source at ``path`` (a module of
+    ``package``) imports, at any depth of its code, relative imports resolved."""
+    found = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            found += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package.split(".")[: len(package.split(".")) - node.level + 1] if node.level else []
+            found.append(".".join(base + ([node.module] if node.module else [])))
+    return [name for name in found if name.split(".")[0] == "muggled_dpt_tpu_torch"]
+
+
+def test_kernel_layer_imports_nothing_above_it():
+    """No module under ``ops/kernels/`` imports from the tools, the models,
+    the facade, the apps or any other part of the package outside the layer."""
+    layer = "muggled_dpt_tpu_torch.ops.kernels"
+    root = os.path.join(REPO_ROOT, *layer.split("."))
+    sources = sorted(f for f in os.listdir(root) if f.endswith(".py"))
+    assert "flash_attention.py" in sources and "_build.py" in sources
+    above = {f: [m for m in _package_imports(os.path.join(root, f), layer) if not (m + ".").startswith(layer + ".")]
+             for f in sources}
+    assert {f: names for f, names in above.items() if names} == {}

@@ -289,12 +289,10 @@ def test_cuda_route_refuses_autograd(name, monkeypatch):
     module, make, call, grad = WRAPPERS[name]
     monkeypatch.setattr(module, "_device_route", lambda device, what: False)
 
-    def no_library():
+    def no_library(*entry):
         raise AssertionError("the kernel library was reached")
 
-    for mod in (_build, fa, wa, fm, ht, fi8, fxl, fst, fav):
-        if hasattr(mod, "kernel_library"):
-            monkeypatch.setattr(mod, "kernel_library", no_library)
+    monkeypatch.setattr(_build, "kernel_entry", no_library)
     args = make()
     if grad is None:
         args = args.clone().requires_grad_()

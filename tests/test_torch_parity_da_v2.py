@@ -99,9 +99,9 @@ def test_inference_matches_jax(models, square, side):
     jm, tm = models
     frame = _frame(1)
     want = np.asarray(jm.inference(frame, side, square))
-    before = fa.flash_attention_fused_qkv.launches
+    before = fa.launch_counts()["fused"]
     got = tm.inference(frame, side, square)
-    assert fa.flash_attention_fused_qkv.launches == before  # CPU: the plain version, no launch
+    assert fa.launch_counts()["fused"] == before  # CPU: the plain version, no launch
     assert tuple(got.shape) == want.shape == (1, *tm.compute_scaled_hw(frame.shape[:2], side, square))
     assert got.dtype == torch.float32
     assert _abs_rel(got.numpy(), want) <= ABS_REL_BUDGET

@@ -23,6 +23,7 @@ import torch
 
 import jax.numpy as jnp
 from muggled_dpt_tpu.ops.pallas.window_attention import window_flash_attention
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 
@@ -70,7 +71,6 @@ def test_cpu_calls_count_no_launch():
     q, k, v, cpb, mask = (_t(a) for a in _inputs(16, True))
     wa.window_attention(q, k, v, cpb, mask)
     wa.window_attention(q, k, v, cpb)
-    assert wa.window_attention.launches == 0
     assert fa.launch_counts()["window"] == 0
 
 
@@ -179,7 +179,7 @@ def stub(monkeypatch):
 
     monkeypatch.setattr(wa, "array", types.SimpleNamespace(array=record))
     monkeypatch.setattr(wa, "_device_route", lambda device, name: False)
-    monkeypatch.setattr(wa, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     lib.recorded = recorded
     return lib
@@ -205,9 +205,9 @@ def test_wrapper_arithmetic_through_stub_library(stub, dtype, bias_dtypes, area,
     else:
         q, k, v = (_t(a, dtype) for a in (q, k, v))
     cpb, mask = _t(cpb, bias_dtypes[0]), _t(mask, bias_dtypes[1] or torch.float32)
-    wa.window_attention.launches = 0
+    fa.reset_launch_counts()
     got = wa.window_attention(q, k, v, cpb, mask)
-    assert wa.window_attention.launches == 1 and len(stub.calls) == 1
+    assert fa.launch_counts()["window"] == 1 and len(stub.calls) == 1
     assert len(stub.recorded["values"]) == stub.slots["NUM_SLOTS"]
     assert all(stub.calls[0]["pairable"])  # every bias row starts at an even element
     assert stub.calls[0]["bias_dtype"] == (bias_dtypes[0] if len(set(bias_dtypes) - {None}) == 1 else torch.float32)

@@ -19,6 +19,7 @@ import torch
 
 from muggled_dpt_tpu.ops.pallas.window_attention import window_flash_attention
 from muggled_dpt_tpu_torch import make_swinv2_dpt
+from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 from muggled_dpt_tpu_torch.tools import window_sm90_variants as wv
@@ -173,7 +174,7 @@ def stub(monkeypatch):
 
     monkeypatch.setattr(wa, "array", types.SimpleNamespace(array=array))
     monkeypatch.setattr(wa, "_device_route", lambda device, name: False)
-    monkeypatch.setattr(wa, "kernel_library", lambda: lib)
+    monkeypatch.setattr(_build, "kernel_entry", lambda name, *argtypes: getattr(lib, name))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     fa.reset_launch_counts()
     return lib
@@ -223,7 +224,7 @@ def test_float32_and_mixed_dtypes_stay_in_window_attention_cu(stub, dtype, bias_
     cpb, mask = cpb.to(bias_dtypes[0]), mask.to(bias_dtypes[1])
     got = wa.window_attention(q, k, v, cpb, mask)
     assert [call["sm90"] for call in stub.calls] == [False]
-    assert (wa.window_attention.sm90_launches, wa.window_attention.launches) == (0, 1)
+    assert (fa.launch_counts()["window_sm90"], fa.launch_counts()["window"]) == (0, 1)
     torch.testing.assert_close(got, wa.window_attention_reference(q, k, v, cpb, mask), rtol=0, atol=0)
 
 
