@@ -373,6 +373,7 @@ from muggled_dpt_tpu_torch.ops.kernels import flash_attention_staged as fst
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention_xl as fxl
 from muggled_dpt_tpu_torch.ops.kernels import fused_mlp as fm
 from muggled_dpt_tpu_torch.ops.kernels import head_tail as ht
+from muggled_dpt_tpu_torch.ops.kernels import postnorm_residual as pnr
 from muggled_dpt_tpu_torch.ops.kernels import upsample as up
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 from muggled_dpt_tpu_torch.tools import attn_variants as fav
@@ -457,6 +458,14 @@ WINDOW_ROUTES = ("window", "window_sm90", "window_f16", "window_sm90_f16")
 COSINE_SHAPES = [(32, nw, wh * ww, h) for nw, (wh, ww), h, _ in SWIN_STAGES]  # (B, nW, A, H), the benchmark's B=32
 COSINE_MAX_ULP = 1  # 16-bit outputs against the composite's: its sum in another order moves one rounding by an ulp
 COSINE_F32_REL = 2e-6  # float32 outputs: rsqrt of a sum a few ulps apart
+POSTNORM_ROUTE = "postnorm_residual"  # SwinV2's post-norm residuals: on the kernel path two launches a block
+# (B, grid side, channels, window side, shift of the odd blocks) of each stage at the benchmark's B=32, 384x384
+POSTNORM_SHAPES = [(32, 96 >> s, c, wh, wh // 2 if masked else 0)
+                   for s, (c, (_, (wh, _), _, masked)) in enumerate(zip(SWIN_L384["features_per_stage"], SWIN_STAGES))]
+POSTNORM_MIN_EQUAL = 0.999  # 16-bit outputs: the share bit-equal to the composite's; the statistics' sums differ in order
+POSTNORM_MAX_ULP = 1  # every other element within an ulp of the composite's, or one ulp of its rounded LayerNorm away
+POSTNORM_F32_REL = 1e-6  # float32: the largest difference over the largest magnitude of the composite's output
+POSTNORM_OTHER_WIDTHS = (96, 200, 1000)  # SwinV2-T's first stage, and two widths no group fits exactly
 TAP_BLOCKS = (0, 11, 23)  # DA-V1 ViT-L blocks whose second half #8 is held against; int8 DA-V2 qkv slabs for #6, #7
 INT8_TIERS = {  # DA-V2 ViT-L int8 serving tiers: quantize_encoder_int8 options ("calibrate": 2 frames)
     "int8": {},
@@ -1015,30 +1024,34 @@ def _host_ms(fn, iters=10, warmup=3) -> float:
 def launch_counts() -> dict:
     """``fa.launch_counts()`` without the neck's upsample routes, which
     every forward on the card launches 5 times whatever its attention route,
-    and SwinV2's ``cosine_qk``, one before each of its window attentions:
-    the phases hold the attention, MLP and head routes to exact counts with
-    these, ``serve`` and ``phase_upsample`` hold the neck's and ``_counted``
-    and ``phase_cosine_qk`` the normalization's."""
-    return {r: n for r, n in fa.launch_counts().items() if r not in NECK_ROUTES + (COSINE_ROUTE,)}
+    and SwinV2's ``cosine_qk``, one before each of its window attentions,
+    and ``postnorm_residual``, two a SwinV2 block: the phases hold the
+    attention, MLP and head routes to exact counts with these, ``serve``
+    and ``phase_upsample`` hold the neck's and ``_counted``,
+    ``phase_cosine_qk`` and ``phase_postnorm_residual`` SwinV2's."""
+    return {r: n for r, n in fa.launch_counts().items() if r not in NECK_ROUTES + (COSINE_ROUTE, POSTNORM_ROUTE)}
 
 
 def _counted(fn, route, want, what, neck=None, normalized=True):
     """Run fn, require exactly `want` launches on `route` and none on the
     other routes of ``launch_counts``; with ``neck``, exactly that many on
     the neck's upsample routes too. ``normalized``: each window attention
-    comes with one ``cosine_qk`` launch, as a SwinV2 block on the kernel
-    path gives it (False: none, a window kernel called alone)."""
+    comes with one ``cosine_qk`` launch and two ``postnorm_residual``
+    launches, as a SwinV2 block on the kernel path gives them (False: none,
+    a window kernel called alone)."""
     before = fa.launch_counts()
     out = fn()
     torch.cuda.synchronize()
     after = fa.launch_counts()
     delta = {r: after[r] - before[r] for r in after}
     upsamples = sum(delta.pop(r) for r in NECK_ROUTES)
-    cosines = delta.pop(COSINE_ROUTE)
+    cosines, postnorms = delta.pop(COSINE_ROUTE), delta.pop(POSTNORM_ROUTE)
     want_cosines = sum(delta[r] for r in WINDOW_ROUTES) if normalized else 0
-    if delta != {r: (want if r == route else 0) for r in delta} or neck not in (None, upsamples) or cosines != want_cosines:
-        raise RuntimeError(f"{what}: launches {delta}, {upsamples} neck upsamples and {cosines} cosine_qk, want {want} on "
-                           f"route {route!r} only, {neck} upsamples and {want_cosines} cosine_qk")
+    if (delta != {r: (want if r == route else 0) for r in delta} or neck not in (None, upsamples)
+            or cosines != want_cosines or postnorms != 2 * want_cosines):
+        raise RuntimeError(f"{what}: launches {delta}, {upsamples} neck upsamples, {cosines} cosine_qk and {postnorms} "
+                           f"postnorm_residual, want {want} on route {route!r} only, {neck} upsamples, {want_cosines} "
+                           f"cosine_qk and {2 * want_cosines} postnorm_residual")
     return out
 
 
@@ -2208,9 +2221,10 @@ def export_reloaded(model, hw, path: str):
 
 
 def check_nodes(program, op: str, blocks: int, what: str):
-    """One ``op`` node per block (SwinV2: and one ``cosine_qk`` node per block) and the neck's upsample nodes."""
+    """One ``op`` node per block (SwinV2: and one ``cosine_qk`` node and two
+    ``postnorm_residual`` nodes per block) and the neck's upsample nodes."""
     nodes = export_model.kernel_nodes(program)
-    want = {op: blocks, **({COSINE_ROUTE: blocks} if op == "window_attention" else {}),
+    want = {op: blocks, **({COSINE_ROUTE: blocks, POSTNORM_ROUTE: 2 * blocks} if op == "window_attention" else {}),
             "upsample_bilinear_ac": NECK_UPSAMPLES}
     if nodes != want:
         raise RuntimeError(f"{what}: the exported program's kernel nodes are {nodes}, want {want}")
@@ -2818,6 +2832,111 @@ def phase_cosine_qk(smi: str) -> dict:
             for name in ("bfloat16", "float16")}
     print(f"cosine_qk: worst against the composite {worst}; the 24 launches of a SwinV2-L-384 step at B=32, device "
           f"time: {step['bfloat16']:.3f} ms bf16, {step['float16']:.3f} ms f16 [{smi}]", flush=True)
+    return {"worst": worst, "times": times}
+
+
+def ulp_step(t: torch.Tensor, k: int) -> torch.Tensor:
+    """The value ``k`` representable steps above t (below for k < 0), in
+    t's 16-bit dtype: ``ulp_distance``'s ordering of the bit patterns."""
+    i = t.view(torch.int16).int()
+    o = torch.where(i < 0, -(i & 0x7FFF) - 1, i) + k
+    return torch.where(o < 0, -(o + 1) - 2**15, o).to(torch.int16).view(t.dtype)
+
+
+def phase_postnorm_residual(smi: str) -> dict:
+    """SwinV2's post-norm residual kernel against the block's composite
+    (``pnr.postnorm_residual_reference``: the merge, the roll back,
+    ``F.layer_norm``, the add) on the card at SwinV2-L-384's four stage
+    shapes at the benchmark's B=32, 384x384: the attention half's window
+    order unshifted and, at stages 1-2, shifted, and the MLP half's token
+    order, in bf16, f16 and f32, each launch counted on its route. 16-bit
+    outputs: at least ``POSTNORM_MIN_EQUAL`` bit-equal, every other element
+    within ``POSTNORM_MAX_ULP`` of the composite's or equal to x plus the
+    composite's rounded LayerNorm one ulp up or down (the statistics summed
+    in another order can round the LayerNorm the other way, which an add
+    that cancels magnifies in the output's ulps); float32: the largest
+    difference over the largest magnitude at most ``POSTNORM_F32_REL``; at
+    ``POSTNORM_OTHER_WIDTHS`` the same on a small grid, the kernel's other
+    instances. Device
+    times (``flash_tune.device_ms``: 20 launches queued behind a spin) of the
+    kernel and of the composite, against the byte floor (h and x read once,
+    the output written once). Returns per dtype the worst readings and per
+    (stage, map, dtype) the times."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    worst, times = {}, {}
+    for stage, (b, side, c, win, shift) in enumerate(POSTNORM_SHAPES, 1):
+        maps = [("windows", (win, win), (0, 0))] + ([("shifted", (win, win), (shift, shift))] if shift else [])
+        for name, window_hw, shift_hw in maps + [("token order", None, (0, 0))]:
+            for dtype in (torch.bfloat16, torch.float16, torch.float32):
+                x = torch.randn(b, side, side, c, device=DEVICE, generator=gen).to(dtype)
+                shape = (b, (side // win) ** 2, win * win, c) if window_hw else x.shape
+                h = (torch.randn(shape, device=DEVICE, generator=gen) * 3 + 0.5).to(dtype)
+                weight = (torch.rand(c, device=DEVICE, generator=gen) + 0.5).to(dtype)
+                bias = (torch.randn(c, device=DEVICE, generator=gen) * 0.1).to(dtype)
+                call = lambda: pnr.postnorm_residual(x, h, weight, bias, window_hw, shift_hw)  # noqa: E731
+                plain = lambda: pnr.postnorm_residual_reference(x, h, weight, bias, window_hw, shift_hw)  # noqa: E731
+                got, _ = counted_route(call, (POSTNORM_ROUTE,))
+                want = plain()
+                dname = str(dtype)[6:]
+                label = f"stage {stage} (B={b}, {side}x{side}, C={c}) {name}{f' shift {shift}' if shift_hw[0] else ''} {dname}"
+                if dtype is torch.float32:
+                    rel = float((got - want).abs().max() / want.abs().max())
+                    worst[dname] = max(worst.get(dname, 0.0), rel)
+                    ok, line = rel <= POSTNORM_F32_REL, f"max difference over max magnitude {rel:.3e} (limit {POSTNORM_F32_REL:g})"
+                else:
+                    ulps = ulp_distance(got, want)
+                    equal = float((ulps == 0).float().mean())
+                    far = ulps > POSTNORM_MAX_ULP
+                    unexplained = 0
+                    if bool(far.any()):
+                        ln = pnr.postnorm_residual_reference(torch.zeros_like(x), h, weight, bias, window_hw, shift_hw)
+                        near = [(x.float() + ulp_step(ln, k).float()).to(dtype) for k in (-1, 1)]
+                        unexplained = int((far & ~torch.eq(got, near[0]) & ~torch.eq(got, near[1])).sum())
+                        del ln, near
+                    most = int(ulps.max())
+                    w = worst.setdefault(dname, {"ulps": 0, "min_equal": 1.0, "past_ulp": 0})
+                    w["ulps"], w["min_equal"] = max(w["ulps"], most), min(w["min_equal"], equal)
+                    w["past_ulp"] += int(far.sum())
+                    ok = equal >= POSTNORM_MIN_EQUAL and unexplained == 0
+                    line = (f"{100 * equal:.4f} % bit-equal (limit {100 * POSTNORM_MIN_EQUAL:g}), largest {most} ulps, "
+                            f"{int(far.sum())} past {POSTNORM_MAX_ULP} ulp, {unexplained} of them not a one-ulp LayerNorm "
+                            f"rounding")
+                    del ulps, far
+                ok = ok and got.is_contiguous() and got.dtype == dtype and got.shape == x.shape
+                if not ok:
+                    raise RuntimeError(f"postnorm_residual {label}: {line}, output {got.dtype} {got.stride()}")
+                floor = (h.numel() + 2 * x.numel()) * x.element_size() / HBM_BYTES_PER_S * 1e3
+                k1, p1, k2 = ft.device_ms(call), ft.device_ms(plain), ft.device_ms(call)
+                kernel = min(k1, k2)
+                times[(stage, name, dname)] = {"kernel_ms": kernel, "composite_ms": p1, "floor_ms": floor,
+                                               "hbm_share": floor / kernel}
+                print(f"postnorm_residual check {label}: {line}; device time kernel {k1:.4f}/{k2:.4f} ms, composite "
+                      f"{p1:.4f} ms; byte floor {floor:.4f} ms ({100 * floor / kernel:.1f} % of 3.35 TB/s) [{smi}]",
+                      flush=True)
+                del x, h, got, want
+        torch.cuda.empty_cache()
+    for c in POSTNORM_OTHER_WIDTHS:  # the four-lane group (96 in bf16) and the general instance: checks only
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(2, 16, 16, c, device=DEVICE, generator=gen).to(dtype)
+            h = (torch.randn(2, 4, 64, c, device=DEVICE, generator=gen) * 3 + 0.5).to(dtype)
+            weight = (torch.rand(c, device=DEVICE, generator=gen) + 0.5).to(dtype)
+            bias = (torch.randn(c, device=DEVICE, generator=gen) * 0.1).to(dtype)
+            got, _ = counted_route(lambda: pnr.postnorm_residual(x, h, weight, bias, (8, 8), (4, 4)), (POSTNORM_ROUTE,))
+            want = pnr.postnorm_residual_reference(x, h, weight, bias, (8, 8), (4, 4))
+            rel = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+            limit = POSTNORM_F32_REL if dtype is torch.float32 else 2.0 ** -7  # 16-bit: the LayerNorm's one-ulp roundings
+            print(f"postnorm_residual check C={c} (2, 16, 16) in 8x8 windows shifted 4, {str(dtype)[6:]}: max difference "
+                  f"over max magnitude {rel:.3e} (limit {limit:g}) [{smi}]", flush=True)
+            if not rel <= limit:
+                raise RuntimeError(f"postnorm_residual C={c} {dtype}: {rel:.3e} against the composite")
+    step = {}
+    for dname in ("bfloat16", "float16"):
+        per_block = [(times[(s, "shifted" if (s, "shifted", dname) in times else "windows", dname)]["kernel_ms"]
+                      + times[(s, "windows", dname)]["kernel_ms"]) / 2 + times[(s, "token order", dname)]["kernel_ms"]
+                     for s in range(1, 5)]
+        step[dname] = sum(t * n for t, n in zip(per_block, SWIN_L384["layers_per_stage"]))
+    print(f"postnorm_residual: worst against the composite {worst}; the 48 launches of a SwinV2-L-384 step at B=32, "
+          f"device time: {step['bfloat16']:.3f} ms bf16, {step['float16']:.3f} ms f16 [{smi}]", flush=True)
     return {"worst": worst, "times": times}
 
 
@@ -3762,6 +3881,7 @@ def main() -> int:
     numbers.update(timed("fused MLP and head tail checks and times", phase_fused_kernels, smi))
     timed("neck upsample checks and times", phase_upsample, smi)
     timed("SwinV2 cosine normalization checks and times", phase_cosine_qk, smi)
+    timed("SwinV2 post-norm residual checks and times", phase_postnorm_residual, smi)
     int8_worst = timed("int8-QK^T attention checks", phase_int8_kernels, smi)
     launches, check, composite = {}, Checker(), {}
     with tempfile.TemporaryDirectory() as tmp:

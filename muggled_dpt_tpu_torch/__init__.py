@@ -7,10 +7,14 @@ torch ops carry the GEMMs, norms, convolutions and resizes, and attention goes
 through hand-written CUDA kernels built by nvcc at first use:
 ``csrc/flash_attention.cu`` (DA, and BEiT with its relative-position bias) and
 ``csrc/window_attention.cu`` (SwinV2's window attention with its CPB bias and
-shift mask). Two more kernels stand beside the models' own layers:
+shift mask). More kernels stand beside the models' own layers:
 ``csrc/fused_mlp.cu`` (LayerNorm -> MLP -> LayerScale residual, the second half
-of a GELU block) and ``csrc/head_tail.cu`` (the depth head's last 3x3 conv,
-ReLU, 1x1 projection and activation). Entry points build on the CUDA card
+of a GELU block), ``csrc/head_tail.cu`` (the depth head's last 3x3 conv,
+ReLU, 1x1 projection and activation), ``csrc/upsample_bilinear_ac.cu`` (the
+neck's align-corners upsample), ``csrc/cosine_qk.cu`` (SwinV2's cosine
+normalization of q and k) and ``csrc/postnorm_residual.cu`` (SwinV2's
+post-norm residual, x + LayerNorm(h), with the window merge and the roll
+back folded into its read of h). Entry points build on the CUDA card
 unless given ``device="cpu"``. The apps run as modules of the package
 (``python -m muggled_dpt_tpu_torch.run_image``, ``run_video``,
 ``run_3dviewer``), as do the examples and analysis experiments. The package

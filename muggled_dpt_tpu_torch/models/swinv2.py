@@ -9,7 +9,11 @@ continuous-position bias (CPB: an MLP 2 -> 512 -> H over a log-scaled
 coordinate table, gathered per window and passed through 16 * sigmoid); odd
 blocks shift their windows by a cyclic roll where the grid exceeds the window,
 with a 0 / -100 mask between the rolled regions; the window size of each grid
-comes from a host-side divisor search.
+comes from a host-side divisor search. On the kernel path each post-norm
+residual, x + LayerNorm(h), is one ``postnorm_residual`` launch
+(``ops/kernels/postnorm_residual.py``); the attention half's reads proj's
+output in window order, so the window merge and the roll back are folded
+into it. The plain path, capture and training keep the composite.
 
 Tokens stay channels-last, (B, H, W, C), as in the JAX package: the window
 partition, the rolls and every linear act on the last axis. The blocks are an
@@ -26,8 +30,11 @@ over the roll and the window partition before the qkv projection, a
 l2-normalize of q and k with the logit scale folded into q: on the kernel
 path one ``cosine_qk`` launch, on the plain path the float32 composite), an
 ``attention`` span around that call, a second ``window`` span over the
-window merge and the roll back after ``proj``, and an ``mlp`` span around
-its MLP half. Each patch merge opens a ``merge`` span."""
+window merge and the roll back after ``proj`` (on the kernel path the norm1
+residual's ``postnorm_residual`` launch, which does both; on the plain path
+the copies, the norm1 residual following outside any span), and an ``mlp``
+span around its MLP half and the norm2 residual. Each patch merge opens a
+``merge`` span."""
 
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from torch import nn
 
 from ..ops.kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
 from ..ops.kernels.cosine_qk import cosine_normalize, cosine_qk
+from ..ops.kernels.postnorm_residual import postnorm_residual
 from ..ops.kernels.window_attention import window_attention as window_attention_kernel
 from ..ops.nn import layer_norm, linear, mlp_gelu
 from ..ops.collectives import copy_to_model, row_linear
@@ -226,7 +234,17 @@ class SwinBlock(nn.Module):
         parallelism (``attn_group``) the block holds its rank's
         ``num_heads`` heads: their qkv rows of each third, logit scales and
         CPB rows, and proj's matching columns."""
-        b, gh, gw, _ = x.shape
+        out, weights = self.attention_windows(x, window_hw, shift_hw, cpb, mask, capture)
+        with trace_span("window"):
+            out = merge_windows(out, window_hw, (x.shape[1], x.shape[2]))
+            if shift_hw != (0, 0):
+                out = torch.roll(out, shifts=shift_hw, dims=(1, 2))
+        return (out, weights) if capture else out
+
+    def attention_windows(self, x, window_hw, shift_hw, cpb, mask, capture: bool = False):
+        """``attention`` up to proj: (proj's (B, nW, A, C) output in the
+        rolled window order, the capture's weights or None)."""
+        b = x.shape[0]
         heads = self.num_heads
         shifting = shift_hw != (0, 0)
         with trace_span("window"):
@@ -264,11 +282,7 @@ class SwinBlock(nn.Module):
                 out = torch.einsum("bwhnm,bwmhd->bwnhd", weights.to(v.dtype), v)
         out = out.reshape(b, nw, area, -1)
         out = linear(out, self.proj.weight, self.proj.bias) if group is None else row_linear(out, self.proj, group)
-        with trace_span("window"):
-            out = merge_windows(out, window_hw, (gh, gw))
-            if shifting:
-                out = torch.roll(out, shifts=shift_hw, dims=(1, 2))
-        return (out, weights) if capture else out
+        return out, weights
 
     def _after_attention(self, x, h):
         """The rest of the block on its attention output h: the norm1
@@ -279,7 +293,16 @@ class SwinBlock(nn.Module):
             return x + layer_norm(h, self.norm2.weight, self.norm2.bias, eps=SWIN_LN_EPS)
 
     def forward(self, x, window_hw, shift_hw, cpb, mask=None):
-        return self._after_attention(x, self.attention(x, window_hw, shift_hw, cpb, mask))
+        if not self.use_kernel:
+            return self._after_attention(x, self.attention(x, window_hw, shift_hw, cpb, mask))
+        # each post-norm residual one launch; the norm1 one merges proj's windows and rolls them back as it reads
+        residual = torch.ops.mdpt.postnorm_residual if torch.compiler.is_exporting() else postnorm_residual
+        h, _ = self.attention_windows(x, window_hw, shift_hw, cpb, mask)
+        with trace_span("window"):
+            x = residual(x, h, self.norm1.weight, self.norm1.bias, window_hw, shift_hw)
+        with trace_span("mlp"):
+            h = mlp_gelu(x, self.fc1, self.fc2, self.mlp_group)  # int8 tier: fc1 and fc2 only, qkv and proj stay dense
+            return residual(x, h, self.norm2.weight, self.norm2.bias)
 
     def forward_capture(self, x, window_hw, shift_hw, cpb, mask=None):
         """The block on the plain attention path: (tokens, (B, nW, H, A, A) float32 weights)."""

@@ -18,6 +18,9 @@ call and runs the kernel when it is called:
 ``mdpt::cosine_qk``                ``cosine_qk.cosine_qk``: SwinV2's cosine
                                    normalization of q and k, the logit scale
                                    folded into q
+``mdpt::postnorm_residual``        ``postnorm_residual.postnorm_residual``:
+                                   SwinV2's post-norm residual, the window
+                                   merge and the roll back folded in
 =================================  ==========================================
 
 The real implementation of each is the wrapper itself, called on real
@@ -44,6 +47,7 @@ import torch
 
 from . import cosine_qk as cq
 from . import flash_attention as fa
+from . import postnorm_residual as pr
 from . import upsample as up
 from . import window_attention as wa
 
@@ -130,3 +134,20 @@ def _(q, k, logit_scale):
 
 
 _register_refusal(cosine_qk, "mdpt::cosine_qk")
+
+
+@torch.library.custom_op("mdpt::postnorm_residual", mutates_args=())
+def postnorm_residual(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                      window_hw: list[int] | None = None, shift_hw: list[int] | None = None) -> torch.Tensor:
+    """``postnorm_residual.postnorm_residual`` as an operator: (B, H, W, C) x,
+    h in window order (``window_hw``) or x's shape -> a new contiguous
+    (B, H, W, C) tensor in x's dtype."""
+    return pr.postnorm_residual(x, h, weight, bias, window_hw, shift_hw)
+
+
+@postnorm_residual.register_fake
+def _(x, h, weight, bias, window_hw=None, shift_hw=None):
+    return x.new_empty(x.shape)
+
+
+_register_refusal(postnorm_residual, "mdpt::postnorm_residual")

@@ -3,14 +3,17 @@
 (``ops/kernels/library.py``: ``mdpt::flash_attention_fused_qkv`` for TPU
 kernels #1 and #2, ``mdpt::window_attention`` for #3,
 ``mdpt::cosine_qk`` for SwinV2's q and k normalization,
+``mdpt::postnorm_residual`` for SwinV2's post-norm residuals,
 ``mdpt::upsample_bilinear_ac`` for the neck's upsamples), on the CPU.
 
 1. ``torch.library.opcheck`` on the ops, float32 and bfloat16, with every
    bias form of #1/#2 (none, dense, stack + layer), #3 with and without
-   its shift mask, the cosine normalization on strided q and k views, and
-   the upsample in both memory formats.
+   its shift mask, the cosine normalization on strided q and k views, the
+   post-norm residual in token and window order, and the upsample in both
+   memory formats.
 2. Each family's tiny model, exported: the graph holds one ``mdpt`` node per
-   attention block (SwinV2: and one ``cosine_qk`` node per block), five
+   attention block (SwinV2: and one ``cosine_qk`` node and two
+   ``postnorm_residual`` nodes per block), five
    upsample nodes (four fusion blocks and the head) and
    no ``scaled_dot_product_attention``; saved, reloaded,
    it equals the live port model (max abs 1e-6: the same ops, on the
@@ -48,6 +51,7 @@ from muggled_dpt_tpu_torch.ops.kernels import _build
 from muggled_dpt_tpu_torch.ops.kernels import cosine_qk as cq
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
+from muggled_dpt_tpu_torch.ops.kernels import postnorm_residual as pr
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 from test_torch_flash_sm90_bias import StubLibrary, _slots
 from test_torch_window_sm90 import Sm90Stub
@@ -140,6 +144,19 @@ def test_opcheck_cosine_qk(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("windowed", [False, True], ids=["token_order", "shifted_windows"])
+def test_opcheck_postnorm_residual(windowed, dtype):
+    x, weight, bias = _rand(10, 2, 8, 12, 16).to(dtype), _rand(11, 16).to(dtype), _rand(12, 16).to(dtype)
+    # 4x4 windows of the 8x12 grid, rolled by 2: h in window order, as proj leaves it
+    args = (x, _rand(13, 2, 6, 16, 16).to(dtype), weight, bias, [4, 4], [2, 2]) if windowed else \
+        (x, _rand(13, 2, 8, 12, 16).to(dtype), weight, bias)
+    torch.library.opcheck(torch.ops.mdpt.postnorm_residual, args)
+    got = torch.ops.mdpt.postnorm_residual(*args)
+    assert got.is_contiguous() and got.dtype == dtype
+    torch.testing.assert_close(got, pr.postnorm_residual(*args), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
 def test_opcheck_upsample(channels_last, dtype):
     x = _rand(7, 2, 8, 9, 12).to(dtype)
@@ -176,8 +193,8 @@ def exported(tmp_path_factory):
 def test_exported_graph_holds_one_kernel_node_per_block(exported, name):
     _, _, program, _ = exported(name)
     op, blocks = FAMILIES[name][5:]
-    cosine = {"cosine_qk": blocks} if op == "window_attention" else {}
-    assert kernel_nodes(program) == {op: blocks, **cosine, "upsample_bilinear_ac": NECK_UPSAMPLES}
+    swin = {"cosine_qk": blocks, "postnorm_residual": 2 * blocks} if op == "window_attention" else {}
+    assert kernel_nodes(program) == {op: blocks, **swin, "upsample_bilinear_ac": NECK_UPSAMPLES}
     assert not [t for t in _aten_targets(program) if "scaled_dot_product_attention" in t]
 
 
