@@ -47,12 +47,15 @@ def mlp_gelu(x, fc1, fc2, group=None):
 def mlp_swiglu(x, w12, w3, group=None):
     """SwiGLU (ViT-Giant): Linear(silu(a) * b) with a and b the two halves
     of one fused Linear ``w12`` (2 * hidden, F). ``group``: as ``mlp_gelu``'s,
-    w12 holding this rank's rows of each half."""
+    w12 holding this rank's rows of each half. The ``gate`` span
+    (``utils/observability.py``) holds silu(a) * b."""
     if group is None:
         a, b = linear_p(x, w12, "w12").chunk(2, dim=-1)
-        return linear_p(F.silu(a) * b, w3, "w3")
-    a, b = F.linear(copy_to_model(x, group), w12.weight, w12.bias).chunk(2, dim=-1)
-    return row_linear(F.silu(a) * b, w3, group)
+    else:
+        a, b = F.linear(copy_to_model(x, group), w12.weight, w12.bias).chunk(2, dim=-1)
+    with trace_span("gate"):
+        h = F.silu(a) * b
+    return linear_p(h, w3, "w3") if group is None else row_linear(h, w3, group)
 
 
 def sdpa_capture(q, k, v, bias=None):

@@ -5,11 +5,12 @@ NaN/inf guard.
   one at each layer boundary: ``facade`` (each ``DPTModel`` entry call, which
   starts a new request id), ``facade.prep``, ``facade.aux`` and, on a cache
   miss, ``facade.aux_build``, ``encoder``, ``attention`` and ``mlp`` (once
-  per block), ``neck``; SwinV2's encoder adds ``window`` (twice a block: the
-  roll and partition before qkv, the merge and roll back after proj),
-  ``cosine`` (once a block: the float32 normalize of q and k, the
-  logit-scale fold and the casts) and ``merge`` (each patch merge). Spans
-  are off by default: ``trace_span`` then
+  per block), ``neck``; ViT-Giant's SwiGLU MLP adds ``gate`` (once a block,
+  inside ``mlp``: silu(a) * b between the two products); SwinV2's encoder
+  adds ``window`` (twice a block: the roll and partition before qkv, the
+  merge and roll back after proj), ``cosine`` (once a block: the float32
+  normalize of q and k, the logit-scale fold and the casts) and ``merge``
+  (each patch merge). Spans are off by default: ``trace_span`` then
   returns one shared null context after a single flag check. Inside ``with
   tracing() as spans:`` each span appends a ``Span`` record to ``spans`` on
   the host's ``time.perf_counter_ns`` clock, and, while a ``torch.profiler``
