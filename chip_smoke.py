@@ -155,8 +155,13 @@ failure raises:
       per call (the JSON's ``device_ms``, ``composite_device_ms`` and
       ``host_us``);
   13. DA-V2-metric ViT-L bf16 serving (depth in (0, 1)), #9 on its head;
-  14. DA-V2 ViT-Giant bf16 serving (40 launches per forward), its int8
-      default tier served the same way, and f32 parity;
+  14. DA-V2 ViT-Giant bf16 serving (40 launches per forward, and 40
+      ``swiglu_gate`` launches, one a block's gate), its int8 default tier
+      served the same way, and f32 parity; before it (after 11) the gate's
+      kernel against ``F.silu(a) * b`` at the benchmark cell's (10376, 8192)
+      and two ranks' (10376, 4096), bf16, f16 and f32 (ulps, device times
+      of kernel and composite against the byte floor), and at a ragged width
+      and a misaligned operand (the general instance);
   14a. (after 11) the neck's upsample (``ops/kernels/upsample.py``, no TPU
       kernel) against ``F.interpolate`` at every neck shape of the three
       benchmark cells (DA-V2 504 and 1428, BEiT 512), B = 1 and 8, bf16,
@@ -374,6 +379,7 @@ from muggled_dpt_tpu_torch.ops.kernels import flash_attention_xl as fxl
 from muggled_dpt_tpu_torch.ops.kernels import fused_mlp as fm
 from muggled_dpt_tpu_torch.ops.kernels import head_tail as ht
 from muggled_dpt_tpu_torch.ops.kernels import postnorm_residual as pnr
+from muggled_dpt_tpu_torch.ops.kernels import swiglu_gate as sg
 from muggled_dpt_tpu_torch.ops.kernels import upsample as up
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 from muggled_dpt_tpu_torch.tools import attn_variants as fav
@@ -466,6 +472,11 @@ POSTNORM_MIN_EQUAL = 0.999  # 16-bit outputs: the share bit-equal to the composi
 POSTNORM_MAX_ULP = 1  # every other element within an ulp of the composite's, or one ulp of its rounded LayerNorm away
 POSTNORM_F32_REL = 1e-6  # float32: the largest difference over the largest magnitude of the composite's output
 POSTNORM_OTHER_WIDTHS = (96, 200, 1000)  # SwinV2-T's first stage, and two widths no group fits exactly
+SWIGLU_ROUTE = "swiglu_gate"  # ViT-Giant's SwiGLU gate: on the kernel path one launch a block
+# (rows, H) of w12's (rows, 2H) output: the benchmark cell's B=8 at 504x504 (8 x 1297 tokens), whole and over two ranks
+SWIGLU_SHAPES = ((8 * N_TOKENS, 4096), (8 * N_TOKENS, 2048))
+SWIGLU_OTHER = ((1297, 1366), (1297, 4096))  # a width no 16-byte vector divides; a misaligned operand at the Giant's
+SWIGLU_MAX_ULP = 0  # against F.silu(a) * b: the same float32 arithmetic, rounded where torch's two kernels round
 TAP_BLOCKS = (0, 11, 23)  # DA-V1 ViT-L blocks whose second half #8 is held against; int8 DA-V2 qkv slabs for #6, #7
 INT8_TIERS = {  # DA-V2 ViT-L int8 serving tiers: quantize_encoder_int8 options ("calibrate": 2 frames)
     "int8": {},
@@ -1025,56 +1036,66 @@ def launch_counts() -> dict:
     """``fa.launch_counts()`` without the neck's upsample routes, which
     every forward on the card launches 5 times whatever its attention route,
     and SwinV2's ``cosine_qk``, one before each of its window attentions,
-    and ``postnorm_residual``, two a SwinV2 block: the phases hold the
-    attention, MLP and head routes to exact counts with these, ``serve``
-    and ``phase_upsample`` hold the neck's and ``_counted``,
-    ``phase_cosine_qk`` and ``phase_postnorm_residual`` SwinV2's."""
-    return {r: n for r, n in fa.launch_counts().items() if r not in NECK_ROUTES + (COSINE_ROUTE, POSTNORM_ROUTE)}
+    and ``postnorm_residual``, two a SwinV2 block, and ViT-Giant's
+    ``swiglu_gate``, one a block: the phases hold the attention, MLP and
+    head routes to exact counts with these, ``serve`` and
+    ``phase_upsample`` hold the neck's and ``_counted``,
+    ``phase_cosine_qk``, ``phase_postnorm_residual`` and
+    ``phase_swiglu_gate`` the others."""
+    skip = NECK_ROUTES + (COSINE_ROUTE, POSTNORM_ROUTE, SWIGLU_ROUTE)
+    return {r: n for r, n in fa.launch_counts().items() if r not in skip}
 
 
-def _counted(fn, route, want, what, neck=None, normalized=True):
+def _counted(fn, route, want, what, neck=None, normalized=True, gates=0):
     """Run fn, require exactly `want` launches on `route` and none on the
     other routes of ``launch_counts``; with ``neck``, exactly that many on
     the neck's upsample routes too. ``normalized``: each window attention
     comes with one ``cosine_qk`` launch and two ``postnorm_residual``
     launches, as a SwinV2 block on the kernel path gives them (False: none,
-    a window kernel called alone)."""
+    a window kernel called alone). ``gates``: exactly that many
+    ``swiglu_gate`` launches (a ViT-Giant forward on the kernel path: one a
+    block)."""
     before = fa.launch_counts()
     out = fn()
     torch.cuda.synchronize()
     after = fa.launch_counts()
     delta = {r: after[r] - before[r] for r in after}
     upsamples = sum(delta.pop(r) for r in NECK_ROUTES)
-    cosines, postnorms = delta.pop(COSINE_ROUTE), delta.pop(POSTNORM_ROUTE)
+    cosines, postnorms, swiglus = delta.pop(COSINE_ROUTE), delta.pop(POSTNORM_ROUTE), delta.pop(SWIGLU_ROUTE)
     want_cosines = sum(delta[r] for r in WINDOW_ROUTES) if normalized else 0
     if (delta != {r: (want if r == route else 0) for r in delta} or neck not in (None, upsamples)
-            or cosines != want_cosines or postnorms != 2 * want_cosines):
-        raise RuntimeError(f"{what}: launches {delta}, {upsamples} neck upsamples, {cosines} cosine_qk and {postnorms} "
-                           f"postnorm_residual, want {want} on route {route!r} only, {neck} upsamples, {want_cosines} "
-                           f"cosine_qk and {2 * want_cosines} postnorm_residual")
+            or cosines != want_cosines or postnorms != 2 * want_cosines or swiglus != gates):
+        raise RuntimeError(f"{what}: launches {delta}, {upsamples} neck upsamples, {cosines} cosine_qk, {postnorms} "
+                           f"postnorm_residual and {swiglus} swiglu_gate, want {want} on route {route!r} only, {neck} "
+                           f"upsamples, {want_cosines} cosine_qk, {2 * want_cosines} postnorm_residual and {gates} "
+                           f"swiglu_gate")
     return out
 
 
-def serve(smi, model, side, out_hw, route, blocks, what) -> torch.Tensor:
+def serve(smi, model, side, out_hw, route, blocks, what, gates=0) -> torch.Tensor:
     """Serving in the model's dtype (bf16, f16) through the public entry
     points: 3 requests through ``inference`` and one batch of 8 frames
-    through ``inference_rgb_device``. Returns the first request's depth."""
+    through ``inference_rgb_device``, each forward with ``gates``
+    ``swiglu_gate`` launches. Returns the first request's depth."""
     rng = np.random.default_rng(SEED + 1)
     frames = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(6)]
     first = None
     for i in range(3):
-        depth = _counted(lambda: model.inference(frames[i], side), route, blocks, f"{what} request {i}", NECK_UPSAMPLES)
+        depth = _counted(lambda: model.inference(frames[i], side), route, blocks, f"{what} request {i}", NECK_UPSAMPLES,
+                         gates=gates)
         _check_depth(depth, (1, *out_hw), f"{what} request {i}")
         first = depth if first is None else first
     hw = model.compute_scaled_hw(FRAME_HW, side)
     stack = torch.from_numpy(np.stack(frames + [frames[0], frames[3]])).to(DEVICE)  # rows 6, 7 repeat rows 0, 3
-    batch = _counted(lambda: model.inference_rgb_device(stack, hw), route, blocks, f"{what} batch of 8", NECK_UPSAMPLES)
+    batch = _counted(lambda: model.inference_rgb_device(stack, hw), route, blocks, f"{what} batch of 8", NECK_UPSAMPLES,
+                     gates=gates)
     _check_depth(batch, (8, *out_hw), f"{what} batch of 8")
     if not (torch.equal(batch[6], batch[0]) and torch.equal(batch[7], batch[3])):
         raise RuntimeError(f"{what} batch: duplicate frames gave different depth")
     name = str(model.dtype)[6:]
-    print(f"{what} {name}: 3 requests -> {(1, *out_hw)}, batch -> {(8, *out_hw)}, {blocks} {route} launches and "
-          f"{NECK_UPSAMPLES} neck upsample launches per forward, duplicates bit-equal", flush=True)
+    print(f"{what} {name}: 3 requests -> {(1, *out_hw)}, batch -> {(8, *out_hw)}, {blocks} {route} launches, "
+          f"{gates} swiglu_gate launches and {NECK_UPSAMPLES} neck upsample launches per forward, duplicates bit-equal",
+          flush=True)
 
     def per_request():
         model.inference(frames[0], side)
@@ -1098,8 +1119,9 @@ def phase_da_model(smi: str, ckpt: str):
     return fa.launch_counts()["fused"], depth, frame
 
 
-def parity(ckpt, frame, side, out_hw, route, blocks, what, bf16_depth, cache_modes=(True,)):
-    """f32 kernel model vs f32 plain model on the same checkpoint and frame.
+def parity(ckpt, frame, side, out_hw, route, blocks, what, bf16_depth, cache_modes=(True,), gates=0):
+    """f32 kernel model vs f32 plain model on the same checkpoint and frame,
+    the kernel model with ``gates`` ``swiglu_gate`` launches a forward.
     Returns the f32 kernel model and the f32 plain model's depth by cache mode."""
     _, m_kernel = make_dpt_from_state_dict(ckpt, dtype=torch.float32, device=DEVICE, enable_optimizations=True)
     _, m_plain = make_dpt_from_state_dict(ckpt, dtype=torch.float32, device=DEVICE, enable_optimizations=False)
@@ -1108,7 +1130,8 @@ def parity(ckpt, frame, side, out_hw, route, blocks, what, bf16_depth, cache_mod
     for enable_cache in cache_modes:
         for m in (m_kernel, m_plain, m_plain_bf16):
             m.config["enable_cache"] = enable_cache
-        d_kernel = _counted(lambda: m_kernel.inference(frame, side), route, blocks, f"{what} f32 kernel model")
+        d_kernel = _counted(lambda: m_kernel.inference(frame, side), route, blocks, f"{what} f32 kernel model",
+                            gates=gates)
         d_plain = _counted(lambda: m_plain.inference(frame, side), route, 0, f"{what} f32 plain model")
         _check_depth(d_kernel, (1, *out_hw), f"{what} f32 kernel model")
         _check_depth(d_plain, (1, *out_hw), f"{what} f32 plain model")
@@ -2940,6 +2963,67 @@ def phase_postnorm_residual(smi: str) -> dict:
     return {"worst": worst, "times": times}
 
 
+def phase_swiglu_gate(smi: str) -> dict:
+    """ViT-Giant's SwiGLU gate kernel against the block's composite
+    (``sg.swiglu_gate_reference``: ``F.silu(a) * b`` on the strided halves)
+    on the card at ``SWIGLU_SHAPES``, the benchmark cell's w12 output and
+    one rank's of two, in bf16, f16 and f32, each launch counted on its
+    route: at most ``SWIGLU_MAX_ULP`` ulps from the composite, with the
+    count of differing elements; device times (``flash_tune.device_ms``: 20
+    launches queued behind a spin) of the kernel and of the composite,
+    against the byte floor (x12 read once, h written once). Then the general
+    instance at ``SWIGLU_OTHER``: a width no 16-byte vector divides, and
+    x12 one element past a 16-byte boundary. Returns per dtype the worst
+    ulps and differing elements and per (shape, dtype) the times."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    worst, times = {}, {}
+
+    def check(x12, label):
+        got, _ = counted_route(lambda: sg.swiglu_gate(x12), (SWIGLU_ROUTE,))
+        want = sg.swiglu_gate_reference(x12)
+        ulps = ulp_distance(got, want)
+        most, differ = int(ulps.max()), int((ulps > 0).sum())
+        dname = str(x12.dtype)[6:]
+        w = worst.setdefault(dname, {"ulps": 0, "differ": 0})
+        w["ulps"], w["differ"] = max(w["ulps"], most), w["differ"] + differ
+        line = f"swiglu_gate check {label}: {differ} of {got.numel()} elements differ, largest {most} ulps"
+        if most > SWIGLU_MAX_ULP or not got.is_contiguous() or got.shape != want.shape:
+            raise RuntimeError(f"{line} (limit {SWIGLU_MAX_ULP}), output {got.dtype} {tuple(got.shape)} {got.stride()}")
+        return line
+
+    for rows, hidden in SWIGLU_SHAPES:
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            x12 = (torch.randn(rows, 2 * hidden, device=DEVICE, generator=gen) * 4).to(dtype)
+            label = f"({rows}, {2 * hidden}) -> ({rows}, {hidden}) {str(dtype)[6:]}"
+            line = check(x12, label)
+            call, plain = (lambda: sg.swiglu_gate(x12)), (lambda: sg.swiglu_gate_reference(x12))
+            k1, p1, p2, k2 = ft.device_ms(call), ft.device_ms(plain), ft.device_ms(plain), ft.device_ms(call)
+            floor = 1.5 * x12.numel() * x12.element_size() / HBM_BYTES_PER_S * 1e3
+            kernel, composite = min(k1, k2), min(p1, p2)
+            times[((rows, hidden), str(dtype)[6:])] = {"kernel_ms": kernel, "composite_ms": composite, "floor_ms": floor,
+                                                       "hbm_share": floor / kernel}
+            print(f"{line}; device time kernel {k1:.4f}/{k2:.4f} ms, composite {p1:.4f}/{p2:.4f} ms; byte floor "
+                  f"{floor:.4f} ms ({100 * floor / kernel:.1f} % of 3.35 TB/s; the composite "
+                  f"{100 * floor / composite:.1f} %) [{smi}]", flush=True)
+            del x12
+    for (rows, hidden), dtype in ((s, d) for s in SWIGLU_OTHER for d in (torch.bfloat16, torch.float16, torch.float32)):
+        x12 = (torch.randn(rows, 2 * hidden, device=DEVICE, generator=gen) * 4).to(dtype)
+        misaligned = hidden % 8 == 0
+        if misaligned:  # one element past the allocation's start: contiguous, not 16-byte aligned
+            buf = torch.empty(x12.numel() + 1, dtype=dtype, device=DEVICE)
+            x12 = buf[1:].view(x12.shape).copy_(x12)
+        if sg.vector_instance(x12):
+            raise RuntimeError(f"swiglu_gate ({rows}, {2 * hidden}) {dtype}: the vector instance where the general one runs")
+        label = f"({rows}, {2 * hidden}) {'misaligned' if misaligned else 'ragged width'} {str(dtype)[6:]}, general instance"
+        print(f"{check(x12, label)} [{smi}]", flush=True)
+        del x12
+    torch.cuda.empty_cache()
+    cell = {d: times[(SWIGLU_SHAPES[0], d)]["kernel_ms"] * VITG["num_blocks"] for d in ("bfloat16", "float16")}
+    print(f"swiglu_gate: worst against the composite {worst}; the 40 launches of a ViT-Giant step at B=8, 504x504, "
+          f"device time: {cell['bfloat16']:.3f} ms bf16, {cell['float16']:.3f} ms f16 [{smi}]", flush=True)
+    return {"worst": worst, "times": times}
+
+
 def capture(model, frames, blocks):
     """Run the model on a (B, H, W, 3) frame stack at the DA serving size
     and return the input of each listed block (a forward pre-hook) and of
@@ -3081,21 +3165,23 @@ def phase_metric(smi: str, ckpt: str, check: Checker):
 
 
 def phase_giant(smi: str, ckpt: str):
-    """DA-V2 ViT-Giant: bf16 serving (40 launches per forward) and f32 parity."""
+    """DA-V2 ViT-Giant: bf16 serving (40 #1 and 40 ``swiglu_gate`` launches
+    per forward) and f32 parity."""
     cfg, model = make_dpt_from_state_dict(ckpt, dtype=torch.bfloat16, device=DEVICE)
     if not cfg["is_giant"] or cfg["num_heads"] != 24:
         raise RuntimeError(f"DA-V2 ViT-Giant: {ckpt} loaded as {cfg}")
     fa.reset_launch_counts()
-    depth, frame = serve(smi, model, MAX_SIDE, OUT_HW, "fused", VITG["num_blocks"], "DA-V2 ViT-Giant")
+    blocks = VITG["num_blocks"]
+    depth, frame = serve(smi, model, MAX_SIDE, OUT_HW, "fused", blocks, "DA-V2 ViT-Giant", gates=blocks)
     launches = fa.launch_counts()["fused"]
     int8 = model.quantize_encoder_int8()
-    d_int8, _ = serve(smi, int8, MAX_SIDE, OUT_HW, "fused", VITG["num_blocks"], "DA-V2 ViT-Giant int8")
+    d_int8, _ = serve(smi, int8, MAX_SIDE, OUT_HW, "fused", blocks, "DA-V2 ViT-Giant int8", gates=blocks)
     (b1, b8), (i1, i8) = SERVED["DA-V2 ViT-Giant"], SERVED["DA-V2 ViT-Giant int8"]
     print(f"DA-V2 ViT-Giant int8 (default tier) vs bf16: {i8:.3f} vs {b8:.3f} ms per frame at B=8, {i1:.3f} vs {b1:.3f} ms "
           f"per request at B=1, abs-rel {_abs_rel(d_int8, depth):.3e} [{smi}]", flush=True)
     del model, int8
     torch.cuda.empty_cache()
-    parity(ckpt, frame, MAX_SIDE, OUT_HW, "fused", VITG["num_blocks"], "DA-V2 ViT-Giant", depth)
+    parity(ckpt, frame, MAX_SIDE, OUT_HW, "fused", blocks, "DA-V2 ViT-Giant", depth, gates=blocks)
     return launches
 
 
@@ -3882,6 +3968,7 @@ def main() -> int:
     timed("neck upsample checks and times", phase_upsample, smi)
     timed("SwinV2 cosine normalization checks and times", phase_cosine_qk, smi)
     timed("SwinV2 post-norm residual checks and times", phase_postnorm_residual, smi)
+    timed("ViT-Giant SwiGLU gate checks and times", phase_swiglu_gate, smi)
     int8_worst = timed("int8-QK^T attention checks", phase_int8_kernels, smi)
     launches, check, composite = {}, Checker(), {}
     with tempfile.TemporaryDirectory() as tmp:

@@ -14,7 +14,8 @@ ReLU, 1x1 projection and activation), ``csrc/upsample_bilinear_ac.cu`` (the
 neck's align-corners upsample), ``csrc/cosine_qk.cu`` (SwinV2's cosine
 normalization of q and k) and ``csrc/postnorm_residual.cu`` (SwinV2's
 post-norm residual, x + LayerNorm(h), with the window merge and the roll
-back folded into its read of h). Entry points build on the CUDA card
+back folded into its read of h) and ``csrc/swiglu_gate.cu`` (ViT-Giant's
+SwiGLU gate, silu(a) * b over w12's output in one pass). Entry points build on the CUDA card
 unless given ``device="cpu"``. The apps run as modules of the package
 (``python -m muggled_dpt_tpu_torch.run_image``, ``run_video``,
 ``run_3dviewer``), as do the examples and analysis experiments. The package

@@ -58,17 +58,19 @@ class Mlp(nn.Module):
 
 
 class SwiGLUMlp(nn.Module):
-    """ViT-Giant's MLP: ``w12`` (2 * hidden, F) holds both gate halves."""
+    """ViT-Giant's MLP: ``w12`` (2 * hidden, F) holds both gate halves.
+    ``use_kernel``: the gate on ``swiglu_gate`` (the block's setting)."""
 
     model_group = None  # tensor parallelism: the model group of a split w12/w3 pair
 
-    def __init__(self, features: int, hidden: int, device=None):
+    def __init__(self, features: int, hidden: int, use_kernel: bool = True, device=None):
         super().__init__()
+        self.use_kernel = use_kernel
         self.w12 = nn.Linear(features, 2 * hidden, device=device)
         self.w3 = nn.Linear(hidden, features, device=device)
 
     def forward(self, x):
-        return mlp_swiglu(x, self.w12, self.w3, self.model_group)
+        return mlp_swiglu(x, self.w12, self.w3, self.model_group, self.use_kernel)
 
 
 class Block(nn.Module):
@@ -85,7 +87,7 @@ class Block(nn.Module):
         self.ls1 = nn.Parameter(torch.empty(features, device=device))
         self.norm2 = nn.LayerNorm(features, eps=1e-6, device=device)
         if is_giant:
-            self.mlp = SwiGLUMlp(features, swiglu_hidden(features), device=device)
+            self.mlp = SwiGLUMlp(features, swiglu_hidden(features), use_kernel, device=device)
         else:
             self.mlp = Mlp(features, 4 * features, device=device)
         self.ls2 = nn.Parameter(torch.empty(features, device=device))

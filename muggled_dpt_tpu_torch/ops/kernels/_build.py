@@ -131,7 +131,7 @@ def kernel_entry(name: str, *argtypes):
 ROUTES = ("fused", "fused_biased", "bnhd", "window", "window_sm90", "fused_f16", "fused_biased_f16", "bnhd_f16",
           "window_f16", "window_sm90_f16", "fused_mlp", "fused_mlp_sm90", "head_tail", "head_tail_sm90", "int8_qk",
           "int8_qk_sm90", "int8_qk_fused", "int8_qk_fused_sm90", "xl", "staged", "variant", "upsample_ac",
-          "upsample_ac_nchw", "cosine_qk", "postnorm_residual")
+          "upsample_ac_nchw", "cosine_qk", "postnorm_residual", "swiglu_gate")
 _launches = dict.fromkeys(ROUTES, 0)
 
 

@@ -21,6 +21,8 @@ call and runs the kernel when it is called:
 ``mdpt::postnorm_residual``        ``postnorm_residual.postnorm_residual``:
                                    SwinV2's post-norm residual, the window
                                    merge and the roll back folded in
+``mdpt::swiglu_gate``              ``swiglu_gate.swiglu_gate``: ViT-Giant's
+                                   SwiGLU gate, silu(a) * b over w12's output
 =================================  ==========================================
 
 The real implementation of each is the wrapper itself, called on real
@@ -48,6 +50,7 @@ import torch
 from . import cosine_qk as cq
 from . import flash_attention as fa
 from . import postnorm_residual as pr
+from . import swiglu_gate as sg
 from . import upsample as up
 from . import window_attention as wa
 
@@ -151,3 +154,18 @@ def _(x, h, weight, bias, window_hw=None, shift_hw=None):
 
 
 _register_refusal(postnorm_residual, "mdpt::postnorm_residual")
+
+
+@torch.library.custom_op("mdpt::swiglu_gate", mutates_args=())
+def swiglu_gate(x12: torch.Tensor) -> torch.Tensor:
+    """``swiglu_gate.swiglu_gate`` as an operator: w12's (..., 2H) output ->
+    a new contiguous (..., H) tensor in x12's dtype."""
+    return sg.swiglu_gate(x12)
+
+
+@swiglu_gate.register_fake
+def _(x12):
+    return x12.new_empty((*x12.shape[:-1], x12.shape[-1] // 2))
+
+
+_register_refusal(swiglu_gate, "mdpt::swiglu_gate")

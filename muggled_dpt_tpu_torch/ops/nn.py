@@ -15,6 +15,7 @@ from .collectives import copy_to_model, row_linear
 from .kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
 from .kernels.flash_attention import flash_attention_fused_qkv
 from .kernels.flash_attention import flash_attention_reference as sdpa  # the plain attention path, JAX's name
+from .kernels.swiglu_gate import swiglu_gate, swiglu_gate_reference
 from .quant import linear_p
 
 
@@ -44,17 +45,24 @@ def mlp_gelu(x, fc1, fc2, group=None):
     return row_linear(gelu(F.linear(copy_to_model(x, group), fc1.weight, fc1.bias)), fc2, group)
 
 
-def mlp_swiglu(x, w12, w3, group=None):
+def mlp_swiglu(x, w12, w3, group=None, use_kernel: bool = True):
     """SwiGLU (ViT-Giant): Linear(silu(a) * b) with a and b the two halves
     of one fused Linear ``w12`` (2 * hidden, F). ``group``: as ``mlp_gelu``'s,
     w12 holding this rank's rows of each half. The ``gate`` span
-    (``utils/observability.py``) holds silu(a) * b."""
+    (``utils/observability.py``) holds silu(a) * b: with ``use_kernel`` one
+    ``swiglu_gate`` launch for a CUDA tensor (its operator node while
+    ``torch.export`` traces), else the composite."""
     if group is None:
-        a, b = linear_p(x, w12, "w12").chunk(2, dim=-1)
+        x12 = linear_p(x, w12, "w12")
     else:
-        a, b = F.linear(copy_to_model(x, group), w12.weight, w12.bias).chunk(2, dim=-1)
+        x12 = F.linear(copy_to_model(x, group), w12.weight, w12.bias)
     with trace_span("gate"):
-        h = F.silu(a) * b
+        if not use_kernel:
+            h = swiglu_gate_reference(x12)
+        elif torch.compiler.is_exporting():
+            h = torch.ops.mdpt.swiglu_gate(x12)
+        else:
+            h = swiglu_gate(x12)
     return linear_p(h, w3, "w3") if group is None else row_linear(h, w3, group)
 
 

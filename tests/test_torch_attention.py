@@ -62,11 +62,11 @@ def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
 ROUTES = ["fused", "fused_biased", "bnhd", "window", "window_sm90", "fused_f16", "fused_biased_f16", "bnhd_f16",
           "window_f16", "window_sm90_f16", "fused_mlp", "fused_mlp_sm90", "head_tail", "head_tail_sm90", "int8_qk",
           "int8_qk_sm90", "int8_qk_fused", "int8_qk_fused_sm90", "xl", "staged", "variant", "upsample_ac",
-          "upsample_ac_nchw", "cosine_qk", "postnorm_residual"]
+          "upsample_ac_nchw", "cosine_qk", "postnorm_residual", "swiglu_gate"]
 
 
 def test_launch_counts_report_every_route_in_order():
-    """``launch_counts()`` (which the benchmark logs) holds the 25 routes in
+    """``launch_counts()`` (which the benchmark logs) holds the 26 routes in
     this order, zeros included; counting a name it lacks raises."""
     fa.reset_launch_counts()
     assert list(fa.launch_counts()) == ROUTES and not any(fa.launch_counts().values())

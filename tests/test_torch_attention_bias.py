@@ -175,7 +175,7 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
                                   "fused_mlp_sm90": 0, "head_tail": 0, "head_tail_sm90": 0, "int8_qk": 0, "int8_qk_sm90": 0,
                                   "int8_qk_fused": 0, "int8_qk_fused_sm90": 0, "xl": 0, "staged": 0, "variant": 0,
                                   "upsample_ac": 0, "upsample_ac_nchw": 0, "cosine_qk": 0,
-                                  "postnorm_residual": 0}
+                                  "postnorm_residual": 0, "swiglu_gate": 0}
     torch.testing.assert_close(
         fa.flash_attention_fused_qkv(_t(qkv), 2, bias=_t(bias)),
         fa.flash_attention_fused_qkv_reference(_t(qkv), 2, bias=_t(bias)),

@@ -4,16 +4,18 @@
 kernels #1 and #2, ``mdpt::window_attention`` for #3,
 ``mdpt::cosine_qk`` for SwinV2's q and k normalization,
 ``mdpt::postnorm_residual`` for SwinV2's post-norm residuals,
+``mdpt::swiglu_gate`` for ViT-Giant's SwiGLU gate,
 ``mdpt::upsample_bilinear_ac`` for the neck's upsamples), on the CPU.
 
 1. ``torch.library.opcheck`` on the ops, float32 and bfloat16, with every
    bias form of #1/#2 (none, dense, stack + layer), #3 with and without
    its shift mask, the cosine normalization on strided q and k views, the
-   post-norm residual in token and window order, and the upsample in both
-   memory formats.
+   post-norm residual in token and window order, the SwiGLU gate, and the
+   upsample in both memory formats.
 2. Each family's tiny model, exported: the graph holds one ``mdpt`` node per
    attention block (SwinV2: and one ``cosine_qk`` node and two
-   ``postnorm_residual`` nodes per block), five
+   ``postnorm_residual`` nodes per block; ViT-Giant: and one
+   ``swiglu_gate`` node per block), five
    upsample nodes (four fusion blocks and the head) and
    no ``scaled_dot_product_attention``; saved, reloaded,
    it equals the live port model (max abs 1e-6: the same ops, on the
@@ -52,6 +54,7 @@ from muggled_dpt_tpu_torch.ops.kernels import cosine_qk as cq
 from muggled_dpt_tpu_torch.ops.kernels import flash_attention as fa
 from muggled_dpt_tpu_torch.ops.kernels import library  # noqa: F401  (registers torch.ops.mdpt.*)
 from muggled_dpt_tpu_torch.ops.kernels import postnorm_residual as pr
+from muggled_dpt_tpu_torch.ops.kernels import swiglu_gate as sg
 from muggled_dpt_tpu_torch.ops.kernels import window_attention as wa
 from test_torch_flash_sm90_bias import StubLibrary, _slots
 from test_torch_window_sm90 import Sm90Stub
@@ -156,6 +159,16 @@ def test_opcheck_postnorm_residual(windowed, dtype):
     torch.testing.assert_close(got, pr.postnorm_residual(*args), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(6, 352), (2, 5, 24), (3, 10)], ids=["rows", "batch_tokens", "ragged"])
+def test_opcheck_swiglu_gate(shape, dtype):
+    x12 = (_rand(14, *shape) * 4).to(dtype)
+    torch.library.opcheck(torch.ops.mdpt.swiglu_gate, (x12,))
+    got = torch.ops.mdpt.swiglu_gate(x12)
+    assert got.is_contiguous() and got.dtype == dtype and got.shape == (*shape[:-1], shape[-1] // 2)
+    torch.testing.assert_close(got, sg.swiglu_gate_reference(x12), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
 def test_opcheck_upsample(channels_last, dtype):
@@ -194,7 +207,8 @@ def test_exported_graph_holds_one_kernel_node_per_block(exported, name):
     _, _, program, _ = exported(name)
     op, blocks = FAMILIES[name][5:]
     swin = {"cosine_qk": blocks, "postnorm_residual": 2 * blocks} if op == "window_attention" else {}
-    assert kernel_nodes(program) == {op: blocks, **swin, "upsample_bilinear_ac": NECK_UPSAMPLES}
+    gates = {"swiglu_gate": blocks} if name == "giant" else {}
+    assert kernel_nodes(program) == {op: blocks, **swin, **gates, "upsample_bilinear_ac": NECK_UPSAMPLES}
     assert not [t for t in _aten_targets(program) if "scaled_dot_product_attention" in t]
 
 

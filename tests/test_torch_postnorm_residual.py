@@ -286,7 +286,7 @@ def test_a_refused_launch_raises(stub, monkeypatch):
 
 def test_launch_counts_list_the_route():
     fa.reset_launch_counts()
-    assert fa.launch_counts()["postnorm_residual"] == 0 and _build.ROUTES[-1] == "postnorm_residual"
+    assert fa.launch_counts()["postnorm_residual"] == 0 and "postnorm_residual" in _build.ROUTES
 
 
 FRAMES = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 60, 100, 3), np.uint8))
