@@ -1,8 +1,10 @@
 """muggled_dpt_tpu_torch -- the PyTorch + CUDA port of muggled_dpt_tpu for
 NVIDIA Hopper (H100).
 
-Depth-Anything V1 and V2 (ViT-S/B/L/Giant, metric head), MiDaS v3.1 BEiT and
-MiDaS v3.1 SwinV2 run end to end: original checkpoints load unchanged, plain
+Depth-Anything V1 and V2 (ViT-S/B/L/Giant, metric head), MiDaS v3.1 BEiT,
+MiDaS v3.1 SwinV2 and Video Depth Anything (DA-V2 with four temporal modules
+in its neck; a call's frames are one clip of up to 32) run end to end:
+original checkpoints load unchanged, plain
 torch ops carry the GEMMs, norms, convolutions and resizes, and attention goes
 through hand-written CUDA kernels built by nvcc at first use:
 ``csrc/flash_attention.cu`` (DA, and BEiT with its relative-position bias) and

@@ -104,3 +104,45 @@ def random_original_depth_anything_state_dict(config: dict, seed: int = 0) -> di
     # positive final bias keeps synthetic depth mostly above the ReLU clip
     sd["depth_head.scratch.output_conv2.2.bias"] = np.float32(2.0) + w(1)
     return sd
+
+
+def random_original_video_depth_anything_state_dict(config: dict, seed: int = 0) -> dict:
+    """Original Video Depth Anything layout: the Depth-Anything state dict of
+    ``config`` with its head under ``head.`` instead of ``depth_head.``, and
+    one temporal motion module per entry of ``config["temporal_channels"]``
+    under ``head.motion_modules.<i>.temporal_transformer`` (GroupNorm,
+    ``proj_in``, ``temporal_attention_blocks`` attention blocks (default 2)
+    with their LayerNorms and the computed sinusoidal ``pos_encoder.pe`` of
+    ``num_frames`` (default 32) positions, a GEGLU feed-forward of 4C,
+    ``proj_out``). The JAX package has no such model; the motion modules
+    draw from their own stream of the seed. Linear weights take a fan-in
+    scale, so each module keeps its map's magnitude."""
+    from ..models.temporal import sinusoidal_encoding
+
+    sd = {("head." + k[len("depth_head."):] if k.startswith("depth_head.") else k): v
+          for k, v in random_original_depth_anything_state_dict(config, seed).items()}
+    rng = np.random.default_rng((seed, 0x7E))
+    frames = config.get("num_frames", 32)
+
+    def w(*shape, scale=0.05):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    for i, c in enumerate(config["temporal_channels"]):
+        pre = f"head.motion_modules.{i}.temporal_transformer"
+        block = f"{pre}.transformer_blocks.0"
+        fan = 1.0 / math.sqrt(c)
+        sd[f"{pre}.norm.weight"], sd[f"{pre}.norm.bias"] = 1.0 + w(c), w(c)
+        for name in ("proj_in", "proj_out"):
+            sd[f"{pre}.{name}.weight"], sd[f"{pre}.{name}.bias"] = w(c, c, scale=fan), w(c)
+        for j in range(config.get("temporal_attention_blocks", 2)):
+            att = f"{block}.attention_blocks.{j}"
+            for x in "qkv":
+                sd[f"{att}.to_{x}.weight"] = w(c, c, scale=fan)
+            sd[f"{att}.to_out.0.weight"], sd[f"{att}.to_out.0.bias"] = w(c, c, scale=fan), w(c)
+            sd[f"{att}.pos_encoder.pe"] = sinusoidal_encoding(frames, c).numpy()[None]
+            sd[f"{block}.norms.{j}.weight"], sd[f"{block}.norms.{j}.bias"] = 1.0 + w(c), w(c)
+        sd[f"{block}.ff_norm.weight"], sd[f"{block}.ff_norm.bias"] = 1.0 + w(c), w(c)
+        sd[f"{block}.ff.net.0.proj.weight"], sd[f"{block}.ff.net.0.proj.bias"] = w(8 * c, c, scale=fan), w(8 * c)
+        sd[f"{block}.ff.net.2.weight"] = w(c, 4 * c, scale=1.0 / math.sqrt(4 * c))
+        sd[f"{block}.ff.net.2.bias"] = w(c)
+    return sd

@@ -3,7 +3,9 @@ file, sniffing the model family from its state-dict keys. Returns
 (config_dict, DPTModel), as the JAX package's ``make_dpt_from_state_dict``.
 
 Every family of the JAX package is ported: Depth-Anything V1 and V2 (ViT-Giant
-and the metric head included), MiDaS v3.1 BEiT and MiDaS v3.1 SwinV2."""
+and the metric head included), MiDaS v3.1 BEiT and MiDaS v3.1 SwinV2. Video
+Depth Anything, which the JAX package lacks, loads here too: its temporal
+modules (``head.motion_modules.*`` keys) set it apart from DA-V2."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 
 from .dpt import DPTModel, assemble_model, resolve_device
 
-KNOWN_MODEL_TYPES = ("swinv2", "beit", "depthanythingv1", "depthanythingv2")
+KNOWN_MODEL_TYPES = ("swinv2", "beit", "depthanythingv1", "depthanythingv2", "videodepthanything")
 
 
 def make_dpt_from_state_dict(
@@ -76,6 +78,8 @@ def _convert_original(path_to_state_dict, enable_cache, enable_optimizations, mo
         from .checkpoints import swinv2 as family
     elif model_type == "beit":
         from .checkpoints import beit as family
+    elif model_type == "videodepthanything":
+        from .checkpoints import video_depth_anything as family
     else:
         from .checkpoints import depth_anything as family
 
@@ -107,6 +111,8 @@ def _assemble_converted(model_type: str, config_dict: dict, state_dict: dict, dt
         net_cls = functools.partial(DepthAnything, version=1 if model_type == "depthanythingv1" else 2)
     elif model_type == "beit":
         from .models.beit_family import BEiTDPT as net_cls, family_spec
+    elif model_type == "videodepthanything":
+        from .models.video_depth_anything import VideoDepthAnything as net_cls, family_spec
     else:
         from .models.swinv2_family import SwinV2DPT as net_cls, family_spec
     return assemble_model(net_cls, config_dict, state_dict, family_spec(config_dict), dtype, device)
@@ -142,6 +148,8 @@ def determine_model_type_from_state_dict(model_path: str, state_dict: dict) -> s
         return "swinv2"
     if "pretrained.model.blocks.0.attn.relative_position_bias_table" in keys:
         return "beit"
+    if any(k.startswith("head.motion_modules.") for k in keys):
+        return "videodepthanything"
     if "pretrained.blocks.0.ls1.gamma" in keys:
         model_name = osp.basename(model_path).lower()
         is_v2 = "v2" in model_name

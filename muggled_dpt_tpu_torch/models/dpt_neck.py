@@ -43,9 +43,13 @@ def readout_project(tokens, layer):
 
 class ReassembleStage(nn.Module):
     """Tokens -> readout ('ignore' or 'project') -> projection (1x1 conv) ->
-    resample by ``scale`` -> 3x3 fuse conv (no bias)."""
+    resample by ``scale`` -> 3x3 fuse conv (no bias). ``fuse=False`` leaves
+    the fuse conv to the fusion block that takes the map (``FusionBlock``'s
+    ``fuse_channels``): Video Depth Anything runs a temporal module between
+    the resample and that conv."""
 
-    def __init__(self, features: int, channels: int, fusion_channels: int, scale, readout: str = "ignore", device=None):
+    def __init__(self, features: int, channels: int, fusion_channels: int, scale, readout: str = "ignore",
+                 fuse: bool = True, device=None):
         super().__init__()
         if readout not in ("ignore", "project"):
             raise ValueError(f"unsupported readout {readout!r}")
@@ -58,7 +62,7 @@ class ReassembleStage(nn.Module):
             self.resample = nn.Conv2d(channels, channels, 3, stride=2, padding=1, device=device)
         else:
             self.resample = None
-        self.fuse = nn.Conv2d(channels, fusion_channels, 3, padding=1, bias=False, device=device)
+        self.fuse = nn.Conv2d(channels, fusion_channels, 3, padding=1, bias=False, device=device) if fuse else None
 
     def forward(self, tokens, grid_hw):
         gh, gw = grid_hw
@@ -75,7 +79,7 @@ class ReassembleStage(nn.Module):
             x = conv_transpose_blocky(x, self.resample.weight, self.resample.bias)
         elif self.scale == 0.5:
             x = conv2d(x, self.resample.weight, self.resample.bias, stride=2, padding=1)
-        return conv2d(x, self.fuse.weight, None, padding=1)
+        return x if self.fuse is None else conv2d(x, self.fuse.weight, None, padding=1)
 
 
 class FuseOnlyStage(nn.Module):
@@ -119,16 +123,23 @@ def upsample(x, out_hw, use_kernel: bool):
 class FusionBlock(nn.Module):
     """RefineNet-style block: [res1(reassembly map) + previous] -> res2 ->
     2x bilinear (align_corners=True) -> 1x1 conv. The top-most block has no
-    res1 (it has no previous map to add)."""
+    res1 (it has no previous map to add). ``fuse_channels``: the block
+    first runs its reassembly stage's 3x3 fuse conv (no bias) on the map,
+    from that many channels (a stage built with ``fuse=False``)."""
 
-    def __init__(self, channels: int, top: bool, use_kernel: bool = True, device=None):
+    def __init__(self, channels: int, top: bool, use_kernel: bool = True, fuse_channels: int | None = None, device=None):
         super().__init__()
         self.use_kernel = use_kernel
+        self.fuse = None
+        if fuse_channels is not None:
+            self.fuse = nn.Conv2d(fuse_channels, channels, 3, padding=1, bias=False, device=device)
         self.res1 = None if top else ResidualConvUnit(channels, device=device)
         self.res2 = ResidualConvUnit(channels, device=device)
         self.out = nn.Conv2d(channels, channels, 1, device=device)
 
     def forward(self, fmap, prev=None):
+        if self.fuse is not None:
+            fmap = conv2d(fmap, self.fuse.weight, None, padding=1)
         x = fmap if prev is None else self.res1(fmap) + prev
         x = self.res2(x)
         x = upsample(x, resize_output_size(x.shape[-2:], 2.0), self.use_kernel)

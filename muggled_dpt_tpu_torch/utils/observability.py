@@ -10,7 +10,11 @@ NaN/inf guard.
   adds ``window`` (twice a block: the roll and partition before qkv, the
   merge and roll back after proj), ``cosine`` (once a block: the float32
   normalize of q and k, the logit-scale fold and the casts) and ``merge``
-  (each patch merge). Spans are off by default: ``trace_span`` then
+  (each patch merge); Video Depth Anything's neck adds ``temporal`` (each of
+  its four temporal motion modules, inside ``neck``: GroupNorm to the map's
+  residual) and ``temporal.attention`` (each of a module's two attention
+  cores over the frames, the ``F.scaled_dot_product_attention`` call).
+  Spans are off by default: ``trace_span`` then
   returns one shared null context after a single flag check. Inside ``with
   tracing() as spans:`` each span appends a ``Span`` record to ``spans`` on
   the host's ``time.perf_counter_ns`` clock, and, while a ``torch.profiler``
